@@ -1,0 +1,545 @@
+"""Registry-driven experiment API (config-first, pluggable), in PyTorch.
+
+The port of the single-experiment part of ``repro.core.api``:
+
+* :class:`ExperimentConfig` — one experiment (arch x chiplet config x
+  algorithms x budget x seeds); its dict/JSON form is the reference's, so
+  one JSON loads in both packages (the reference's backend ``"fw-pallas"``
+  reads as its counterpart ``"fw-cuda"``).
+* :class:`Budget` and the typed per-algorithm hyper-parameters
+  (:class:`BRParams`, :class:`GAParams`, :class:`SAParams`) with the
+  paper's Table III/IV defaults.
+* Named scorer backends: ``"fw-cuda"`` (the hand-written CUDA FW kernel,
+  the default) and ``"fw-ref"`` (the plain PyTorch version).
+* :func:`run_experiment` and :func:`baseline_cost`, which run on the card
+  unless the caller passes ``device="cpu"``; without a card and without
+  ``device`` they raise (see ``proxies.resolve_device``).
+
+Per-algorithm RNG streams are derived with :func:`algo_seed` from a stable
+CRC32 digest of the algorithm name, as in the reference, so a seed gives
+the same placements in both packages.
+
+Not ported yet: ``run_sweep`` (ROADMAP queue 1 item 7), Pareto sweeps
+(item 10), the design service (item 13), hetero archs (item 8) and the 3D
+families (item 12).
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import time
+import zlib
+from dataclasses import dataclass, field
+from typing import Callable, Mapping
+
+import numpy as np
+
+from ..kernels import ops
+from .baseline import MeshBaseline
+from .cache import LRUCache
+from .chiplets import ARCH3D, LARGE_HOMOG, ArchSpec, resolve_arch
+from .objective import Objective, Schedule
+from .optimize import (Evaluator, OptResult, best_random, genetic_algorithm,
+                       simulated_annealing)
+from .placement_homog import HomogRep, hex_mask
+from .proxies import make_scorer, resolve_device
+from .registries import (OPTIMIZERS, OptimizerEntry, register_optimizer,
+                         register_scorer_backend, resolve_backend)
+
+# Paper §V-B grid sizes: R*C >= N with one spare row of slack.
+GRID_DIMS = {32 + 4 + 4: (8, 5), 64 + 8 + 8: (10, 8)}
+
+# 100+-chiplet (HexaMesh-regime) grids: (R, C, hex side or None).  hex127
+# places 127 chiplets on the centered-hexagonal mask of side 7 (13x13
+# grid, 127 allowed cells).
+LARGE_GRIDS = {
+    "homog100": (10, 10, None),
+    "homog144": (12, 12, None),
+    "homog256": (16, 16, None),
+    "hex127": (13, 13, 7),
+}
+
+
+# ---------------------------------------------------------------------------
+# Budget + typed per-algorithm hyper-parameters.
+# ---------------------------------------------------------------------------
+
+_DEFAULT_EVALS = object()          # sentinel: "300 unless seconds is given"
+
+
+@dataclass(frozen=True)
+class Budget:
+    """Evaluation and/or wall-clock budget; at least one must be set.
+
+    ``evals`` is per repetition; ``seconds`` matches the paper's 3600 s
+    wall budget.  When both are set the first one to expire stops the run.
+    ``Budget()`` means 300 evals; ``Budget(seconds=3600.0)`` means one hour
+    with *no* eval cap.
+    """
+
+    evals: int | None = _DEFAULT_EVALS  # type: ignore[assignment]
+    seconds: float | None = None
+
+    def __post_init__(self):
+        if self.evals is _DEFAULT_EVALS:
+            object.__setattr__(
+                self, "evals", None if self.seconds is not None else 300)
+        if self.evals is None and self.seconds is None:
+            raise ValueError("Budget needs evals and/or seconds")
+
+    def to_dict(self) -> dict:
+        return {"evals": self.evals, "seconds": self.seconds}
+
+    @classmethod
+    def from_dict(cls, d: Mapping) -> "Budget":
+        return cls(evals=d.get("evals"), seconds=d.get("seconds"))
+
+
+@dataclass(frozen=True)
+class BRParams:
+    """Best Random (§II-B1)."""
+
+    batch: int = 32            # placements per batched scoring call
+
+
+@dataclass(frozen=True)
+class GAParams:
+    """Genetic Algorithm (§II-B2; Table III/IV)."""
+
+    population: int = 50
+    elitism: int = 8
+    tournament: int = 8
+    p_mutation: float = 0.5
+
+
+@dataclass(frozen=True)
+class SAParams:
+    """Simulated Annealing (§II-B3; Table III/IV + adaptive cooling).
+
+    ``chains`` > 1 runs independent chains scored as one batch per step.
+    """
+
+    t0_temp: float = 35.0
+    block_len: int = 50
+    alpha: float = 1.0
+    beta: float = 5.0
+    chains: int = 1
+
+
+# ---------------------------------------------------------------------------
+# Optimizer registry entries: uniform (evaluator, rng, budget, params).
+# ---------------------------------------------------------------------------
+
+def _br_kwargs(budget: Budget, params: BRParams) -> dict:
+    return dict(max_evals=budget.evals, time_budget_s=budget.seconds,
+                batch=params.batch)
+
+
+def _ga_kwargs(budget: Budget, params: GAParams) -> dict:
+    max_gen = (None if budget.evals is None
+               else max(1, budget.evals // params.population))
+    return dict(population=params.population, elitism=params.elitism,
+                tournament=params.tournament, p_mutation=params.p_mutation,
+                time_budget_s=budget.seconds, max_generations=max_gen)
+
+
+def _sa_kwargs(budget: Budget, params: SAParams) -> dict:
+    max_it = (None if budget.evals is None
+              else max(1, budget.evals // params.chains))
+    return dict(t0_temp=params.t0_temp, block_len=params.block_len,
+                alpha=params.alpha, beta=params.beta, chains=params.chains,
+                time_budget_s=budget.seconds, max_iters=max_it)
+
+
+@register_optimizer("br", params_cls=BRParams)
+def _run_br(evaluator: Evaluator, rng: np.random.Generator, budget: Budget,
+            params: BRParams) -> OptResult:
+    return best_random(evaluator, rng, **_br_kwargs(budget, params))
+
+
+@register_optimizer("ga", params_cls=GAParams)
+def _run_ga(evaluator: Evaluator, rng: np.random.Generator, budget: Budget,
+            params: GAParams) -> OptResult:
+    return genetic_algorithm(evaluator, rng, **_ga_kwargs(budget, params))
+
+
+@register_optimizer("sa", params_cls=SAParams)
+def _run_sa(evaluator: Evaluator, rng: np.random.Generator, budget: Budget,
+            params: SAParams) -> OptResult:
+    return simulated_annealing(evaluator, rng, **_sa_kwargs(budget, params))
+
+
+# ---------------------------------------------------------------------------
+# Scorer backends (the fw_impl seam; paper Table V hot spot).
+# ---------------------------------------------------------------------------
+
+@register_scorer_backend("fw-cuda")
+def _backend_fw_cuda() -> Callable:
+    """The hand-written CUDA FW kernel for CUDA tensors (the plain version
+    for CPU tensors); the counterpart of the reference's "fw-pallas"."""
+    return ops.fw_impl_cuda
+
+
+@register_scorer_backend("fw-ref")
+def _backend_fw_ref() -> Callable:
+    """The plain PyTorch Floyd-Warshall + path counts, on any device."""
+    return ops.fw_impl_ref
+
+
+@register_scorer_backend("fw-tiled")
+def _backend_fw_tiled() -> Callable:
+    raise NotImplementedError(
+        "the blocked-tile FW backend is not ported yet: ROADMAP queue 2 "
+        "item 2")
+
+
+# The reference's kernel backend name, read as its counterpart here.
+_BACKEND_ALIASES = {"fw-pallas": "fw-cuda"}
+
+
+# ---------------------------------------------------------------------------
+# Paper Table III/IV defaults, typed.
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ArchDefaults:
+    ga: GAParams
+    sa: SAParams
+    mutation_mode: str
+
+
+PAPER_DEFAULTS: dict[tuple[str, int], ArchDefaults] = {
+    ("homog", 32): ArchDefaults(
+        ga=GAParams(population=200, elitism=30, tournament=30),
+        sa=SAParams(t0_temp=40.0, block_len=250),
+        mutation_mode="neighbor-one"),
+    ("homog", 64): ArchDefaults(
+        ga=GAParams(population=50, elitism=8, tournament=8),
+        sa=SAParams(t0_temp=35.0, block_len=50),
+        mutation_mode="neighbor-one"),
+    ("hetero", 32): ArchDefaults(
+        ga=GAParams(population=30, elitism=6, tournament=6),
+        sa=SAParams(t0_temp=33.0, block_len=50),
+        mutation_mode="any-one"),
+    ("hetero", 64): ArchDefaults(
+        ga=GAParams(population=20, elitism=5, tournament=5),
+        sa=SAParams(t0_temp=28.0, block_len=45),
+        mutation_mode="any-one"),
+}
+
+# Defaults for the 100+-chiplet families: GA/SA shapes from the paper's
+# homog64 row (the closest calibrated point).
+LARGE_DEFAULTS = ArchDefaults(
+    ga=GAParams(population=50, elitism=8, tournament=8),
+    sa=SAParams(t0_temp=35.0, block_len=50),
+    mutation_mode="neighbor-one")
+
+# Defaults for the 3D / hierarchical families (kept for config parity; the
+# families themselves are not ported yet).
+ARCH3D_DEFAULTS = ArchDefaults(
+    ga=GAParams(population=32, elitism=6, tournament=6),
+    sa=SAParams(t0_temp=35.0, block_len=50),
+    mutation_mode="neighbor-one")
+
+
+def arch_family(arch_name: str) -> tuple[str, int]:
+    if arch_name in LARGE_GRIDS:
+        # "hex127" has no "homog" prefix and no 32/64 substring.
+        return "homog", sum(LARGE_HOMOG[arch_name])
+    if arch_name in ARCH3D:
+        return "arch3d", sum(ARCH3D[arch_name])
+    fam = "homog" if arch_name.startswith("homog") else "hetero"
+    size = 32 if "32" in arch_name else 64
+    return fam, size
+
+
+def paper_defaults(arch_name: str) -> ArchDefaults:
+    if arch_name in LARGE_GRIDS:
+        return LARGE_DEFAULTS
+    if arch_name in ARCH3D:
+        return ARCH3D_DEFAULTS
+    return PAPER_DEFAULTS[arch_family(arch_name)]
+
+
+def algo_seed(seed: int, repetition: int, algo: str) -> int:
+    """Stable per-(repetition, algorithm) RNG stream — CRC32, not hash(),
+    so the stream survives PYTHONHASHSEED / process changes."""
+    return seed + 1000 * repetition + zlib.crc32(algo.encode()) % 997
+
+
+def make_rep(arch: ArchSpec, arch_name: str,
+             mutation_mode: str | None = None) -> HomogRep:
+    """Placement representation for a named homogeneous architecture (§V-A,
+    plus the LARGE_GRIDS 100+-chiplet families)."""
+    fam, _ = arch_family(arch_name)
+    if fam == "arch3d":
+        raise NotImplementedError(
+            f"3D / hierarchical arch {arch_name!r} is not ported yet: "
+            f"ROADMAP queue 1 item 12")
+    if fam == "hetero":
+        raise NotImplementedError(
+            f"heterogeneous arch {arch_name!r} is not ported yet: ROADMAP "
+            f"queue 1 item 8")
+    mode = mutation_mode or paper_defaults(arch_name).mutation_mode
+    if arch_name in LARGE_GRIDS:
+        R, C, hex_side = LARGE_GRIDS[arch_name]
+        allowed = None if hex_side is None else hex_mask(hex_side)
+        return HomogRep(arch, R=R, C=C, mutation_mode=mode, allowed=allowed)
+    n = len(arch.chiplets)
+    R, C = GRID_DIMS.get(n, (int(np.ceil(np.sqrt(n))),) * 2)
+    return HomogRep(arch, R=R, C=C, mutation_mode=mode)
+
+
+# ---------------------------------------------------------------------------
+# Scorer cache: one scorer per (layout, chunk, backend, objective
+# *structure*, device) — a bounded LRU with an eviction counter.
+# ---------------------------------------------------------------------------
+
+SCORER_CACHE_CAPACITY = 64
+
+_SCORER_CACHE: LRUCache = LRUCache(SCORER_CACHE_CAPACITY)
+
+
+def get_scorer(layout, *, chunk: int, backend: str,
+               objective: Objective | None = None,
+               device=None) -> Callable:
+    """Cached batched scorer (with the compiled objective in it).  Two
+    Evaluators over the same layout and device share one scorer, with its
+    index tensors already on the device; normalizers and objective
+    *weights* are runtime arguments, so only the term structure
+    (:meth:`Objective.structure_key`) forces a new scorer."""
+    objective = objective if objective is not None else Objective()
+    dev = resolve_device(device)
+    key = (layout, chunk, backend, objective.structure_key(), str(dev))
+    if key not in _SCORER_CACHE:
+        _SCORER_CACHE[key] = make_scorer(
+            layout, chunk=chunk, fw_impl=resolve_backend(backend),
+            objective=objective, device=dev)
+    return _SCORER_CACHE[key]
+
+
+def make_evaluator(rep, arch: ArchSpec, *, rng: np.random.Generator,
+                   norm_samples: int, chunk: int = 16,
+                   backend: str = "fw-cuda", fw_impl=None,
+                   objective: Objective | None = None,
+                   schedule: Schedule | None = None,
+                   norm=None, archive_k: int = 0,
+                   workload=None, device=None) -> Evaluator:
+    """Evaluator wired to a named backend on ``device`` (default: the
+    card); raw ``fw_impl`` callables bypass the cache.  ``objective``
+    defaults to the one built from the arch's (deprecated) ``w_*`` weights
+    — the paper formula for paper archs.  ``archive_k`` > 0 and a
+    ``workload`` are not ported yet and raise."""
+    dev = resolve_device(device)
+    objective = (objective if objective is not None
+                 else Objective.from_arch(arch))
+    if fw_impl is not None:
+        return Evaluator(rep, arch, rng=rng, norm_samples=norm_samples,
+                         chunk=chunk, fw_impl=fw_impl, objective=objective,
+                         schedule=schedule, norm=norm, archive_k=archive_k,
+                         workload=workload, device=dev)
+    scorer = get_scorer(rep.layout, chunk=chunk, backend=backend,
+                        objective=objective, device=dev)
+    return Evaluator(rep, arch, rng=rng, norm_samples=norm_samples,
+                     chunk=chunk, scorer=scorer, objective=objective,
+                     schedule=schedule, norm=norm, archive_k=archive_k,
+                     workload=workload)
+
+
+# ---------------------------------------------------------------------------
+# ExperimentConfig: declarative, serializable.
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True, eq=True)
+class ExperimentConfig:
+    """One experiment: architecture x chiplet config x algorithms.
+
+    ``params`` holds per-algorithm overrides (typed dataclasses or plain
+    dicts); anything unspecified falls back to the paper's Table III/IV
+    defaults for the architecture.  Round-trips via to/from_dict/json with
+    the reference's keys.  The device is not a field (a new key would break
+    JSON parity): it is the ``device`` argument of the entry points.
+    """
+
+    arch: str                              # homog32|homog64|hetero32|hetero64
+    config: str = "baseline"               # baseline | placeit (§VII)
+    algorithms: tuple[str, ...] = ("br", "ga", "sa")
+    repetitions: int = 1
+    budget: Budget = field(default_factory=Budget)
+    norm_samples: int = 100                # paper: 500
+    seed: int = 0
+    backend: str = "fw-cuda"
+    chunk: int = 16
+    mutation_mode: str | None = None       # None -> paper default
+    params: dict = field(default_factory=dict)
+    # Cost function (repro_torch.core.objective); the default reproduces
+    # the paper formula.
+    objective: Objective = field(default_factory=Objective)
+    # Constraint-hardening weight ramps over each run's progress; None =
+    # static weights.
+    schedule: Schedule | None = None
+    # Population archive size (not ported yet: must stay 0).
+    archive_k: int = 0
+    # Traffic workload (not ported yet: must stay None).
+    workload: object | None = None
+
+    def __post_init__(self):
+        object.__setattr__(self, "algorithms", tuple(self.algorithms))
+        if not isinstance(self.objective, Objective):
+            object.__setattr__(self, "objective",
+                               Objective.from_dict(self.objective))
+        if self.workload is not None:
+            raise NotImplementedError(
+                "traffic workloads are not ported yet: ROADMAP queue 1 "
+                "item 11")
+        if self.schedule is not None and \
+                not isinstance(self.schedule, Schedule):
+            object.__setattr__(self, "schedule",
+                               Schedule.from_dict(self.schedule))
+        # Normalize overrides to typed params (validates algo names too).
+        norm = {}
+        for algo, ov in self.params.items():
+            entry: OptimizerEntry = OPTIMIZERS.get(algo)
+            if isinstance(ov, entry.params_cls):
+                norm[algo] = ov
+            else:
+                norm[algo] = dataclasses.replace(
+                    self._base_params(algo, entry), **dict(ov))
+        object.__setattr__(self, "params", norm)
+
+    def _base_params(self, algo: str, entry: OptimizerEntry):
+        try:
+            d = paper_defaults(self.arch)
+        except KeyError:
+            d = None
+        if d is not None and isinstance(getattr(d, algo, None),
+                                        entry.params_cls):
+            return getattr(d, algo)
+        return entry.params_cls()
+
+    def resolved_params(self, algo: str):
+        """Paper defaults for this arch, overridden by ``self.params``."""
+        if algo in self.params:
+            return self.params[algo]
+        return self._base_params(algo, OPTIMIZERS.get(algo))
+
+    # -- serialization ----------------------------------------------------
+    def to_dict(self) -> dict:
+        return {
+            "arch": self.arch, "config": self.config,
+            "algorithms": list(self.algorithms),
+            "repetitions": self.repetitions,
+            "budget": self.budget.to_dict(),
+            "norm_samples": self.norm_samples, "seed": self.seed,
+            "backend": self.backend, "chunk": self.chunk,
+            "mutation_mode": self.mutation_mode,
+            "params": {a: dataclasses.asdict(p)
+                       for a, p in self.params.items()},
+            "objective": self.objective.to_dict(),
+            "schedule": (None if self.schedule is None
+                         else self.schedule.to_dict()),
+            "archive_k": self.archive_k,
+            "workload": None,
+        }
+
+    @classmethod
+    def from_dict(cls, d: Mapping) -> "ExperimentConfig":
+        d = dict(d)
+        unknown = set(d) - {f.name for f in dataclasses.fields(cls)}
+        if unknown:
+            raise ValueError(f"unknown ExperimentConfig keys: "
+                             f"{sorted(unknown)}")
+        if isinstance(d.get("budget"), Mapping):
+            d["budget"] = Budget.from_dict(d["budget"])
+        if "algorithms" in d:
+            d["algorithms"] = tuple(d["algorithms"])
+        if "backend" in d:
+            d["backend"] = _BACKEND_ALIASES.get(d["backend"], d["backend"])
+        return cls(**d)
+
+    def to_json(self) -> str:
+        return json.dumps(self.to_dict(), indent=1)
+
+    @classmethod
+    def from_json(cls, s: str) -> "ExperimentConfig":
+        return cls.from_dict(json.loads(s))
+
+    def __eq__(self, other):
+        if not isinstance(other, ExperimentConfig):
+            return NotImplemented
+        return self.to_dict() == other.to_dict()
+
+    def __hash__(self):
+        # The generated field-tuple hash would choke on the params dict;
+        # hash the canonical serialized form instead.
+        return hash(json.dumps(self.to_dict(), sort_keys=True))
+
+
+# ---------------------------------------------------------------------------
+# run_experiment / baseline_cost.
+# ---------------------------------------------------------------------------
+
+@dataclass
+class RunRecord:
+    arch: str
+    config: str
+    algorithm: str
+    repetition: int
+    result: OptResult
+    seconds: float
+    # Traffic types whose cost normalizer fell back to 1.0 because every
+    # norm sample was disconnected (see cost.CostNormalizers.degenerate).
+    degenerate_norms: tuple = ()
+
+
+def run_experiment(config: ExperimentConfig, *, fw_impl=None, device=None
+                   ) -> list[RunRecord]:
+    """Run every (repetition x algorithm) of one config on ``device``
+    (default: the card).
+
+    The reference's loop: one fresh Evaluator (and normalizer draw) per
+    repetition, one RNG stream per algorithm (:func:`algo_seed`).
+    ``fw_impl`` is the raw-callable hook; prefer ``config.backend``.
+    """
+    dev = resolve_device(device)
+    arch = resolve_arch(config.arch, config.config)
+    entries = [OPTIMIZERS.get(a) for a in config.algorithms]   # fail fast
+    records: list[RunRecord] = []
+    for rep_i in range(config.repetitions):
+        rng = np.random.default_rng(config.seed + 1000 * rep_i)
+        rep = make_rep(arch, config.arch, config.mutation_mode)
+        ev = make_evaluator(rep, arch, rng=rng,
+                            norm_samples=config.norm_samples,
+                            chunk=config.chunk, backend=config.backend,
+                            fw_impl=fw_impl, objective=config.objective,
+                            schedule=config.schedule,
+                            archive_k=config.archive_k, device=dev)
+        for entry in entries:
+            t0 = time.monotonic()
+            rng_a = np.random.default_rng(
+                algo_seed(config.seed, rep_i, entry.name))
+            res = entry.fn(ev, rng_a, config.budget,
+                           config.resolved_params(entry.name))
+            records.append(RunRecord(config.arch, config.config, entry.name,
+                                     rep_i, res, time.monotonic() - t0,
+                                     degenerate_norms=ev.degenerate_norms))
+    return records
+
+
+def baseline_cost(config: ExperimentConfig, *, fw_impl=None, device=None
+                  ) -> tuple[float, dict]:
+    """2D-mesh baseline scored with the same normalizers (§VII), on
+    ``device`` (default: the card)."""
+    dev = resolve_device(device)
+    arch = resolve_arch(config.arch, config.config)
+    rng = np.random.default_rng(config.seed)
+    rep = make_rep(arch, config.arch, config.mutation_mode)
+    ev = make_evaluator(rep, arch, rng=rng,
+                        norm_samples=config.norm_samples,
+                        chunk=config.chunk, backend=config.backend,
+                        fw_impl=fw_impl, objective=config.objective,
+                        device=dev)
+    g = MeshBaseline(arch).build()[0]
+    metrics = ev.score([g])
+    cost = float(np.asarray(ev.costs_from(metrics))[0])
+    return cost, {k: float(v[0]) for k, v in metrics.items()}

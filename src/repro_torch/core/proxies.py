@@ -1,0 +1,266 @@
+"""Latency / throughput proxies (paper §IV-A, RapidChiplet-style), in PyTorch.
+
+The port of ``repro.core.proxies``.  Given a batch of ``ScoreGraph``s we
+compute, per placement and per traffic type t in {C2C, C2M, C2I, M2I}
+(directed: C->C, C->M, C->I, M->I):
+
+* ``lat_t``  — mean shortest-path latency [cycles] over (src, dst) chiplet
+  pairs of the type, on the PHY-level graph (relay semantics encoded in the
+  graph construction, see ``topology.py``).
+* ``thr_t``  — sustainable per-source injection rate (fraction of theoretical
+  peak, in [0, 1]): uniform-random traffic of the type is routed over all
+  shortest paths with ECMP splitting (Brandes path-counting); the bottleneck
+  link determines the saturation rate  alpha* = 1 / max_link_load.
+
+Everything rests on one batched Floyd-Warshall with shortest-path counts
+(``fw_impl``): the hand-written CUDA kernel on the card
+(``repro_torch.kernels.fw_counts``), the plain PyTorch version on the CPU.
+The rest is plain tensor code with the placement dimension written out.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..kernels.fw_counts import fw_counts
+from ..kernels.ref import INF_CUT
+from .chiplets import COMPUTE, IO, MEMORY, ArchSpec
+from .objective import NORM_DIM, compile_objective, weights_vec
+
+# Per-chunk element budget for the scorer's dominant intermediates (the
+# [V, V] FW matrices and the [S, E, T] ECMP tensor, times the chunk).  A
+# memory bound only: results do not depend on the chunk.  Every paper arch
+# keeps its full default chunk (V <= ~450 -> clamp inactive).
+_CHUNK_ELEM_BUDGET = 1 << 26
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: the card unless the caller names
+    another (the tests pass ``device="cpu"``).  Without a card and without
+    an explicit device this raises: there is no quiet CPU run."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device available; pass device='cpu' to run the port "
+            "on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+@dataclass(frozen=True)
+class Layout:
+    """Static (arch-level) node layout shared by every placement in a batch."""
+
+    Vp: int
+    kinds: tuple[int, ...]    # chiplet kind per instance
+
+    @property
+    def N(self) -> int:
+        return len(self.kinds)
+
+    def src_nodes(self, kind: int) -> np.ndarray:
+        base = self.Vp
+        return np.array([base + c for c, k in enumerate(self.kinds)
+                         if k == kind], dtype=np.int32)
+
+    def dst_nodes(self, kind: int) -> np.ndarray:
+        base = self.Vp + self.N
+        return np.array([base + c for c, k in enumerate(self.kinds)
+                         if k == kind], dtype=np.int32)
+
+
+def layout_for(arch: ArchSpec) -> Layout:
+    Vp = sum(ch.n_phys() for ch in arch.chiplets)
+    return Layout(Vp=Vp, kinds=arch.kinds())
+
+
+def _type_pairs(layout: Layout) -> dict:
+    """Static (srcs, dsts, same_kind) node-index sets per traffic type."""
+    ep = {
+        "c2c": (COMPUTE, COMPUTE),
+        "c2m": (COMPUTE, MEMORY),
+        "c2i": (COMPUTE, IO),
+        "m2i": (MEMORY, IO),
+    }
+    out = {}
+    for t, (ks, kd) in ep.items():
+        out[t] = (layout.src_nodes(ks), layout.dst_nodes(kd), ks == kd)
+    return out
+
+
+@dataclass(frozen=True)
+class _PairSet:
+    """One traffic type's index sets and demand, on the scorer's device."""
+
+    srcs: torch.Tensor        # [S] long, virtual source nodes
+    dsts: torch.Tensor        # [T] long, virtual sink nodes
+    pair_ok: torch.Tensor     # [S, T] bool, excludes the self pair
+    n_pairs: int
+    dem: torch.Tensor         # [S, T] float32 uniform demand per source
+
+
+def _pair_sets(layout: Layout, device: torch.device) -> dict:
+    out = {}
+    for t, (srcs, dsts, same) in _type_pairs(layout).items():
+        S, T = len(srcs), len(dsts)
+        # Exclude the self pair (src chiplet == dst chiplet): the node sets
+        # enumerate the same chiplets in the same order.
+        pair_ok = (~torch.eye(S, dtype=torch.bool, device=device) if same
+                   else torch.ones(S, T, dtype=torch.bool, device=device))
+        dem = pair_ok.to(torch.float32) / pair_ok.sum(
+            1, keepdim=True).clamp_min(1)
+        out[t] = _PairSet(
+            torch.as_tensor(srcs, dtype=torch.long, device=device),
+            torch.as_tensor(dsts, dtype=torch.long, device=device),
+            pair_ok, int(pair_ok.sum()), dem)
+    return out
+
+
+def _rows(M: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """[P, V, V], per-placement row indices [P, K] -> [P, K, V]."""
+    return M.gather(1, idx[:, :, None].expand(-1, -1, M.shape[-1]))
+
+
+def _cols(M: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """[P, K, V], per-placement column indices [P, E] -> [P, K, E]."""
+    return M.gather(2, idx[:, None, :].expand(-1, M.shape[1], -1))
+
+
+def _metrics_one(W, edges, edge_mask, area, *, pairs, conn, fw_impl):
+    """All nine cost components plus ``connected`` for a batch of
+    placements: W [P,V,V], edges [P,E,2] long, edge_mask [P,E], area [P].
+
+    The reference's per-placement ``_metrics_one`` with the placement
+    dimension written out: the same gathers, the [P, S, E, T]
+    on-shortest-path mask and one contraction for the ECMP link loads."""
+    D, Ncnt = fw_impl(W)
+    eu, ev = edges[..., 0], edges[..., 1]                      # [P, E]
+    V = W.shape[-1]
+    w_e = W.reshape(W.shape[0], -1).gather(1, eu * V + ev)     # [P, E]
+    out = {"area": area}
+    # In-scorer connectivity: the placement is connected iff every virtual
+    # source reaches every virtual sink.
+    src_all, dst_all = conn
+    out["connected"] = (D[:, src_all][:, :, dst_all] < INF_CUT).flatten(
+        1).all(1)
+    for t, ps in pairs.items():
+        D_s = D[:, ps.srcs]                                     # [P, S, V]
+        N_s = Ncnt[:, ps.srcs]
+        Dsd = D_s[:, :, ps.dsts]                                # [P, S, T]
+        lat = (torch.where(ps.pair_ok, Dsd, 0.0).sum((1, 2))
+               / max(ps.n_pairs, 1))
+        # --- ECMP link loads (Brandes fractions) -------------------------
+        Dsu = _cols(D_s, eu)                                    # [P, S, E]
+        Nsu = _cols(N_s, eu)
+        Dvd = _rows(D, ev)[:, :, ps.dsts]                       # [P, E, T]
+        Nvd = _rows(Ncnt, ev)[:, :, ps.dsts]
+        Nsd = N_s[:, :, ps.dsts].clamp_min(1.0)
+        on_sp = ((Dsu[:, :, :, None] + w_e[:, None, :, None]
+                  + Dvd[:, None, :, :] - Dsd[:, :, None, :]).abs() < 0.5
+                 ) & (Dsd[:, :, None, :] < INF_CUT)
+        frac = Nsu[:, :, :, None] * Nvd[:, None, :, :] / Nsd[:, :, None, :]
+        # The reference's einsum("st,set->e") per placement, written as a
+        # product and a sum over (s, t): unlike a batched matmul, whose
+        # kernel changes with the batch size, this keeps the float32
+        # summation order of each placement independent of the chunk.
+        load = (ps.dem[:, None, :] * torch.where(on_sp, frac, 0.0)).sum(
+            (1, 3))
+        load = torch.where(edge_mask, load, 0.0)
+        max_load = load.max(1).values
+        thr = torch.where(max_load > 0, (1.0 / max_load).clamp_max(1.0), 1.0)
+        out[f"lat_{t}"] = lat
+        out[f"thr_{t}"] = thr
+    return out
+
+
+def _tensor(x, dtype, device) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=dtype)
+    return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+
+
+def make_scorer(layout: Layout, *, fw_impl=fw_counts, chunk: int = 16,
+                objective=None, device=None):
+    """Build a batched scorer: dict of stacked arrays -> metric dict.
+
+    ``score(batch, norms=None, weights=None)`` takes the stacked ScoreGraph
+    arrays (numpy or tensors: ``W``, ``edges``, ``edge_mask``, ``area``,
+    ``edge_len``), moves them to the scorer's device, scores them in chunks
+    of ``chunk`` placements and returns float32 numpy arrays (``connected``
+    as bool), like the reference's jitted scorer.  ``score.tensors(...)``
+    returns the same dict as tensors on the device.
+
+    With an ``objective`` the output gains a per-placement ``cost``; the
+    normalizers (``[NORM_DIM]`` or per-row ``[P, NORM_DIM]``) and weights
+    (``[W_FIXED + n_terms]`` or ``[P, ...]``, default the objective's own
+    :func:`~repro_torch.core.objective.weights_vec`) are runtime arguments.
+    """
+    dev = resolve_device(device)
+    pairs = _pair_sets(layout, dev)
+    conn = (layout.Vp + torch.arange(layout.N, device=dev),
+            layout.Vp + layout.N + torch.arange(layout.N, device=dev))
+    pair_elems = max(ps.srcs.numel() * ps.dsts.numel()
+                     for ps in pairs.values())
+    cobj = compile_objective(objective) if objective is not None else None
+    default_w = weights_vec(objective) if objective is not None else None
+    Vp = layout.Vp
+
+    def score_tensors(batch, norms=None, weights=None) -> dict:
+        W = _tensor(batch["W"], torch.float32, dev)
+        edges = _tensor(batch["edges"], torch.long, dev)
+        edge_mask = _tensor(batch["edge_mask"], torch.bool, dev)
+        area = _tensor(batch["area"], torch.float32, dev)
+        edge_len = (_tensor(batch["edge_len"], torch.float32, dev)
+                    if "edge_len" in batch else None)
+        P, V = W.shape[0], W.shape[-1]
+        # Clamp the chunk so one chunk's dominant intermediates stay within
+        # a fixed element budget (memory only; results are chunk-invariant).
+        per = max(V * V, pair_elems * edges.shape[1])
+        eff = max(1, min(chunk, _CHUNK_ELEM_BUDGET // per))
+        if cobj is not None:
+            norms = torch.ones(NORM_DIM) if norms is None else norms
+            norms = _tensor(norms, torch.float32, dev).expand(P, NORM_DIM)
+            weights = default_w if weights is None else weights
+            weights = _tensor(weights, torch.float32, dev)
+            weights = weights.expand(P, weights.shape[-1])
+        parts = []
+        for s in range(0, P, eff):
+            c = slice(s, s + eff)
+            out = _metrics_one(W[c], edges[c], edge_mask[c], area[c],
+                               pairs=pairs, conn=conn, fw_impl=fw_impl)
+            if cobj is not None:
+                sample = dict(out, edges=edges[c], edge_mask=edge_mask[c],
+                              area=area[c], Vp=Vp)
+                if edge_len is not None:
+                    sample["edge_len"] = edge_len[c]
+                out["cost"] = cobj.cost(sample, norms[c], weights[c])
+            parts.append(out)
+        return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+
+    def score(batch, norms=None, weights=None) -> dict:
+        out = score_tensors(batch, norms, weights)
+        return {k: v.cpu().numpy() for k, v in out.items()}
+
+    score.tensors = score_tensors
+    return score
+
+
+def make_ranker(scorer):
+    """Score a batch and select the ``k`` best placements (ascending cost)
+    on the scorer's device.  ``scorer`` must have been built with an
+    objective (it emits ``cost``).  Returns ``rank(batch, norms, k, valid,
+    weights) -> (costs [k], indices [k])`` as numpy; rows where ``valid`` is
+    False rank last with infinite cost.  Ties keep the lower index first,
+    as ``jax.lax.top_k`` does in the reference."""
+    def rank(batch, norms, k: int = 1, valid=None, weights=None):
+        cost = scorer.tensors(batch, norms, weights)["cost"]
+        if valid is not None:
+            ok = _tensor(valid, torch.bool, cost.device)
+            cost = torch.where(ok, cost, torch.inf)
+        idx = torch.sort(cost, stable=True).indices[:k]
+        return cost[idx].cpu().numpy(), idx.cpu().numpy()
+
+    return rank
+

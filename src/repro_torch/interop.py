@@ -1,0 +1,90 @@
+"""Carry state across from the JAX package (``repro``) into the port.
+
+PlaceIT has no learned weights; its state is the experiment configuration
+and objective (JSON), the normalizer vector ``[NORM_DIM]`` and weight
+vector ``[W_FIXED + n_terms]``, placements (``Sol`` = ``(types, rot)`` int
+arrays) and stacked ``ScoreGraph`` arrays (``W``, ``edges``, ``edge_mask``,
+``area``, ``edge_len``).  The functions here take that state as plain numpy
+arrays, dicts or JSON — the form ``repro`` writes it in — and return the
+port's objects and tensors on a given device.  Nothing here imports
+``repro``: the caller converts its arrays with ``np.asarray``.
+"""
+from __future__ import annotations
+
+import json
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from .core.api import ExperimentConfig
+from .core.chiplets import TRAFFIC_TYPES
+from .core.cost import CostNormalizers
+from .core.objective import NORM_DIM, Objective, weight_dim
+
+GRAPH_KEYS = {"W": torch.float32, "edges": torch.long,
+              "edge_mask": torch.bool, "area": torch.float32,
+              "edge_len": torch.float32}
+
+
+def config_from_json(s: str | Mapping) -> ExperimentConfig:
+    """An ``ExperimentConfig`` from the reference's JSON (or dict) form;
+    its kernel backend ``"fw-pallas"`` reads as ``"fw-cuda"``."""
+    d = json.loads(s) if isinstance(s, str) else s
+    return ExperimentConfig.from_dict(d)
+
+
+def objective_from_json(s: str | Mapping) -> Objective:
+    d = json.loads(s) if isinstance(s, str) else s
+    return Objective.from_dict(d)
+
+
+def norms_tensor(vec, device="cpu") -> torch.Tensor:
+    """The reference's normalizer vector as a float32 tensor."""
+    v = np.asarray(vec, np.float32)
+    if v.shape[-1] != NORM_DIM:
+        raise ValueError(f"normalizer vector needs {NORM_DIM} entries, got "
+                         f"shape {v.shape}")
+    return torch.as_tensor(v, device=device)
+
+
+def normalizers_from_vec(vec) -> CostNormalizers:
+    """``CostNormalizers`` from a ``[NORM_DIM]`` vector (``norms_vec``'s
+    inverse), e.g. to give a port Evaluator the reference's draw."""
+    v = np.asarray(vec, np.float64)
+    if v.shape != (NORM_DIM,):
+        raise ValueError(f"normalizer vector needs shape ({NORM_DIM},), got "
+                         f"{v.shape}")
+    return CostNormalizers(
+        lat={t: float(v[i]) for i, t in enumerate(TRAFFIC_TYPES)},
+        inv_thr={t: float(v[4 + i]) for i, t in enumerate(TRAFFIC_TYPES)},
+        area=float(v[8]))
+
+
+def weights_tensor(vec, objective: Objective, device="cpu") -> torch.Tensor:
+    """The reference's weight vector for ``objective`` as a tensor."""
+    v = np.asarray(vec, np.float32)
+    if v.shape[-1] != weight_dim(objective):
+        raise ValueError(f"weight vector needs {weight_dim(objective)} "
+                         f"entries, got shape {v.shape}")
+    return torch.as_tensor(v, device=device)
+
+
+def sol_from_arrays(types, rot) -> tuple[np.ndarray, np.ndarray]:
+    """A homogeneous placement ``(types, rot)`` as the port's int8 Sol."""
+    t = np.array(types, dtype=np.int8)
+    r = np.array(rot, dtype=np.int8)
+    if t.shape != r.shape or t.ndim != 2:
+        raise ValueError(f"Sol needs two equal [R, C] arrays, got "
+                         f"{t.shape} and {r.shape}")
+    return t, r
+
+
+def graph_batch(batch: Mapping, device="cpu") -> dict:
+    """Stacked ScoreGraph arrays as tensors on ``device``, in the dtypes
+    the port's scorer uses (edges as long)."""
+    missing = {"W", "edges", "edge_mask", "area"} - set(batch)
+    if missing:
+        raise ValueError(f"graph batch lacks {sorted(missing)}")
+    return {k: torch.as_tensor(np.asarray(batch[k]), device=device).to(dt)
+            for k, dt in GRAPH_KEYS.items() if k in batch}
