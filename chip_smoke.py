@@ -5,17 +5,38 @@
 Phases (any failure exits non-zero; nothing is caught):
 
 1. device — the card's name, the device count and its power limit;
-2. build  — the CUDA kernels from the sources in ``src/repro_torch``;
-3. parity — the FW kernel against its plain PyTorch version on the card,
-   bit for bit (``torch.equal`` on D and N), on random, disconnected,
-   count-clip and real homog32/homog64 score graphs;
-4. timing — the kernel (CUDA events, median over launches after warm-up)
-   at the main path's shapes, beside its bound and the plain version;
-5. main path — the quickstart experiment (homog32 baseline, GA) and
-   homog64 placeit (GA at paper defaults) through ``run_experiment`` and
-   ``baseline_cost`` on the card, with the kernel's launch count and the
-   plain version's call count reset just before and read just after; the
-   homog32 winner is re-scored with the plain version and must agree.
+2. build  — every CUDA kernel from the sources in ``src/repro_torch`` (one
+   nvcc per source, started together, then one link);
+3. parity — each kernel against its plain PyTorch version on the card, bit
+   for bit (``torch.equal``): the FW kernel on random, disconnected,
+   count-clip and real homog32/homog64 score graphs; the blocked FW
+   kernel against the plain blocked FW, the plain FW and the FW kernel on
+   graphs at the tile edges, disconnected graphs, the count-clip graph and
+   score graphs of the four 100+-chiplet families; the min-plus kernel on
+   ragged shapes and on sums above its 1e9 ceiling; APSP against the plain
+   FW's distances on homog256 graphs;
+4. timing — each kernel (CUDA events, median over launches after warm-up)
+   at the main path's shapes, beside its bound and the plain version; the
+   FW kernel and the blocked FW kernel side by side at every (B, V) the
+   scorer uses for the large families and at V = 216 and 480 (the
+   measurement behind ``ops.FW_TILED_FROM_V``).  Every timed output is
+   held bit for bit against the plain version's output on the same input,
+   so the kernels are also checked at the main path's full shapes
+   (min-plus at 1536^3, APSP at V = 1536);
+5. main path — each path driven through ``run_experiment`` and
+   ``baseline_cost`` on the card, with every kernel's launch count and
+   every plain version's call count set to 0 just before each run and read
+   just after:
+   - slice 1, backend "fw-cuda": the quickstart experiment (homog32
+     baseline, GA) and homog64 placeit (GA at paper defaults);
+   - slice 2, backend "fw-tiled": homog256 placeit (V = 1536) and hex127
+     baseline (V = 702), GA at the large families' defaults;
+   - ``ops.apsp`` on the homog256 winner's score graph (min-plus kernel);
+   the homog32 and homog256 winners are re-scored with the plain FW, and
+   the APSP distances must equal the plain FW's;
+6. profile — ``torch.profiler`` over one blocked FW call at homog256
+   (device time by kernel) and one homog256 placeit run (device busy
+   share).
 
 The second-to-last line is a JSON object listing the kernels; the last is
 ``{"ok": true, "device": {...}}``.  There is no CPU mode.
@@ -23,6 +44,7 @@ The second-to-last line is a JSON object listing the kernels; the last is
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -38,13 +60,17 @@ from repro_torch import testing  # noqa: E402
 from repro_torch.core.api import (Budget, ExperimentConfig,  # noqa: E402
                                   GAParams, baseline_cost, make_rep,
                                   run_experiment)
-from repro_torch.core.chiplets import paper_arch  # noqa: E402
+from repro_torch.core.chiplets import resolve_arch  # noqa: E402
 from repro_torch.core.objective import norms_vec  # noqa: E402
-from repro_torch.core.proxies import make_scorer  # noqa: E402
+from repro_torch.core.proxies import (make_scorer,  # noqa: E402
+                                      max_pair_elems, scorer_chunk)
 from repro_torch.core.topology import stack_graphs  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import fw_counts as fwc  # noqa: E402
+from repro_torch.kernels import fw_counts_tiled as fwt  # noqa: E402
+from repro_torch.kernels import minplus as mp  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
-from repro_torch.kernels import ref as fw_ref  # noqa: E402
+from repro_torch.kernels import ref as plain  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet): float32 outside the tensor
 # cores, and HBM3 bandwidth.
@@ -54,10 +80,42 @@ PEAK_BYTES = 3.35e12
 FW_OPS_PER_RELAXATION = 10
 # (B = the scorer's chunk, arch, config): V = 216 and V = 480.
 TIMED = ((16, "homog32", "baseline"), (16, "homog64", "placeit"))
+# Random graphs below the paper's sizes, to place the dispatch point.
+TIMED_SMALL_V = (40, 96, 130, 160, 192)
+KERNELS = {"fw_counts": fwc, "fw_counts_tiled": fwt, "minplus": mp}
+# The arch whose score graphs time min-plus and check APSP (V = 1536).
+APSP_ARCH = "homog256"
+
+# The main path's runs.  Slice 1: the quickstart and homog64 placeit on
+# backend "fw-cuda"; slice 2: homog256 placeit and hex127 baseline on
+# backend "fw-tiled", GA at the large families' defaults.
+QUICKSTART = ExperimentConfig(
+    arch="homog32", config="baseline", algorithms=("ga",),
+    budget=Budget(evals=240), norm_samples=32,
+    params={"ga": GAParams(population=24, elitism=5, tournament=5)})
+HOMOG64 = ExperimentConfig(
+    arch="homog64", config="placeit", algorithms=("ga",),
+    budget=Budget(evals=300), norm_samples=100,
+    params={"ga": GAParams(population=50, elitism=8, tournament=8)})
+_LARGE = dict(algorithms=("ga",), budget=Budget(evals=100), norm_samples=20,
+              backend="fw-tiled",
+              params={"ga": GAParams(population=50, elitism=8,
+                                     tournament=8)})
+HOMOG256 = ExperimentConfig(arch="homog256", config="placeit", **_LARGE)
+HEX127 = ExperimentConfig(arch="hex127", config="baseline", **_LARGE)
 
 
 def phase(name: str) -> None:
     print(f"== {name}", flush=True)
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return smi.stdout.strip()
 
 
 def device_phase() -> str:
@@ -67,11 +125,7 @@ def device_phase() -> str:
     name = torch.cuda.get_device_name(0)
     print(f"device: {name}, count {torch.cuda.device_count()}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True)
-    print(smi.stdout.strip())
+    print(card_line())
     # No float32 product on the path may run in TF32.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -81,90 +135,227 @@ def device_phase() -> str:
 def build_phase() -> None:
     phase("build")
     t0 = time.monotonic()
-    log = fwc.build(force=True)
-    print(log.strip())
-    print(f"build: {fwc.LIB_PATH.name} in {time.monotonic() - t0:.2f} s")
+    log = build.build(force=True)
+    # ptxas's summary, one line per kernel: registers, barriers, spills.
+    kernel = None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"([a-z_]+_kernel)(?:ILi(\d+)E)?", line)
+            kernel = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+        elif "Used" in line and kernel is not None:
+            print(f"  {kernel:24s} {line.split(':', 1)[1].strip()}")
+        elif "spill" in line and " 0 bytes spill stores" not in line:
+            print(f"  {line.strip()}")
+    print(f"build: {build.LIB_PATH.name} ({len(build.SOURCES)} sources) in "
+          f"{time.monotonic() - t0:.2f} s")
 
 
-def parity_phase(dev) -> float:
+def _max_err(pairs) -> float:
+    return max(float((a - b).abs().max()) if a.numel() else 0.0
+               for a, b in pairs)
+
+
+def _require_equal(what: str, name: str, got, want) -> float:
+    """Max abs error of ``got`` against ``want``; exits unless equal."""
+    err = _max_err(zip(got, want))
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise SystemExit(f"{what} differs on {name} (max abs err {err})")
+    return err
+
+
+def parity_phase(dev) -> dict:
+    worst = dict.fromkeys(KERNELS, 0.0)
     phase("parity: fw_counts kernel vs plain version (bitwise)")
-    worst = 0.0
     for name, make in testing.kernel_cases().items():
         W = torch.from_numpy(make()).to(dev)
-        D1, N1 = ops.fw_counts(W)
-        D2, N2 = fw_ref.fw_counts_ref(W)
+        got = ops.fw_counts(W)
         torch.cuda.synchronize()
-        err = max(float((D1 - D2).abs().max()), float((N1 - N2).abs().max()))
-        worst = max(worst, err)
-        same = torch.equal(D1, D2) and torch.equal(N1, N2)
-        print(f"  {name:32s} {'equal' if same else 'DIFFERS'} "
-              f"(max abs err {err})")
-        if not same:
-            raise SystemExit(f"fw_counts kernel differs from the plain "
-                             f"version on {name}")
+        worst["fw_counts"] = max(worst["fw_counts"], _require_equal(
+            "fw_counts vs plain", name, got, plain.fw_counts_ref(W)))
+        print(f"  {name:34s} equal")
+
+    phase("parity: fw_counts_tiled kernel vs plain blocked FW, plain FW "
+          "and fw_counts (bitwise)")
+    for name, make in testing.tiled_cases(fwt.BT).items():
+        W = torch.from_numpy(make()).to(dev)
+        got = fwt.fw_counts_tiled(W)
+        torch.cuda.synchronize()
+        err = max(
+            _require_equal("tiled vs plain tiled", name, got,
+                           plain.fw_counts_tiled_ref(W, fwt.BT)),
+            _require_equal("tiled vs plain FW", name, got,
+                           plain.fw_counts_ref(W)),
+            _require_equal("tiled vs fw_counts", name, got, ops.fw_counts(W)))
+        worst["fw_counts_tiled"] = max(worst["fw_counts_tiled"], err)
+        print(f"  {name:34s} equal to all three")
+
+    phase("parity: minplus kernel vs plain version (bitwise), apsp vs "
+          "plain FW distances")
+    for name, make in testing.minplus_cases().items():
+        A, B = (torch.from_numpy(x).to(dev) for x in make())
+        got = ops.minplus(A, B)
+        torch.cuda.synchronize()
+        worst["minplus"] = max(worst["minplus"], _require_equal(
+            "minplus vs plain", name, [got], [plain.minplus_ref(A, B)]))
+        print(f"  minplus {name:34s} equal")
+    for cfg in ("baseline", "placeit"):
+        W = torch.from_numpy(testing.score_graphs(APSP_ARCH, cfg, 1)[0])
+        W = W.to(dev)
+        worst["minplus"] = max(worst["minplus"], _require_equal(
+            "apsp vs plain FW distances", f"{APSP_ARCH} {cfg}",
+            [ops.apsp(W)], [plain.fw_counts_ref(W)[0]]))
+        print(f"  apsp {APSP_ARCH} {cfg} V={W.shape[-1]:<22d} equal to the "
+              f"plain FW's distances")
     return worst
 
 
-def _median_ms(fn, reps: int, warmup: int = 3) -> float:
+def _median_ms(fns: dict, reps: int, warmup: int = 1) -> tuple[dict, dict]:
+    """Median CUDA-event time of each callable, the callables taking
+    turns in every repetition, and each callable's last output."""
     for _ in range(warmup):
-        fn()
-    times = []
+        for fn in fns.values():
+            fn()
+    times = {k: [] for k in fns}
+    outs = {}
     for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+        for k, fn in fns.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            outs[k] = fn()
+            end.record()
+            end.synchronize()
+            times[k].append(start.elapsed_time(end))
+    return {k: statistics.median(v) for k, v in times.items()}, outs
 
 
-def fw_bound_ms(B: int, V: int) -> tuple[float, str]:
-    ops_s = FW_OPS_PER_RELAXATION * B * V * (V - 1) ** 2 / PEAK_F32_OPS
-    bytes_s = 3 * B * V * V * 4 / PEAK_BYTES
+def _bound(ops_n: float, bytes_n: float) -> tuple[float, str]:
+    ops_s, bytes_s = ops_n / PEAK_F32_OPS, bytes_n / PEAK_BYTES
     return (1e3 * max(ops_s, bytes_s),
             "operations" if ops_s >= bytes_s else "bytes")
 
 
-def timing_phase(dev) -> list[dict]:
-    phase("timing: fw_counts at the main path's shapes")
-    rows = []
-    for B, arch_name, config in TIMED:
-        W = torch.from_numpy(testing.score_graphs(arch_name, config,
-                                                  B)).to(dev)
+def fw_bound_ms(B: int, V: int) -> tuple[float, str]:
+    return _bound(FW_OPS_PER_RELAXATION * B * V * (V - 1) ** 2,
+                  3 * B * V * V * 4)
+
+
+def minplus_bound_ms(M: int, K: int, N: int) -> tuple[float, str]:
+    return _bound(2 * M * N * K, (M * K + K * N + M * N) * 4)
+
+
+def _scorer_batch(arch_name: str, config: str) -> int:
+    """The scorer's placements per FW call for this arch (default chunk
+    16 after the clamp)."""
+    arch = resolve_arch(arch_name, config)
+    rep = make_rep(arch, arch_name)
+    g = rep.score_graph(rep.random(np.random.default_rng(0)))
+    return scorer_chunk(max_pair_elems(rep.layout), g.W.shape[-1],
+                        g.edges.shape[0], 16)
+
+
+def timing_phase(dev, worst: dict) -> dict:
+    """Times the kernels; every timed output must equal the plain
+    version's, and its error is folded into ``worst``."""
+    phase("timing: fw_counts vs fw_counts_tiled (the dispatch measurement; "
+          "outputs bitwise vs the plain FW)")
+    shapes = [(f"random V={V}", 16,
+               lambda V=V: testing.random_graph(V, 3 * V, seed=V, batch=16))
+              for V in TIMED_SMALL_V]
+    shapes += [(f"{a} {c}", B, lambda a=a, c=c, B=B: testing.score_graphs(
+        a, c, B)) for B, a, c in TIMED]
+    for a in testing.LARGE_ARCHS:
+        for c in ("baseline", "placeit"):
+            B = _scorer_batch(a, c)
+            shapes.append((f"{a} {c}", B, lambda a=a, c=c, B=B:
+                           testing.score_graphs(a, c, B)))
+    rows = {}
+    print(f"  {'shape':22s} {'B':>3s} {'V':>5s} {'fw_counts':>11s} "
+          f"{'tiled':>10s} {'plain':>10s} {'bound':>9s}  (ms)")
+    for name, B, make in shapes:
+        W = torch.from_numpy(make()).to(dev)
         V = W.shape[-1]
-        ms = _median_ms(lambda: ops.fw_counts(W), reps=30)
-        plain_ms = _median_ms(lambda: fw_ref.fw_counts_ref(W), reps=3,
-                              warmup=1)
-        bound_ms, bound_by = fw_bound_ms(B, V)
-        rows.append(dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                         bound_by=bound_by))
-        print(f"  B={B} V={V}: kernel {ms:.4f} ms (median of 30), bound "
-              f"{1e3 * bound_ms:.2f} us ({bound_by}), {bound_ms / ms:.4f} "
-              f"of bound; plain version {plain_ms:.3f} ms; library call: "
-              f"none")
+        t, out = _median_ms({"fw_counts": lambda: ops.fw_counts(W),
+                             "tiled": lambda: fwt.fw_counts_tiled(W)},
+                            reps=3 if V > 700 else 10)
+        p, want = _median_ms({"p": lambda: plain.fw_counts_ref(W)}, reps=2)
+        for k in ("fw_counts", "tiled"):
+            kernel = "fw_counts_tiled" if k == "tiled" else k
+            worst[kernel] = max(worst[kernel], _require_equal(
+                f"timed {kernel} vs plain FW", name, out[k], want["p"]))
+        t["plain"] = p["p"]
+        t["bound"], t["bound_by"] = fw_bound_ms(B, V)
+        t["B"], t["V"] = B, V
+        rows[name] = t
+        print(f"  {name:22s} {B:3d} {V:5d} {t['fw_counts']:11.4f} "
+              f"{t['tiled']:10.4f} {t['plain']:10.3f} {t['bound']:9.4f}  "
+              f"({t['bound_by']}) equal")
+
+    phase(f"timing: minplus (M = N = K = V) and apsp on a {APSP_ARCH} "
+          f"placeit score graph (outputs bitwise vs the plain versions)")
+    W = torch.from_numpy(testing.score_graphs(APSP_ARCH, "placeit", 1)[0])
+    W = W.to(dev)
+    V = W.shape[-1]
+    t, out = _median_ms({"kernel": lambda: ops.minplus(W, W)}, reps=20,
+                        warmup=3)
+    p, want = _median_ms({"p": lambda: plain.minplus_ref(W, W)}, reps=3)
+    worst["minplus"] = max(worst["minplus"], _require_equal(
+        "timed minplus vs plain", f"{APSP_ARCH} placeit W x W",
+        [out["kernel"]], [want["p"]]))
+    t["plain"] = p["p"]
+    t["bound"], t["bound_by"] = minplus_bound_ms(V, V, V)
+    rows["minplus"] = t
+    n = plain.apsp_squarings(V)
+    a, out = _median_ms({"kernel": lambda: ops.apsp(W)}, reps=5)
+    p, want = _median_ms({"p": lambda: plain.apsp_ref(W)}, reps=2)
+    worst["minplus"] = max(worst["minplus"], _require_equal(
+        "timed apsp vs plain", f"{APSP_ARCH} placeit", [out["kernel"]],
+        [want["p"]]))
+    a["plain"] = p["p"]
+    b_ms, b_by = minplus_bound_ms(V, V, V)
+    a["bound"], a["bound_by"] = n * b_ms, b_by
+    rows["apsp"] = a
+    for k in ("minplus", "apsp"):
+        r = rows[k]
+        print(f"  {k} V={V}: kernel {r['kernel']:.4f} ms, bound "
+              f"{r['bound']:.4f} ms ({r['bound_by']}), "
+              f"{r['bound'] / r['kernel']:.4f} of bound; plain version "
+              f"{r['plain']:.3f} ms; library call: none; output equal to "
+              f"the plain version's")
     return rows
 
 
+def reset_counts() -> None:
+    for mod in KERNELS.values():
+        mod.launches = 0
+    plain.calls.clear()
+
+
+def read_counts() -> tuple[dict, int]:
+    return ({k: mod.launches for k, mod in KERNELS.items()},
+            sum(plain.calls.values()))
+
+
 def _run(cfg: ExperimentConfig, dev) -> tuple:
-    launches0 = fwc.launches
+    """One experiment and its baseline, with the counts reset before and
+    read after.  Returns the record and the kernel launch counts."""
+    reset_counts()
     t0 = time.monotonic()
     rec = run_experiment(cfg, device=dev)[0]     # returns host numpy
     wall = time.monotonic() - t0
-    launches1 = fwc.launches
     t1 = time.monotonic()
     base_cost, base = baseline_cost(cfg, device=dev)
     base_wall = time.monotonic() - t1
+    launches, plain_calls = read_counts()
     res = rec.result
     n_scored = res.n_evaluated + cfg.norm_samples
-    print(f"  {cfg.arch} {cfg.config}: best cost {res.best_cost:.4f} vs 2D "
-          f"mesh {base_cost:.4f}; run_experiment {wall:.2f} s wall "
-          f"({n_scored} placements scored incl. {cfg.norm_samples} norm "
-          f"samples, {n_scored / wall:.1f} evaluations/s; search alone "
-          f"{res.n_evaluated / rec.seconds:.1f} evaluations/s); "
-          f"baseline_cost {base_wall:.2f} s; kernel launches: run "
-          f"{launches1 - launches0}, baseline {fwc.launches - launches1}")
+    print(f"  {cfg.arch} {cfg.config} ({cfg.backend}): best cost "
+          f"{res.best_cost:.4f} vs 2D mesh {base_cost:.4f}; run_experiment "
+          f"{wall:.2f} s wall ({n_scored} placements scored incl. "
+          f"{cfg.norm_samples} norm samples, {n_scored / wall:.1f} "
+          f"evaluations/s; search alone {res.n_evaluated / rec.seconds:.1f} "
+          f"evaluations/s); baseline_cost {base_wall:.2f} s; kernel "
+          f"launches {launches}, plain calls {plain_calls}")
     print("  metric            placeit   2D-mesh   delta")
     for t in ("c2c", "c2m", "c2i", "m2i"):
         o, b = res.best_metrics[f"lat_{t}"], base[f"lat_{t}"]
@@ -172,32 +363,38 @@ def _run(cfg: ExperimentConfig, dev) -> tuple:
     for t in ("c2c", "c2m", "c2i", "m2i"):
         o, b = res.best_metrics[f"thr_{t}"], base[f"thr_{t}"]
         print(f"  thr_{t} [frac]    {o:8.3f}  {b:8.3f}  {100*(o/b-1):+6.1f}%")
+    if plain_calls != 0:
+        raise SystemExit(f"{cfg.arch} {cfg.config} called a plain version")
     costs = [res.best_cost, base_cost] + [c for _, _, c in res.history]
     if not all(np.isfinite(c) for c in costs):
         raise SystemExit(f"non-finite cost in {cfg.arch} {cfg.config}")
     if not (res.best_metrics["connected"] and base["connected"]):
         raise SystemExit(f"disconnected result in {cfg.arch} {cfg.config}")
-    arch = paper_arch(cfg.arch, cfg.config)
+    arch = resolve_arch(cfg.arch, cfg.config)
     kinds, counts = np.unique(res.best_sol[0][res.best_sol[0] >= 0],
                               return_counts=True)
     if tuple(counts) != arch.counts() or tuple(kinds) != (0, 1, 2):
         raise SystemExit(f"best placement holds {counts}, not "
                          f"{arch.counts()} chiplets")
-    return rec
+    return rec, launches
+
+
+def _winner_graph(cfg: ExperimentConfig, rec):
+    arch = resolve_arch(cfg.arch, cfg.config)
+    rep = make_rep(arch, cfg.arch, cfg.mutation_mode)
+    return rep, rep.score_graph(rec.result.best_sol)
 
 
 def _rescore_plain(cfg: ExperimentConfig, rec, dev) -> None:
     """The run's best placement re-scored with the plain FW version on the
-    card must reproduce the run's metrics (rtol 1e-6: the kernel is
+    card must reproduce the run's metrics (rtol 1e-6: the kernels are
     bitwise, only the chunk's float32 reductions may differ)."""
-    arch = paper_arch(cfg.arch, cfg.config)
-    rep = make_rep(arch, cfg.arch, cfg.mutation_mode)
+    rep, g = _winner_graph(cfg, rec)
     scorer = make_scorer(rep.layout, fw_impl=ops.fw_impl_ref,
                          chunk=cfg.chunk, objective=cfg.objective,
                          device=dev)
     res = rec.result
-    got = scorer(stack_graphs([rep.score_graph(res.best_sol)]),
-                 norms_vec(res.normalizers))
+    got = scorer(stack_graphs([g]), norms_vec(res.normalizers))
     for k, want in res.best_metrics.items():
         np.testing.assert_allclose(float(got[k][0]), want, rtol=1e-6,
                                    err_msg=k)
@@ -205,27 +402,98 @@ def _rescore_plain(cfg: ExperimentConfig, rec, dev) -> None:
           f"{len(res.best_metrics)} metrics agree (rtol 1e-6)")
 
 
-def main_path_phase(dev) -> int:
-    phase("main path: run_experiment + baseline_cost on the card")
-    quick = ExperimentConfig(
-        arch="homog32", config="baseline", algorithms=("ga",),
-        budget=Budget(evals=240), norm_samples=32,
-        params={"ga": GAParams(population=24, elitism=5, tournament=5)})
-    big = ExperimentConfig(
-        arch="homog64", config="placeit", algorithms=("ga",),
-        budget=Budget(evals=300), norm_samples=100,
-        params={"ga": GAParams(population=50, elitism=8, tournament=8)})
-    fwc.launches = 0
-    fw_ref.calls = 0
-    rec = _run(quick, dev)
-    _run(big, dev)
-    launches, plain_calls = fwc.launches, fw_ref.calls
-    print(f"  fw_counts kernel launches {launches}, plain FW calls "
+def main_path_phase(dev) -> dict:
+    total = dict.fromkeys(KERNELS, 0)
+
+    def add(launches: dict) -> None:
+        for k, n in launches.items():
+            total[k] += n
+
+    phase("main path, slice 1 (backend fw-cuda): run_experiment + "
+          "baseline_cost on the card")
+    for cfg in (QUICKSTART, HOMOG64):
+        rec, launches = _run(cfg, dev)
+        add(launches)
+        if launches["fw_counts"] <= 0:
+            raise SystemExit(f"{cfg.arch} did not go through fw_counts")
+        if cfg is QUICKSTART:
+            _rescore_plain(cfg, rec, dev)
+
+    phase("main path, slice 2 (backend fw-tiled): run_experiment + "
+          "baseline_cost on the card")
+    rec256, launches = _run(HOMOG256, dev)
+    add(launches)
+    if launches["fw_counts_tiled"] <= 0:
+        raise SystemExit(f"{HOMOG256.arch} did not go through "
+                         f"fw_counts_tiled")
+    _, launches = _run(HEX127, dev)
+    add(launches)
+    if launches["fw_counts_tiled"] + launches["fw_counts"] <= 0:
+        raise SystemExit(f"{HEX127.arch} did not go through an FW kernel")
+    _rescore_plain(HOMOG256, rec256, dev)
+
+    phase(f"main path: ops.apsp on the {HOMOG256.arch} winner's score "
+          f"graph")
+    _, g = _winner_graph(HOMOG256, rec256)
+    W = torch.from_numpy(g.W).to(dev)
+    reset_counts()
+    D = ops.apsp(W)
+    torch.cuda.synchronize()
+    launches, plain_calls = read_counts()
+    add(launches)
+    print(f"  apsp V={W.shape[-1]}: kernel launches {launches}, plain calls "
           f"{plain_calls}")
-    if launches <= 0 or plain_calls != 0:
-        raise SystemExit("the main path did not go through the kernel alone")
-    _rescore_plain(quick, rec, dev)
-    return launches
+    if launches["minplus"] <= 0 or plain_calls != 0:
+        raise SystemExit("apsp did not go through the minplus kernel alone")
+    if not torch.equal(D, plain.fw_counts_ref(W)[0]):
+        raise SystemExit("apsp of the winner differs from the plain FW's "
+                         "distances")
+    print("  apsp distances equal the plain FW's")
+    return total
+
+
+def _kernel_times(prof) -> tuple[list, float]:
+    """(name, device ms, calls) of each CUDA kernel in a profile, largest
+    first, and their total in ms."""
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    return rows, sum(r[1] for r in rows)
+
+
+def profile_phase(dev) -> None:
+    """torch.profiler over one blocked FW call at homog256 placeit (time
+    by phase kernel) and over one homog256 placeit run (device busy
+    share).  Profiling adds host time, so the run's wall here is longer
+    than the main path's."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    phase("profile: one fw_counts_tiled call at homog256 placeit")
+    W = torch.from_numpy(testing.score_graphs(HOMOG256.arch, HOMOG256.config,
+                                              1)).to(dev)
+    fwt.fw_counts_tiled(W)
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        fwt.fw_counts_tiled(W)
+        torch.cuda.synchronize()
+    rows, total = _kernel_times(prof)
+    print(f"  device kernel time {total:.4f} ms in {len(rows)} kernels")
+    for name, ms, n in rows[:8]:
+        print(f"  {ms:10.4f} ms {n:5d} x  {name[:90]}")
+    phase(f"profile: one {HOMOG256.arch} {HOMOG256.config} run_experiment "
+          f"(device busy share)")
+    with profile(activities=acts) as prof:
+        t0 = time.monotonic()
+        run_experiment(HOMOG256, device=dev)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    rows, total = _kernel_times(prof)
+    print(f"  wall {wall:.3f} s under the profiler, device kernel time "
+          f"{total / 1e3:.4f} s ({100 * total / 1e3 / wall:.2f} % busy)")
+    for name, ms, n in rows[:10]:
+        print(f"  {ms:10.3f} ms {n:6d} x  {name[:90]}")
 
 
 def main() -> None:
@@ -233,17 +501,26 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     build_phase()
     max_err = parity_phase(dev)
-    timing = timing_phase(dev)
+    timing = timing_phase(dev, max_err)
     launches = main_path_phase(dev)
-    t = timing[0]                     # the quickstart's shape, V = 216
+    profile_phase(dev)
+    t1 = timing["homog32 baseline"]        # the quickstart's shape, V = 216
+    t2 = timing["homog256 placeit"]        # B = 1, V = 1536
+    t3 = timing["minplus"]                 # 1536^3
+    rows = [
+        ("fw_counts", "fw_counts.cu", "minplus.py:104", t1["fw_counts"], t1),
+        ("fw_counts_tiled", "fw_counts_tiled.cu", "minplus.py:305",
+         t2["tiled"], t2),
+        ("minplus", "minplus.cu", "minplus.py:419", t3["kernel"], t3)]
+    print(card_line())
     print(json.dumps({"kernels": [{
-        "name": "fw_counts", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/fw_counts.cu",
-        "replaces": "src/repro/kernels/minplus.py:104",
-        "launches": launches, "max_abs_err": max_err, "ms": t["ms"],
-        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"], "library_ms": None,
-        "parity": "bitwise"}]}))
+        "name": k, "route": "cuda",
+        "source": f"src/repro_torch/kernels/csrc/{src}",
+        "replaces": f"src/repro/kernels/{where}",
+        "launches": launches[k], "max_abs_err": max_err[k], "ms": ms,
+        "plain_ms": t["plain"], "bound_ms": t["bound"],
+        "bound_by": t["bound_by"], "library_ms": None, "parity": "bitwise"}
+        for k, src, where, ms, t in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

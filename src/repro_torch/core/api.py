@@ -10,7 +10,9 @@ The port of the single-experiment part of ``repro.core.api``:
   (:class:`BRParams`, :class:`GAParams`, :class:`SAParams`) with the
   paper's Table III/IV defaults.
 * Named scorer backends: ``"fw-cuda"`` (the hand-written CUDA FW kernel,
-  the default) and ``"fw-ref"`` (the plain PyTorch version).
+  the default), ``"fw-tiled"`` (a size dispatch onto the blocked CUDA FW
+  kernel, for the 100+-chiplet families) and ``"fw-ref"`` (the plain
+  PyTorch version).
 * :func:`run_experiment` and :func:`baseline_cost`, which run on the card
   unless the caller passes ``device="cpu"``; without a card and without
   ``device`` they raise (see ``proxies.resolve_device``).
@@ -188,9 +190,10 @@ def _backend_fw_ref() -> Callable:
 
 @register_scorer_backend("fw-tiled")
 def _backend_fw_tiled() -> Callable:
-    raise NotImplementedError(
-        "the blocked-tile FW backend is not ported yet: ROADMAP queue 2 "
-        "item 2")
+    """Size dispatch between the one-block-per-placement CUDA kernel and
+    the blocked three-phase CUDA kernel (``ops.FW_TILED_FROM_V``), for the
+    100+-chiplet families; the plain versions for CPU tensors."""
+    return ops.fw_impl_tiled
 
 
 # The reference's kernel backend name, read as its counterpart here.

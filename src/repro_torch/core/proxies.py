@@ -90,6 +90,21 @@ def _type_pairs(layout: Layout) -> dict:
     return out
 
 
+def max_pair_elems(layout: Layout) -> int:
+    """S * T of the traffic type with the most (source, sink) pairs."""
+    return max(len(s) * len(d) for s, d, _ in _type_pairs(layout).values())
+
+
+def scorer_chunk(pair_elems: int, V: int, n_edges: int, chunk: int) -> int:
+    """Placements per FW call: ``chunk`` clamped so that one chunk's
+    dominant intermediates (the [V, V] FW matrices and the [S, E, T] ECMP
+    tensor, ``pair_elems`` = :func:`max_pair_elems`) stay within
+    ``_CHUNK_ELEM_BUDGET`` elements each.  A memory bound only: results do
+    not depend on the chunk."""
+    per = max(V * V, pair_elems * n_edges)
+    return max(1, min(chunk, _CHUNK_ELEM_BUDGET // per))
+
+
 @dataclass(frozen=True)
 class _PairSet:
     """One traffic type's index sets and demand, on the scorer's device."""
@@ -201,11 +216,10 @@ def make_scorer(layout: Layout, *, fw_impl=fw_counts, chunk: int = 16,
     pairs = _pair_sets(layout, dev)
     conn = (layout.Vp + torch.arange(layout.N, device=dev),
             layout.Vp + layout.N + torch.arange(layout.N, device=dev))
-    pair_elems = max(ps.srcs.numel() * ps.dsts.numel()
-                     for ps in pairs.values())
     cobj = compile_objective(objective) if objective is not None else None
     default_w = weights_vec(objective) if objective is not None else None
     Vp = layout.Vp
+    pair_elems = max_pair_elems(layout)
 
     def score_tensors(batch, norms=None, weights=None) -> dict:
         W = _tensor(batch["W"], torch.float32, dev)
@@ -214,11 +228,8 @@ def make_scorer(layout: Layout, *, fw_impl=fw_counts, chunk: int = 16,
         area = _tensor(batch["area"], torch.float32, dev)
         edge_len = (_tensor(batch["edge_len"], torch.float32, dev)
                     if "edge_len" in batch else None)
-        P, V = W.shape[0], W.shape[-1]
-        # Clamp the chunk so one chunk's dominant intermediates stay within
-        # a fixed element budget (memory only; results are chunk-invariant).
-        per = max(V * V, pair_elems * edges.shape[1])
-        eff = max(1, min(chunk, _CHUNK_ELEM_BUDGET // per))
+        P = W.shape[0]
+        eff = scorer_chunk(pair_elems, W.shape[-1], edges.shape[1], chunk)
         if cobj is not None:
             norms = torch.ones(NORM_DIM) if norms is None else norms
             norms = _tensor(norms, torch.float32, dev).expand(P, NORM_DIM)

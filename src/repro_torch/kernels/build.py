@@ -1,0 +1,131 @@
+"""Build and bind the port's CUDA kernels (``csrc/*.cu``).
+
+Each source is compiled for ``sm_90a`` by its own ``nvcc`` process, all
+started together, and one more ``nvcc`` links the objects into one shared
+library with a plain C interface,
+``build/repro_torch/libreprotorch_kernels.so`` under the repository root.
+That happens at first use (and again whenever a source is newer than the
+library); the library is bound with ``ctypes``.  Nothing is built or
+loaded at import time, so the package imports on a machine without a card
+or a compiler.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = (_CSRC / "fw_counts.cu", _CSRC / "fw_counts_tiled.cu",
+           _CSRC / "minplus.cu")
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+LIB_PATH = BUILD_DIR / "libreprotorch_kernels.so"
+# -fmad=false: no multiply-add contraction, so every float op rounds like
+# the plain version's.  Never --use_fast_math (FMA and flush-to-zero).
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-Xptxas=-v", "-Xcompiler", "-fPIC")
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# The C entry points: argument types (pointers and the stream as void*).
+# Each returns cudaGetLastError() as an int.
+SIGNATURES = {
+    # W, D, N, B, V, device, stream
+    "fw_counts_f32": [_P, _P, _P, _I, _I, _I, _P],
+    # W, D, N, row snapshots (D, N), column snapshots (D, N),
+    # B, V, padded V, device, stream
+    "fw_counts_tiled_f32": [_P, _P, _P, _P, _P, _P, _P,
+                            _I, _I, _I, _I, _P],
+    # A, B, out, M, N, K, device, stream
+    "minplus_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
+}
+
+_lib = None
+_lib_lock = threading.Lock()
+
+
+def find_nvcc() -> str:
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin); "
+                           "the CUDA kernels cannot be built")
+    return nvcc
+
+
+def build_commands(out: Path = LIB_PATH, nvcc: str = "nvcc"
+                   ) -> tuple[list[list[str]], list[str]]:
+    """The nvcc command lines that build the kernel library into ``out``:
+    one compile per source (run side by side) and the link."""
+    objs = [out.with_name(f"{out.stem}.{s.stem}.o") for s in SOURCES]
+    compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+                for s, o in zip(SOURCES, objs)]
+    link = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(out),
+            *map(str, objs)]
+    return compiles, link
+
+
+def _stale() -> bool:
+    if not LIB_PATH.exists():
+        return True
+    newest = max(s.stat().st_mtime for s in SOURCES)
+    return LIB_PATH.stat().st_mtime < newest
+
+
+def _run_all(cmds: list[list[str]]) -> str:
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for c, p, o in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed with exit code {p.returncode}: "
+                               f"{' '.join(c)}\n{o}")
+    return "".join(outs)
+
+
+def build(force: bool = False) -> str:
+    """Compile the library if it is missing or older than its sources.
+    Returns nvcc's output (register and shared-memory use per kernel), or
+    "" when the library was up to date; raises if nvcc fails."""
+    if not force and not _stale():
+        return ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = LIB_PATH.with_name(f"{LIB_PATH.stem}.{os.getpid()}.tmp.so")
+    compiles, link = build_commands(tmp, find_nvcc())
+    try:
+        log = _run_all(compiles) + _run_all([link])
+    except RuntimeError:
+        tmp.unlink(missing_ok=True)
+        raise
+    finally:
+        for c in compiles:
+            Path(c[c.index("-o") + 1]).unlink(missing_ok=True)
+    os.replace(tmp, LIB_PATH)
+    return log
+
+
+def load() -> ctypes.CDLL:
+    """The built library with every entry point's signature set."""
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            build()
+            lib = ctypes.CDLL(str(LIB_PATH))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.reprotorch_error_string.argtypes = [ctypes.c_int]
+            lib.reprotorch_error_string.restype = ctypes.c_char_p
+            _lib = lib
+    return _lib
+
+
+def check_rc(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error."""
+    if rc != 0:
+        msg = lib.reprotorch_error_string(rc).decode()
+        raise RuntimeError(f"{what} kernel launch failed: {msg} "
+                           f"(cudaError {rc})")

@@ -1,10 +1,11 @@
-"""Seeded numpy inputs for holding the FW kernel against its plain version.
+"""Seeded numpy inputs for holding the kernels against their plain versions.
 
 Shared by the tests (``tests/test_torch_*.py``) and ``chip_smoke.py``, so
-both check the kernel on the same graphs: random sparse graphs shaped like
+both check the kernels on the same inputs: random sparse graphs shaped like
 ``tests/test_kernels.py::random_graph``, graphs that are not connected, the
-count-clip layered graph of ``tests/test_properties.py``, and real score
-graphs of the paper's homogeneous archs.
+count-clip layered graph of ``tests/test_properties.py``, real score graphs
+of the homogeneous archs (the paper's and the 100+-chiplet families), and
+min-plus operands with ragged shapes.
 """
 from __future__ import annotations
 
@@ -62,13 +63,18 @@ def count_clip_graph(M: int = 10, K: int = 32) -> np.ndarray:
     return W
 
 
+# The 100+-chiplet homogeneous families (``chiplets.LARGE_HOMOG``).
+LARGE_ARCHS = ("homog100", "homog144", "homog256", "hex127")
+
+
 def score_graphs(arch_name: str, config: str, n: int,
                  seed: int = 5) -> np.ndarray:
-    """[n, V, V] real score-graph weights of random placements of a paper
-    homogeneous arch (``HomogRep.random`` from a numpy seed)."""
+    """[n, V, V] real score-graph weights of random placements of a
+    homogeneous arch that ``resolve_arch`` knows (``HomogRep.random`` from
+    a numpy seed)."""
     from .core.api import make_rep
-    from .core.chiplets import paper_arch
-    arch = paper_arch(arch_name, config)
+    from .core.chiplets import resolve_arch
+    arch = resolve_arch(arch_name, config)
     rep = make_rep(arch, arch_name)
     rng = np.random.default_rng(seed)
     return np.stack([rep.score_graph(rep.random(rng)).W for _ in range(n)])
@@ -93,4 +99,53 @@ def kernel_cases() -> dict:
         for cfg in ("baseline", "placeit"):
             cases[f"{name} {cfg} B=4"] = (
                 lambda name=name, cfg=cfg: score_graphs(name, cfg, 4))
+    return cases
+
+
+def tiled_cases(bt: int) -> dict:
+    """Named factories of [B, V, V] inputs for the blocked FW with tile
+    ``bt``: random graphs with V at the tile edges (bt - 1, bt, bt + 1,
+    2 bt + 3) x B in {1, 3, 16}, graphs that are not connected across
+    tiles, the count-clip graph (V = 312: its shortest paths from node 0
+    to node 1 cross every tile boundary) and real score graphs of the four
+    100+-chiplet families at both configs (B = 2, V = 552 to 1536)."""
+    cases = {}
+    for V in (bt - 1, bt, bt + 1, 2 * bt + 3):
+        for B in (1, 3, 16):
+            cases[f"random V={V} B={B}"] = (
+                lambda V=V, B=B: random_graph(V, 3 * V, seed=V + B, batch=B))
+    for V in (bt + 1, 2 * bt + 3):
+        cases[f"disconnected V={V} B=3"] = (
+            lambda V=V: disconnected_graph(V, seed=V, batch=3))
+    cases["count-clip V=312"] = lambda: count_clip_graph()[None]
+    for name in LARGE_ARCHS:
+        for cfg in ("baseline", "placeit"):
+            cases[f"{name} {cfg} B=2"] = (
+                lambda name=name, cfg=cfg: score_graphs(name, cfg, 2))
+    return cases
+
+
+def minplus_operands(M: int, K: int, N: int, seed: int = 0,
+                     scale: float = 10.0, offset: float = 0.0
+                     ) -> tuple[np.ndarray, np.ndarray]:
+    """A [M, K] and B [K, N] float32 with entries offset + scale * U[0, 1)."""
+    rng = np.random.default_rng(seed)
+    A = (offset + scale * rng.random((M, K))).astype(np.float32)
+    B = (offset + scale * rng.random((K, N))).astype(np.float32)
+    return A, B
+
+
+def minplus_cases() -> dict:
+    """Named factories of (A, B) for the min-plus product: the shapes of
+    ``tests/test_kernels.py::test_minplus_tiled``, ragged M, N and K
+    around the kernel's 64 x 64 x 16 tiles, and one case where every sum
+    exceeds 1e9 (so every entry is the 1e9 ceiling)."""
+    cases = {}
+    for M, K, N in ((64, 64, 64), (100, 70, 130), (128, 128, 128),
+                    (1, 1, 1), (65, 17, 63), (130, 33, 129)):
+        cases[f"M={M} K={K} N={N}"] = (
+            lambda M=M, K=K, N=N: minplus_operands(M, K, N, seed=M + K + N))
+    cases["all sums > 1e9, M=40 K=24 N=72"] = (
+        lambda: minplus_operands(40, 24, 72, seed=1, scale=1e8,
+                                 offset=6e8))
     return cases

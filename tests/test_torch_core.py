@@ -198,9 +198,6 @@ def test_unported_parts_refuse_by_name():
     rep = tapi.make_rep(tchiplets.paper_arch("homog32"), "homog32")
     with pytest.raises(NotImplementedError, match="queue 1 item 7"):
         rep.batch_ops()
-    with pytest.raises(NotImplementedError, match="queue 2 item 2"):
-        tapi.get_scorer(rep.layout, chunk=4, backend="fw-tiled",
-                        device="cpu")
     with pytest.raises(NotImplementedError, match="queue 1 item 11"):
         tobjective.compile_objective(tobjective.Objective(
             terms=("lat", "trace-lat")))
