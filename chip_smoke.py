@@ -6,15 +6,21 @@ Phases (any failure exits non-zero; nothing is caught):
 
 1. device — the card's name, the device count and its power limit;
 2. build  — every CUDA kernel from the sources in ``src/repro_torch`` (one
-   nvcc per source, started together, then one link);
-3. parity — each kernel against its plain PyTorch version on the card, bit
-   for bit (``torch.equal``): the FW kernel on random, disconnected,
-   count-clip and real homog32/homog64 score graphs; the blocked FW
-   kernel against the plain blocked FW, the plain FW and the FW kernel on
-   graphs at the tile edges, disconnected graphs, the count-clip graph and
-   score graphs of the four 100+-chiplet families; the min-plus kernel on
-   ragged shapes and on sums above its 1e9 ceiling; APSP against the plain
-   FW's distances on homog256 graphs;
+   nvcc per source, started together, then one link), with ptxas's
+   registers and spills per kernel instance;
+3. parity — each kernel against its plain PyTorch version on the card.
+   The FW and min-plus kernels bit for bit (``torch.equal``): the FW
+   kernel on random, disconnected, count-clip and real homog32/homog64
+   score graphs; the blocked FW kernel against the plain blocked FW, the
+   plain FW and the FW kernel on graphs at the tile edges, disconnected
+   graphs, the count-clip graph and score graphs of the four
+   100+-chiplet families; the min-plus kernel on ragged shapes and on
+   sums above its 1e9 ceiling; APSP against the plain FW's distances on
+   homog256 graphs.  The attention kernels to the JAX tests' tolerances
+   (flash 2e-5, decode 3e-5 in float32, both 2e-2 in bfloat16) on
+   ``testing.attention_cases`` / ``decode_cases`` in both dtypes, and at
+   the full qwen3-1.7b shapes in bfloat16 to a limit scaled to the
+   outputs (two bfloat16 ulps of each entry plus 1e-5, ``FULL_LIMIT``);
 4. timing — each kernel (CUDA events, median over launches after warm-up)
    at the main path's shapes, beside its bound and the plain version; the
    FW kernel and the blocked FW kernel side by side at every (B, V) the
@@ -22,7 +28,14 @@ Phases (any failure exits non-zero; nothing is caught):
    measurement behind ``ops.FW_TILED_FROM_V``).  Every timed output is
    held bit for bit against the plain version's output on the same input,
    so the kernels are also checked at the main path's full shapes
-   (min-plus at 1536^3, APSP at V = 1536);
+   (min-plus at 1536^3, APSP at V = 1536).  The attention kernels at
+   qwen3-1.7b's shapes in bfloat16 (flash: B = 1, Sq = Sk in {512, 2048},
+   causal; decode: B = 8, S = 4096, every length 4096 and lengths drawn
+   from the seed), each beside its plain version, its bound and one
+   PyTorch call that computes the same function
+   (``scaled_dot_product_attention``, timed for comparison only; the port
+   never calls it), every output held to ``FULL_LIMIT`` against the plain
+   version;
 5. main path — each path driven through ``run_experiment`` and
    ``baseline_cost`` on the card, with every kernel's launch count and
    every plain version's call count set to 0 just before each run and read
@@ -34,9 +47,19 @@ Phases (any failure exits non-zero; nothing is caught):
    - ``ops.apsp`` on the homog256 winner's score graph (min-plus kernel);
    the homog32 and homog256 winners are re-scored with the plain FW, and
    the APSP distances must equal the plain FW's;
+   - slice 3, the LM serving path: qwen3-1.7b at full width (28 layers,
+     d_model 2048, bfloat16, weights from a ``torch.Generator`` seeded 0
+     on the card) through ``ServeEngine`` (8 slots, cache 4096, no EOS):
+     16 requests with prompts of 256 to 2048 tokens drawn from the seed,
+     64 tokens each.  It prints wall time, prefill and decode tokens/s,
+     the median time to first token, ticks, and the attention kernels'
+     launches (28 per prefill, 28 per tick; no plain call); then the
+     decode step's logits for request 0's second token against a
+     re-prefill of (prompt + first token);
 6. profile — ``torch.profiler`` over one blocked FW call at homog256
    (device time by kernel) and one homog256 placeit run (device busy
-   share).
+   share); one qwen3-1.7b prefill of 1024 tokens and 8 decode ticks of
+   the 8-slot pool (device busy share, time by kernel).
 
 The second-to-last line is a JSON object listing the kernels; the last is
 ``{"ok": true, "device": {...}}``.  There is no CPU mode.
@@ -57,6 +80,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import testing  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.api import (Budget, ExperimentConfig,  # noqa: E402
                                   GAParams, baseline_cost, make_rep,
                                   run_experiment)
@@ -66,15 +90,21 @@ from repro_torch.core.proxies import (make_scorer,  # noqa: E402
                                       max_pair_elems, scorer_chunk)
 from repro_torch.core.topology import stack_graphs  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import decode_attention as tda  # noqa: E402
+from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 from repro_torch.kernels import fw_counts as fwc  # noqa: E402
 from repro_torch.kernels import fw_counts_tiled as fwt  # noqa: E402
 from repro_torch.kernels import minplus as mp  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref as plain  # noqa: E402
+from repro_torch.models.model import LM  # noqa: E402
+from repro_torch.serve.engine import (EngineConfig, Request,  # noqa: E402
+                                      ServeEngine)
 
 # H100 SXM published peaks (NVIDIA data sheet): float32 outside the tensor
-# cores, and HBM3 bandwidth.
+# cores, bfloat16 on the dense tensor cores, and HBM3 bandwidth.
 PEAK_F32_OPS = 67e12
+PEAK_BF16_OPS = 989e12
 PEAK_BYTES = 3.35e12
 # add, mul, min, three compares, add, two selects, min
 FW_OPS_PER_RELAXATION = 10
@@ -82,7 +112,11 @@ FW_OPS_PER_RELAXATION = 10
 TIMED = ((16, "homog32", "baseline"), (16, "homog64", "placeit"))
 # Random graphs below the paper's sizes, to place the dispatch point.
 TIMED_SMALL_V = (40, 96, 130, 160, 192)
-KERNELS = {"fw_counts": fwc, "fw_counts_tiled": fwt, "minplus": mp}
+KERNELS = {"fw_counts": fwc, "fw_counts_tiled": fwt, "minplus": mp,
+           "flash_attention": tfa, "decode_attention": tda}
+# Attention tolerances (the JAX kernel tests'), by kernel and dtype.
+ATTN_TOL = {"flash_attention": {"float32": 2e-5, "bfloat16": 2e-2},
+            "decode_attention": {"float32": 3e-5, "bfloat16": 2e-2}}
 # The arch whose score graphs time min-plus and check APSP (V = 1536).
 APSP_ARCH = "homog256"
 
@@ -140,10 +174,13 @@ def build_phase() -> None:
     kernel = None
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"([a-z_]+_kernel)(?:ILi(\d+)E)?", line)
-            kernel = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+            m = re.search(
+                r"([a-z_]+_kernel)(?:ILi(\d+)E(13__nv_bfloat16|f)?)?", line)
+            args = [a for a in (m.group(2), {"f": "f32"}.get(
+                m.group(3), m.group(3) and "bf16")) if a]
+            kernel = m.group(1) + (f"<{', '.join(args)}>" if args else "")
         elif "Used" in line and kernel is not None:
-            print(f"  {kernel:24s} {line.split(':', 1)[1].strip()}")
+            print(f"  {kernel:34s} {line.split(':', 1)[1].strip()}")
         elif "spill" in line and " 0 bytes spill stores" not in line:
             print(f"  {line.strip()}")
     print(f"build: {build.LIB_PATH.name} ({len(build.SOURCES)} sources) in "
@@ -229,8 +266,9 @@ def _median_ms(fns: dict, reps: int, warmup: int = 1) -> tuple[dict, dict]:
     return {k: statistics.median(v) for k, v in times.items()}, outs
 
 
-def _bound(ops_n: float, bytes_n: float) -> tuple[float, str]:
-    ops_s, bytes_s = ops_n / PEAK_F32_OPS, bytes_n / PEAK_BYTES
+def _bound(ops_n: float, bytes_n: float,
+           peak_ops: float = PEAK_F32_OPS) -> tuple[float, str]:
+    ops_s, bytes_s = ops_n / peak_ops, bytes_n / PEAK_BYTES
     return (1e3 * max(ops_s, bytes_s),
             "operations" if ops_s >= bytes_s else "bytes")
 
@@ -323,6 +361,301 @@ def timing_phase(dev, worst: dict) -> dict:
               f"{r['plain']:.3f} ms; library call: none; output equal to "
               f"the plain version's")
     return rows
+
+# -- attention (slice 3) ----------------------------------------------------
+
+def _on_card(arrays, dev, dtype=torch.bfloat16):
+    return [torch.from_numpy(a).to(dev).to(dtype) for a in arrays]
+
+
+def _require_close(what: str, name: str, got, want, rtol: float,
+                   atol: float | None = None) -> tuple[float, float]:
+    """Max abs error of ``got`` against ``want`` and the largest share of
+    the limit an entry uses; exits unless every entry is within
+    ``atol + rtol * |want|`` (``atol`` defaults to ``rtol``)."""
+    atol = rtol if atol is None else atol
+    g, w = got.float(), want.float()
+    if not g.numel():
+        return 0.0, 0.0
+    diff = (g - w).abs()
+    share = float((diff / (atol + rtol * w.abs())).max())
+    err = float(diff.max())
+    if share > 1:
+        raise SystemExit(f"{what} differs on {name} beyond {atol} + {rtol} "
+                         f"|plain| (max abs err {err}, {share:.3g} of the "
+                         f"limit)")
+    return err, share
+
+
+def attention_parity_phase(dev, worst: dict) -> None:
+    phase("parity: flash_attention and decode_attention kernels vs plain "
+          "versions (allclose: flash 2e-5, decode 3e-5 in float32; 2e-2 in "
+          "bfloat16)")
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        tol = ATTN_TOL["flash_attention"][dtype]
+        for name, make in testing.attention_cases().items():
+            *qkv, kw = make()
+            q, k, v = _on_card(qkv, dev, dt)
+            err, _ = _require_close("flash_attention vs plain", name,
+                                    tfa.flash_attention(q, k, v, **kw),
+                                    plain.attention_ref(q, k, v, **kw), tol)
+            worst["flash_attention"] = max(worst["flash_attention"], err)
+        tol = ATTN_TOL["decode_attention"][dtype]
+        for name, make in testing.decode_cases().items():
+            *arrays, lens, kw = make()
+            q, kc, vc = _on_card(arrays, dev, dt)
+            lens = torch.from_numpy(lens).to(dev)
+            err, _ = _require_close(
+                "decode_attention vs plain", name,
+                tda.decode_attention(q, kc, vc, lens, **kw),
+                plain.decode_attention_ref(q, kc, vc, lens, **kw), tol)
+            worst["decode_attention"] = max(worst["decode_attention"], err)
+        print(f"  {dtype}: {len(testing.attention_cases())} flash and "
+              f"{len(testing.decode_cases())} decode cases within tolerance "
+              f"(worst so far: flash {worst['flash_attention']:.3g}, decode "
+              f"{worst['decode_attention']:.3g})")
+
+
+# qwen3-1.7b's attention: 16 query heads on 8 KV heads, head dim 128.
+QWEN3_HEADS = dict(Hq=16, Hkv=8, d=128)
+# The limit at those shapes, scaled to the outputs.  There an output row
+# averages hundreds to thousands of V rows (decode at S = 4096: RMS about
+# 0.026), so the cases' fixed 2e-2 would pass a kernel that drops a tail
+# tile.  Kernel and plain version compute in float32 from the same
+# bfloat16 inputs and round once to bfloat16, so an entry may differ by
+# one bfloat16 ulp, at most 2^-7 of its size; the limit allows two ulps,
+# plus 1e-5 for outputs near 0 (float32 sums of terms below 4 differ by
+# well under 1e-6).  Measured on the H100: flash 1.95e-3 at S = 2048
+# (one ulp of an output in [0.25, 0.5)), decode 3.05e-5.
+FULL_RTOL, FULL_ATOL = 2.0 ** -6, 1e-5
+FULL_LIMIT = f"|kernel - plain| <= {FULL_ATOL:g} + {FULL_RTOL:g} |plain|"
+FLASH_TIMED_S = (512, 2048)
+DECODE_TIMED = dict(B=8, S=4096)
+
+
+def flash_bound_ms(B, Sq, Sk, Hq, Hkv, d, causal=True, itemsize=2):
+    pairs = Sq * Sk / 2 if causal else Sq * Sk
+    return _bound(4 * B * Hq * d * pairs,
+                  itemsize * d * (2 * B * Sq * Hq + 2 * B * Sk * Hkv),
+                  PEAK_BF16_OPS)
+
+
+def decode_bound_ms(B, Hq, Hkv, d, lengths, itemsize=2):
+    """Only the valid K and V rows are read, plus q and the output."""
+    rows = int(lengths.sum())
+    return _bound(4 * rows * Hq * d,
+                  itemsize * d * (2 * rows * Hkv + 2 * B * Hq),
+                  PEAK_BF16_OPS)
+
+
+def attention_timing_phase(dev, worst: dict) -> dict:
+    """Times the attention kernels at qwen3-1.7b's shapes in bfloat16;
+    every timed output is held to ``FULL_LIMIT`` against the plain
+    version's."""
+    F = torch.nn.functional
+    rows = {}
+    phase(f"timing: flash_attention at qwen3-1.7b prefill shapes (bf16, "
+          f"causal; outputs {FULL_LIMIT})")
+    for S in FLASH_TIMED_S:
+        shape = dict(B=1, Sq=S, Sk=S, **QWEN3_HEADS)
+        q, k, v = _on_card(testing.attention_operands(**shape, seed=S),
+                             dev)
+        t, out = _median_ms({
+            "kernel": lambda: tfa.flash_attention(q, k, v),
+            "plain": lambda: plain.attention_ref(q, k, v),
+            "library": lambda: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=True, enable_gqa=True)}, reps=10, warmup=2)
+        err, share = _require_close("timed flash_attention vs plain",
+                                    f"S={S}", out["kernel"], out["plain"],
+                                    FULL_RTOL, FULL_ATOL)
+        worst["flash_attention"] = max(worst["flash_attention"], err)
+        t["bound"], t["bound_by"] = flash_bound_ms(**shape)
+        t["max_abs_err"], t["limit_share"] = err, share
+        t["max_abs_out"] = float(out["plain"].float().abs().max())
+        rows[f"flash S={S}"] = t
+        print(f"  B=1 Sq=Sk={S:5d}: kernel {t['kernel']:.4f} ms, plain "
+              f"{t['plain']:.4f} ms, sdpa {t['library']:.4f} ms, bound "
+              f"{t['bound']:.4f} ms ({t['bound_by']}), "
+              f"{t['bound'] / t['kernel']:.4f} of bound; max abs err vs "
+              f"plain {err:.3g} (max |out| {t['max_abs_out']:.3g}; "
+              f"{share:.3f} of the limit)")
+
+    phase(f"timing: decode_attention at the serve run's decode shape (bf16; "
+          f"outputs {FULL_LIMIT})")
+    B, S = DECODE_TIMED["B"], DECODE_TIMED["S"]
+    rng = np.random.default_rng(0)
+    for label, lens in ((f"every length {S}", np.full(B, S)),
+                        ("lengths from the seed",
+                         rng.integers(1, S + 1, size=B))):
+        q, kc, vc, lens_np = testing.decode_operands(
+            B, S, **QWEN3_HEADS, lengths=lens, seed=1)
+        q, kc, vc = _on_card((q, kc, vc), dev)
+        lens = torch.from_numpy(lens_np).to(dev)
+        mask = (torch.arange(S, device=dev)[None] < lens[:, None])
+        t, out = _median_ms({
+            "kernel": lambda: tda.decode_attention(q, kc, vc, lens),
+            "plain": lambda: plain.decode_attention_ref(q, kc, vc, lens),
+            "library": lambda: F.scaled_dot_product_attention(
+                q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2),
+                attn_mask=mask[:, None, None], enable_gqa=True)},
+            reps=20, warmup=2)
+        err, share = _require_close("timed decode_attention vs plain",
+                                    label, out["kernel"], out["plain"],
+                                    FULL_RTOL, FULL_ATOL)
+        worst["decode_attention"] = max(worst["decode_attention"], err)
+        t["bound"], t["bound_by"] = decode_bound_ms(B, **QWEN3_HEADS,
+                                                    lengths=lens_np)
+        t["max_abs_err"], t["limit_share"] = err, share
+        t["max_abs_out"] = float(out["plain"].float().abs().max())
+        rows[f"decode {label}"] = t
+        print(f"  B={B} S={S} ({label}, {int(lens_np.sum())} valid rows): "
+              f"kernel {t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, "
+              f"sdpa {t['library']:.4f} ms, bound {t['bound']:.4f} ms "
+              f"({t['bound_by']}), {t['bound'] / t['kernel']:.4f} of bound; "
+              f"max abs err vs plain {err:.3g} (max |out| "
+              f"{t['max_abs_out']:.3g}; {share:.3f} of the limit)")
+    return rows
+
+
+# -- the LM serving path (slice 3) -----------------------------------------
+
+SERVE_ARCH = "qwen3-1.7b"
+SERVE_ENGINE = EngineConfig(n_slots=8, cache_len=4096, eos=-1)
+SERVE_REQUESTS, SERVE_PROMPT, SERVE_MAX_TOKENS = 16, (256, 2048), 64
+# Request 0's decode-step logits against a re-prefill of (prompt + token
+# 1), both in bfloat16 on the card: the two paths round the K/V cache and
+# the attention sums differently (another kernel, other matmul shapes), a
+# few bfloat16 ulps of logits of magnitude < 8 (0.03 each) after 28
+# layers.
+CONSISTENCY_TOL = 0.125
+PROFILE_PREFILL = 1024
+
+
+def serve_phase(dev) -> tuple[dict, tuple]:
+    """The serve run, with the counts set to 0 just before it and read just
+    after; returns the launch counts and (model, engine, prompt lengths)
+    for the profile."""
+    phase(f"main path, slice 3: {SERVE_ARCH} at full width through "
+          f"ServeEngine on the card")
+    cfg = get_config(SERVE_ARCH)
+    t0 = time.monotonic()
+    model = LM(cfg, dev, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    print(f"  {cfg.name}: {model.param_count() / 1e9:.4f} B "
+          f"parameters, {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.dtype}, initialised from torch.Generator seed 0 in "
+          f"{time.monotonic() - t0:.2f} s")
+    eng = ServeEngine(model, SERVE_ENGINE)
+    # One short request first, so that the run below finds cuBLAS and the
+    # allocator warm; then the engine's counters start from zero.
+    eng.submit(Request(-1, np.arange(3, 35, dtype=np.int32), max_tokens=2))
+    eng.run()
+    eng.stats = dict.fromkeys(eng.stats, 0)
+    rng = np.random.default_rng(0)
+    lens = rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1,
+                        size=SERVE_REQUESTS)
+    reqs = [Request(i, rng.integers(3, cfg.vocab, size=int(n)).astype(
+        np.int32), max_tokens=SERVE_MAX_TOKENS) for i, n in enumerate(lens)]
+    for r in reqs:
+        eng.submit(r)
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.monotonic()
+    ticks = eng.run()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches, plain_calls = read_counts()
+    st = eng.stats
+    ttft = statistics.median(r.t_first - t0 for r in reqs)
+    print(f"  {len(reqs)} requests, prompts {int(lens.min())}-"
+          f"{int(lens.max())} tokens ({int(lens.sum())} in all), "
+          f"{SERVE_MAX_TOKENS} tokens each; {SERVE_ENGINE.n_slots} slots, "
+          f"cache {SERVE_ENGINE.cache_len}")
+    print(f"  wall {wall:.3f} s, {ticks} ticks; prefill "
+          f"{st['prefill_tokens']} tokens in {st['prefill_s']:.3f} s "
+          f"({st['prefill_tokens'] / st['prefill_s']:.1f} tokens/s); decode "
+          f"{st['decode_tokens']} tokens in {st['decode_s']:.3f} s "
+          f"({st['decode_tokens'] / st['decode_s']:.1f} tokens/s, "
+          f"{1e3 * st['decode_s'] / ticks:.2f} ms per tick); time to first "
+          f"token median {ttft:.3f} s; peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    print(f"  launches: flash_attention {launches['flash_attention']} "
+          f"(expected {cfg.n_layers} x {len(reqs)} = "
+          f"{cfg.n_layers * len(reqs)}), decode_attention "
+          f"{launches['decode_attention']} (expected {cfg.n_layers} x "
+          f"{ticks} = {cfg.n_layers * ticks}); plain calls {plain_calls}")
+    if not all(r.done and len(r.out_tokens) == SERVE_MAX_TOKENS
+               for r in reqs):
+        raise SystemExit("the serve run left requests unfinished")
+    if not all(0 <= t < cfg.vocab_padded for r in reqs
+               for t in r.out_tokens):
+        raise SystemExit("the serve run emitted tokens out of range")
+    if (launches["flash_attention"] != cfg.n_layers * len(reqs)
+            or launches["decode_attention"] != cfg.n_layers * ticks
+            or plain_calls != 0):
+        raise SystemExit("the serve run did not go through the attention "
+                         "kernels alone")
+
+    # Request 0's second token: the decode step's logits against a
+    # re-prefill of (prompt + first token).
+    r0 = reqs[0]
+    ext = torch.as_tensor(np.concatenate([r0.prompt, r0.out_tokens[:1]])[
+        None], dtype=torch.long, device=dev)
+    pre, _ = model.prefill({"tokens": ext}, SERVE_ENGINE.cache_len)
+    _, caches = model.prefill({"tokens": ext[:, :-1]}, SERVE_ENGINE.cache_len)
+    dec = model.decode_step({
+        "tokens": ext[:, -1:], "lengths": torch.tensor(
+            [len(r0.prompt)], dtype=torch.int32, device=dev)}, caches)
+    if not (torch.isfinite(dec).all() and torch.isfinite(pre).all()):
+        raise SystemExit("non-finite logits")
+    err = float((dec - pre).abs().max())
+    print(f"  consistency, request 0 (prompt {len(r0.prompt)}): decode-step "
+          f"logits vs re-prefill max abs err {err:.4f} (logits up to "
+          f"{float(pre.abs().max()):.2f}; tolerance {CONSISTENCY_TOL}); "
+          f"argmax {int(dec.argmax())} / {int(pre.argmax())}, engine's "
+          f"token 2 {r0.out_tokens[1]}")
+    if err > CONSISTENCY_TOL:
+        raise SystemExit("the decode step disagrees with a re-prefill")
+    return launches, (model, eng, lens)
+
+
+def serve_profile_phase(dev, state: tuple) -> None:
+    """torch.profiler over one prefill of ``PROFILE_PREFILL`` tokens and
+    over 8 decode ticks of the full pool (lengths: the serve run's first 8
+    prompts)."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    model, eng, lens = state
+    cfg = model.cfg
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        3, cfg.vocab, size=(1, PROFILE_PREFILL)), dtype=torch.long,
+        device=dev)
+    batch = {"tokens": torch.as_tensor(np.random.default_rng(2).integers(
+        3, cfg.vocab, size=(SERVE_ENGINE.n_slots, 1)), device=dev),
+        "lengths": torch.as_tensor(lens[:SERVE_ENGINE.n_slots],
+                                   dtype=torch.int32, device=dev)}
+    for what, fn in (
+            (f"one prefill of {PROFILE_PREFILL} tokens", lambda: model.prefill(
+                {"tokens": toks}, SERVE_ENGINE.cache_len)),
+            (f"8 decode ticks of the {SERVE_ENGINE.n_slots}-slot pool",
+             lambda: [model.decode_step(batch, eng.caches)
+                      for _ in range(8)])):
+        phase(f"profile: {cfg.name} {what}")
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            t0 = time.monotonic()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+        rows, total = _kernel_times(prof)
+        print(f"  wall {1e3 * wall:.3f} ms under the profiler, device kernel "
+              f"time {total:.3f} ms ({100 * total / 1e3 / wall:.2f} % busy)")
+        for name, ms, n in rows[:8]:
+            print(f"  {ms:10.3f} ms {n:6d} x  {name[:90]}")
 
 
 def reset_counts() -> None:
@@ -501,17 +834,41 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     build_phase()
     max_err = parity_phase(dev)
+    attention_parity_phase(dev, max_err)
     timing = timing_phase(dev, max_err)
+    timing.update(attention_timing_phase(dev, max_err))
     launches = main_path_phase(dev)
+    serve_launches, serve_state = serve_phase(dev)
+    for k in ("flash_attention", "decode_attention"):
+        launches[k] += serve_launches[k]
     profile_phase(dev)
+    serve_profile_phase(dev, serve_state)
     t1 = timing["homog32 baseline"]        # the quickstart's shape, V = 216
     t2 = timing["homog256 placeit"]        # B = 1, V = 1536
     t3 = timing["minplus"]                 # 1536^3
+    t4 = timing["flash S=2048"]            # the longest serve prompt
+    t5 = timing["decode lengths from the seed"]
+    full = {k: [t for key, t in timing.items() if key.startswith(pre)]
+            for k, pre in (("flash_attention", "flash S="),
+                           ("decode_attention", "decode "))}
+
+    def attn(k: str, f32_tol: str) -> str:
+        err = max(t["max_abs_err"] for t in full[k])
+        share = max(t["limit_share"] for t in full[k])
+        return (f"cases allclose rtol=atol={f32_tol} (f32), 2e-2 (bf16); "
+                f"qwen3-1.7b shapes {FULL_LIMIT}: max abs err {err:.3g}, "
+                f"{share:.3f} of the limit")
     rows = [
-        ("fw_counts", "fw_counts.cu", "minplus.py:104", t1["fw_counts"], t1),
+        ("fw_counts", "fw_counts.cu", "minplus.py:104", t1["fw_counts"], t1,
+         "bitwise"),
         ("fw_counts_tiled", "fw_counts_tiled.cu", "minplus.py:305",
-         t2["tiled"], t2),
-        ("minplus", "minplus.cu", "minplus.py:419", t3["kernel"], t3)]
+         t2["tiled"], t2, "bitwise"),
+        ("minplus", "minplus.cu", "minplus.py:419", t3["kernel"], t3,
+         "bitwise"),
+        ("flash_attention", "flash_attention.cu", "flash_attention.py:92",
+         t4["kernel"], t4, attn("flash_attention", "2e-5")),
+        ("decode_attention", "decode_attention.cu", "decode_attention.py:74",
+         t5["kernel"], t5, attn("decode_attention", "3e-5"))]
     print(card_line())
     print(json.dumps({"kernels": [{
         "name": k, "route": "cuda",
@@ -519,8 +876,9 @@ def main() -> None:
         "replaces": f"src/repro/kernels/{where}",
         "launches": launches[k], "max_abs_err": max_err[k], "ms": ms,
         "plain_ms": t["plain"], "bound_ms": t["bound"],
-        "bound_by": t["bound_by"], "library_ms": None, "parity": "bitwise"}
-        for k, src, where, ms, t in rows]}))
+        "bound_by": t["bound_by"], "library_ms": t.get("library"),
+        "parity": parity}
+        for k, src, where, ms, t, parity in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

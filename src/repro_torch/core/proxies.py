@@ -39,13 +39,16 @@ _CHUNK_ELEM_BUDGET = 1 << 26
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: the card unless the caller names
     another (the tests pass ``device="cpu"``).  Without a card and without
-    an explicit device this raises: there is no quiet CPU run."""
-    if device is not None:
+    an explicit device this raises, as it does for an explicit "cuda":
+    there is no quiet CPU run."""
+    if device is not None and torch.device(device).type != "cuda":
         return torch.device(device)
     if not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device available; pass device='cpu' to run the port "
             "on the CPU")
+    if device is not None and torch.device(device).index is not None:
+        return torch.device(device)
     return torch.device("cuda", torch.cuda.current_device())
 
 

@@ -1,13 +1,16 @@
 """Carry state across from the JAX package (``repro``) into the port.
 
-PlaceIT has no learned weights; its state is the experiment configuration
-and objective (JSON), the normalizer vector ``[NORM_DIM]`` and weight
-vector ``[W_FIXED + n_terms]``, placements (``Sol`` = ``(types, rot)`` int
-arrays) and stacked ``ScoreGraph`` arrays (``W``, ``edges``, ``edge_mask``,
-``area``, ``edge_len``).  The functions here take that state as plain numpy
-arrays, dicts or JSON — the form ``repro`` writes it in — and return the
-port's objects and tensors on a given device.  Nothing here imports
-``repro``: the caller converts its arrays with ``np.asarray``.
+PlaceIT itself has no learned weights; its state is the experiment
+configuration and objective (JSON), the normalizer vector ``[NORM_DIM]``
+and weight vector ``[W_FIXED + n_terms]``, placements (``Sol`` = ``(types,
+rot)`` int arrays) and stacked ``ScoreGraph`` arrays (``W``, ``edges``,
+``edge_mask``, ``area``, ``edge_len``). The functions here take that state
+as plain numpy arrays, dicts or JSON — the form ``repro`` writes it in —
+and return the port's objects and tensors on a given device. The LM
+substrate's parameters (``repro.models.model.init_params``, a nested dict
+of arrays) become the port's state dict with :func:`lm_params_from_jax`.
+Nothing here imports ``repro``: the caller converts its arrays with
+``np.asarray``.
 """
 from __future__ import annotations
 
@@ -88,3 +91,50 @@ def graph_batch(batch: Mapping, device="cpu") -> dict:
         raise ValueError(f"graph batch lacks {sorted(missing)}")
     return {k: torch.as_tensor(np.asarray(batch[k]), device=device).to(dt)
             for k, dt in GRAPH_KEYS.items() if k in batch}
+
+
+def _lm_tensor(a) -> torch.Tensor:
+    """float32 as it is; bfloat16 arrives viewed as uint16 (numpy has no
+    bfloat16 of its own) and is viewed back, bit for bit."""
+    a = np.array(a)
+    if a.dtype == np.uint16:
+        return torch.from_numpy(a).view(torch.bfloat16)
+    if a.dtype == np.float32:
+        return torch.from_numpy(a)
+    raise TypeError(f"LM parameters come as float32, or bfloat16 viewed as "
+                    f"uint16; got {a.dtype}")
+
+
+def _flatten(tree: Mapping, prefix: str = ""):
+    for key, val in tree.items():
+        if isinstance(val, Mapping):
+            yield from _flatten(val, f"{prefix}{key}.")
+        else:
+            yield f"{prefix}{key}", val
+
+
+def lm_params_from_jax(params: Mapping) -> dict:
+    """The reference's LM parameters as the port's state dict (for
+    ``repro_torch.models.model.LM.load_state_dict``).
+
+    ``params`` is ``init_params``'s nested dict with numpy leaves: float32
+    arrays, or bfloat16 arrays viewed as ``uint16``.  Each group of
+    ``params["groups"]``, whose arrays stack the group's layers on a
+    leading axis, is unstacked into ``groups.<g>.<i>.<path>`` entries; the
+    rest keeps its key.  The tensors lie on the CPU; ``load_state_dict``
+    copies them to the model's device and dtype."""
+    out = {}
+    for key, val in params.items():
+        if key == "groups":
+            for g, group in enumerate(val):
+                for path, arr in _flatten(group):
+                    t = _lm_tensor(arr)
+                    for i in range(t.shape[0]):
+                        out[f"groups.{g}.{i}.{path}"] = t[i]
+        elif isinstance(val, Mapping) or key == "enc_groups":
+            raise NotImplementedError(
+                f"LM parameters {key!r}: the encoder-decoder family waits "
+                f"for the enc-dec slice (ROADMAP queue 1 item 15e)")
+        else:
+            out[key] = _lm_tensor(val)
+    return out

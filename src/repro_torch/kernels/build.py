@@ -20,15 +20,19 @@ from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (_CSRC / "fw_counts.cu", _CSRC / "fw_counts_tiled.cu",
-           _CSRC / "minplus.cu")
+           _CSRC / "minplus.cu", _CSRC / "flash_attention.cu",
+           _CSRC / "decode_attention.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 LIB_PATH = BUILD_DIR / "libreprotorch_kernels.so"
-# -fmad=false: no multiply-add contraction, so every float op rounds like
-# the plain version's.  Never --use_fast_math (FMA and flush-to-zero).
+# -fmad=false: no multiply-add contraction, so every float op of the FW
+# and min-plus kernels rounds like the plain version's.  The attention
+# kernels ask for their multiply-adds explicitly (fmaf), which the flag
+# leaves alone.  Never --use_fast_math (FMA and flush-to-zero).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas=-v", "-Xcompiler", "-fPIC")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_float)
 # The C entry points: argument types (pointers and the stream as void*).
 # Each returns cudaGetLastError() as an int.
 SIGNATURES = {
@@ -40,7 +44,19 @@ SIGNATURES = {
                             _I, _I, _I, _I, _P],
     # A, B, out, M, N, K, device, stream
     "minplus_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # q, k, v, out, element strides (batch, seq, head) of q, k and v,
+    # B, Sq, Sk, Hq, Hkv, d, dtype code, scale, softcap, causal, window,
+    # pos_offset, device, stream
+    "flash_attention_fwd": [_P, _P, _P, _P, *[_L] * 9, _I, _I, _I, _I, _I,
+                            _I, _I, _F, _F, _I, _I, _I, _I, _P],
+    # q, k cache, v cache, lengths, out, B, S, Hq, Hkv, d, dtype code,
+    # scale, softcap, window, device, stream
+    "decode_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                             _F, _F, _I, _I, _P],
 }
+
+# The dtype codes the attention entry points take.
+DTYPE_CODES = {"float32": 0, "bfloat16": 1}
 
 _lib = None
 _lib_lock = threading.Lock()

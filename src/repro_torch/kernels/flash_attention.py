@@ -1,0 +1,98 @@
+"""Launch the CUDA flash-attention kernel (``csrc/flash_attention.cu``).
+
+:func:`flash_attention` is the wrapper: it checks its inputs, then on CUDA
+tensors launches the kernel on the current stream (raising if the build or
+the launch fails; there is no fallback), and on CPU tensors calls the plain
+version ``ref.attention_ref``.  The kernel reads q, k and v through their
+strides (only the head dim must be contiguous), so the model's
+``[B, S, H, d]`` activations go in without a transpose or a copy.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import build, ref
+
+# The head dims the kernel has template instances for.
+HEAD_DIMS = (16, 32, 64, 128, 256)
+
+# Launches of the kernel (not of the plain version), so a run can show that
+# its main path went through the kernel.
+launches = 0
+
+
+def check_attention_inputs(name: str, tensors: dict, d: int) -> None:
+    """Refuse what the attention kernels do not take: one dtype (float32
+    or bfloat16) and one cuda or cpu device for every operand, a head dim
+    in ``HEAD_DIMS``, and a contiguous last axis."""
+    first = next(iter(tensors.values()))
+    for key, x in tensors.items():
+        if not isinstance(x, torch.Tensor):
+            raise TypeError(f"{name} takes torch.Tensors, got "
+                            f"{type(x).__name__} for {key}")
+        if x.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"{name} takes float32 or bfloat16, got "
+                            f"{x.dtype} for {key}")
+        if x.dtype != first.dtype or x.device != first.device:
+            raise ValueError(f"{name} takes operands of one dtype on one "
+                             f"device, got {x.dtype} on {x.device} for "
+                             f"{key}")
+        if x.stride(-1) != 1:
+            raise ValueError(f"{name} takes a contiguous head dim ({key})")
+    if first.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{name} runs on cuda or cpu, got {first.device}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{name} takes head dims {HEAD_DIMS}, got {d}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int | None = None,
+                    scale: float | None = None,
+                    softcap: float | None = None,
+                    pos_offset: int | None = None) -> torch.Tensor:
+    """GQA attention: q [B, Sq, Hq, d], k and v [B, Sk, Hkv, d] ->
+    [B, Sq, Hq, d] in q's dtype.  Query i sits at ``pos_offset + i``
+    (``Sk - Sq``, end-aligned, by default); see ``ref.attention_ref``."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("flash_attention takes [B, S, H, d] operands, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, Sq, Hq, d = q.shape
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != d:
+        raise ValueError(f"flash_attention: k {tuple(k.shape)} and v "
+                         f"{tuple(v.shape)} do not match q {tuple(q.shape)}")
+    Hkv = k.shape[2]
+    if Hkv == 0 or Hq % Hkv:
+        raise ValueError(f"flash_attention: {Hq} query heads do not group "
+                         f"over {Hkv} KV heads")
+    if softcap is not None and softcap <= 0:
+        raise ValueError(f"flash_attention: softcap must be > 0, got "
+                         f"{softcap}")
+    check_attention_inputs("flash_attention", {"q": q, "k": k, "v": v}, d)
+    if q.device.type == "cpu":
+        return ref.attention_ref(q, k, v, causal=causal, window=window,
+                                 scale=scale, softcap=softcap,
+                                 pos_offset=pos_offset)
+    return _launch(q, k, v, causal, window, scale, softcap, pos_offset)
+
+
+def _launch(q, k, v, causal, window, scale, softcap, pos_offset):
+    global launches
+    B, Sq, Hq, d = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    out = torch.empty(B, Sq, Hq, d, dtype=q.dtype, device=q.device)
+    if out.numel():
+        lib = build.load()
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            B, Sq, Sk, Hq, Hkv, d, build.DTYPE_CODES[str(q.dtype)[6:]],
+            d ** -0.5 if scale is None else scale,
+            0.0 if softcap is None else softcap, int(causal),
+            -1 if window is None else window,
+            Sk - Sq if pos_offset is None else int(pos_offset),
+            q.device.index, stream)
+        build.check_rc(lib, rc, "flash_attention")
+        launches += 1
+    return out

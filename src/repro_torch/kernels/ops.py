@@ -4,11 +4,14 @@ launch), a CPU tensor to the plain PyTorch version."""
 from __future__ import annotations
 
 from . import ref
+from .decode_attention import decode_attention
+from .flash_attention import flash_attention
 from .fw_counts import fw_counts
 from .fw_counts_tiled import fw_counts_tiled
 from .minplus import apsp, minplus
 
 __all__ = ["fw_counts", "fw_counts_tiled", "minplus", "apsp",
+           "flash_attention", "decode_attention",
            "fw_impl_cuda", "fw_impl_ref", "fw_impl_tiled",
            "FW_TILED_FROM_V"]
 

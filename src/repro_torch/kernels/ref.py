@@ -1,7 +1,9 @@
 """Plain PyTorch versions of the port's kernels (the ground truth in tests).
 
-Each function here is the semantic specification its CUDA kernel must
-match bit for bit; on a CPU tensor the kernel wrappers call these.
+Each function here is the semantic specification of its CUDA kernel:
+the FW and min-plus kernels must match it bit for bit, the attention
+kernels to a stated float32 tolerance (they sum in another order).  On a
+CPU tensor the kernel wrappers call these.
 """
 from __future__ import annotations
 
@@ -192,3 +194,80 @@ def apsp_ref(W: torch.Tensor) -> torch.Tensor:
     for _ in range(apsp_squarings(W.shape[-1])):
         D = torch.minimum(D, minplus_ref(D, D))
     return D
+
+
+# ---------------------------------------------------------------------------
+# Attention (prefill and decode).
+# ---------------------------------------------------------------------------
+
+def _softmax_masked(logits: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Softmax over the last axis with masked logits at -inf; a row with
+    nothing left gives zeros (the reference's ``isnan -> 0``)."""
+    p = torch.softmax(logits.masked_fill(~mask, -math.inf), dim=-1)
+    return torch.nan_to_num(p, nan=0.0)
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: int | None = None,
+                  scale: float | None = None, softcap: float | None = None,
+                  pos_offset: int | None = None) -> torch.Tensor:
+    """GQA attention, as ``repro.kernels.ref.attention_ref`` computes it.
+
+    q: [B, Sq, Hq, d]; k, v: [B, Sk, Hkv, d] with Hq % Hkv == 0 (query head
+    h reads KV head h // (Hq / Hkv)).  Query i sits at position
+    ``pos_offset + i`` (end-aligned, ``Sk - Sq``, by default); key j is
+    seen where ``j <= pos`` (causal) and ``j > pos - window`` (window).
+    Float32 math; the output has q's dtype.
+    """
+    calls["attention_ref"] += 1
+    B, Sq, Hq, d = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    g = Hq // Hkv
+    scale = d ** -0.5 if scale is None else scale
+    qh = q.reshape(B, Sq, Hkv, g, d).float()
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qh, k.float()) * scale
+    if softcap is not None:
+        logits = softcap * torch.tanh(logits / softcap)
+    if pos_offset is None:
+        pos_offset = Sk - Sq
+    qpos = torch.arange(Sq, device=q.device) + pos_offset
+    kpos = torch.arange(Sk, device=q.device)
+    mask = torch.ones(Sq, Sk, dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos[None, :] <= qpos[:, None]
+    if window is not None:
+        mask &= kpos[None, :] > qpos[:, None] - window
+    p = _softmax_masked(logits, mask)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    return out.reshape(B, Sq, Hq, d).to(q.dtype)
+
+
+def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                         v_cache: torch.Tensor, lengths: torch.Tensor, *,
+                         scale: float | None = None,
+                         window: int | None = None,
+                         softcap: float | None = None) -> torch.Tensor:
+    """One-token GQA attention over a KV cache, as
+    ``repro.kernels.ref.decode_attention_ref`` computes it.
+
+    q: [B, Hq, d]; caches: [B, S, Hkv, d]; lengths: [B], the valid prefix
+    of each row (the new token, at ``lengths - 1``, already written).  A
+    row of length 0 gives zeros.  Float32 math; the output has q's dtype.
+    """
+    calls["decode_attention_ref"] += 1
+    B, Hq, d = q.shape
+    S, Hkv = k_cache.shape[1], k_cache.shape[2]
+    g = Hq // Hkv
+    scale = d ** -0.5 if scale is None else scale
+    qh = q.reshape(B, Hkv, g, d).float()
+    logits = torch.einsum("bhgd,bkhd->bhgk", qh, k_cache.float()) * scale
+    if softcap is not None:
+        logits = softcap * torch.tanh(logits / softcap)
+    kpos = torch.arange(S, device=q.device)[None]
+    lengths = lengths.to(q.device)[:, None]
+    mask = kpos < lengths
+    if window is not None:
+        mask &= kpos > lengths - 1 - window
+    p = _softmax_masked(logits, mask[:, None, None])
+    out = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
+    return out.reshape(B, Hq, d).to(q.dtype)

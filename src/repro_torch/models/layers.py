@@ -1,0 +1,248 @@
+"""Shared layer primitives: norms, RoPE, GQA attention, SwiGLU MLP.
+
+The port of ``repro.models.layers``.  Parameters live in ``nn.Module``s
+(:class:`Attention`, :class:`MLP`) whose attribute names are the
+reference's dict keys; the math is plain functions on tensors that take
+such a module as ``p``, in the reference's order of operations:
+
+- ``rms_norm`` computes in float32 with the gemma offset ``(1 + w)`` and
+  casts back;
+- ``rope`` is half-split with float32 frequencies and angles;
+- attention goes through ``kernels.ops`` (the CUDA kernels on the card,
+  the plain versions on the CPU).
+
+The reference's ``shard()`` constraints are single-device no-ops here and
+are dropped.  Cross-attention (``xattn*``) waits for the encoder-decoder
+slice (ROADMAP queue 1 item 15e).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..kernels import ops
+from .config import LMConfig
+
+
+def dtype_of(cfg: LMConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def param(t: torch.Tensor) -> nn.Parameter:
+    """A parameter of an inference model (no gradient)."""
+    return nn.Parameter(t, requires_grad=False)
+
+
+def dense_init(gen: torch.Generator | None, d_in: int, d_out: int, dtype,
+               device, scale: float | None = None) -> torch.Tensor:
+    """[d_in, d_out] weights: float32 normals times ``scale`` (default
+    ``d_in ** -0.5``), cast to ``dtype``.  Without a generator the tensor
+    is left unset (shape-only models on the meta device)."""
+    scale = d_in ** -0.5 if scale is None else scale
+    w = torch.empty(d_in, d_out, dtype=torch.float32, device=device)
+    if gen is not None:
+        w.normal_(generator=gen).mul_(scale)
+    return w.to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.float()
+    var = (xf * xf).mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * (1.0 + w.float())).to(x.dtype)
+
+
+def rms_norm_init(d: int, device) -> torch.Tensor:
+    # Stored as an offset from 1.0 (gemma convention): zero init.
+    return torch.zeros(d, dtype=torch.float32, device=device)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: [B, S, H, d]; pos: [B, S] integer absolute positions."""
+    half = x.shape[-1] // 2
+    freq = theta ** (-torch.arange(half, dtype=torch.float32,
+                                   device=x.device) / half)
+    ang = pos[..., None].float() * freq                       # [B, S, half]
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention block (pre-norm residual)
+# ---------------------------------------------------------------------------
+
+class Attention(nn.Module):
+    """The parameters of one GQA attention block (``attn_init``):
+    ``norm``, ``wq``, ``wk``, ``wv``, ``wo``, and ``bq``/``bk``/``bv``
+    (qkv_bias) and ``q_norm``/``k_norm`` (qk_norm) where the config asks.
+    Padded query heads (``pad_heads_to``) get zero ``wq`` columns and
+    ``wo`` rows, which leaves the function unchanged."""
+
+    def __init__(self, cfg: LMConfig, device, gen=None):
+        super().__init__()
+        D, H, Hkv, hd = cfg.d_model, cfg.n_heads_p, cfg.n_kv_heads, cfg.hd
+        dt = dtype_of(cfg)
+        self.norm = param(rms_norm_init(D, device))
+        wq = dense_init(gen, D, H * hd, dt, device)
+        wo = dense_init(gen, H * hd, D, dt, device)
+        if H > cfg.n_heads and gen is not None:
+            real = cfg.n_heads * hd
+            wq[:, real:] = 0
+            wo[real:, :] = 0
+        self.wq = param(wq)
+        self.wk = param(dense_init(gen, D, Hkv * hd, dt, device))
+        self.wv = param(dense_init(gen, D, Hkv * hd, dt, device))
+        self.wo = param(wo)
+        if cfg.qkv_bias:
+            self.bq = param(torch.zeros(H * hd, dtype=dt, device=device))
+            self.bk = param(torch.zeros(Hkv * hd, dtype=dt, device=device))
+            self.bv = param(torch.zeros(Hkv * hd, dtype=dt, device=device))
+        if cfg.qk_norm:
+            self.q_norm = param(rms_norm_init(hd, device))
+            self.k_norm = param(rms_norm_init(hd, device))
+
+
+def qkv(p: Attention, x, cfg: LMConfig, pos):
+    """Projections, qk-norm and RoPE: x [B, S, D] -> q [B, S, H, hd],
+    k and v [B, S, Hkv, hd]."""
+    B, S, _ = x.shape
+    H, Hkv, hd = cfg.n_heads_p, cfg.n_kv_heads, cfg.hd
+    q, k, v = x @ p.wq, x @ p.wk, x @ p.wv
+    if cfg.qkv_bias:
+        q, k, v = q + p.bq, k + p.bk, v + p.bv
+    q = q.reshape(B, S, H, hd)
+    k = k.reshape(B, S, Hkv, hd)
+    v = v.reshape(B, S, Hkv, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p.q_norm, cfg.norm_eps)
+        k = rms_norm(k, p.k_norm, cfg.norm_eps)
+    return rope(q, pos, cfg.rope_theta), rope(k, pos, cfg.rope_theta), v
+
+
+def sdpa_train(q, k, v, cfg: LMConfig, *, window: int | None,
+               causal: bool = True):
+    """Full-sequence attention; with ``cfg.q_chunk`` the queries go in
+    chunks, each attending the full K/V at its own position offset (the
+    reference scans the chunks to bound XLA's live logits; the kernel
+    takes the offset as an argument)."""
+    S, qc = q.shape[1], cfg.q_chunk
+    if not qc or S <= qc:
+        return ops.flash_attention(q, k, v, causal=causal, window=window,
+                                   softcap=cfg.softcap)
+    return torch.cat([
+        ops.flash_attention(q[:, i:i + qc], k, v, causal=causal,
+                            window=window, softcap=cfg.softcap,
+                            pos_offset=i)
+        for i in range(0, S, qc)], dim=1)
+
+
+def attn_train(p: Attention, x, cfg: LMConfig, pos, *,
+               window: int | None = None, causal: bool = True):
+    B, S, _ = x.shape
+    q, k, v = qkv(p, rms_norm(x, p.norm, cfg.norm_eps), cfg, pos)
+    o = sdpa_train(q, k, v, cfg, window=window, causal=causal)
+    return x + o.reshape(B, S, cfg.n_heads_p * cfg.hd) @ p.wo
+
+
+def attn_prefill(p: Attention, x, cfg: LMConfig, pos, *,
+                 window: int | None = None, cache_len: int):
+    """Like train, but also returns the KV cache for decode, zero-padded
+    to ``cache_len`` (a ring of the last ``window`` positions for a
+    windowed layer whose cache is window-sized)."""
+    B, S, _ = x.shape
+    q, k, v = qkv(p, rms_norm(x, p.norm, cfg.norm_eps), cfg, pos)
+    o = sdpa_train(q, k, v, cfg, window=window)
+    o = o.reshape(B, S, cfg.n_heads_p * cfg.hd) @ p.wo
+    if window is None and S > cache_len:
+        raise ValueError(
+            f"prefill length {S} exceeds cache_len {cache_len} "
+            "(only windowed layers may ring-wrap)")
+    kc = k.new_zeros(B, cache_len, cfg.n_kv_heads, cfg.hd)
+    vc = torch.zeros_like(kc)
+    if window is not None and cache_len == window and S > window:
+        # ring order: position p stored at slot p % window
+        slots = torch.arange(S - window, S, device=x.device) % window
+        kc[:, slots] = k[:, -window:]
+        vc[:, slots] = v[:, -window:]
+    else:
+        ins = min(S, cache_len)
+        kc[:, :ins] = k[:, :ins]
+        vc[:, :ins] = v[:, :ins]
+    return x + o, {"k": kc, "v": vc}
+
+
+def _write_position(cache: torch.Tensor, slot: torch.Tensor,
+                    new: torch.Tensor) -> None:
+    """cache[b, slot[b]] = new[b] in place, for the rows whose slot lies
+    inside the cache; a row whose slot is past the end keeps its cache (the
+    reference's one-hot ``where`` matches no position there)."""
+    Sc = cache.shape[1]
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    idx = slot.clamp(max=Sc - 1).long()
+    inside = (slot < Sc)[:, None, None]
+    cache[rows, idx] = torch.where(inside, new, cache[rows, idx])
+
+
+def attn_decode(p: Attention, x, cache: dict, cfg: LMConfig, length, *,
+                window: int | None = None):
+    """x: [B, 1, D]; cache k/v: [B, Sc, Hkv, hd]; length: [B] int32, the
+    tokens so far.  The new token sits at position ``length`` (ring-indexed
+    when the cache is window-sized).  Its K and V are written into the
+    cache in place (the reference's one-hot ``where`` gives the same
+    values; the reference returns a new cache)."""
+    B = x.shape[0]
+    q, k, v = qkv(p, rms_norm(x, p.norm, cfg.norm_eps), cfg, length[:, None])
+    kc, vc = cache["k"], cache["v"]
+    Sc = kc.shape[1]
+    ring = window is not None and Sc == window
+    slot = length % Sc if ring else length
+    _write_position(kc, slot, k[:, 0])
+    _write_position(vc, slot, v[:, 0])
+    o = ops.decode_attention(
+        q[:, 0], kc, vc,
+        (length + 1).clamp(max=Sc) if ring else length + 1,
+        window=None if ring else window, softcap=cfg.softcap)
+    o = o.reshape(B, 1, cfg.n_heads_p * cfg.hd) @ p.wo
+    return x + o
+
+
+def attn_cache_init(cfg: LMConfig, B: int, cache_len: int, device,
+                    window: int | None = None) -> dict:
+    Sc = min(cache_len, window) if window else cache_len
+    shape = (B, Sc, cfg.n_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=dtype_of(cfg), device=device),
+            "v": torch.zeros(shape, dtype=dtype_of(cfg), device=device)}
+
+
+# ---------------------------------------------------------------------------
+# SwiGLU MLP block (pre-norm residual)
+# ---------------------------------------------------------------------------
+
+class MLP(nn.Module):
+    """``norm``, ``w1`` (gate), ``w3`` (up) and ``w2`` (down)."""
+
+    def __init__(self, cfg: LMConfig, device, gen=None,
+                 d_ff: int | None = None):
+        super().__init__()
+        D, Fd = cfg.d_model, d_ff or cfg.d_ff
+        dt = dtype_of(cfg)
+        self.norm = param(rms_norm_init(D, device))
+        self.w1 = param(dense_init(gen, D, Fd, dt, device))
+        self.w3 = param(dense_init(gen, D, Fd, dt, device))
+        self.w2 = param(dense_init(gen, Fd, D, dt, device))
+
+
+def mlp(p: MLP, x, cfg: LMConfig):
+    h = rms_norm(x, p.norm, cfg.norm_eps)
+    return x + (F.silu(h @ p.w1) * (h @ p.w3)) @ p.w2

@@ -4,8 +4,9 @@ Shared by the tests (``tests/test_torch_*.py``) and ``chip_smoke.py``, so
 both check the kernels on the same inputs: random sparse graphs shaped like
 ``tests/test_kernels.py::random_graph``, graphs that are not connected, the
 count-clip layered graph of ``tests/test_properties.py``, real score graphs
-of the homogeneous archs (the paper's and the 100+-chiplet families), and
-min-plus operands with ragged shapes.
+of the homogeneous archs (the paper's and the 100+-chiplet families),
+min-plus operands with ragged shapes, and attention operands (the
+``tests/test_kernels.py`` cases and more).
 """
 from __future__ import annotations
 
@@ -148,4 +149,88 @@ def minplus_cases() -> dict:
     cases["all sums > 1e9, M=40 K=24 N=72"] = (
         lambda: minplus_operands(40, 24, 72, seed=1, scale=1e8,
                                  offset=6e8))
+    return cases
+
+
+def attention_operands(B: int, Sq: int, Sk: int, Hq: int, Hkv: int, d: int,
+                       seed: int = 0) -> tuple:
+    """q [B, Sq, Hq, d], k and v [B, Sk, Hkv, d]: float32 standard
+    normals (cast to bfloat16 by the caller where wanted)."""
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal(s, dtype=np.float32)
+                 for s in ((B, Sq, Hq, d), (B, Sk, Hkv, d), (B, Sk, Hkv, d)))
+
+
+def attention_cases() -> dict:
+    """Named factories of (q, k, v, kwargs) for flash attention: the six
+    cases of ``tests/test_kernels.py::ATTN_CASES`` (causal, GQA,
+    bidirectional, a query chunk with Sq < Sk, a window, a soft-cap), then
+    the head dims 64, 128 (qwen3's grouping) and 256 with ragged tiles, an
+    explicit query offset, more queries than keys (rows that see nothing),
+    and a bidirectional window."""
+    specs = [
+        (dict(B=1, Sq=16, Sk=16, Hq=4, Hkv=4, d=16), dict(causal=True)),
+        (dict(B=2, Sq=24, Sk=24, Hq=4, Hkv=2, d=32), dict(causal=True)),
+        (dict(B=2, Sq=24, Sk=24, Hq=6, Hkv=2, d=16), dict(causal=False)),
+        (dict(B=1, Sq=8, Sk=32, Hq=4, Hkv=1, d=16), dict(causal=True)),
+        (dict(B=1, Sq=32, Sk=32, Hq=2, Hkv=2, d=16),
+         dict(causal=True, window=7)),
+        (dict(B=1, Sq=16, Sk=16, Hq=4, Hkv=4, d=16),
+         dict(causal=True, softcap=8.0)),
+        (dict(B=1, Sq=80, Sk=80, Hq=8, Hkv=2, d=64), dict(causal=True)),
+        (dict(B=2, Sq=130, Sk=130, Hq=4, Hkv=2, d=128), dict(causal=True)),
+        (dict(B=1, Sq=70, Sk=70, Hq=2, Hkv=1, d=256),
+         dict(causal=True, window=33, softcap=30.0)),
+        (dict(B=1, Sq=16, Sk=100, Hq=4, Hkv=2, d=32),
+         dict(causal=True, pos_offset=40)),
+        (dict(B=1, Sq=40, Sk=24, Hq=2, Hkv=1, d=32), dict(causal=True)),
+        (dict(B=1, Sq=33, Sk=33, Hq=2, Hkv=2, d=16),
+         dict(causal=False, window=5)),
+    ]
+    cases = {}
+    for i, (shape, kw) in enumerate(specs):
+        name = " ".join(f"{k}={v}" for k, v in {**shape, **kw}.items())
+        cases[name] = (lambda shape=shape, kw=kw, i=i:
+                       (*attention_operands(**shape, seed=i), dict(kw)))
+    return cases
+
+
+def decode_operands(B: int, S: int, Hq: int, Hkv: int, d: int,
+                    lengths, seed: int = 0) -> tuple:
+    """q [B, Hq, d], caches [B, S, Hkv, d] (float32 standard normals) and
+    lengths [B] int32."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, Hq, d), dtype=np.float32)
+    kc = rng.standard_normal((B, S, Hkv, d), dtype=np.float32)
+    vc = rng.standard_normal((B, S, Hkv, d), dtype=np.float32)
+    return q, kc, vc, np.asarray(lengths, np.int32)
+
+
+def decode_cases() -> dict:
+    """Named factories of (q, k_cache, v_cache, lengths, kwargs) for
+    flash-decode: the three cases of
+    ``tests/test_kernels.py::test_decode_attention`` (B = 3, lengths
+    S, S // 2 and 1), ragged lengths with 0 and 1, a window, a soft-cap at
+    qwen3's grouping and head dim, head dim 256 with 8 query rows per KV
+    head, and 16 query rows per KV head (two row chunks in the kernel)."""
+    specs = [
+        (dict(S=33, Hq=4, Hkv=2, d=16), None, {}),
+        (dict(S=64, Hq=8, Hkv=8, d=32), None, {}),
+        (dict(S=40, Hq=4, Hkv=1, d=16), None, dict(window=9)),
+        (dict(S=40, Hq=8, Hkv=2, d=32), [0, 1, 17, 40], {}),
+        (dict(S=64, Hq=4, Hkv=2, d=64), [64, 5, 30], dict(window=9)),
+        (dict(S=50, Hq=16, Hkv=8, d=128), [50, 1, 37], dict(softcap=5.0)),
+        (dict(S=70, Hq=8, Hkv=1, d=256), [70, 21, 0],
+         dict(window=20, softcap=30.0)),
+        (dict(S=45, Hq=16, Hkv=1, d=16), [45, 44, 3], {}),
+    ]
+    cases = {}
+    for i, (shape, lens, kw) in enumerate(specs):
+        S = shape["S"]
+        lens = [S, S // 2, 1] if lens is None else lens
+        name = " ".join(f"{k}={v}" for k, v in {**shape, **kw}.items())
+        name += f" lengths={lens}"
+        cases[name] = (lambda shape=shape, lens=lens, kw=kw, i=i:
+                       (*decode_operands(len(lens), **shape, lengths=lens,
+                                         seed=100 + i), dict(kw)))
     return cases

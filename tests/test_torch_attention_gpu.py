@@ -1,0 +1,129 @@
+"""The attention kernels and the LM serving path on the card.
+
+The flash-attention kernel on every case of
+``repro_torch.testing.attention_cases`` and the flash-decode kernel on
+every case of ``testing.decode_cases``, in float32 and bfloat16, against
+their plain versions on the card, with one launch counted per call and
+the JAX tests' tolerances (flash 2e-5, decode 3e-5 in float32; 2e-2 in
+bfloat16).  Then a reduced qwen3-1.7b prefill and three decode steps on
+the card against the same model on the CPU (float32: rtol = atol = 2e-4,
+the CPU parity tests' tolerance; the card sums in other orders), going
+through the kernels only.  Skips without a card; run it on the H100 with
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_attention_gpu.py
+"""
+import numpy as np
+import pytest
+import torch
+from numpy.testing import assert_allclose
+
+from repro_torch import testing
+from repro_torch.configs import get_config
+from repro_torch.kernels import decode_attention as tda
+from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import ops
+from repro_torch.kernels import ref as tref
+from repro_torch.models.model import LM
+
+pytestmark = pytest.mark.gpu
+
+ATTN = testing.attention_cases()
+DECODE = testing.decode_cases()
+DTYPES = ("float32", "bfloat16")
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+DECODE_TOL = {"float32": 3e-5, "bfloat16": 2e-2}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    # The plain versions' float32 products must not run in TF32.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _on(x, dtype, dev):
+    return torch.from_numpy(x).to(dev).to(getattr(torch, dtype))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("name", list(ATTN))
+def test_flash_kernel_matches_plain(cuda, name, dtype):
+    q, k, v, kw = ATTN[name]()
+    q, k, v = (_on(x, dtype, cuda) for x in (q, k, v))
+    launches = tfa.launches
+    got = tfa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert tfa.launches == launches + 1
+    want = tref.attention_ref(q, k, v, **kw)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    tol = FLASH_TOL[dtype]
+    assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                    rtol=tol, atol=tol, err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("name", list(DECODE))
+def test_decode_kernel_matches_plain(cuda, name, dtype):
+    q, kc, vc, lens, kw = DECODE[name]()
+    q, kc, vc = (_on(x, dtype, cuda) for x in (q, kc, vc))
+    lens = torch.from_numpy(lens).to(cuda)
+    launches = tda.launches
+    got = tda.decode_attention(q, kc, vc, lens, **kw)
+    torch.cuda.synchronize()
+    assert tda.launches == launches + 1
+    want = tref.decode_attention_ref(q, kc, vc, lens, **kw)
+    tol = DECODE_TOL[dtype]
+    assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                    rtol=tol, atol=tol, err_msg=name)
+
+
+def test_flash_kernel_reads_strided_queries(cuda):
+    q, k, v, kw = ATTN["B=1 Sq=16 Sk=100 Hq=4 Hkv=2 d=32 causal=True "
+                       "pos_offset=40"]()
+    q, k, v = (torch.from_numpy(x).to(cuda) for x in (q, k, v))
+    wide = torch.cat([torch.zeros_like(q), q], 2)[:, :, 4:]
+    assert not wide.is_contiguous()
+    assert torch.equal(ops.flash_attention(wide, k, v, **kw),
+                       ops.flash_attention(q, k, v, **kw))
+
+
+def test_decode_kernel_refuses_misaligned_cache(cuda):
+    q = torch.zeros(1, 4, 32, device=cuda)
+    kc = torch.zeros(1 * 8 * 2 * 32 + 1, device=cuda)[1:].view(1, 8, 2, 32)
+    with pytest.raises(ValueError):
+        ops.decode_attention(q, kc, kc, torch.ones(1, dtype=torch.int32,
+                                                   device=cuda))
+
+
+def test_reduced_model_on_card_matches_cpu(cuda):
+    cfg = get_config("qwen3-1.7b").reduced(n_layers=2)
+    cpu = LM(cfg, "cpu", torch.Generator().manual_seed(0))
+    card = LM(cfg, cuda)
+    card.load_state_dict(cpu.state_dict())
+    toks = np.random.default_rng(0).integers(3, cfg.vocab, size=(2, 12))
+    batches = {d: {"tokens": torch.as_tensor(toks).long().to(d)}
+               for d in ("cpu", cuda)}
+    flash, decode = tfa.launches, tda.launches
+    tref.calls.clear()
+    (lc, cc), (lg, cg) = (m.prefill(batches[d], 32)
+                          for d, m in (("cpu", cpu), (cuda, card)))
+    assert_allclose(lg.cpu().numpy(), lc.numpy(), rtol=2e-4, atol=2e-4)
+    lens = np.array([12, 9], np.int32)
+    nxt = lc.argmax(-1)[:, None]
+    for _ in range(3):
+        step = {d: {"tokens": nxt.to(d),
+                    "lengths": torch.as_tensor(lens).to(d)}
+                for d in ("cpu", cuda)}
+        lc = cpu.decode_step(step["cpu"], cc)
+        lg = card.decode_step(step[cuda], cg)
+        assert_allclose(lg.cpu().numpy(), lc.numpy(), rtol=2e-4, atol=2e-4)
+        nxt = lc.argmax(-1)[:, None]
+        lens = lens + 1
+    assert tfa.launches - flash == cfg.n_layers
+    assert tda.launches - decode == 3 * cfg.n_layers
+    # The CPU model took the plain versions, the card's none.
+    assert tref.calls["attention_ref"] == cfg.n_layers
+    assert tref.calls["decode_attention_ref"] == 3 * cfg.n_layers

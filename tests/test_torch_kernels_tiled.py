@@ -192,9 +192,11 @@ def test_build_command_lists_every_source():
     # The flags of each compile are held by test_torch_kernels.py.
     compiles, _ = build.build_commands()
     names = [s.name for s in build.SOURCES]
-    assert names == ["fw_counts.cu", "fw_counts_tiled.cu", "minplus.cu"]
+    assert names == ["fw_counts.cu", "fw_counts_tiled.cu", "minplus.cu",
+                     "flash_attention.cu", "decode_attention.cu"]
     assert [c[-1] for c in compiles] == [str(s) for s in build.SOURCES]
     assert set(build.SIGNATURES) == {"fw_counts_f32", "fw_counts_tiled_f32",
-                                     "minplus_f32"}
+                                     "minplus_f32", "flash_attention_fwd",
+                                     "decode_attention_fwd"}
     for name in build.SIGNATURES:
         assert any(f"int {name}(" in s.read_text() for s in build.SOURCES)
