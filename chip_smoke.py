@@ -20,7 +20,10 @@ Phases (any failure exits non-zero; nothing is caught):
    (flash 2e-5, decode 3e-5 in float32, both 2e-2 in bfloat16) on
    ``testing.attention_cases`` / ``decode_cases`` in both dtypes, and at
    the full qwen3-1.7b shapes in bfloat16 to a limit scaled to the
-   outputs (two bfloat16 ulps of each entry plus 1e-5, ``FULL_LIMIT``);
+   outputs (two bfloat16 ulps of each entry plus 1e-5, ``FULL_LIMIT``).
+   The scan kernels (selective scan, RG-LRU) on ``testing.scan_cases`` in
+   both dtypes (3e-5 in float32, 2e-2 in bfloat16, final states 3e-5), and
+   a sequence split across two calls bit for bit equal to one call;
 4. timing — each kernel (CUDA events, median over launches after warm-up)
    at the main path's shapes, beside its bound and the plain version; the
    FW kernel and the blocked FW kernel side by side at every (B, V) the
@@ -28,45 +31,63 @@ Phases (any failure exits non-zero; nothing is caught):
    measurement behind ``ops.FW_TILED_FROM_V``).  Every timed output is
    held bit for bit against the plain version's output on the same input,
    so the kernels are also checked at the main path's full shapes
-   (min-plus at 1536^3, APSP at V = 1536).  The attention kernels at
-   qwen3-1.7b's shapes in bfloat16 (flash: B = 1, Sq = Sk in {512, 2048},
-   causal; decode: B = 8, S = 4096, every length 4096 and lengths drawn
-   from the seed), each beside its plain version, its bound and one
+   (min-plus at 1536^3, APSP at V = 1536).  The attention kernels at the
+   serve runs' shapes in bfloat16, causal: qwen3-1.7b's (flash: B = 1,
+   Sq = Sk in {512, 2048}; decode: B = 8 over a 4096-token cache) and
+   recurrentgemma-9b's (16 query heads on 1 KV head, head dim 256; flash
+   with its 2048-token window at Sq = Sk in {2048, 3072}; decode: B = 8
+   over its 2048-slot ring), decode at every length full and at lengths
+   drawn from the seed, each beside its plain version, its bound and one
    PyTorch call that computes the same function
    (``scaled_dot_product_attention``, timed for comparison only; the port
    never calls it), every output held to ``FULL_LIMIT`` against the plain
-   version;
-5. main path — each path driven through ``run_experiment`` and
-   ``baseline_cost`` on the card, with every kernel's launch count and
-   every plain version's call count set to 0 just before each run and read
-   just after:
+   version.  The scan kernels at the serve runs' prefill shapes (B = 1,
+   S in {512, 2048}; falcon-mamba-7b's Di = 8192, N = 16 with x in
+   bfloat16 and dt in float32; recurrentgemma-9b's D = 4096 in bfloat16),
+   beside the plain versions and their bounds (no PyTorch call computes a
+   scan), outputs held to ``FULL_LIMIT`` and final states to 3e-5;
+5. main path — each path driven through its entry points on the card,
+   with every kernel's launch count and every plain version's call count
+   set to 0 just before each run and read just after:
    - slice 1, backend "fw-cuda": the quickstart experiment (homog32
-     baseline, GA) and homog64 placeit (GA at paper defaults);
+     baseline, GA) and homog64 placeit (GA at paper defaults), through
+     ``run_experiment`` and ``baseline_cost``;
    - slice 2, backend "fw-tiled": homog256 placeit (V = 1536) and hex127
      baseline (V = 702), GA at the large families' defaults;
    - ``ops.apsp`` on the homog256 winner's score graph (min-plus kernel);
    the homog32 and homog256 winners are re-scored with the plain FW, and
    the APSP distances must equal the plain FW's;
-   - slice 3, the LM serving path: qwen3-1.7b at full width (28 layers,
-     d_model 2048, bfloat16, weights from a ``torch.Generator`` seeded 0
-     on the card) through ``ServeEngine`` (8 slots, cache 4096, no EOS):
-     16 requests with prompts of 256 to 2048 tokens drawn from the seed,
-     64 tokens each.  It prints wall time, prefill and decode tokens/s,
-     the median time to first token, ticks, and the attention kernels'
-     launches (28 per prefill, 28 per tick; no plain call); then the
-     decode step's logits for request 0's second token against a
-     re-prefill of (prompt + first token);
+   - slices 3 and 4, the LM serving paths, each model at full width
+     (bfloat16, weights from a ``torch.Generator`` seeded 0 on the card)
+     through ``ServeEngine`` (8 slots, cache 4096, no EOS; 16 requests of
+     64 tokens, prompts drawn from seed 0), one model at a time:
+     qwen3-1.7b (prompts 256-2048 tokens; 28 flash launches per prefill,
+     28 decode launches per tick), falcon-mamba-7b (256-2048; 64
+     selective-scan launches per prefill) and recurrentgemma-9b (256-3072,
+     past its 2048-token window; 26 RG-LRU and 12 flash launches per
+     prefill, 12 decode launches per tick); no plain call.  Each prints
+     wall time, prefill and decode tokens/s, the median time to first
+     token, ticks, launches and peak memory, then the decode step's logits
+     for request 0's second token against a re-prefill of (prompt + first
+     token).  For the recurrent models the same check with the prefill's
+     recurrent states zeroed must fail, so that it holds the scans' final
+     states' hand-off to the decode step; recurrentgemma-9b is held with
+     its RG-LRU Lambda negated, where the states carry (as initialised
+     they barely do);
 6. profile — ``torch.profiler`` over one blocked FW call at homog256
    (device time by kernel) and one homog256 placeit run (device busy
-   share); one qwen3-1.7b prefill of 1024 tokens and 8 decode ticks of
-   the 8-slot pool (device busy share, time by kernel).
+   share); for each served model, after its run, one prefill of 1024
+   tokens and 8 decode ticks of the 8-slot pool (device busy share, time
+   by kernel).
 
 The second-to-last line is a JSON object listing the kernels; the last is
 ``{"ok": true, "device": {...}}``.  There is no CPU mode.
 """
 from __future__ import annotations
 
+import gc
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -97,7 +118,12 @@ from repro_torch.kernels import fw_counts_tiled as fwt  # noqa: E402
 from repro_torch.kernels import minplus as mp  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref as plain  # noqa: E402
+from repro_torch.kernels import rglru_scan as trg  # noqa: E402
+from repro_torch.kernels import selective_scan as tss  # noqa: E402
 from repro_torch.models.model import LM  # noqa: E402
+from repro_torch.models.rglru import RGLRU  # noqa: E402
+from repro_torch.models.transformer import leaf_kinds  # noqa: E402
+from repro_torch.models.tree import tree_map  # noqa: E402
 from repro_torch.serve.engine import (EngineConfig, Request,  # noqa: E402
                                       ServeEngine)
 
@@ -113,7 +139,8 @@ TIMED = ((16, "homog32", "baseline"), (16, "homog64", "placeit"))
 # Random graphs below the paper's sizes, to place the dispatch point.
 TIMED_SMALL_V = (40, 96, 130, 160, 192)
 KERNELS = {"fw_counts": fwc, "fw_counts_tiled": fwt, "minplus": mp,
-           "flash_attention": tfa, "decode_attention": tda}
+           "flash_attention": tfa, "decode_attention": tda,
+           "selective_scan": tss, "rglru_scan": trg}
 # Attention tolerances (the JAX kernel tests'), by kernel and dtype.
 ATTN_TOL = {"flash_attention": {"float32": 2e-5, "bfloat16": 2e-2},
             "decode_attention": {"float32": 3e-5, "bfloat16": 2e-2}}
@@ -417,25 +444,44 @@ def attention_parity_phase(dev, worst: dict) -> None:
               f"{worst['decode_attention']:.3g})")
 
 
-# qwen3-1.7b's attention: 16 query heads on 8 KV heads, head dim 128.
-QWEN3_HEADS = dict(Hq=16, Hkv=8, d=128)
-# The limit at those shapes, scaled to the outputs.  There an output row
-# averages hundreds to thousands of V rows (decode at S = 4096: RMS about
-# 0.026), so the cases' fixed 2e-2 would pass a kernel that drops a tail
-# tile.  Kernel and plain version compute in float32 from the same
-# bfloat16 inputs and round once to bfloat16, so an entry may differ by
-# one bfloat16 ulp, at most 2^-7 of its size; the limit allows two ulps,
-# plus 1e-5 for outputs near 0 (float32 sums of terms below 4 differ by
-# well under 1e-6).  Measured on the H100: flash 1.95e-3 at S = 2048
-# (one ulp of an output in [0.25, 0.5)), decode 3.05e-5.
+# The limit at the serve runs' shapes, scaled to the outputs.  There an
+# output row averages hundreds to thousands of V rows (decode at S = 4096:
+# RMS about 0.026), so the cases' fixed 2e-2 would pass a kernel that
+# drops a tail tile.  Kernel and plain version compute in float32 from the
+# same bfloat16 inputs and round once to bfloat16, so an entry may differ
+# by one bfloat16 ulp, at most 2^-7 of its size; the limit allows two
+# ulps, plus 1e-5 for outputs near 0 (float32 sums of terms below 4
+# differ by well under 1e-6).  Measured on the H100 at qwen3-1.7b's
+# shapes: flash 1.95e-3 at S = 2048 (one ulp of an output in
+# [0.25, 0.5)), decode 3.05e-5.
 FULL_RTOL, FULL_ATOL = 2.0 ** -6, 1e-5
 FULL_LIMIT = f"|kernel - plain| <= {FULL_ATOL:g} + {FULL_RTOL:g} |plain|"
-FLASH_TIMED_S = (512, 2048)
-DECODE_TIMED = dict(B=8, S=4096)
+# The attention shapes of the serve runs, in bfloat16: each model's heads
+# and window from its config, flash at B = 1 (prefill takes one request
+# at a time) and two prompt lengths, decode at the 8-slot pool over the
+# cache as the model hands it over.  qwen3-1.7b: 16 query heads on 8 KV
+# heads, head dim 128, a 4096-token cache.  recurrentgemma-9b's local
+# attention: 16 query heads on 1 KV head, head dim 256, a 2048-token
+# window; its prompts reach 3072 tokens, and its decode cache is a
+# 2048-slot ring that the model passes with lengths clamped to 2048 and no
+# window (``layers.attn_decode``).
+ATTN_TIMED = (("qwen3-1.7b", (512, 2048)),
+              ("recurrentgemma-9b", (2048, 3072)))
+SERVE_ATTN = " and ".join(arch for arch, _ in ATTN_TIMED)
 
 
-def flash_bound_ms(B, Sq, Sk, Hq, Hkv, d, causal=True, itemsize=2):
-    pairs = Sq * Sk / 2 if causal else Sq * Sk
+def attention_shapes(arch: str) -> tuple[dict, int | None, int]:
+    """(heads, flash window, decode cache length) of an arch's serve run."""
+    cfg = get_config(arch)
+    heads = dict(Hq=cfg.n_heads, Hkv=cfg.n_kv_heads, d=cfg.hd)
+    window = cfg.window or None
+    cache = SERVE_ENGINE.cache_len
+    return heads, window, min(cache, window) if window else cache
+
+
+def flash_bound_ms(B, Sq, Sk, Hq, Hkv, d, window=None, itemsize=2):
+    """Causal, Sq = Sk: query i attends min(i + 1, window) keys."""
+    pairs = int(np.minimum(np.arange(1, Sq + 1), window or Sq).sum())
     return _bound(4 * B * Hq * d * pairs,
                   itemsize * d * (2 * B * Sq * Hq + 2 * B * Sk * Hkv),
                   PEAK_BF16_OPS)
@@ -449,104 +495,310 @@ def decode_bound_ms(B, Hq, Hkv, d, lengths, itemsize=2):
                   PEAK_BF16_OPS)
 
 
+def _attn_row(t: dict, out: dict, what: str, bound: tuple) -> dict:
+    """Holds a timed output to ``FULL_LIMIT`` and completes its row."""
+    err, share = _require_close(f"timed {what} vs plain", what,
+                                out["kernel"], out["plain"], FULL_RTOL,
+                                FULL_ATOL)
+    t["bound"], t["bound_by"] = bound
+    t["max_abs_err"], t["limit_share"] = err, share
+    t["max_abs_out"] = float(out["plain"].float().abs().max())
+    return t
+
+
+def _attn_line(t: dict) -> str:
+    return (f"kernel {t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, sdpa "
+            f"{t['library']:.4f} ms, bound {t['bound']:.4f} ms "
+            f"({t['bound_by']}), {t['bound'] / t['kernel']:.4f} of bound; "
+            f"max abs err vs plain {t['max_abs_err']:.3g} (max |out| "
+            f"{t['max_abs_out']:.3g}; {t['limit_share']:.3f} of the limit)")
+
+
 def attention_timing_phase(dev, worst: dict) -> dict:
-    """Times the attention kernels at qwen3-1.7b's shapes in bfloat16;
+    """Times the attention kernels at the serve runs' shapes in bfloat16;
     every timed output is held to ``FULL_LIMIT`` against the plain
     version's."""
     F = torch.nn.functional
     rows = {}
-    phase(f"timing: flash_attention at qwen3-1.7b prefill shapes (bf16, "
-          f"causal; outputs {FULL_LIMIT})")
-    for S in FLASH_TIMED_S:
-        shape = dict(B=1, Sq=S, Sk=S, **QWEN3_HEADS)
-        q, k, v = _on_card(testing.attention_operands(**shape, seed=S),
-                             dev)
-        t, out = _median_ms({
-            "kernel": lambda: tfa.flash_attention(q, k, v),
-            "plain": lambda: plain.attention_ref(q, k, v),
-            "library": lambda: F.scaled_dot_product_attention(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                is_causal=True, enable_gqa=True)}, reps=10, warmup=2)
-        err, share = _require_close("timed flash_attention vs plain",
-                                    f"S={S}", out["kernel"], out["plain"],
-                                    FULL_RTOL, FULL_ATOL)
-        worst["flash_attention"] = max(worst["flash_attention"], err)
-        t["bound"], t["bound_by"] = flash_bound_ms(**shape)
-        t["max_abs_err"], t["limit_share"] = err, share
-        t["max_abs_out"] = float(out["plain"].float().abs().max())
-        rows[f"flash S={S}"] = t
-        print(f"  B=1 Sq=Sk={S:5d}: kernel {t['kernel']:.4f} ms, plain "
-              f"{t['plain']:.4f} ms, sdpa {t['library']:.4f} ms, bound "
-              f"{t['bound']:.4f} ms ({t['bound_by']}), "
-              f"{t['bound'] / t['kernel']:.4f} of bound; max abs err vs "
-              f"plain {err:.3g} (max |out| {t['max_abs_out']:.3g}; "
-              f"{share:.3f} of the limit)")
+    for arch, flash_S in ATTN_TIMED:
+        heads, window, cache = attention_shapes(arch)
+        phase(f"timing: flash_attention at {arch} prefill shapes (bf16, "
+              f"causal, window {window}; outputs {FULL_LIMIT})")
+        for S in flash_S:
+            shape = dict(B=1, Sq=S, Sk=S, **heads)
+            q, k, v = _on_card(testing.attention_operands(**shape, seed=S),
+                               dev)
+            pos = torch.arange(S, device=dev)
+            mask = pos[None] <= pos[:, None]
+            if window:
+                mask &= pos[None] > pos[:, None] - window
+            t, out = _median_ms({
+                "kernel": lambda: tfa.flash_attention(q, k, v, window=window),
+                "plain": lambda: plain.attention_ref(q, k, v, window=window),
+                "library": lambda: F.scaled_dot_product_attention(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    attn_mask=mask, enable_gqa=True)}, reps=10, warmup=2)
+            t = _attn_row(t, out, f"flash_attention {arch} S={S}",
+                          flash_bound_ms(**shape, window=window))
+            worst["flash_attention"] = max(worst["flash_attention"],
+                                           t["max_abs_err"])
+            rows[f"flash {arch} S={S}"] = t
+            print(f"  B=1 Sq=Sk={S:5d} {heads}: {_attn_line(t)}")
 
-    phase(f"timing: decode_attention at the serve run's decode shape (bf16; "
-          f"outputs {FULL_LIMIT})")
-    B, S = DECODE_TIMED["B"], DECODE_TIMED["S"]
-    rng = np.random.default_rng(0)
-    for label, lens in ((f"every length {S}", np.full(B, S)),
-                        ("lengths from the seed",
-                         rng.integers(1, S + 1, size=B))):
-        q, kc, vc, lens_np = testing.decode_operands(
-            B, S, **QWEN3_HEADS, lengths=lens, seed=1)
-        q, kc, vc = _on_card((q, kc, vc), dev)
-        lens = torch.from_numpy(lens_np).to(dev)
-        mask = (torch.arange(S, device=dev)[None] < lens[:, None])
-        t, out = _median_ms({
-            "kernel": lambda: tda.decode_attention(q, kc, vc, lens),
-            "plain": lambda: plain.decode_attention_ref(q, kc, vc, lens),
-            "library": lambda: F.scaled_dot_product_attention(
-                q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2),
-                attn_mask=mask[:, None, None], enable_gqa=True)},
-            reps=20, warmup=2)
-        err, share = _require_close("timed decode_attention vs plain",
-                                    label, out["kernel"], out["plain"],
-                                    FULL_RTOL, FULL_ATOL)
-        worst["decode_attention"] = max(worst["decode_attention"], err)
-        t["bound"], t["bound_by"] = decode_bound_ms(B, **QWEN3_HEADS,
-                                                    lengths=lens_np)
-        t["max_abs_err"], t["limit_share"] = err, share
-        t["max_abs_out"] = float(out["plain"].float().abs().max())
-        rows[f"decode {label}"] = t
-        print(f"  B={B} S={S} ({label}, {int(lens_np.sum())} valid rows): "
-              f"kernel {t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, "
-              f"sdpa {t['library']:.4f} ms, bound {t['bound']:.4f} ms "
-              f"({t['bound_by']}), {t['bound'] / t['kernel']:.4f} of bound; "
-              f"max abs err vs plain {err:.3g} (max |out| "
-              f"{t['max_abs_out']:.3g}; {share:.3f} of the limit)")
+        B = SERVE_ENGINE.n_slots
+        phase(f"timing: decode_attention at {arch}'s decode shape (bf16, "
+              f"B={B}, cache {cache}; outputs {FULL_LIMIT})")
+        rng = np.random.default_rng(0)
+        for label, lens in ((f"every length {cache}", np.full(B, cache)),
+                            ("lengths from the seed",
+                             rng.integers(1, cache + 1, size=B))):
+            q, kc, vc, lens_np = testing.decode_operands(
+                B, cache, **heads, lengths=lens, seed=1)
+            q, kc, vc = _on_card((q, kc, vc), dev)
+            lens = torch.from_numpy(lens_np).to(dev)
+            mask = torch.arange(cache, device=dev)[None] < lens[:, None]
+            t, out = _median_ms({
+                "kernel": lambda: tda.decode_attention(q, kc, vc, lens),
+                "plain": lambda: plain.decode_attention_ref(q, kc, vc, lens),
+                "library": lambda: F.scaled_dot_product_attention(
+                    q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2),
+                    attn_mask=mask[:, None, None], enable_gqa=True)},
+                reps=20, warmup=2)
+            t = _attn_row(t, out, f"decode_attention {arch} {label}",
+                          decode_bound_ms(B, **heads, lengths=lens_np))
+            worst["decode_attention"] = max(worst["decode_attention"],
+                                            t["max_abs_err"])
+            rows[f"decode {arch} {label}"] = t
+            print(f"  B={B} S={cache} ({label}, {int(lens_np.sum())} valid "
+                  f"rows): {_attn_line(t)}")
     return rows
 
 
-# -- the LM serving path (slice 3) -----------------------------------------
+# -- the scans (slice 4) ----------------------------------------------------
 
-SERVE_ARCH = "qwen3-1.7b"
+# The scan kernels' tolerances on ``testing.scan_cases``: float32 the JAX
+# tests' 3e-5 (fused multiply-adds, another order over the states);
+# bfloat16 outputs 2e-2, as the attention cases (kernel and plain version
+# sum in float32 and round once).  The float32 final states 3e-5 in both.
+SCAN_TOL = {"float32": 3e-5, "bfloat16": 2e-2}
+STATE_TOL = 3e-5
+# The serve runs' prefill shapes at full width, B = 1: falcon-mamba-7b's
+# d_inner 8192 with N = 16 (x and y in bfloat16, dt and the rest float32,
+# as models/ssm.py hands them over) and recurrentgemma-9b's d_rnn 4096
+# (x, a and h in bfloat16).
+SCAN_TIMED_S = (512, 2048)
+SSCAN_FULL = dict(Di=8192, N=16)
+RGLRU_FULL = dict(D=4096)
+# The SMs' special-function units issue 16 results a clock each (exp2,
+# rsqrt); the scans need one such a step and state (exp) or channel
+# (sqrt).
+SFU_PER_CLOCK_PER_SM = 16
+
+
+def sfu_rate(dev) -> float:
+    """Special-function results a second: 16 a clock on each of the card's
+    SMs at its highest SM clock, from nvidia-smi (the bound takes the
+    fastest the units can run)."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True)
+    clock_hz = float(smi.stdout.split()[0]) * 1e6
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return SFU_PER_CLOCK_PER_SM * sms * clock_hz
+
+
+def scan_bound_ms(flops: float, sfu_ops: float, bytes_n: float,
+                  sfu_per_s: float) -> tuple[float, str]:
+    """The larger of bytes over the memory rate, float32 operations over
+    the float32 peak, and special-function operations over the SFUs'
+    rate; both of the latter are "operations"."""
+    ops_s = max(flops / PEAK_F32_OPS, sfu_ops / sfu_per_s)
+    bytes_s = bytes_n / PEAK_BYTES
+    return (1e3 * max(ops_s, bytes_s),
+            "operations" if ops_s >= bytes_s else "bytes")
+
+
+def sscan_bound_ms(B, S, Di, N, x_item, dt_item, sfu_per_s):
+    """Per (step, channel): dt * x and D * x + the sum (3), and per state
+    dt * A, dtx * B, the update's and the sum's multiply-adds (6 float
+    operations) and one exp.  x, dt, A, B, C, D and h0 read once; y and
+    h_final written once."""
+    return scan_bound_ms(
+        B * S * Di * (3 + 6 * N), B * S * Di * N,
+        B * S * Di * (2 * x_item + dt_item) + 4 * (Di * N + 2 * B * S * N
+                                                   + Di + 2 * B * Di * N),
+        sfu_per_s)
+
+
+def rglru_bound_ms(B, S, D, item, sfu_per_s):
+    """Per (step, channel): a * a, 1 - that, the max, the product with x
+    and the multiply-add (6 float operations) and one square root.  x and
+    a read once, every h written once, h0 read and h_final written."""
+    return scan_bound_ms(B * S * D * 6, B * S * D,
+                         B * S * D * 3 * item + 2 * 4 * B * D, sfu_per_s)
+
+
+# Each scan's wrapper and plain version.
+SCAN_FNS = {"selective_scan": (ops.selective_scan, plain.selective_scan_ref),
+            "rglru_scan": (ops.rglru_scan, plain.rglru_ref)}
+
+
+def _scan_call(kernel: str, args):
+    """(kernel output, plain output) of one scan on the same operands."""
+    fn, ref_fn = SCAN_FNS[kernel]
+    return fn(*args), ref_fn(*args)
+
+
+def scan_parity_phase(dev, worst: dict) -> None:
+    phase("parity: selective_scan and rglru_scan kernels vs plain versions "
+          "(allclose: 3e-5 in float32, 2e-2 in bfloat16; final states 3e-5; "
+          "a sequence split across two calls equals one call)")
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        for name, make in testing.scan_cases().items():
+            kernel = "selective_scan" if name.startswith("selective") else \
+                "rglru_scan"
+            args = [None if a is None else torch.from_numpy(a).to(dev)
+                    for a in make()]
+            args[0], args[1] = args[0].to(dt), args[1].to(dt)
+            (y, h), (yw, hw) = _scan_call(kernel, args)
+            err_y, _ = _require_close(f"{kernel} vs plain", name, y, yw,
+                                      SCAN_TOL[dtype])
+            err_h, _ = _require_close(f"{kernel} final state vs plain",
+                                      name, h, hw, STATE_TOL)
+            worst[kernel] = max(worst[kernel], err_y, err_h)
+            if "S=130" in name:
+                # The same sequence in two calls, the state carried over.
+                cut = 45
+                seq = (0, 1, 3, 4) if kernel == "selective_scan" else (0, 1)
+                first = [a[:, :cut] if i in seq else a
+                         for i, a in enumerate(args)]
+                rest = [a[:, cut:] if i in seq else a
+                        for i, a in enumerate(args)]
+                (y1, h1), _ = _scan_call(kernel, first)
+                rest[-1] = h1
+                (y2, h2), _ = _scan_call(kernel, rest)
+                _require_equal(f"{kernel} split in two calls vs one call",
+                               name, [torch.cat([y1, y2], 1), h2], [y, h])
+        print(f"  {dtype}: {len(testing.scan_cases())} cases within "
+              f"tolerance, the two S = 130 sequences split at step 45 equal "
+              f"to one call (worst so far: selective_scan "
+              f"{worst['selective_scan']:.3g}, rglru_scan "
+              f"{worst['rglru_scan']:.3g})")
+
+
+def _serve_scan_operands(kernel: str, S: int, dev) -> list:
+    """Operands at a serve run's prefill shape (B = 1), drawn on the card
+    from seed S in the ranges the models give: falcon-mamba dt in
+    [1e-3, 0.1) (its dt bias's range) and A = -(1..16) (the S4D-real
+    init), D = 1, h0 = 0; recurrentgemma a in [0.5, 1)."""
+    g = torch.Generator(device=dev).manual_seed(S)
+    f32, bf16 = torch.float32, torch.bfloat16
+    if kernel == "selective_scan":
+        Di, N = SSCAN_FULL["Di"], SSCAN_FULL["N"]
+        x = torch.randn(1, S, Di, generator=g, device=dev).to(bf16)
+        dt = 1e-3 + 0.099 * torch.rand(1, S, Di, generator=g, device=dev)
+        A = -torch.arange(1, N + 1, dtype=f32, device=dev).expand(
+            Di, N).contiguous()
+        B = torch.randn(1, S, N, generator=g, device=dev)
+        C = torch.randn(1, S, N, generator=g, device=dev)
+        return [x, dt, A, B, C, torch.ones(Di, device=dev),
+                torch.zeros(1, Di, N, device=dev)]
+    D = RGLRU_FULL["D"]
+    x = torch.randn(1, S, D, generator=g, device=dev).to(bf16)
+    a = (0.5 + 0.5 * torch.rand(1, S, D, generator=g, device=dev)).to(bf16)
+    return [x, a, torch.zeros(1, D, device=dev)]
+
+
+def scan_timing_phase(dev, worst: dict) -> dict:
+    """Times the scan kernels at the serve runs' prefill shapes; every
+    timed output is held to ``FULL_LIMIT``, the final state to
+    ``STATE_TOL``, against the plain version's."""
+    sfu = sfu_rate(dev)
+    rows = {}
+    phase(f"timing: selective_scan and rglru_scan at the serve runs' prefill "
+          f"shapes (outputs {FULL_LIMIT}, final states {STATE_TOL:g}; bound "
+          f"with the SFUs at the card's max SM clock, {sfu:.4g} results/s)")
+    for kernel in ("selective_scan", "rglru_scan"):
+        for S in SCAN_TIMED_S:
+            args = _serve_scan_operands(kernel, S, dev)
+            fn, ref_fn = SCAN_FNS[kernel]
+            t, out = _median_ms({"kernel": lambda: fn(*args)}, reps=20,
+                                warmup=3)
+            p, want = _median_ms({"plain": lambda: ref_fn(*args)}, reps=3)
+            t["plain"] = p["plain"]
+            (y, h), (yw, hw) = out["kernel"], want["plain"]
+            err, share = _require_close(f"timed {kernel} vs plain", f"S={S}",
+                                        y, yw, FULL_RTOL, FULL_ATOL)
+            err_h, _ = _require_close(f"timed {kernel} final state vs plain",
+                                      f"S={S}", h, hw, STATE_TOL)
+            worst[kernel] = max(worst[kernel], err, err_h)
+            if kernel == "selective_scan":
+                shape = f"B=1 S={S} Di={SSCAN_FULL['Di']} N={SSCAN_FULL['N']}"
+                t["bound"], t["bound_by"] = sscan_bound_ms(
+                    1, S, **SSCAN_FULL, x_item=2, dt_item=4, sfu_per_s=sfu)
+            else:
+                shape = f"B=1 S={S} D={RGLRU_FULL['D']}"
+                t["bound"], t["bound_by"] = rglru_bound_ms(
+                    1, S, **RGLRU_FULL, item=2, sfu_per_s=sfu)
+            t["max_abs_err"], t["limit_share"] = err, share
+            t["max_abs_out"] = float(yw.float().abs().max())
+            rows[f"{kernel} S={S}"] = t
+            print(f"  {kernel} {shape}: kernel {t['kernel']:.4f} ms, plain "
+                  f"{t['plain']:.3f} ms, library call: none, bound "
+                  f"{t['bound']:.4f} ms ({t['bound_by']}), "
+                  f"{t['bound'] / t['kernel']:.4f} of bound; max abs err vs "
+                  f"plain {err:.3g} (max |out| {t['max_abs_out']:.3g}; "
+                  f"{share:.3f} of the limit), final state {err_h:.3g}")
+    return rows
+
+
+# -- the LM serving paths (slices 3 and 4) ----------------------------------
+
 SERVE_ENGINE = EngineConfig(n_slots=8, cache_len=4096, eos=-1)
-SERVE_REQUESTS, SERVE_PROMPT, SERVE_MAX_TOKENS = 16, (256, 2048), 64
+SERVE_REQUESTS, SERVE_MAX_TOKENS = 16, 64
+# Each serve run: the arch and its prompt lengths (drawn from seed 0).
+# recurrentgemma-9b's prompts reach 3072 tokens, past its 2048-token
+# window, so its local-attention caches ring in prefill and in decode.
+SERVE_RUNS = (
+    ("qwen3-1.7b", (256, 2048)),
+    ("falcon-mamba-7b", (256, 2048)),
+    ("recurrentgemma-9b", (256, 3072)),
+)
 # Request 0's decode-step logits against a re-prefill of (prompt + token
-# 1), both in bfloat16 on the card: the two paths round the K/V cache and
-# the attention sums differently (another kernel, other matmul shapes), a
-# few bfloat16 ulps of logits of magnitude < 8 (0.03 each) after 28
-# layers.
-CONSISTENCY_TOL = 0.125
+# 1), both in bfloat16 on the card, may differ by this many bfloat16 ulps
+# of the largest logit.  The two paths round differently: another
+# attention kernel or, for the recurrent layers, the plain one-token step
+# against the scan kernel (and, in recurrentgemma's prefill, a and the
+# gated input rounded to bfloat16 as the reference does), a few ulps after
+# all layers.  qwen3-1.7b: logits up to 4.94, so 4 x 2^-5 = 0.125 (0.0869
+# measured on an NVIDIA H100 80GB HBM3 at 700 W).  For a recurrent model
+# the check must also fail a decode step whose recurrent states were
+# zeroed (a hand-off that loses the prefill's final state).
+CONSISTENCY_ULPS = 4
 PROFILE_PREFILL = 1024
 
 
-def serve_phase(dev) -> tuple[dict, tuple]:
-    """The serve run, with the counts set to 0 just before it and read just
-    after; returns the launch counts and (model, engine, prompt lengths)
-    for the profile."""
-    phase(f"main path, slice 3: {SERVE_ARCH} at full width through "
-          f"ServeEngine on the card")
-    cfg = get_config(SERVE_ARCH)
+def bf16_ulp(x: float) -> float:
+    """The spacing of bfloat16 values (8 significant bits) at |x|."""
+    return 2.0 ** (math.floor(math.log2(abs(x))) - 7)
+
+
+def serve_phase(dev, arch: str, prompt: tuple) -> tuple[dict, tuple]:
+    """One serve run at full width, with the counts set to 0 just before
+    it and read just after; returns the launch counts and (model, engine,
+    prompt lengths) for the profile."""
+    phase(f"main path: {arch} at full width through ServeEngine on the "
+          f"card")
+    cfg = get_config(arch)
     t0 = time.monotonic()
     model = LM(cfg, dev, torch.Generator(device=dev).manual_seed(0))
     torch.cuda.synchronize()
     print(f"  {cfg.name}: {model.param_count() / 1e9:.4f} B "
-          f"parameters, {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"{cfg.dtype}, initialised from torch.Generator seed 0 in "
-          f"{time.monotonic() - t0:.2f} s")
+          f"parameters, {cfg.n_layers} layers {cfg.layer_plan()}, d_model "
+          f"{cfg.d_model}, {cfg.dtype}, initialised from torch.Generator "
+          f"seed 0 in {time.monotonic() - t0:.2f} s")
     eng = ServeEngine(model, SERVE_ENGINE)
     # One short request first, so that the run below finds cuBLAS and the
     # allocator warm; then the engine's counters start from zero.
@@ -554,8 +806,7 @@ def serve_phase(dev) -> tuple[dict, tuple]:
     eng.run()
     eng.stats = dict.fromkeys(eng.stats, 0)
     rng = np.random.default_rng(0)
-    lens = rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1,
-                        size=SERVE_REQUESTS)
+    lens = rng.integers(prompt[0], prompt[1] + 1, size=SERVE_REQUESTS)
     reqs = [Request(i, rng.integers(3, cfg.vocab, size=int(n)).astype(
         np.int32), max_tokens=SERVE_MAX_TOKENS) for i, n in enumerate(lens)]
     for r in reqs:
@@ -582,44 +833,107 @@ def serve_phase(dev) -> tuple[dict, tuple]:
           f"{1e3 * st['decode_s'] / ticks:.2f} ms per tick); time to first "
           f"token median {ttft:.3f} s; peak device memory "
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
-    print(f"  launches: flash_attention {launches['flash_attention']} "
-          f"(expected {cfg.n_layers} x {len(reqs)} = "
-          f"{cfg.n_layers * len(reqs)}), decode_attention "
-          f"{launches['decode_attention']} (expected {cfg.n_layers} x "
-          f"{ticks} = {cfg.n_layers * ticks}); plain calls {plain_calls}")
+    # Every prefill launches one flash call per attention layer and one
+    # scan per recurrent layer; every tick one decode call per attention
+    # layer (the recurrent layers' one-token step is plain tensor code, as
+    # in the reference).
+    n = leaf_kinds(cfg)
+    n_attn = n["attn"] + n["lattn"]
+    expected = dict.fromkeys(KERNELS, 0)
+    expected.update(flash_attention=n_attn * len(reqs),
+                    decode_attention=n_attn * ticks,
+                    selective_scan=n["mamba"] * len(reqs),
+                    rglru_scan=n["rec"] * len(reqs))
+    print("  launches: " + ", ".join(
+        f"{k} {launches[k]} (expected {expected[k]})" for k in KERNELS
+        if expected[k] or launches[k]) + f"; plain calls {plain_calls}")
     if not all(r.done and len(r.out_tokens) == SERVE_MAX_TOKENS
                for r in reqs):
-        raise SystemExit("the serve run left requests unfinished")
+        raise SystemExit(f"the {arch} serve run left requests unfinished")
     if not all(0 <= t < cfg.vocab_padded for r in reqs
                for t in r.out_tokens):
-        raise SystemExit("the serve run emitted tokens out of range")
-    if (launches["flash_attention"] != cfg.n_layers * len(reqs)
-            or launches["decode_attention"] != cfg.n_layers * ticks
-            or plain_calls != 0):
-        raise SystemExit("the serve run did not go through the attention "
-                         "kernels alone")
+        raise SystemExit(f"the {arch} serve run emitted tokens out of range")
+    if launches != expected or plain_calls != 0:
+        raise SystemExit(f"the {arch} serve run did not go through its "
+                         f"kernels alone")
+    consistency_check(model, reqs[0], dev)
+    return launches, (model, eng, lens)
 
-    # Request 0's second token: the decode step's logits against a
-    # re-prefill of (prompt + first token).
-    r0 = reqs[0]
+
+def _zero_states(tree: dict) -> None:
+    """Zeroes every recurrent state (``h`` of a mamba or RG-LRU cache) in
+    a group's cache tree."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            _zero_states(v)
+        elif k == "h":
+            v.zero_()
+
+
+def _negate_lambda(model: LM) -> None:
+    """Lambda -> -Lambda in every RG-LRU block.  The reference's
+    a = exp(-c softplus(Lambda) r), at its init (sigmoid(Lambda)^c in
+    (0.9, 0.999)), lies below e^-16 for most r, so h barely carries; with
+    -Lambda, a = sigmoid(Lambda)^(c r), the Griffin paper's decay."""
+    for m in model.modules():
+        if isinstance(m, RGLRU):
+            m.rg_lambda.data.neg_()
+
+
+def _decode_vs_reprefill(model: LM, ext, dev) -> tuple[float, float, float]:
+    """For the last token of ``ext``: the largest re-prefill logit and the
+    max abs error of the decode step's logits against it, from the
+    prefill's caches as they are and with their recurrent states zeroed."""
+    L = SERVE_ENGINE.cache_len
+    pre, _ = model.prefill({"tokens": ext}, L)
+    _, caches = model.prefill({"tokens": ext[:, :-1]}, L)
+    lost = [tree_map(torch.clone, c) for c in caches]
+    for c in lost:
+        _zero_states(c)
+    batch = {"tokens": ext[:, -1:], "lengths": torch.tensor(
+        [ext.shape[1] - 1], dtype=torch.int32, device=dev)}
+    errs = []
+    for c in (caches, lost):
+        dec = model.decode_step(batch, c)
+        if not (torch.isfinite(dec).all() and torch.isfinite(pre).all()):
+            raise SystemExit(f"non-finite logits in {model.cfg.name}")
+        errs.append(float((dec - pre).abs().max()))
+    return float(pre.abs().max()), *errs
+
+
+def consistency_check(model: LM, r0, dev) -> None:
+    """Request 0's second token: the decode step's logits against a
+    re-prefill of (prompt + first token), within ``CONSISTENCY_ULPS``.  A
+    recurrent model's check must also fail with the states zeroed; a
+    griffin model is held with Lambda negated, where its states carry (as
+    served, the zeroed reading is printed only)."""
+    cfg = model.cfg
+    n = leaf_kinds(cfg)
+    recurrent = n["mamba"] + n["rec"] > 0
     ext = torch.as_tensor(np.concatenate([r0.prompt, r0.out_tokens[:1]])[
         None], dtype=torch.long, device=dev)
-    pre, _ = model.prefill({"tokens": ext}, SERVE_ENGINE.cache_len)
-    _, caches = model.prefill({"tokens": ext[:, :-1]}, SERVE_ENGINE.cache_len)
-    dec = model.decode_step({
-        "tokens": ext[:, -1:], "lengths": torch.tensor(
-            [len(r0.prompt)], dtype=torch.int32, device=dev)}, caches)
-    if not (torch.isfinite(dec).all() and torch.isfinite(pre).all()):
-        raise SystemExit("non-finite logits")
-    err = float((dec - pre).abs().max())
-    print(f"  consistency, request 0 (prompt {len(r0.prompt)}): decode-step "
-          f"logits vs re-prefill max abs err {err:.4f} (logits up to "
-          f"{float(pre.abs().max()):.2f}; tolerance {CONSISTENCY_TOL}); "
-          f"argmax {int(dec.argmax())} / {int(pre.argmax())}, engine's "
-          f"token 2 {r0.out_tokens[1]}")
-    if err > CONSISTENCY_TOL:
-        raise SystemExit("the decode step disagrees with a re-prefill")
-    return launches, (model, eng, lens)
+    for negated in (False, True) if n["rec"] else (False,):
+        label = "with Lambda negated" if negated else "as served"
+        held = negated or not n["rec"]
+        if negated:
+            _negate_lambda(model)
+        top, err, err_lost = _decode_vs_reprefill(model, ext, dev)
+        if negated:
+            _negate_lambda(model)
+        tol = CONSISTENCY_ULPS * bf16_ulp(top)
+        lost = (f"; states zeroed {err_lost:.4f}"
+                + ("" if held else " (not held: they barely carry)")
+                if recurrent else "")
+        print(f"  consistency {label}, request 0 (prompt {len(r0.prompt)}): "
+              f"decode-step logits vs re-prefill max abs err {err:.4f} "
+              f"(logits up to {top:.2f}; tolerance {CONSISTENCY_ULPS} bf16 "
+              f"ulps there, {tol:g}){lost}")
+        if err > tol:
+            raise SystemExit(f"the {cfg.name} decode step disagrees with a "
+                             f"re-prefill ({label})")
+        if recurrent and held and err_lost <= tol:
+            raise SystemExit(f"the {cfg.name} consistency check does not see "
+                             f"zeroed recurrent states ({label})")
 
 
 def serve_profile_phase(dev, state: tuple) -> None:
@@ -656,6 +970,21 @@ def serve_profile_phase(dev, state: tuple) -> None:
               f"time {total:.3f} ms ({100 * total / 1e3 / wall:.2f} % busy)")
         for name, ms, n in rows[:8]:
             print(f"  {ms:10.3f} ms {n:6d} x  {name[:90]}")
+
+
+def serve_all_phase(dev) -> dict:
+    """Each serve run, then its profile; each model is freed before the
+    next one is built.  Returns the launches summed over the runs."""
+    total = dict.fromkeys(KERNELS, 0)
+    for arch, prompt in SERVE_RUNS:
+        launches, state = serve_phase(dev, arch, prompt)
+        for k, n in launches.items():
+            total[k] += n
+        serve_profile_phase(dev, state)
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+    return total
 
 
 def reset_counts() -> None:
@@ -835,28 +1164,32 @@ def main() -> None:
     build_phase()
     max_err = parity_phase(dev)
     attention_parity_phase(dev, max_err)
+    scan_parity_phase(dev, max_err)
     timing = timing_phase(dev, max_err)
     timing.update(attention_timing_phase(dev, max_err))
+    timing.update(scan_timing_phase(dev, max_err))
     launches = main_path_phase(dev)
-    serve_launches, serve_state = serve_phase(dev)
-    for k in ("flash_attention", "decode_attention"):
-        launches[k] += serve_launches[k]
     profile_phase(dev)
-    serve_profile_phase(dev, serve_state)
+    for k, n in serve_all_phase(dev).items():
+        launches[k] += n
     t1 = timing["homog32 baseline"]        # the quickstart's shape, V = 216
     t2 = timing["homog256 placeit"]        # B = 1, V = 1536
     t3 = timing["minplus"]                 # 1536^3
-    t4 = timing["flash S=2048"]            # the longest serve prompt
-    t5 = timing["decode lengths from the seed"]
+    t4 = timing["flash qwen3-1.7b S=2048"]  # qwen3's longest prompt
+    t5 = timing["decode qwen3-1.7b lengths from the seed"]
+    t6 = timing["selective_scan S=2048"]   # the longest falcon-mamba prompt
+    t7 = timing["rglru_scan S=2048"]
     full = {k: [t for key, t in timing.items() if key.startswith(pre)]
-            for k, pre in (("flash_attention", "flash S="),
-                           ("decode_attention", "decode "))}
+            for k, pre in (("flash_attention", "flash "),
+                           ("decode_attention", "decode "),
+                           ("selective_scan", "selective_scan S="),
+                           ("rglru_scan", "rglru_scan S="))}
 
-    def attn(k: str, f32_tol: str) -> str:
+    def close(k: str, f32_tol: str, where: str) -> str:
         err = max(t["max_abs_err"] for t in full[k])
         share = max(t["limit_share"] for t in full[k])
         return (f"cases allclose rtol=atol={f32_tol} (f32), 2e-2 (bf16); "
-                f"qwen3-1.7b shapes {FULL_LIMIT}: max abs err {err:.3g}, "
+                f"{where} shapes {FULL_LIMIT}: max abs err {err:.3g}, "
                 f"{share:.3f} of the limit")
     rows = [
         ("fw_counts", "fw_counts.cu", "minplus.py:104", t1["fw_counts"], t1,
@@ -866,9 +1199,14 @@ def main() -> None:
         ("minplus", "minplus.cu", "minplus.py:419", t3["kernel"], t3,
          "bitwise"),
         ("flash_attention", "flash_attention.cu", "flash_attention.py:92",
-         t4["kernel"], t4, attn("flash_attention", "2e-5")),
+         t4["kernel"], t4, close("flash_attention", "2e-5", SERVE_ATTN)),
         ("decode_attention", "decode_attention.cu", "decode_attention.py:74",
-         t5["kernel"], t5, attn("decode_attention", "3e-5"))]
+         t5["kernel"], t5, close("decode_attention", "3e-5", SERVE_ATTN)),
+        ("selective_scan", "selective_scan.cu", "selective_scan.py:50",
+         t6["kernel"], t6, close("selective_scan", "3e-5",
+                                 "falcon-mamba-7b prefill")),
+        ("rglru_scan", "rglru_scan.cu", "rglru_scan.py:38", t7["kernel"], t7,
+         close("rglru_scan", "3e-5", "recurrentgemma-9b prefill"))]
     print(card_line())
     print(json.dumps({"kernels": [{
         "name": k, "route": "cuda",

@@ -21,13 +21,14 @@ from pathlib import Path
 _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (_CSRC / "fw_counts.cu", _CSRC / "fw_counts_tiled.cu",
            _CSRC / "minplus.cu", _CSRC / "flash_attention.cu",
-           _CSRC / "decode_attention.cu")
+           _CSRC / "decode_attention.cu", _CSRC / "selective_scan.cu",
+           _CSRC / "rglru_scan.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 LIB_PATH = BUILD_DIR / "libreprotorch_kernels.so"
 # -fmad=false: no multiply-add contraction, so every float op of the FW
-# and min-plus kernels rounds like the plain version's.  The attention
-# kernels ask for their multiply-adds explicitly (fmaf), which the flag
-# leaves alone.  Never --use_fast_math (FMA and flush-to-zero).
+# and min-plus kernels rounds like the plain version's.  The attention and
+# scan kernels ask for their multiply-adds explicitly (fmaf), which the
+# flag leaves alone.  Never --use_fast_math (FMA and flush-to-zero).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas=-v", "-Xcompiler", "-fPIC")
 
@@ -53,9 +54,14 @@ SIGNATURES = {
     # scale, softcap, window, device, stream
     "decode_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              _F, _F, _I, _I, _P],
+    # x, dt, A, B, C, D, h0, y, h_final, Bt, S, Di, N, x dtype code,
+    # dt dtype code, device, stream
+    "selective_scan_fwd": [*[_P] * 9, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, a, h0, y, h_final, B, S, D, dtype code, device, stream
+    "rglru_scan_fwd": [*[_P] * 5, _I, _I, _I, _I, _I, _P],
 }
 
-# The dtype codes the attention entry points take.
+# The dtype codes the attention and scan entry points take.
 DTYPE_CODES = {"float32": 0, "bfloat16": 1}
 
 _lib = None

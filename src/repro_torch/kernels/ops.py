@@ -9,9 +9,12 @@ from .flash_attention import flash_attention
 from .fw_counts import fw_counts
 from .fw_counts_tiled import fw_counts_tiled
 from .minplus import apsp, minplus
+from .rglru_scan import rglru_scan
+from .selective_scan import selective_scan
 
 __all__ = ["fw_counts", "fw_counts_tiled", "minplus", "apsp",
-           "flash_attention", "decode_attention",
+           "flash_attention", "decode_attention", "selective_scan",
+           "rglru_scan",
            "fw_impl_cuda", "fw_impl_ref", "fw_impl_tiled",
            "FW_TILED_FROM_V"]
 

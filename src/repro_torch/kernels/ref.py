@@ -1,8 +1,9 @@
 """Plain PyTorch versions of the port's kernels (the ground truth in tests).
 
 Each function here is the semantic specification of its CUDA kernel:
-the FW and min-plus kernels must match it bit for bit, the attention
-kernels to a stated float32 tolerance (they sum in another order).  On a
+the FW and min-plus kernels must match it bit for bit, the attention and
+scan kernels to a stated float32 tolerance (they sum or round their
+multiply-adds in another order).  On a
 CPU tensor the kernel wrappers call these.
 """
 from __future__ import annotations
@@ -271,3 +272,65 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     p = _softmax_masked(logits, mask[:, None, None])
     out = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
     return out.reshape(B, Hq, d).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Recurrences (Mamba-1 selective scan, RG-LRU).
+# ---------------------------------------------------------------------------
+
+def selective_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                       B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
+                       h0: torch.Tensor | None = None
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The Mamba-1 diagonal selective scan, as
+    ``repro.kernels.ref.selective_scan_ref`` computes it: a loop over the
+    sequence in float32,
+
+        h_t = exp(dt_t * A) * h_{t-1} + (dt_t * x_t) B_t
+        y_t = (h_t C_t).sum(N) + D * x_t
+
+    x, dt: [Bt, S, Di]; A: [Di, N]; B, C: [Bt, S, N]; D: [Di]; h0:
+    [Bt, Di, N] (zeros by default).  Returns (y [Bt, S, Di] in x's dtype,
+    h_final [Bt, Di, N] float32).
+    """
+    calls["selective_scan_ref"] += 1
+    Bt, S, Di = x.shape
+    A, D = A.float(), D.float()
+    h = (torch.zeros(Bt, Di, A.shape[-1], dtype=torch.float32,
+                     device=x.device) if h0 is None else h0.float())
+    xf, dtf, Bf, Cf = x.float(), dt.float(), B.float(), C.float()
+    ys = []
+    for t in range(S):
+        xt, dtt = xf[:, t], dtf[:, t]
+        dA = torch.exp(dtt[..., None] * A[None])
+        h = dA * h + (dtt * xt)[..., None] * Bf[:, t, None, :]
+        ys.append(torch.einsum("bdn,bn->bd", h, Cf[:, t]) + D[None] * xt)
+    y = (torch.stack(ys, 1) if ys
+         else x.new_zeros(Bt, 0, Di, dtype=torch.float32))
+    return y.to(x.dtype), h
+
+
+def rglru_ref(x: torch.Tensor, a: torch.Tensor,
+              h0: torch.Tensor | None = None
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The RG-LRU recurrence, as ``repro.kernels.ref.rglru_ref`` computes
+    it: a loop over the sequence in float32,
+
+        h_t = a_t * h_{t-1} + sqrt(max(1 - a_t^2, 0)) * x_t
+
+    x, a: [B, S, D]; h0: [B, D] (zeros by default).  Returns (every h
+    [B, S, D] in x's dtype, h_final [B, D] float32).
+    """
+    calls["rglru_ref"] += 1
+    Bt, S, Dd = x.shape
+    af = a.float()
+    b = torch.sqrt(torch.clamp(1.0 - af ** 2, min=0.0)) * x.float()
+    h = (torch.zeros(Bt, Dd, dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    hs = []
+    for t in range(S):
+        h = af[:, t] * h + b[:, t]
+        hs.append(h)
+    out = (torch.stack(hs, 1) if hs
+           else x.new_zeros(Bt, 0, Dd, dtype=torch.float32))
+    return out.to(x.dtype), h

@@ -3,6 +3,8 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
       --requests 8 --max-tokens 16                  # on the card
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b
+      (or recurrentgemma-9b; with --smoke --device cpu on the CPU)
 
 The port of ``repro.launch.serve``, with the same flags plus ``--device``
 (the card by default; it raises without one).  Weights are drawn from a

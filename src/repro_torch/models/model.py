@@ -8,12 +8,14 @@ methods are the reference's callables: ``prefill(batch, cache_len)`` ->
 ``init_cache(B, cache_len)`` and ``param_count()``.  Batches use the
 reference's keys: prefill ``{"tokens": [B, S]}`` (+ ``"patch_embeds"``
 [B, P, D] for the VLM stub), decode ``{"tokens": [B, 1], "lengths": [B]}``
-with int32 lengths.  ``decode_step`` writes the new K/V into ``caches``
-in place (the reference returns new caches).
+with int32 lengths.  ``decode_step`` writes the new cache entries (K/V,
+conv windows, recurrent states) into ``caches`` in place (the reference
+returns new caches).  A group's cache is a dict of stacked tensors, nested
+for a griffin super-block (``models.tree``).
 
-The dense and VLM-stub decoders are ported; the encoder-decoder family
-(ROADMAP queue 1 item 15e) and the training loss ``loss_fn`` (item 15d)
-wait for later slices.
+The dense, VLM-stub, SSM (falcon-mamba) and hybrid (recurrentgemma)
+decoders are ported; the encoder-decoder family (ROADMAP queue 1 item 15e)
+and the training loss ``loss_fn`` (item 15d) wait for later slices.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from ..core.proxies import resolve_device
 from .config import LMConfig
 from .layers import dense_init, dtype_of, param, rms_norm, rms_norm_init
 from .transformer import Layer
+from .tree import tree_index, tree_map, tree_stack
 
 
 class LM(nn.Module):
@@ -89,8 +92,9 @@ class LM(nn.Module):
     @torch.no_grad()
     def prefill(self, batch, cache_len: int):
         """Logits [B, Vp] (float32) of the last position, and the caches:
-        one dict of stacked ``[n, B, cache_len, Hkv, hd]`` tensors per
-        group."""
+        one (nested) dict per group, each leaf the group's layers' caches
+        stacked on a leading axis (``[n, B, cache_len, Hkv, hd]`` for
+        attention)."""
         x, pos = self._prep_inputs(batch)
         caches = []
         for group in self.groups:
@@ -98,8 +102,7 @@ class LM(nn.Module):
             for layer in group:
                 x, c = layer.prefill(x, pos, cache_len)
                 per.append(c)
-            caches.append({key: torch.stack([c[key] for c in per])
-                           for key in per[0]})
+            caches.append(tree_stack(per))
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
         return self._logits(x[:, -1:])[:, 0], caches
 
@@ -112,8 +115,7 @@ class LM(nn.Module):
         x = self._embed(batch["tokens"])
         for group, cs in zip(self.groups, caches):
             for i, layer in enumerate(group):
-                x = layer.decode(x, {k: t[i] for k, t in cs.items()},
-                                 batch["lengths"])
+                x = layer.decode(x, tree_index(cs, i), batch["lengths"])
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
         return self._logits(x)[:, 0]
 
@@ -121,6 +123,6 @@ class LM(nn.Module):
         caches = []
         for group in self.groups:
             one = group[0].init_cache(B, cache_len)
-            caches.append({key: t.new_zeros(len(group), *t.shape)
-                           for key, t in one.items()})
+            caches.append(tree_map(
+                lambda t, n=len(group): t.new_zeros(n, *t.shape), one))
         return caches

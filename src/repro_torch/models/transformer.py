@@ -4,66 +4,150 @@ Layers are grouped into homogeneous runs (``LMConfig.layer_plan``).  Where
 the reference stacks a group's parameters on a leading axis and applies
 them with ``lax.scan``, the port keeps an ``nn.ModuleList`` of
 :class:`Layer` modules per group and runs them one after another; the
-group's caches stay stacked, ``{"k": [n, B, Sc, Hkv, hd], "v": ...}``, as
-in the reference, and layer i works on their slice i in place.
+group's caches stay stacked on a leading layer axis, as in the reference
+(``{"k": [n, B, Sc, Hkv, hd], "v": ...}`` for attention, nested dicts for
+a super-block), and layer i works on their slice i in place.
 
-Layer kinds: ``attn`` (GQA attention + SwiGLU MLP) is ported.  The other
-kinds raise ``NotImplementedError`` naming the ROADMAP item that brings
-them.
+Layer kinds:
+
+- ``attn``  — GQA attention + SwiGLU MLP (dense);
+- ``lattn`` — local (sliding-window) attention + MLP (griffin), its cache
+  ``min(cache_len, window)`` positions, a ring when the window is shorter;
+- ``rec``   — RG-LRU recurrent block + MLP (griffin);
+- ``mamba`` — Mamba-1 block;
+- ``super`` — one griffin super-block: ``cfg.pattern`` of ``rec`` and
+  ``lattn`` sub-blocks ``s0``, ``s1``, ...
+
+The other kinds raise ``NotImplementedError`` naming the ROADMAP item
+that brings them.
 """
 from __future__ import annotations
+
+from collections import Counter
 
 from torch import nn
 
 from . import layers as L
 from .config import LMConfig
+from .rglru import RGLRU, rglru_cache_init, rglru_decode, rglru_train
+from .ssm import Mamba, mamba_cache_init, mamba_decode, mamba_train
 
 # The layer kinds still to come, and the ROADMAP item that brings each.
 LATER = {
     "moe": "MoE layers (models/moe.py) wait for ROADMAP queue 1 item 15e",
-    "mamba": "Mamba layers (models/ssm.py) wait for the falcon-mamba-7b "
-             "serving slice (ROADMAP queue 1 item 15b, queue 2 item 6)",
-    "rec": "RG-LRU layers (models/rglru.py) wait for the recurrentgemma-9b "
-           "serving slice (ROADMAP queue 1 item 15c, queue 2 item 7)",
-    "lattn": "local-attention layers wait for the recurrentgemma-9b "
-             "serving slice (ROADMAP queue 1 item 15c)",
-    "super": "griffin super-blocks wait for the recurrentgemma-9b serving "
-             "slice (ROADMAP queue 1 item 15c, queue 2 item 7)",
     "xdec": "encoder-decoder layers wait for the enc-dec slice (ROADMAP "
             "queue 1 item 15e)",
 }
 
 
+def _sub_kind(ch: str) -> str:
+    return "rec" if ch == "r" else "lattn"
+
+
+def leaf_kinds(cfg: LMConfig) -> Counter:
+    """The number of leaf layers of each kind in the model, a super-block
+    counted as its ``cfg.pattern`` of sub-layers."""
+    n = Counter()
+    for kind, count in cfg.layer_plan():
+        for sub in ([_sub_kind(ch) for ch in cfg.pattern]
+                    if kind == "super" else [kind]):
+            n[sub] += count
+    return n
+
+
 class Layer(nn.Module):
-    """One layer of kind ``attn``: an :class:`~.layers.Attention` block
-    and an :class:`~.layers.MLP` (``layer_init``), and the three passes
-    over them: ``forward`` (the full-sequence pass of training),
-    ``prefill`` and ``decode``."""
+    """One layer of ``kind`` with the reference's parameters
+    (``layer_init``: ``attn`` and ``mlp``, ``rec`` and ``mlp``, ``mamba``,
+    or the sub-layers ``s0``...), and the three passes over them:
+    ``forward`` (the full-sequence pass of training), ``prefill`` and
+    ``decode``."""
 
     def __init__(self, kind: str, cfg: LMConfig, device, gen=None):
         super().__init__()
         if kind in LATER:
             raise NotImplementedError(f"layer kind {kind!r}: {LATER[kind]}")
-        if kind != "attn":
+        self.kind, self.cfg = kind, cfg
+        if kind in ("attn", "lattn"):
+            self.attn = L.Attention(cfg, device, gen)
+        elif kind == "rec":
+            self.rec = RGLRU(cfg, device, gen)
+        elif kind == "mamba":
+            self.mamba = Mamba(cfg, device, gen)
+        elif kind == "super":
+            self.subs = [Layer(_sub_kind(ch), cfg, device, gen)
+                         for ch in cfg.pattern]
+            for i, sub in enumerate(self.subs):
+                self.add_module(f"s{i}", sub)
+        else:
             raise ValueError(kind)
-        self.cfg = cfg
-        self.attn = L.Attention(cfg, device, gen)
-        self.mlp = L.MLP(cfg, device, gen)
+        if kind in ("attn", "lattn", "rec"):
+            self.mlp = L.MLP(cfg, device, gen)
+        # The local-attention window (None: global attention).
+        self.window = (cfg.window or None) if kind == "lattn" else None
 
     def forward(self, x, pos, causal: bool = True):
-        x = L.attn_train(self.attn, x, self.cfg, pos, causal=causal)
-        return L.mlp(self.mlp, x, self.cfg)
+        cfg = self.cfg
+        if self.kind == "super":
+            for sub in self.subs:
+                x = sub(x, pos, causal)
+            return x
+        if self.kind == "mamba":
+            return mamba_train(self.mamba, x, cfg)
+        if self.kind == "rec":
+            x = rglru_train(self.rec, x, cfg)
+        else:
+            # A local-attention layer is causal whatever the caller asks,
+            # as in the reference.
+            x = L.attn_train(self.attn, x, cfg, pos, window=self.window,
+                             causal=causal or self.kind == "lattn")
+        return L.mlp(self.mlp, x, cfg)
 
     def prefill(self, x, pos, cache_len: int):
-        """Returns (x, cache) with the cache zero-padded to ``cache_len``."""
-        x, cache = L.attn_prefill(self.attn, x, self.cfg, pos,
-                                  cache_len=cache_len)
-        return L.mlp(self.mlp, x, self.cfg), cache
+        """Returns (x, cache); an attention cache is zero-padded to
+        ``cache_len`` (``min(cache_len, window)`` for ``lattn``)."""
+        cfg = self.cfg
+        if self.kind == "super":
+            cache = {}
+            for i, sub in enumerate(self.subs):
+                x, cache[f"s{i}"] = sub.prefill(x, pos, cache_len)
+            return x, cache
+        if self.kind == "mamba":
+            return mamba_train(self.mamba, x, cfg, return_cache=True)
+        if self.kind == "rec":
+            x, cache = rglru_train(self.rec, x, cfg, return_cache=True)
+        else:
+            w = self.window
+            x, cache = L.attn_prefill(
+                self.attn, x, cfg, pos, window=w,
+                cache_len=min(cache_len, w) if w else cache_len)
+        return L.mlp(self.mlp, x, cfg), cache
 
     def decode(self, x, cache: dict, length):
-        """One token; writes its K/V into ``cache`` in place."""
-        x = L.attn_decode(self.attn, x, cache, self.cfg, length)
-        return L.mlp(self.mlp, x, self.cfg)
+        """One token; writes the new cache entries into ``cache`` in
+        place."""
+        cfg = self.cfg
+        if self.kind == "super":
+            for i, sub in enumerate(self.subs):
+                x = sub.decode(x, cache[f"s{i}"], length)
+            return x
+        if self.kind == "mamba":
+            return mamba_decode(self.mamba, x, cache, cfg)
+        if self.kind == "rec":
+            x = rglru_decode(self.rec, x, cache, cfg)
+        else:
+            x = L.attn_decode(self.attn, x, cache, cfg, length,
+                              window=self.window)
+        return L.mlp(self.mlp, x, cfg)
 
     def init_cache(self, B: int, cache_len: int) -> dict:
-        return L.attn_cache_init(self.cfg, B, cache_len, self.mlp.w1.device)
+        cfg = self.cfg
+        device = next(self.parameters()).device
+        if self.kind == "super":
+            return {f"s{i}": sub.init_cache(B, cache_len)
+                    for i, sub in enumerate(self.subs)}
+        if self.kind == "mamba":
+            return mamba_cache_init(cfg, B, device)
+        if self.kind == "rec":
+            return rglru_cache_init(cfg, B, device)
+        return L.attn_cache_init(cfg, B, cache_len, device,
+                                 window=self.window)

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..models.model import LM
+from ..models.tree import tree_map
 
 
 @dataclass
@@ -68,8 +69,7 @@ class ServeEngine:
                                             self.cfg.cache_len)
         # Write the single-row prefill cache into the pooled cache at `slot`.
         for pool, one in zip(self.caches, cache1):
-            for key in pool:
-                pool[key][:, slot] = one[key][:, 0]
+            tree_map(lambda p, o: p[:, slot].copy_(o[:, 0]), pool, one)
         tok = self._sample_rows(logits)[0]
         self.slot_req[slot] = req
         self.lengths[slot] = len(req.prompt)

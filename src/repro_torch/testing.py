@@ -234,3 +234,64 @@ def decode_cases() -> dict:
                        (*decode_operands(len(lens), **shape, lengths=lens,
                                          seed=100 + i), dict(kw)))
     return cases
+
+
+def sscan_operands(Bt: int, S: int, Di: int, N: int, seed: int = 0,
+                   h0: bool = False) -> tuple:
+    """x, dt, A, B, C, D (and h0 [Bt, Di, N], else None) for the selective
+    scan, float32, drawn as ``tests/test_kernels.py::test_selective_scan``
+    draws them: x, B, C, D standard normal, dt in 0.1 + [0, 1), A in
+    -[0, 1)."""
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    x = rng.standard_normal((Bt, S, Di), dtype=f)
+    dt = (0.1 + rng.random((Bt, S, Di))).astype(f)
+    A = (-rng.random((Di, N))).astype(f)
+    B = rng.standard_normal((Bt, S, N), dtype=f)
+    C = rng.standard_normal((Bt, S, N), dtype=f)
+    D = rng.standard_normal(Di, dtype=f)
+    hs = rng.standard_normal((Bt, Di, N), dtype=f) if h0 else None
+    return x, dt, A, B, C, D, hs
+
+
+def rglru_operands(B: int, S: int, D: int, seed: int = 0,
+                   h0: bool = False) -> tuple:
+    """x, a (and h0 [B, D], else None) for the RG-LRU scan, float32, drawn
+    as ``tests/test_kernels.py::test_rglru_scan`` draws them: x standard
+    normal, a in 0.05 + 0.9 [0, 1)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, S, D), dtype=np.float32)
+    a = (0.05 + 0.9 * rng.random((B, S, D))).astype(np.float32)
+    hs = rng.standard_normal((B, D), dtype=np.float32) if h0 else None
+    return x, a, hs
+
+
+def scan_cases() -> dict:
+    """Named factories of operands for the two scan kernels, keyed
+    ``"selective_scan ..."`` (``sscan_operands``) and ``"rglru ..."``
+    (``rglru_operands``): the three shapes of each kernel's test in
+    ``tests/test_kernels.py`` (Di = 130 and D = 130 ragged), then a single
+    step (S = 1), several batch rows, sequences that end inside a 32-step
+    chunk with channels that end inside a 32-channel block, state sizes 5
+    and 16, and a starting state h0."""
+    specs = [
+        ("selective_scan", dict(Bt=1, S=8, Di=16, N=4)),
+        ("selective_scan", dict(Bt=2, S=12, Di=20, N=8)),
+        ("selective_scan", dict(Bt=2, S=7, Di=130, N=4)),
+        ("selective_scan", dict(Bt=3, S=1, Di=64, N=16)),
+        ("selective_scan", dict(Bt=2, S=77, Di=45, N=5, h0=True)),
+        ("selective_scan", dict(Bt=1, S=130, Di=300, N=16, h0=True)),
+        ("rglru", dict(B=1, S=8, D=16)),
+        ("rglru", dict(B=2, S=20, D=40)),
+        ("rglru", dict(B=2, S=5, D=130)),
+        ("rglru", dict(B=3, S=1, D=64)),
+        ("rglru", dict(B=2, S=77, D=45, h0=True)),
+        ("rglru", dict(B=1, S=130, D=300, h0=True)),
+    ]
+    cases = {}
+    for i, (kernel, kw) in enumerate(specs):
+        make = sscan_operands if kernel == "selective_scan" else rglru_operands
+        name = kernel + " " + " ".join(f"{k}={v}" for k, v in kw.items())
+        cases[name] = (lambda make=make, kw=kw, i=i:
+                       make(**kw, seed=200 + i))
+    return cases

@@ -193,10 +193,12 @@ def test_build_command_lists_every_source():
     compiles, _ = build.build_commands()
     names = [s.name for s in build.SOURCES]
     assert names == ["fw_counts.cu", "fw_counts_tiled.cu", "minplus.cu",
-                     "flash_attention.cu", "decode_attention.cu"]
+                     "flash_attention.cu", "decode_attention.cu",
+                     "selective_scan.cu", "rglru_scan.cu"]
     assert [c[-1] for c in compiles] == [str(s) for s in build.SOURCES]
     assert set(build.SIGNATURES) == {"fw_counts_f32", "fw_counts_tiled_f32",
                                      "minplus_f32", "flash_attention_fwd",
-                                     "decode_attention_fwd"}
+                                     "decode_attention_fwd",
+                                     "selective_scan_fwd", "rglru_scan_fwd"}
     for name in build.SIGNATURES:
         assert any(f"int {name}(" in s.read_text() for s in build.SOURCES)

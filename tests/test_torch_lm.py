@@ -186,8 +186,7 @@ def test_lm_params_from_jax_round_trip():
 
 
 def test_unported_kinds_name_their_roadmap_item():
-    for arch in ("falcon-mamba-7b", "recurrentgemma-9b", "grok-1-314b",
-                 "seamless-m4t-medium"):
+    for arch in ("grok-1-314b", "seamless-m4t-medium"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             LM(treg.get_config(arch).reduced(), "meta")
 
