@@ -18,9 +18,11 @@ Phases (any failure exits non-zero; nothing is caught):
    sums above its 1e9 ceiling; APSP against the plain FW's distances on
    homog256 graphs.  The attention kernels to the JAX tests' tolerances
    (flash 2e-5, decode 3e-5 in float32, both 2e-2 in bfloat16) on
-   ``testing.attention_cases`` / ``decode_cases`` in both dtypes, and at
-   the full qwen3-1.7b shapes in bfloat16 to a limit scaled to the
-   outputs (two bfloat16 ulps of each entry plus 1e-5, ``FULL_LIMIT``).
+   ``testing.attention_cases`` / ``decode_cases`` and on the edges of the
+   kernels' tiles and splits (``attention_tile_cases`` /
+   ``decode_split_cases``) in both dtypes, and at the serve shapes in
+   bfloat16 to a limit scaled to the outputs (two bfloat16 ulps of each
+   entry plus 1e-5, ``FULL_LIMIT``).
    The scan kernels (selective scan, RG-LRU) on ``testing.scan_cases`` in
    both dtypes (3e-5 in float32, 2e-2 in bfloat16, final states 3e-5), and
    a sequence split across two calls bit for bit equal to one call;
@@ -32,7 +34,9 @@ Phases (any failure exits non-zero; nothing is caught):
    held bit for bit against the plain version's output on the same input,
    so the kernels are also checked at the main path's full shapes
    (min-plus at 1536^3, APSP at V = 1536).  The attention kernels at the
-   serve runs' shapes in bfloat16, causal: qwen3-1.7b's (flash: B = 1,
+   serve runs' shapes in bfloat16, causal, each call timed as 20 launches
+   back to back between one pair of CUDA events, so that the host's
+   enqueue is not counted (``_batched_ms``): qwen3-1.7b's (flash: B = 1,
    Sq = Sk in {512, 2048}; decode: B = 8 over a 4096-token cache) and
    recurrentgemma-9b's (16 query heads on 1 KV head, head dim 256; flash
    with its 2048-token window at Sq = Sk in {2048, 3072}; decode: B = 8
@@ -40,10 +44,13 @@ Phases (any failure exits non-zero; nothing is caught):
    drawn from the seed, each beside its plain version, its bound and one
    PyTorch call that computes the same function
    (``scaled_dot_product_attention``, timed for comparison only; the port
-   never calls it), every output held to ``FULL_LIMIT`` against the plain
-   version.  The scan kernels at the serve runs' prefill shapes (B = 1,
-   S in {512, 2048}; falcon-mamba-7b's Di = 8192, N = 16 with x in
-   bfloat16 and dt in float32; recurrentgemma-9b's D = 4096 in bfloat16),
+   never calls it: ``is_causal=True`` where flash has no window, no mask
+   where every decode row is full, else a boolean mask, which is also
+   timed beside the first two), every output held to ``FULL_LIMIT``
+   against the plain version.  The scan kernels at the serve runs'
+   prefill shapes (B = 1, S in {512, 2048}; falcon-mamba-7b's Di = 8192,
+   N = 16 with x in bfloat16 and dt in float32; recurrentgemma-9b's
+   D = 4096 in bfloat16),
    beside the plain versions and their bounds (no PyTorch call computes a
    scan), outputs held to ``FULL_LIMIT`` and final states to 3e-5;
 5. main path — each path driven through its entry points on the card,
@@ -293,6 +300,39 @@ def _median_ms(fns: dict, reps: int, warmup: int = 1) -> tuple[dict, dict]:
     return {k: statistics.median(v) for k, v in times.items()}, outs
 
 
+def _batched_ms(fns: dict, launches: int, rounds: int,
+                warmup: int = 2) -> tuple[dict, dict]:
+    """Device time of one call of each callable: ``launches`` calls back
+    to back between one pair of CUDA events, divided by ``launches``; the
+    median over ``rounds`` rounds, the callables taking turns in each.
+    Before the start event the stream is held by a spin kernel long
+    enough for the host to enqueue all the calls (1.5x their host time
+    in the warm-up, at 2 GHz), so the events time the device's work and
+    not the host's enqueue.  Returns the times and each callable's last
+    output."""
+    host = dict.fromkeys(fns, 0.0)
+    for _ in range(warmup):
+        for k, fn in fns.items():
+            t0 = time.perf_counter()
+            fn()
+            host[k] = time.perf_counter() - t0
+            torch.cuda.synchronize()
+    times = {k: [] for k in fns}
+    outs = {}
+    for _ in range(rounds):
+        for k, fn in fns.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(int(2e9 * (1.5 * launches * host[k] + 1e-4)))
+            start.record()
+            for _ in range(launches):
+                outs[k] = fn()
+            end.record()
+            end.synchronize()
+            times[k].append(start.elapsed_time(end) / launches)
+    return {k: statistics.median(v) for k, v in times.items()}, outs
+
+
 def _bound(ops_n: float, bytes_n: float,
            peak_ops: float = PEAK_F32_OPS) -> tuple[float, str]:
     ops_s, bytes_s = ops_n / peak_ops, bytes_n / PEAK_BYTES
@@ -417,11 +457,15 @@ def _require_close(what: str, name: str, got, want, rtol: float,
 def attention_parity_phase(dev, worst: dict) -> None:
     phase("parity: flash_attention and decode_attention kernels vs plain "
           "versions (allclose: flash 2e-5, decode 3e-5 in float32; 2e-2 in "
-          "bfloat16)")
+          "bfloat16), the JAX tests' cases and the edges of the kernels' "
+          "tiles and splits")
+    flash_cases = {**testing.attention_cases(),
+                   **testing.attention_tile_cases()}
+    decode_cases = {**testing.decode_cases(), **testing.decode_split_cases()}
     for dtype in ("float32", "bfloat16"):
         dt = getattr(torch, dtype)
         tol = ATTN_TOL["flash_attention"][dtype]
-        for name, make in testing.attention_cases().items():
+        for name, make in flash_cases.items():
             *qkv, kw = make()
             q, k, v = _on_card(qkv, dev, dt)
             err, _ = _require_close("flash_attention vs plain", name,
@@ -429,7 +473,7 @@ def attention_parity_phase(dev, worst: dict) -> None:
                                     plain.attention_ref(q, k, v, **kw), tol)
             worst["flash_attention"] = max(worst["flash_attention"], err)
         tol = ATTN_TOL["decode_attention"][dtype]
-        for name, make in testing.decode_cases().items():
+        for name, make in decode_cases.items():
             *arrays, lens, kw = make()
             q, kc, vc = _on_card(arrays, dev, dt)
             lens = torch.from_numpy(lens).to(dev)
@@ -438,9 +482,9 @@ def attention_parity_phase(dev, worst: dict) -> None:
                 tda.decode_attention(q, kc, vc, lens, **kw),
                 plain.decode_attention_ref(q, kc, vc, lens, **kw), tol)
             worst["decode_attention"] = max(worst["decode_attention"], err)
-        print(f"  {dtype}: {len(testing.attention_cases())} flash and "
-              f"{len(testing.decode_cases())} decode cases within tolerance "
-              f"(worst so far: flash {worst['flash_attention']:.3g}, decode "
+        print(f"  {dtype}: {len(flash_cases)} flash and {len(decode_cases)} "
+              f"decode cases within tolerance (worst so far: flash "
+              f"{worst['flash_attention']:.3g}, decode "
               f"{worst['decode_attention']:.3g})")
 
 
@@ -507,17 +551,27 @@ def _attn_row(t: dict, out: dict, what: str, bound: tuple) -> dict:
 
 
 def _attn_line(t: dict) -> str:
+    masked = (f" (with a mask {t['library_masked']:.4f} ms)"
+              if "library_masked" in t else "")
     return (f"kernel {t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, sdpa "
-            f"{t['library']:.4f} ms, bound {t['bound']:.4f} ms "
+            f"{t['library']:.4f} ms{masked}, bound {t['bound']:.4f} ms "
             f"({t['bound_by']}), {t['bound'] / t['kernel']:.4f} of bound; "
             f"max abs err vs plain {t['max_abs_err']:.3g} (max |out| "
             f"{t['max_abs_out']:.3g}; {t['limit_share']:.3f} of the limit)")
 
 
+# Calls between one pair of CUDA events when timing the attention kernels.
+ATTN_LAUNCHES = 20
+
+
 def attention_timing_phase(dev, worst: dict) -> dict:
-    """Times the attention kernels at the serve runs' shapes in bfloat16;
-    every timed output is held to ``FULL_LIMIT`` against the plain
-    version's."""
+    """Times the attention kernels at the serve runs' shapes in bfloat16
+    (``_batched_ms``); every timed output is held to ``FULL_LIMIT``
+    against the plain version's.  The yardstick (``library``) is the
+    fastest ``scaled_dot_product_attention`` call that computes the same
+    function: ``is_causal=True`` where flash has no window, no mask where
+    every decode row is full, else a boolean mask; the masked call is
+    also timed beside the first two (``library_masked``)."""
     F = torch.nn.functional
     rows = {}
     for arch, flash_S in ATTN_TIMED:
@@ -532,12 +586,18 @@ def attention_timing_phase(dev, worst: dict) -> dict:
             mask = pos[None] <= pos[:, None]
             if window:
                 mask &= pos[None] > pos[:, None] - window
-            t, out = _median_ms({
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            fns = {
                 "kernel": lambda: tfa.flash_attention(q, k, v, window=window),
                 "plain": lambda: plain.attention_ref(q, k, v, window=window),
-                "library": lambda: F.scaled_dot_product_attention(
-                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                    attn_mask=mask, enable_gqa=True)}, reps=10, warmup=2)
+                "library_masked": lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, enable_gqa=True)}
+            if window is None:
+                fns["library"] = lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)
+            t, out = _batched_ms(fns, launches=ATTN_LAUNCHES, rounds=5)
+            if window is not None:
+                t["library"] = t.pop("library_masked")
             t = _attn_row(t, out, f"flash_attention {arch} S={S}",
                           flash_bound_ms(**shape, window=window))
             worst["flash_attention"] = max(worst["flash_attention"],
@@ -557,13 +617,20 @@ def attention_timing_phase(dev, worst: dict) -> dict:
             q, kc, vc = _on_card((q, kc, vc), dev)
             lens = torch.from_numpy(lens_np).to(dev)
             mask = torch.arange(cache, device=dev)[None] < lens[:, None]
-            t, out = _median_ms({
+            qt, kt, vt = q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
+            fns = {
                 "kernel": lambda: tda.decode_attention(q, kc, vc, lens),
                 "plain": lambda: plain.decode_attention_ref(q, kc, vc, lens),
-                "library": lambda: F.scaled_dot_product_attention(
-                    q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2),
-                    attn_mask=mask[:, None, None], enable_gqa=True)},
-                reps=20, warmup=2)
+                "library_masked": lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask[:, None, None],
+                    enable_gqa=True)}
+            full = bool((lens_np == cache).all())
+            if full:
+                fns["library"] = lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, enable_gqa=True)
+            t, out = _batched_ms(fns, launches=ATTN_LAUNCHES, rounds=7)
+            if not full:
+                t["library"] = t.pop("library_masked")
             t = _attn_row(t, out, f"decode_attention {arch} {label}",
                           decode_bound_ms(B, **heads, lengths=lens_np))
             worst["decode_attention"] = max(worst["decode_attention"],

@@ -23,6 +23,8 @@ SOURCES = (_CSRC / "fw_counts.cu", _CSRC / "fw_counts_tiled.cu",
            _CSRC / "minplus.cu", _CSRC / "flash_attention.cu",
            _CSRC / "decode_attention.cu", _CSRC / "selective_scan.cu",
            _CSRC / "rglru_scan.cu")
+# Headers the sources include (a change rebuilds the library).
+HEADERS = (_CSRC / "mma_bf16.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 LIB_PATH = BUILD_DIR / "libreprotorch_kernels.so"
 # -fmad=false: no multiply-add contraction, so every float op of the FW
@@ -50,10 +52,11 @@ SIGNATURES = {
     # pos_offset, device, stream
     "flash_attention_fwd": [_P, _P, _P, _P, *[_L] * 9, _I, _I, _I, _I, _I,
                             _I, _I, _F, _F, _I, _I, _I, _I, _P],
-    # q, k cache, v cache, lengths, out, B, S, Hq, Hkv, d, dtype code,
-    # scale, softcap, window, device, stream
-    "decode_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                             _F, _F, _I, _I, _P],
+    # q, k cache, v cache, lengths, out, split scratch, tickets, B, S, Hq,
+    # Hkv, d, dtype code, scale, softcap, window, n_split, chunk, device,
+    # stream
+    "decode_attention_fwd": [*[_P] * 7, _I, _I, _I, _I, _I, _I,
+                             _F, _F, _I, _I, _I, _I, _P],
     # x, dt, A, B, C, D, h0, y, h_final, Bt, S, Di, N, x dtype code,
     # dt dtype code, device, stream
     "selective_scan_fwd": [*[_P] * 9, _I, _I, _I, _I, _I, _I, _I, _P],
@@ -91,7 +94,7 @@ def build_commands(out: Path = LIB_PATH, nvcc: str = "nvcc"
 def _stale() -> bool:
     if not LIB_PATH.exists():
         return True
-    newest = max(s.stat().st_mtime for s in SOURCES)
+    newest = max(s.stat().st_mtime for s in SOURCES + HEADERS)
     return LIB_PATH.stat().st_mtime < newest
 
 

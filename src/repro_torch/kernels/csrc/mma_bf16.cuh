@@ -1,0 +1,98 @@
+// Warp-level tensor-core and async-copy helpers for sm_90a, shared by the
+// bf16 attention kernels (flash_attention.cu, decode_attention.cu).
+//
+// - cp_async16: a 16-byte cp.async.cg (global -> shared, bypassing L1);
+//   with pred false it writes 16 zero bytes and reads nothing.
+// - ldmatrix_x4 / ldmatrix_x4_trans: four 8x8 b16 matrices from shared
+//   memory; lane l gives the address of row l % 8 of matrix l / 8.
+// - mma_bf16_16816: D += A B on one m16n8k16 tile, bf16 operands, float32
+//   accumulators (the product of two bf16 values is exact in float32).
+// - exp2_approx: 2^x in one special-function instruction.
+// - split_bf16x2: p -> (hi, lo) with hi = bf16(p), lo = bf16(p - hi), two
+//   values packed a register as mma's A fragment wants them (the lower
+//   column in the low half).  hi + lo carries 16 significant bits of p.
+//
+// Fragment layout of mma.m16n8k16 (g = lane / 4, t = lane % 4):
+//   A (16 x 16, row-major): a0 = (g, 2t..2t+1), a1 = (g + 8, 2t..),
+//                           a2 = (g, 2t + 8..), a3 = (g + 8, 2t + 8..)
+//   B (16 x 8, k x n):      b0 = (2t..2t+1, g), b1 = (2t + 8.., g)
+//   C (16 x 8, float32):    c0, c1 = (g, 2t..2t+1), c2, c3 = (g + 8, 2t..)
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace mma_bf16 {
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(smem)), "l"(gmem), "r"(pred ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Waits until at most N of this thread's committed groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
+      "{%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
+                                               const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// 2^x on the special-function unit (ex2.approx.ftz: within 2 ulp, results
+// below 2^-126 flushed to 0, 2^-inf = 0).
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// (x, y) -> hi = bf16(x, y), lo = bf16(x - hi.x, y - hi.y).
+__device__ __forceinline__ void split_bf16x2(float x, float y, uint32_t& hi,
+                                             uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  hi = as_u32(h);
+  lo = as_u32(__floats2bfloat162_rn(x - __low2float(h),
+                                    y - __high2float(h)));
+}
+
+}  // namespace mma_bf16

@@ -6,6 +6,13 @@ build or the launch fails; there is no fallback), and on CPU tensors calls
 the plain version ``ref.decode_attention_ref``.  The kernel takes q and
 the caches contiguous and 16-byte aligned (each layer's slice of the
 model's stacked cache is), so the wrapper never copies a cache.
+
+The kernel splits the cache over S (flash-decoding): :func:`decode_splits`
+picks the number of splits from the shapes alone, so the host never reads
+the lengths; the wrapper allocates the split partials' scratch with
+``torch.empty`` and keeps one zeroed ticket buffer a stream, which the
+kernel leaves zeroed after every launch.  ``ref.decode_attention_split_ref``
+is the same split and merge in plain PyTorch.
 """
 from __future__ import annotations
 
@@ -16,6 +23,48 @@ from .flash_attention import check_attention_inputs
 
 # Launches of the kernel (not of the plain version).
 launches = 0
+
+# The splits: enough blocks to fill the 132 streaming multiprocessors of an
+# H100 SXM about twice over, chunks of at least MIN_CHUNK positions (four
+# 16-position tiles for each of the bfloat16 kernel's 4 warps, so that its
+# cp.async ring has tiles to overlap and a block's partial, g x d float32
+# values, stays small beside the K and V rows it reads), and at most
+# MAX_SPLITS (the kernel's kMaxSplits) partials to merge.
+SMS = 132
+MIN_CHUNK = 256
+MAX_SPLITS = 64
+
+# Per (device, stream): the int32 tickets the split merge counts on (zero
+# between launches; launches on one stream never overlap).
+_tickets: dict = {}
+
+
+def decode_splits(S: int, B: int, Hkv: int) -> tuple[int, int]:
+    """(n_split, chunk) for a cache of S positions, B rows and Hkv KV
+    heads: the smallest power of two n with ``B * Hkv * n >= 2 * SMS``,
+    held to ``S / n >= MIN_CHUNK`` and ``n <= MAX_SPLITS``; the chunk is
+    ``ceil(S / n)`` rounded up to 64 positions (a tile for each warp), and
+    n is then the number of chunks that cover S.  From the shapes only,
+    never the lengths."""
+    n = 1
+    while (B * Hkv * n < 2 * SMS and 2 * n * MIN_CHUNK <= S
+           and 2 * n <= MAX_SPLITS):
+        n *= 2
+    chunk = -(-max(S, 1) // n)
+    chunk = -(-chunk // 64) * 64
+    return -(-max(S, 1) // chunk), chunk
+
+
+def _ticket_buffer(device: torch.device, stream: int,
+                   n: int) -> torch.Tensor:
+    """At least n zeroed int32 tickets for launches on ``stream`` of
+    ``device``, allocated once (and again, larger, when a launch needs
+    more)."""
+    buf = _tickets.get((device, stream))
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _tickets[(device, stream)] = buf
+    return buf
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -70,13 +119,20 @@ def _launch(q, k_cache, v_cache, lengths, scale, window, softcap):
     if out.numel():
         lib = build.load()
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        n_split, chunk = decode_splits(S, B, Hkv)
+        part = torch.empty(B * Hq * n_split * (d + 2) if n_split > 1 else 0,
+                           dtype=torch.float32, device=q.device)
+        tickets = _ticket_buffer(q.device, stream,
+                                 B * Hkv * -(-(Hq // Hkv) // 8))
         rc = lib.decode_attention_fwd(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            lengths.data_ptr(), out.data_ptr(), B, S, Hq, Hkv, d,
+            lengths.data_ptr(), out.data_ptr(), part.data_ptr(),
+            tickets.data_ptr(), B, S, Hq, Hkv, d,
             build.DTYPE_CODES[str(q.dtype)[6:]],
             d ** -0.5 if scale is None else scale,
             0.0 if softcap is None else softcap,
-            -1 if window is None else window, q.device.index, stream)
+            -1 if window is None else window, n_split, chunk,
+            q.device.index, stream)
         build.check_rc(lib, rc, "decode_attention")
         launches += 1
     return out

@@ -4,8 +4,10 @@
 tensors launches the kernel on the current stream (raising if the build or
 the launch fails; there is no fallback), and on CPU tensors calls the plain
 version ``ref.attention_ref``.  The kernel reads q, k and v through their
-strides (only the head dim must be contiguous), so the model's
-``[B, S, H, d]`` activations go in without a transpose or a copy.
+strides (only the head dim must be contiguous; in bfloat16 every row must
+start on 16 bytes), so the model's ``[B, S, H, d]`` activations go in
+without a transpose or a copy.  bfloat16 runs on the tensor cores (P V
+with P split into bf16 hi + lo parts), float32 on the CUDA cores.
 """
 from __future__ import annotations
 
@@ -68,12 +70,29 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if softcap is not None and softcap <= 0:
         raise ValueError(f"flash_attention: softcap must be > 0, got "
                          f"{softcap}")
-    check_attention_inputs("flash_attention", {"q": q, "k": k, "v": v}, d)
+    ops_ = {"q": q, "k": k, "v": v}
+    check_attention_inputs("flash_attention", ops_, d)
     if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, causal=causal, window=window,
                                  scale=scale, softcap=softcap,
                                  pos_offset=pos_offset)
+    if q.dtype == torch.bfloat16:
+        for key, x in ops_.items():
+            check_16_byte_rows("flash_attention", key, x)
     return _launch(q, k, v, causal, window, scale, softcap, pos_offset)
+
+
+def check_16_byte_rows(name: str, key: str, x: torch.Tensor) -> None:
+    """The bfloat16 kernels copy 16-byte pieces of each row (the
+    contiguous last axis) with cp.async: the base pointer and the stride
+    in bytes of every other axis longer than 1 (a stride that is never
+    stepped does not matter) must be multiples of 16."""
+    item = x.element_size()
+    if x.data_ptr() % 16 or any(
+            n > 1 and st * item % 16
+            for n, st in zip(x.shape[:-1], x.stride()[:-1])):
+        raise ValueError(f"{name} takes 16-byte aligned rows in bfloat16 "
+                         f"on the card ({key}: strides {x.stride()})")
 
 
 def _launch(q, k, v, causal, window, scale, softcap, pos_offset):

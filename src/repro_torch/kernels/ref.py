@@ -274,6 +274,59 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(B, Hq, d).to(q.dtype)
 
 
+def decode_attention_split_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                               v_cache: torch.Tensor, lengths: torch.Tensor,
+                               *, n_split: int, scale: float | None = None,
+                               window: int | None = None,
+                               softcap: float | None = None) -> torch.Tensor:
+    """:func:`decode_attention_ref` computed as the decode kernel splits
+    it (flash-decoding), for the tests: the cache is cut into ``n_split``
+    chunks of ``ceil(S / n_split)`` positions; each chunk gives a partial
+    of the positions in it that the row sees (its max logit m, its sum
+    l = sum e^(s - m) and its unnormalised accumulator a = sum e^(s - m) v),
+    an empty chunk none (l = 0); the partials are merged in chunk order,
+    ``out = sum_i a_i e^(m_i - M) / sum_i l_i e^(m_i - M)`` with M the
+    largest m of a non-empty chunk, zeros where every chunk is empty.
+    Equal to :func:`decode_attention_ref` up to float32 rounding."""
+    calls["decode_attention_split_ref"] += 1
+    B, Hq, d = q.shape
+    S, Hkv = k_cache.shape[1], k_cache.shape[2]
+    g = Hq // Hkv
+    scale = d ** -0.5 if scale is None else scale
+    qh = q.reshape(B, Hkv, g, d).float()
+    logits = torch.einsum("bhgd,bkhd->bhgk", qh, k_cache.float()) * scale
+    if softcap is not None:
+        logits = softcap * torch.tanh(logits / softcap)
+    kpos = torch.arange(S, device=q.device)[None]
+    lengths = lengths.to(q.device)[:, None]
+    mask = kpos < lengths
+    if window is not None:
+        mask &= kpos > lengths - 1 - window
+    logits = logits.masked_fill(~mask[:, None, None], -math.inf)
+    chunk = -(-S // n_split)
+    ms, ls, accs = [], [], []
+    for i in range(n_split):
+        sl = slice(min(i * chunk, S), min((i + 1) * chunk, S))
+        x = logits[..., sl]
+        if x.shape[-1] == 0:
+            continue
+        m = x.amax(-1)
+        p = torch.exp(x - torch.where(m.isfinite(), m, 0.0)[..., None])
+        ms.append(m)
+        ls.append(p.sum(-1))
+        accs.append(torch.einsum("bhgk,bkhd->bhgd", p,
+                                 v_cache[:, sl].float()))
+    m, l, acc = torch.stack(ms), torch.stack(ls), torch.stack(accs)
+    M = torch.where(l > 0, m, -math.inf).amax(0)
+    f = torch.where(l > 0, torch.exp(m - torch.where(M.isfinite(), M, 0.0)),
+                    0.0)
+    L = (l * f).sum(0)
+    A = (acc * f[..., None]).sum(0)
+    out = torch.where(L[..., None] > 0, A / torch.where(L > 0, L, 1.0)[
+        ..., None], 0.0)
+    return out.reshape(B, Hq, d).to(q.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Recurrences (Mamba-1 selective scan, RG-LRU).
 # ---------------------------------------------------------------------------

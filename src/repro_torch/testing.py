@@ -6,7 +6,8 @@ both check the kernels on the same inputs: random sparse graphs shaped like
 count-clip layered graph of ``tests/test_properties.py``, real score graphs
 of the homogeneous archs (the paper's and the 100+-chiplet families),
 min-plus operands with ragged shapes, and attention operands (the
-``tests/test_kernels.py`` cases and more).
+``tests/test_kernels.py`` cases and more, and the edges of the attention
+kernels' tiles and splits).
 """
 from __future__ import annotations
 
@@ -195,6 +196,54 @@ def attention_cases() -> dict:
     return cases
 
 
+def attention_tile_cases() -> dict:
+    """Named factories of (q, k, v, kwargs) at the edges of the bfloat16
+    flash kernel's tiles (64 query rows a block, 16 a warp; 64 keys a tile,
+    32 at head dim 256): Sq and Sk in {1, 63, 65, 127, 129, 300, 1000},
+    query chunks of a long prompt at several offsets (``pos_offset``),
+    windows whose edges fall on and next to tile boundaries, soft-caps,
+    bidirectional calls, more queries than keys, query heads per KV head
+    g in {1, 2, 8, 16} and head dims 16 to 256."""
+    specs = [
+        (dict(B=1, Sq=1, Sk=1, Hq=2, Hkv=1, d=128), dict(causal=True)),
+        (dict(B=1, Sq=63, Sk=63, Hq=2, Hkv=2, d=64), dict(causal=True)),
+        (dict(B=1, Sq=65, Sk=65, Hq=4, Hkv=2, d=128), dict(causal=True)),
+        (dict(B=1, Sq=127, Sk=127, Hq=8, Hkv=1, d=32), dict(causal=True)),
+        (dict(B=1, Sq=129, Sk=129, Hq=16, Hkv=1, d=256), dict(causal=True)),
+        (dict(B=2, Sq=300, Sk=300, Hq=4, Hkv=2, d=128), dict(causal=True)),
+        (dict(B=1, Sq=1000, Sk=1000, Hq=4, Hkv=2, d=128), dict(causal=True)),
+        (dict(B=1, Sq=1000, Sk=1000, Hq=16, Hkv=1, d=256),
+         dict(causal=True, window=256)),
+        (dict(B=1, Sq=300, Sk=300, Hq=16, Hkv=1, d=256),
+         dict(causal=True, window=64)),
+        (dict(B=1, Sq=300, Sk=300, Hq=2, Hkv=1, d=128),
+         dict(causal=True, window=65)),
+        (dict(B=1, Sq=129, Sk=129, Hq=2, Hkv=2, d=64),
+         dict(causal=True, window=63, softcap=30.0)),
+        (dict(B=1, Sq=300, Sk=300, Hq=4, Hkv=2, d=128),
+         dict(causal=True, softcap=50.0)),
+        (dict(B=1, Sq=127, Sk=300, Hq=8, Hkv=1, d=64), dict(causal=False)),
+        (dict(B=1, Sq=129, Sk=129, Hq=2, Hkv=1, d=32),
+         dict(causal=False, window=64)),
+        (dict(B=1, Sq=65, Sk=1000, Hq=4, Hkv=2, d=128),
+         dict(causal=True, pos_offset=0)),
+        (dict(B=1, Sq=65, Sk=1000, Hq=4, Hkv=2, d=128),
+         dict(causal=True, pos_offset=64)),
+        (dict(B=1, Sq=65, Sk=1000, Hq=4, Hkv=2, d=128),
+         dict(causal=True, pos_offset=935)),
+        (dict(B=1, Sq=1, Sk=1000, Hq=16, Hkv=1, d=256), dict(causal=True)),
+        (dict(B=1, Sq=1000, Sk=63, Hq=1, Hkv=1, d=16), dict(causal=True)),
+        (dict(B=1, Sq=63, Sk=127, Hq=2, Hkv=1, d=16), dict(causal=True)),
+    ]
+    cases = {}
+    for i, (shape, kw) in enumerate(specs):
+        name = " ".join(f"{k}={v}" for k, v in {**shape, **kw}.items())
+        cases[name] = (lambda shape=shape, kw=kw, i=i:
+                       (*attention_operands(**shape, seed=300 + i),
+                        dict(kw)))
+    return cases
+
+
 def decode_operands(B: int, S: int, Hq: int, Hkv: int, d: int,
                     lengths, seed: int = 0) -> tuple:
     """q [B, Hq, d], caches [B, S, Hkv, d] (float32 standard normals) and
@@ -233,6 +282,42 @@ def decode_cases() -> dict:
         cases[name] = (lambda shape=shape, lens=lens, kw=kw, i=i:
                        (*decode_operands(len(lens), **shape, lengths=lens,
                                          seed=100 + i), dict(kw)))
+    return cases
+
+
+def decode_split_cases() -> dict:
+    """Named factories of (q, k_cache, v_cache, lengths, kwargs) at the
+    edges of the decode kernel's split over S
+    (``kernels.decode_attention.decode_splits``: here 2 to 64 chunks of
+    256 to 512 positions, walked in 16-position tiles): lengths 0, 1, a
+    chunk boundary and one either side of it, S, rows of different lengths
+    in one call, a window, a soft-cap, the recurrentgemma ring (lengths
+    clamped to S, no window), one split only (no partials), the most
+    splits (64), query heads per KV head g in {1, 2, 8, 16} and 24 (two
+    row chunks of the tensor-core kernel), head dims 16 to 256."""
+    specs = [
+        (dict(S=1024, Hq=2, Hkv=2, d=64), [0, 1, 255, 256, 257, 1024], {}),
+        (dict(S=2000, Hq=4, Hkv=2, d=128), [2000, 1999, 513, 511, 512, 1],
+         {}),
+        (dict(S=1024, Hq=8, Hkv=1, d=32), [1024, 700, 256, 257, 10],
+         dict(window=300)),
+        (dict(S=1280, Hq=16, Hkv=1, d=256),
+         [1280, 1279, 641, 640, 639, 321, 1], {}),
+        (dict(S=1024, Hq=16, Hkv=1, d=256), [1024, 600, 0],
+         dict(window=300, softcap=30.0)),
+        (dict(S=600, Hq=2, Hkv=1, d=16), [600, 321, 320, 319, 2], {}),
+        (dict(S=4096, Hq=16, Hkv=8, d=128), [4096, 257], {}),
+        (dict(S=1024, Hq=24, Hkv=1, d=64), [1024, 257], {}),
+        (dict(S=64, Hq=16, Hkv=1, d=128), [64, 0, 33], {}),
+        (dict(S=16384, Hq=2, Hkv=1, d=64), [16384], {}),
+    ]
+    cases = {}
+    for i, (shape, lens, kw) in enumerate(specs):
+        name = " ".join(f"{k}={v}" for k, v in {**shape, **kw}.items())
+        name += f" lengths={lens}"
+        cases[name] = (lambda shape=shape, lens=lens, kw=kw, i=i:
+                       (*decode_operands(len(lens), **shape, lengths=lens,
+                                         seed=400 + i), dict(kw)))
     return cases
 
 

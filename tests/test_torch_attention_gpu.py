@@ -1,11 +1,15 @@
 """The attention kernels and the LM serving path on the card.
 
 The flash-attention kernel on every case of
-``repro_torch.testing.attention_cases`` and the flash-decode kernel on
-every case of ``testing.decode_cases``, in float32 and bfloat16, against
-their plain versions on the card, with one launch counted per call and
-the JAX tests' tolerances (flash 2e-5, decode 3e-5 in float32; 2e-2 in
-bfloat16).  Then a reduced qwen3-1.7b prefill and three decode steps on
+``repro_torch.testing.attention_cases`` and ``attention_tile_cases`` (the
+edges of the bfloat16 kernel's tiles) and the flash-decode kernel on
+every case of ``testing.decode_cases`` and ``decode_split_cases`` (the
+edges of its split over S), in float32 and bfloat16, against their plain
+versions on the card, with one launch counted per call and the JAX tests'
+tolerances (flash 2e-5, decode 3e-5 in float32; 2e-2 in bfloat16).  At
+the serve runs' shapes both kernels give bitwise equal outputs from two
+launches and make no host sync (``torch.cuda.set_sync_debug_mode``).
+Then a reduced qwen3-1.7b prefill and three decode steps on
 the card against the same model on the CPU (float32: rtol = atol = 2e-4,
 the CPU parity tests' tolerance; the card sums in other orders), going
 through the kernels only.  Skips without a card; run it on the H100 with
@@ -29,6 +33,8 @@ pytestmark = pytest.mark.gpu
 
 ATTN = testing.attention_cases()
 DECODE = testing.decode_cases()
+TILE = testing.attention_tile_cases()
+SPLIT = testing.decode_split_cases()
 DTYPES = ("float32", "bfloat16")
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 DECODE_TOL = {"float32": 3e-5, "bfloat16": 2e-2}
@@ -51,7 +57,17 @@ def _on(x, dtype, dev):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("name", list(ATTN))
 def test_flash_kernel_matches_plain(cuda, name, dtype):
-    q, k, v, kw = ATTN[name]()
+    _check_flash(cuda, ATTN[name], name, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("name", list(TILE))
+def test_flash_kernel_tile_edges(cuda, name, dtype):
+    _check_flash(cuda, TILE[name], name, dtype)
+
+
+def _check_flash(cuda, make, name, dtype):
+    q, k, v, kw = make()
     q, k, v = (_on(x, dtype, cuda) for x in (q, k, v))
     launches = tfa.launches
     got = tfa.flash_attention(q, k, v, **kw)
@@ -67,7 +83,17 @@ def test_flash_kernel_matches_plain(cuda, name, dtype):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("name", list(DECODE))
 def test_decode_kernel_matches_plain(cuda, name, dtype):
-    q, kc, vc, lens, kw = DECODE[name]()
+    _check_decode(cuda, DECODE[name], name, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("name", list(SPLIT))
+def test_decode_kernel_split_edges(cuda, name, dtype):
+    _check_decode(cuda, SPLIT[name], name, dtype)
+
+
+def _check_decode(cuda, make, name, dtype):
+    q, kc, vc, lens, kw = make()
     q, kc, vc = (_on(x, dtype, cuda) for x in (q, kc, vc))
     lens = torch.from_numpy(lens).to(cuda)
     launches = tda.launches
@@ -88,6 +114,68 @@ def test_flash_kernel_reads_strided_queries(cuda):
     assert not wide.is_contiguous()
     assert torch.equal(ops.flash_attention(wide, k, v, **kw),
                        ops.flash_attention(q, k, v, **kw))
+
+
+def test_flash_kernel_refuses_misaligned_bf16_rows(cuda):
+    q, k, v, kw = ATTN["B=2 Sq=24 Sk=24 Hq=4 Hkv=2 d=32 causal=True"]()
+    q, k, v = (torch.from_numpy(x).to(cuda).bfloat16() for x in (q, k, v))
+    # Every row starts 2 bytes past a 16-byte boundary.
+    wide = torch.zeros(2, 24, 4 * 32 + 1, dtype=torch.bfloat16, device=cuda)
+    odd = wide[..., 1:].unflatten(-1, (4, 32))
+    odd.copy_(q)
+    with pytest.raises(ValueError):
+        ops.flash_attention(odd, k, v, **kw)
+
+
+# The serve runs' attention shapes (chip_smoke.py's timing phase): flash
+# at B = 1, Sq = Sk = 2048, causal; decode at B = 8 with seeded lengths.
+SERVE = {
+    "flash qwen3-1.7b": ("flash", dict(B=1, Sq=2048, Sk=2048, Hq=16, Hkv=8,
+                                       d=128), None),
+    "flash recurrentgemma-9b": ("flash", dict(B=1, Sq=2048, Sk=2048, Hq=16,
+                                              Hkv=1, d=256), 2048),
+    "decode qwen3-1.7b": ("decode", dict(S=4096, Hq=16, Hkv=8, d=128), None),
+    "decode recurrentgemma-9b": ("decode", dict(S=2048, Hq=16, Hkv=1,
+                                                d=256), None),
+}
+
+
+def _serve_call(cuda, which):
+    """A call of one kernel at a serve shape in bfloat16, inputs on the
+    card and the library loaded (the first call may allocate)."""
+    kind, shape, window = SERVE[which]
+    if kind == "flash":
+        q, k, v = (_on(x, "bfloat16", cuda)
+                   for x in testing.attention_operands(**shape, seed=1))
+        fn = lambda: ops.flash_attention(q, k, v, window=window)  # noqa: E731
+    else:
+        lens = np.random.default_rng(0).integers(1, shape["S"] + 1, size=8)
+        q, kc, vc, lens = testing.decode_operands(8, **shape, lengths=lens,
+                                                  seed=1)
+        q, kc, vc = (_on(x, "bfloat16", cuda) for x in (q, kc, vc))
+        lens = torch.from_numpy(lens).to(cuda)
+        fn = lambda: ops.decode_attention(q, kc, vc, lens)  # noqa: E731
+    fn()
+    torch.cuda.synchronize()
+    return fn
+
+
+@pytest.mark.parametrize("which", list(SERVE))
+def test_attention_kernels_are_bitwise_deterministic(cuda, which):
+    fn = _serve_call(cuda, which)
+    first, second = fn(), fn()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("which", list(SERVE))
+def test_attention_kernels_make_no_host_sync(cuda, which):
+    fn = _serve_call(cuda, which)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
 
 
 def test_decode_kernel_refuses_misaligned_cache(cuda):
