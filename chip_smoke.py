@@ -7,7 +7,10 @@ Phases (any failure exits non-zero; nothing is caught):
 1. device — the card's name, the device count and its power limit;
 2. build  — every CUDA kernel from the sources in ``src/repro_torch`` (one
    nvcc per source, started together, then one link), with ptxas's
-   registers and spills per kernel instance;
+   registers and spills per kernel instance, and from this build's SASS
+   (``cuobjdump -sass``) the hot loop of each FW and min-plus kernel
+   instance: the instructions every warp issues a trip over the
+   relaxations (or min-plus updates) in it (``kernel_timing.loop_issues``);
 3. parity — each kernel against its plain PyTorch version on the card.
    The FW and min-plus kernels bit for bit (``torch.equal``): the FW
    kernel on random, disconnected, count-clip and real homog32/homog64
@@ -26,17 +29,23 @@ Phases (any failure exits non-zero; nothing is caught):
    The scan kernels (selective scan, RG-LRU) on ``testing.scan_cases`` in
    both dtypes (3e-5 in float32, 2e-2 in bfloat16, final states 3e-5), and
    a sequence split across two calls bit for bit equal to one call;
-4. timing — each kernel (CUDA events, median over launches after warm-up)
-   at the main path's shapes, beside its bound and the plain version; the
-   FW kernel and the blocked FW kernel side by side at every (B, V) the
-   scorer uses for the large families and at V = 216 and 480 (the
-   measurement behind ``ops.FW_TILED_FROM_V``).  Every timed output is
-   held bit for bit against the plain version's output on the same input,
-   so the kernels are also checked at the main path's full shapes
-   (min-plus at 1536^3, APSP at V = 1536).  The attention kernels at the
-   serve runs' shapes in bfloat16, causal, each call timed as 20 launches
-   back to back between one pair of CUDA events, so that the host's
-   enqueue is not counted (``_batched_ms``): qwen3-1.7b's (flash: B = 1,
+4. timing — each kernel at the main path's shapes, its calls back to
+   back between one pair of CUDA events behind a spin kernel, so that the
+   host's enqueue is not counted (``kernel_timing.batched_ms``), beside
+   its bound, the plain version and, for the FW and min-plus kernels, the
+   single-issue instruction floor of the instance each call launches (the
+   work times the build phase's instructions a relaxation or update, over
+   128 lanes an SM at the top SM clock; printed here only); the FW kernel
+   and the blocked FW
+   kernel side by side at every (B, V) the scorer uses for the large
+   families, at V = 216 and 480 and at V = 40 .. 702 on random graphs at
+   B = 16 (the measurement behind ``ops.fw_takes_tiled``; each row names
+   kernel 1's cluster size and the kernel the dispatch picks).  Every
+   timed output is held bit for bit against the plain version's output
+   on the same input, so the kernels are also checked at the main path's
+   full shapes (min-plus at 1536^3, APSP at V = 1536).  The attention
+   kernels at the serve runs' shapes in bfloat16, causal, 20 launches an
+   event pair: qwen3-1.7b's (flash: B = 1,
    Sq = Sk in {512, 2048}; decode: B = 8 over a 4096-token cache) and
    recurrentgemma-9b's (16 query heads on 1 KV head, head dim 256; flash
    with its 2048-token window at Sq = Sk in {2048, 3072}; decode: B = 8
@@ -56,10 +65,13 @@ Phases (any failure exits non-zero; nothing is caught):
 5. main path — each path driven through its entry points on the card,
    with every kernel's launch count and every plain version's call count
    set to 0 just before each run and read just after:
-   - slice 1, backend "fw-cuda": the quickstart experiment (homog32
-     baseline, GA) and homog64 placeit (GA at paper defaults), through
-     ``run_experiment`` and ``baseline_cost``;
-   - slice 2, backend "fw-tiled": homog256 placeit (V = 1536) and hex127
+   - slice 1, the default backend "fw-tiled" (the size dispatch between
+     the two FW kernels): the quickstart experiment (homog32 baseline, GA)
+     and homog64 placeit (GA at paper defaults), through
+     ``run_experiment`` and ``baseline_cost``; then the quickstart on
+     backend "fw-cuda" (kernel 1 at every V); each run must launch the
+     kernel its backend picks, and the runs both FW kernels;
+   - slice 2, the default backend: homog256 placeit (V = 1536) and hex127
      baseline (V = 702), GA at the large families' defaults;
    - ``ops.apsp`` on the homog256 winner's score graph (min-plus kernel);
    the homog32 and homog256 winners are re-scored with the plain FW, and
@@ -92,6 +104,7 @@ The second-to-last line is a JSON object listing the kernels; the last is
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import math
@@ -109,9 +122,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import testing  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core.api import (Budget, ExperimentConfig,  # noqa: E402
-                                  GAParams, baseline_cost, make_rep,
-                                  run_experiment)
+from repro_torch.core import api  # noqa: E402
+from repro_torch.core.api import (ExperimentConfig,  # noqa: E402
+                                  baseline_cost, make_rep, run_experiment)
 from repro_torch.core.chiplets import resolve_arch  # noqa: E402
 from repro_torch.core.objective import norms_vec  # noqa: E402
 from repro_torch.core.proxies import (make_scorer,  # noqa: E402
@@ -127,6 +140,7 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref as plain  # noqa: E402
 from repro_torch.kernels import rglru_scan as trg  # noqa: E402
 from repro_torch.kernels import selective_scan as tss  # noqa: E402
+from repro_torch.launch import kernel_timing as kt  # noqa: E402
 from repro_torch.models.model import LM  # noqa: E402
 from repro_torch.models.rglru import RGLRU  # noqa: E402
 from repro_torch.models.transformer import leaf_kinds  # noqa: E402
@@ -143,8 +157,9 @@ PEAK_BYTES = 3.35e12
 FW_OPS_PER_RELAXATION = 10
 # (B = the scorer's chunk, arch, config): V = 216 and V = 480.
 TIMED = ((16, "homog32", "baseline"), (16, "homog64", "placeit"))
-# Random graphs below the paper's sizes, to place the dispatch point.
-TIMED_SMALL_V = (40, 96, 130, 160, 192)
+# Random graphs at the scorer's B = 16 around the paper's sizes, to place
+# the dispatch between the two FW kernels (``ops.fw_takes_tiled``).
+TIMED_SMALL_V = (40, 64, 96, 112, 130, 160, 192, 300, 384, 552, 702)
 KERNELS = {"fw_counts": fwc, "fw_counts_tiled": fwt, "minplus": mp,
            "flash_attention": tfa, "decode_attention": tda,
            "selective_scan": tss, "rglru_scan": trg}
@@ -155,35 +170,20 @@ ATTN_TOL = {"flash_attention": {"float32": 2e-5, "bfloat16": 2e-2},
 APSP_ARCH = "homog256"
 
 # The main path's runs.  Slice 1: the quickstart and homog64 placeit on
-# backend "fw-cuda"; slice 2: homog256 placeit and hex127 baseline on
-# backend "fw-tiled", GA at the large families' defaults.
-QUICKSTART = ExperimentConfig(
-    arch="homog32", config="baseline", algorithms=("ga",),
-    budget=Budget(evals=240), norm_samples=32,
-    params={"ga": GAParams(population=24, elitism=5, tournament=5)})
-HOMOG64 = ExperimentConfig(
-    arch="homog64", config="placeit", algorithms=("ga",),
-    budget=Budget(evals=300), norm_samples=100,
-    params={"ga": GAParams(population=50, elitism=8, tournament=8)})
-_LARGE = dict(algorithms=("ga",), budget=Budget(evals=100), norm_samples=20,
-              backend="fw-tiled",
-              params={"ga": GAParams(population=50, elitism=8,
-                                     tournament=8)})
-HOMOG256 = ExperimentConfig(arch="homog256", config="placeit", **_LARGE)
-HEX127 = ExperimentConfig(arch="hex127", config="baseline", **_LARGE)
+# the default backend (the size dispatch), and the quickstart once more on
+# "fw-cuda" (kernel 1 at every V); slice 2: homog256 placeit and hex127
+# baseline, GA at the large families' defaults.
+# (``kernel_timing.RUNS``, which ``launch/kernel_compare.py --walls`` times
+# too.)
+QUICKSTART = kt.experiment_config(api, "quickstart")
+QUICKSTART_KERNEL1 = dataclasses.replace(QUICKSTART, backend="fw-cuda")
+HOMOG64 = kt.experiment_config(api, "homog64 placeit")
+HOMOG256 = kt.experiment_config(api, "homog256 placeit")
+HEX127 = kt.experiment_config(api, "hex127 baseline")
 
 
 def phase(name: str) -> None:
     print(f"== {name}", flush=True)
-
-
-def card_line() -> str:
-    """The card's name and power limit, as nvidia-smi gives them."""
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True)
-    return smi.stdout.strip()
 
 
 def device_phase() -> str:
@@ -193,14 +193,31 @@ def device_phase() -> str:
     name = torch.cuda.get_device_name(0)
     print(f"device: {name}, count {torch.cuda.device_count()}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}")
-    print(card_line())
+    print(kt.card_line())
     # No float32 product on the path may run in TF32.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return name
 
 
-def build_phase() -> None:
+def _kernel_name(line: str) -> str:
+    """A kernel's name and template arguments from ptxas's mangled name:
+    a length-prefixed identifier ending in _kernel, then ints (ILi4ELi8E)
+    and a type (f, 13__nv_bfloat16)."""
+    for m in re.finditer(r"(?=(\d+)([a-z_][a-z0-9_]*))", line):
+        name = m.group(2)[:int(m.group(1))]
+        if len(name) == int(m.group(1)) and name.endswith("_kernel"):
+            rest = line[m.start(2) + len(name):]
+            t = re.match(r"I?((?:Li\d+E)*)(13__nv_bfloat16|f)?", rest)
+            args = re.findall(r"Li(\d+)E", t.group(1)) + (
+                [{"f": "f32", "13__nv_bfloat16": "bf16"}[t.group(2)]]
+                if t.group(2) else [])
+            return name + (f"<{', '.join(args)}>" if args else "")
+    return line.split("'")[1] if "'" in line else line.strip()
+
+
+def build_phase() -> dict:
+    """Builds the library; returns its SASS by kernel function."""
     phase("build")
     t0 = time.monotonic()
     log = build.build(force=True)
@@ -208,17 +225,47 @@ def build_phase() -> None:
     kernel = None
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            m = re.search(
-                r"([a-z_]+_kernel)(?:ILi(\d+)E(13__nv_bfloat16|f)?)?", line)
-            args = [a for a in (m.group(2), {"f": "f32"}.get(
-                m.group(3), m.group(3) and "bf16")) if a]
-            kernel = m.group(1) + (f"<{', '.join(args)}>" if args else "")
+            kernel = _kernel_name(line)
         elif "Used" in line and kernel is not None:
             print(f"  {kernel:34s} {line.split(':', 1)[1].strip()}")
         elif "spill" in line and " 0 bytes spill stores" not in line:
             print(f"  {line.strip()}")
     print(f"build: {build.LIB_PATH.name} ({len(build.SOURCES)} sources) in "
           f"{time.monotonic() - t0:.2f} s")
+    funcs = kt.sass_functions(kt.sass(build.LIB_PATH))
+    print("  hot loops in the SASS (cuobjdump -sass of this build; "
+          "instructions every warp issues a trip / relaxations or updates "
+          "in it):")
+    for parts, op in ((("fw_counts_cluster_kernel",), "FMUL"),
+                      (("fw_tiled_kernel",), "FMUL"),
+                      (("minplus_kernel",), "FADD")):
+        for f in sorted(x for x in funcs if all(p in x for p in parts)):
+            n, k = kt.loop_issues(funcs[f], op)
+            print(f"    {_kernel_name(f):34s} {n:5d} / {k:3d} = "
+                  f"{n / k:.4f}")
+    return funcs
+
+
+def fw_issues(funcs: dict, kernel: str, B: int, V: int, dev
+              ) -> tuple[str, float] | None:
+    """The instance of ``kernel`` ("fw_counts" or "tiled") that a call at
+    (B, V) launches and its instructions a relaxation (``loop_issues``);
+    None for kernel 1's L2 path, which has no on-chip instance."""
+    lib = build.load()
+    if kernel == "tiled":
+        n = lib.fw_counts_tiled_threads(B, V, dev.index or 0)
+        name = kt.find_function(funcs, f"fw_tiled_kernelILi{n}EE")
+        label = f"fw_tiled_kernel<{n}>"
+    else:
+        C = lib.fw_counts_cluster_size(V, B)
+        if C == 0:
+            return None
+        rw, cc = fwc.instance(V, C)
+        name = kt.find_function(
+            funcs, f"fw_counts_cluster_kernelILi{rw}ELi{cc}EE")
+        label = f"fw_counts_cluster_kernel<{rw}, {cc}>"
+    n, k = kt.loop_issues(funcs[name], "FMUL")
+    return label, n / k
 
 
 def _max_err(pairs) -> float:
@@ -280,59 +327,6 @@ def parity_phase(dev) -> dict:
     return worst
 
 
-def _median_ms(fns: dict, reps: int, warmup: int = 1) -> tuple[dict, dict]:
-    """Median CUDA-event time of each callable, the callables taking
-    turns in every repetition, and each callable's last output."""
-    for _ in range(warmup):
-        for fn in fns.values():
-            fn()
-    times = {k: [] for k in fns}
-    outs = {}
-    for _ in range(reps):
-        for k, fn in fns.items():
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            outs[k] = fn()
-            end.record()
-            end.synchronize()
-            times[k].append(start.elapsed_time(end))
-    return {k: statistics.median(v) for k, v in times.items()}, outs
-
-
-def _batched_ms(fns: dict, launches: int, rounds: int,
-                warmup: int = 2) -> tuple[dict, dict]:
-    """Device time of one call of each callable: ``launches`` calls back
-    to back between one pair of CUDA events, divided by ``launches``; the
-    median over ``rounds`` rounds, the callables taking turns in each.
-    Before the start event the stream is held by a spin kernel long
-    enough for the host to enqueue all the calls (1.5x their host time
-    in the warm-up, at 2 GHz), so the events time the device's work and
-    not the host's enqueue.  Returns the times and each callable's last
-    output."""
-    host = dict.fromkeys(fns, 0.0)
-    for _ in range(warmup):
-        for k, fn in fns.items():
-            t0 = time.perf_counter()
-            fn()
-            host[k] = time.perf_counter() - t0
-            torch.cuda.synchronize()
-    times = {k: [] for k in fns}
-    outs = {}
-    for _ in range(rounds):
-        for k, fn in fns.items():
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            torch.cuda._sleep(int(2e9 * (1.5 * launches * host[k] + 1e-4)))
-            start.record()
-            for _ in range(launches):
-                outs[k] = fn()
-            end.record()
-            end.synchronize()
-            times[k].append(start.elapsed_time(end) / launches)
-    return {k: statistics.median(v) for k, v in times.items()}, outs
-
-
 def _bound(ops_n: float, bytes_n: float,
            peak_ops: float = PEAK_F32_OPS) -> tuple[float, str]:
     ops_s, bytes_s = ops_n / peak_ops, bytes_n / PEAK_BYTES
@@ -343,6 +337,17 @@ def _bound(ops_n: float, bytes_n: float,
 def fw_bound_ms(B: int, V: int) -> tuple[float, str]:
     return _bound(FW_OPS_PER_RELAXATION * B * V * (V - 1) ** 2,
                   3 * B * V * V * 4)
+
+
+def fw_floor_ms(B: int, V: int, issues: float, rate: float) -> float:
+    """The issue floor of B * V * (V - 1)^2 relaxations at ``issues``
+    instructions each."""
+    return 1e3 * B * V * (V - 1) ** 2 * issues / rate
+
+
+def minplus_floor_ms(M: int, K: int, N: int, issues: float,
+                     rate: float) -> float:
+    return 1e3 * M * N * K * issues / rate
 
 
 def minplus_bound_ms(M: int, K: int, N: int) -> tuple[float, str]:
@@ -359,11 +364,16 @@ def _scorer_batch(arch_name: str, config: str) -> int:
                         g.edges.shape[0], 16)
 
 
-def timing_phase(dev, worst: dict) -> dict:
+def timing_phase(dev, worst: dict, funcs: dict) -> dict:
     """Times the kernels; every timed output must equal the plain
-    version's, and its error is folded into ``worst``."""
-    phase("timing: fw_counts vs fw_counts_tiled (the dispatch measurement; "
-          "outputs bitwise vs the plain FW)")
+    version's, and its error is folded into ``worst``.  Issue floors
+    come from ``funcs``, the SASS of this run's build."""
+    rate = kt.issue_rate(dev)
+    phase(f"timing: fw_counts vs fw_counts_tiled (the dispatch measurement; "
+          f"batched_ms; outputs bitwise vs the plain FW; issue floors of "
+          f"the instances launched at {rate:.4g} instructions/s; '-': "
+          f"kernel 1's L2 path)")
+    lib = build.load()
     shapes = [(f"random V={V}", 16,
                lambda V=V: testing.random_graph(V, 3 * V, seed=V, batch=16))
               for V in TIMED_SMALL_V]
@@ -375,55 +385,75 @@ def timing_phase(dev, worst: dict) -> dict:
             shapes.append((f"{a} {c}", B, lambda a=a, c=c, B=B:
                            testing.score_graphs(a, c, B)))
     rows = {}
-    print(f"  {'shape':22s} {'B':>3s} {'V':>5s} {'fw_counts':>11s} "
-          f"{'tiled':>10s} {'plain':>10s} {'bound':>9s}  (ms)")
+    print(f"  {'shape':22s} {'B':>3s} {'V':>5s} {'C':>3s} {'fw_counts':>11s} "
+          f"{'tiled':>10s} {'plain':>10s} {'bound':>9s} {'floor 1':>9s} "
+          f"{'floor t':>9s}  dispatch (ms)")
     for name, B, make in shapes:
         W = torch.from_numpy(make()).to(dev)
         V = W.shape[-1]
-        t, out = _median_ms({"fw_counts": lambda: ops.fw_counts(W),
-                             "tiled": lambda: fwt.fw_counts_tiled(W)},
-                            reps=3 if V > 700 else 10)
-        p, want = _median_ms({"p": lambda: plain.fw_counts_ref(W)}, reps=2)
+        # Kernel 1's L2 path (V above its on-chip limit) takes up to 0.7 s
+        # a call at V = 1536: one launch an event pair there.
+        n = 1 if V > fwc.ONCHIP_MAX_V else 20 if V <= 216 else 5
+        t, out = kt.batched_ms({"fw_counts": lambda: ops.fw_counts(W),
+                                "tiled": lambda: fwt.fw_counts_tiled(W)},
+                               launches=n, rounds=3 if n == 1 else 5)
+        p, want = kt.median_ms({"p": lambda: plain.fw_counts_ref(W)}, reps=2)
         for k in ("fw_counts", "tiled"):
             kernel = "fw_counts_tiled" if k == "tiled" else k
             worst[kernel] = max(worst[kernel], _require_equal(
                 f"timed {kernel} vs plain FW", name, out[k], want["p"]))
         t["plain"] = p["p"]
         t["bound"], t["bound_by"] = fw_bound_ms(B, V)
+        for k, key in (("fw_counts", "floor"), ("tiled", "tiled_floor")):
+            inst = fw_issues(funcs, k, B, V, dev)
+            t[key] = inst and fw_floor_ms(B, V, inst[1], rate)
+            t[key + "_of"] = inst
         t["B"], t["V"] = B, V
+        t["cluster"] = lib.fw_counts_cluster_size(V, B)
+        picked = "tiled" if ops.fw_takes_tiled(V) else "fw_counts"
+        faster = min(("fw_counts", "tiled"), key=lambda k: t[k])
         rows[name] = t
-        print(f"  {name:22s} {B:3d} {V:5d} {t['fw_counts']:11.4f} "
-              f"{t['tiled']:10.4f} {t['plain']:10.3f} {t['bound']:9.4f}  "
-              f"({t['bound_by']}) equal")
+        floor1 = "-" if t["floor"] is None else f"{t['floor']:.4f}"
+        print(f"  {name:22s} {B:3d} {V:5d} {t['cluster']:3d} "
+              f"{t['fw_counts']:11.4f} {t['tiled']:10.4f} {t['plain']:10.3f} "
+              f"{t['bound']:9.4f} {floor1:>9s} {t['tiled_floor']:9.4f}  "
+              f"{picked}"
+              f"{'' if picked == faster else ' (the slower here)'}; equal")
 
     phase(f"timing: minplus (M = N = K = V) and apsp on a {APSP_ARCH} "
           f"placeit score graph (outputs bitwise vs the plain versions)")
     W = torch.from_numpy(testing.score_graphs(APSP_ARCH, "placeit", 1)[0])
     W = W.to(dev)
     V = W.shape[-1]
-    t, out = _median_ms({"kernel": lambda: ops.minplus(W, W)}, reps=20,
-                        warmup=3)
-    p, want = _median_ms({"p": lambda: plain.minplus_ref(W, W)}, reps=3)
+    t, out = kt.batched_ms({"kernel": lambda: ops.minplus(W, W)},
+                           launches=20, rounds=5)
+    p, want = kt.median_ms({"p": lambda: plain.minplus_ref(W, W)}, reps=3)
     worst["minplus"] = max(worst["minplus"], _require_equal(
         "timed minplus vs plain", f"{APSP_ARCH} placeit W x W",
         [out["kernel"]], [want["p"]]))
     t["plain"] = p["p"]
     t["bound"], t["bound_by"] = minplus_bound_ms(V, V, V)
+    mp_fn = kt.find_function(funcs, "minplus_kernel")
+    n_mp, k_mp = kt.loop_issues(funcs[mp_fn], "FADD")
+    t["floor"] = minplus_floor_ms(V, V, V, n_mp / k_mp, rate)
     rows["minplus"] = t
     n = plain.apsp_squarings(V)
-    a, out = _median_ms({"kernel": lambda: ops.apsp(W)}, reps=5)
-    p, want = _median_ms({"p": lambda: plain.apsp_ref(W)}, reps=2)
+    a, out = kt.batched_ms({"kernel": lambda: ops.apsp(W)}, launches=3,
+                           rounds=5)
+    p, want = kt.median_ms({"p": lambda: plain.apsp_ref(W)}, reps=2)
     worst["minplus"] = max(worst["minplus"], _require_equal(
         "timed apsp vs plain", f"{APSP_ARCH} placeit", [out["kernel"]],
         [want["p"]]))
     a["plain"] = p["p"]
     b_ms, b_by = minplus_bound_ms(V, V, V)
     a["bound"], a["bound_by"] = n * b_ms, b_by
+    a["floor"] = n * t["floor"]
     rows["apsp"] = a
     for k in ("minplus", "apsp"):
         r = rows[k]
         print(f"  {k} V={V}: kernel {r['kernel']:.4f} ms, bound "
-              f"{r['bound']:.4f} ms ({r['bound_by']}), "
+              f"{r['bound']:.4f} ms ({r['bound_by']}), issue floor "
+              f"{r['floor']:.4f} ms, "
               f"{r['bound'] / r['kernel']:.4f} of bound; plain version "
               f"{r['plain']:.3f} ms; library call: none; output equal to "
               f"the plain version's")
@@ -566,12 +596,13 @@ ATTN_LAUNCHES = 20
 
 def attention_timing_phase(dev, worst: dict) -> dict:
     """Times the attention kernels at the serve runs' shapes in bfloat16
-    (``_batched_ms``); every timed output is held to ``FULL_LIMIT``
-    against the plain version's.  The yardstick (``library``) is the
-    fastest ``scaled_dot_product_attention`` call that computes the same
-    function: ``is_causal=True`` where flash has no window, no mask where
-    every decode row is full, else a boolean mask; the masked call is
-    also timed beside the first two (``library_masked``)."""
+    (``kernel_timing.batched_ms``); every timed output is held to
+    ``FULL_LIMIT`` against the plain version's.  The yardstick
+    (``library``) is the fastest ``scaled_dot_product_attention`` call
+    that computes the same function: ``is_causal=True`` where flash has
+    no window, no mask where every decode row is full, else a boolean
+    mask; the masked call is also timed beside the first two
+    (``library_masked``)."""
     F = torch.nn.functional
     rows = {}
     for arch, flash_S in ATTN_TIMED:
@@ -586,16 +617,16 @@ def attention_timing_phase(dev, worst: dict) -> dict:
             mask = pos[None] <= pos[:, None]
             if window:
                 mask &= pos[None] > pos[:, None] - window
-            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            q_s, k_s, v_s = (x.transpose(1, 2) for x in (q, k, v))
             fns = {
                 "kernel": lambda: tfa.flash_attention(q, k, v, window=window),
                 "plain": lambda: plain.attention_ref(q, k, v, window=window),
                 "library_masked": lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, attn_mask=mask, enable_gqa=True)}
+                    q_s, k_s, v_s, attn_mask=mask, enable_gqa=True)}
             if window is None:
                 fns["library"] = lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True, enable_gqa=True)
-            t, out = _batched_ms(fns, launches=ATTN_LAUNCHES, rounds=5)
+                    q_s, k_s, v_s, is_causal=True, enable_gqa=True)
+            t, out = kt.batched_ms(fns, launches=ATTN_LAUNCHES, rounds=5)
             if window is not None:
                 t["library"] = t.pop("library_masked")
             t = _attn_row(t, out, f"flash_attention {arch} S={S}",
@@ -617,18 +648,19 @@ def attention_timing_phase(dev, worst: dict) -> dict:
             q, kc, vc = _on_card((q, kc, vc), dev)
             lens = torch.from_numpy(lens_np).to(dev)
             mask = torch.arange(cache, device=dev)[None] < lens[:, None]
-            qt, kt, vt = q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
+            q_s, k_s, v_s = (q[:, :, None], kc.transpose(1, 2),
+                             vc.transpose(1, 2))
             fns = {
                 "kernel": lambda: tda.decode_attention(q, kc, vc, lens),
                 "plain": lambda: plain.decode_attention_ref(q, kc, vc, lens),
                 "library_masked": lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, attn_mask=mask[:, None, None],
+                    q_s, k_s, v_s, attn_mask=mask[:, None, None],
                     enable_gqa=True)}
             full = bool((lens_np == cache).all())
             if full:
                 fns["library"] = lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, enable_gqa=True)
-            t, out = _batched_ms(fns, launches=ATTN_LAUNCHES, rounds=7)
+                    q_s, k_s, v_s, enable_gqa=True)
+            t, out = kt.batched_ms(fns, launches=ATTN_LAUNCHES, rounds=7)
             if not full:
                 t["library"] = t.pop("library_masked")
             t = _attn_row(t, out, f"decode_attention {arch} {label}",
@@ -791,9 +823,9 @@ def scan_timing_phase(dev, worst: dict) -> dict:
         for S in SCAN_TIMED_S:
             args = _serve_scan_operands(kernel, S, dev)
             fn, ref_fn = SCAN_FNS[kernel]
-            t, out = _median_ms({"kernel": lambda: fn(*args)}, reps=20,
-                                warmup=3)
-            p, want = _median_ms({"plain": lambda: ref_fn(*args)}, reps=3)
+            t, out = kt.batched_ms({"kernel": lambda: fn(*args)},
+                                   launches=20, rounds=5)
+            p, want = kt.median_ms({"plain": lambda: ref_fn(*args)}, reps=3)
             t["plain"] = p["plain"]
             (y, h), (yw, hw) = out["kernel"], want["plain"]
             err, share = _require_close(f"timed {kernel} vs plain", f"S={S}",
@@ -1108,6 +1140,17 @@ def _run(cfg: ExperimentConfig, dev) -> tuple:
     return rec, launches
 
 
+def _fw_kernel(cfg: ExperimentConfig) -> str:
+    """The FW kernel a run's scorer launches: kernel 1 on "fw-cuda", else
+    the one the size dispatch picks for the arch's V."""
+    if cfg.backend == "fw-cuda":
+        return "fw_counts"
+    arch = resolve_arch(cfg.arch, cfg.config)
+    rep = make_rep(arch, cfg.arch)
+    V = rep.score_graph(rep.random(np.random.default_rng(0))).W.shape[-1]
+    return "fw_counts_tiled" if ops.fw_takes_tiled(V) else "fw_counts"
+
+
 def _winner_graph(cfg: ExperimentConfig, rec):
     arch = resolve_arch(cfg.arch, cfg.config)
     rep = make_rep(arch, cfg.arch, cfg.mutation_mode)
@@ -1138,28 +1181,35 @@ def main_path_phase(dev) -> dict:
         for k, n in launches.items():
             total[k] += n
 
-    phase("main path, slice 1 (backend fw-cuda): run_experiment + "
-          "baseline_cost on the card")
-    for cfg in (QUICKSTART, HOMOG64):
+    phase(f"main path, slice 1 (the default backend {QUICKSTART.backend}, "
+          f"the size dispatch; then the quickstart on "
+          f"{QUICKSTART_KERNEL1.backend}): run_experiment + baseline_cost "
+          f"on the card")
+    for cfg in (QUICKSTART, HOMOG64, QUICKSTART_KERNEL1):
         rec, launches = _run(cfg, dev)
         add(launches)
-        if launches["fw_counts"] <= 0:
-            raise SystemExit(f"{cfg.arch} did not go through fw_counts")
+        want = _fw_kernel(cfg)
+        if launches[want] <= 0:
+            raise SystemExit(f"{cfg.arch} on {cfg.backend} did not go "
+                             f"through {want}")
         if cfg is QUICKSTART:
             _rescore_plain(cfg, rec, dev)
 
-    phase("main path, slice 2 (backend fw-tiled): run_experiment + "
+    phase("main path, slice 2 (the default backend): run_experiment + "
           "baseline_cost on the card")
     rec256, launches = _run(HOMOG256, dev)
     add(launches)
-    if launches["fw_counts_tiled"] <= 0:
+    if launches[_fw_kernel(HOMOG256)] <= 0:
         raise SystemExit(f"{HOMOG256.arch} did not go through "
-                         f"fw_counts_tiled")
+                         f"{_fw_kernel(HOMOG256)}")
     _, launches = _run(HEX127, dev)
     add(launches)
-    if launches["fw_counts_tiled"] + launches["fw_counts"] <= 0:
-        raise SystemExit(f"{HEX127.arch} did not go through an FW kernel")
+    if launches[_fw_kernel(HEX127)] <= 0:
+        raise SystemExit(f"{HEX127.arch} did not go through "
+                         f"{_fw_kernel(HEX127)}")
     _rescore_plain(HOMOG256, rec256, dev)
+    if total["fw_counts"] <= 0 or total["fw_counts_tiled"] <= 0:
+        raise SystemExit("the PlaceIT runs did not launch both FW kernels")
 
     phase(f"main path: ops.apsp on the {HOMOG256.arch} winner's score "
           f"graph")
@@ -1228,11 +1278,11 @@ def profile_phase(dev) -> None:
 def main() -> None:
     name = device_phase()
     dev = torch.device("cuda", 0)
-    build_phase()
+    funcs = build_phase()
     max_err = parity_phase(dev)
     attention_parity_phase(dev, max_err)
     scan_parity_phase(dev, max_err)
-    timing = timing_phase(dev, max_err)
+    timing = timing_phase(dev, max_err, funcs)
     timing.update(attention_timing_phase(dev, max_err))
     timing.update(scan_timing_phase(dev, max_err))
     launches = main_path_phase(dev)
@@ -1274,7 +1324,7 @@ def main() -> None:
                                  "falcon-mamba-7b prefill")),
         ("rglru_scan", "rglru_scan.cu", "rglru_scan.py:38", t7["kernel"], t7,
          close("rglru_scan", "3e-5", "recurrentgemma-9b prefill"))]
-    print(card_line())
+    print(kt.card_line())
     print(json.dumps({"kernels": [{
         "name": k, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{src}",

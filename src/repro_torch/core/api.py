@@ -4,15 +4,16 @@ The port of the single-experiment part of ``repro.core.api``:
 
 * :class:`ExperimentConfig` — one experiment (arch x chiplet config x
   algorithms x budget x seeds); its dict/JSON form is the reference's, so
-  one JSON loads in both packages (the reference's backend ``"fw-pallas"``
-  reads as its counterpart ``"fw-cuda"``).
+  one JSON loads and runs in both packages (the reference's backend
+  ``"fw-pallas"`` reads as its counterpart ``"fw-cuda"``, which is written
+  back as ``"fw-pallas"``).
 * :class:`Budget` and the typed per-algorithm hyper-parameters
   (:class:`BRParams`, :class:`GAParams`, :class:`SAParams`) with the
   paper's Table III/IV defaults.
-* Named scorer backends: ``"fw-cuda"`` (the hand-written CUDA FW kernel,
-  the default), ``"fw-tiled"`` (a size dispatch onto the blocked CUDA FW
-  kernel, for the 100+-chiplet families) and ``"fw-ref"`` (the plain
-  PyTorch version).
+* Named scorer backends: ``"fw-tiled"`` (the default: a size dispatch
+  between the two hand-written CUDA FW kernels, ``ops.fw_impl_tiled``),
+  ``"fw-cuda"`` (the cluster-resident CUDA FW kernel for every V) and
+  ``"fw-ref"`` (the plain PyTorch version).
 * :func:`run_experiment` and :func:`baseline_cost`, which run on the card
   unless the caller passes ``device="cpu"``; without a card and without
   ``device`` they raise (see ``proxies.resolve_device``).
@@ -177,8 +178,9 @@ def _run_sa(evaluator: Evaluator, rng: np.random.Generator, budget: Budget,
 
 @register_scorer_backend("fw-cuda")
 def _backend_fw_cuda() -> Callable:
-    """The hand-written CUDA FW kernel for CUDA tensors (the plain version
-    for CPU tensors); the counterpart of the reference's "fw-pallas"."""
+    """The cluster-resident CUDA FW kernel for CUDA tensors, every V (the
+    plain version for CPU tensors); the counterpart of the reference's
+    "fw-pallas"."""
     return ops.fw_impl_cuda
 
 
@@ -190,14 +192,18 @@ def _backend_fw_ref() -> Callable:
 
 @register_scorer_backend("fw-tiled")
 def _backend_fw_tiled() -> Callable:
-    """Size dispatch between the one-block-per-placement CUDA kernel and
-    the blocked three-phase CUDA kernel (``ops.FW_TILED_FROM_V``), for the
-    100+-chiplet families; the plain versions for CPU tensors."""
+    """The default: size dispatch between the cluster-resident CUDA kernel
+    and the blocked CUDA kernel, each where it was measured faster
+    (``ops.fw_takes_tiled``); the plain versions for CPU tensors.  The
+    reference's "fw-tiled" is its own size dispatch."""
     return ops.fw_impl_tiled
 
 
-# The reference's kernel backend name, read as its counterpart here.
+# The reference's kernel backend name, read as its counterpart here, and
+# each port backend's name in the reference (a port JSON runs there).
 _BACKEND_ALIASES = {"fw-pallas": "fw-cuda"}
+_REFERENCE_NAMES = {"fw-cuda": "fw-pallas"}
+DEFAULT_BACKEND = "fw-tiled"
 
 
 # ---------------------------------------------------------------------------
@@ -323,7 +329,7 @@ def get_scorer(layout, *, chunk: int, backend: str,
 
 def make_evaluator(rep, arch: ArchSpec, *, rng: np.random.Generator,
                    norm_samples: int, chunk: int = 16,
-                   backend: str = "fw-cuda", fw_impl=None,
+                   backend: str = DEFAULT_BACKEND, fw_impl=None,
                    objective: Objective | None = None,
                    schedule: Schedule | None = None,
                    norm=None, archive_k: int = 0,
@@ -371,7 +377,7 @@ class ExperimentConfig:
     budget: Budget = field(default_factory=Budget)
     norm_samples: int = 100                # paper: 500
     seed: int = 0
-    backend: str = "fw-cuda"
+    backend: str = DEFAULT_BACKEND
     chunk: int = 16
     mutation_mode: str | None = None       # None -> paper default
     params: dict = field(default_factory=dict)
@@ -434,7 +440,8 @@ class ExperimentConfig:
             "repetitions": self.repetitions,
             "budget": self.budget.to_dict(),
             "norm_samples": self.norm_samples, "seed": self.seed,
-            "backend": self.backend, "chunk": self.chunk,
+            "backend": _REFERENCE_NAMES.get(self.backend, self.backend),
+            "chunk": self.chunk,
             "mutation_mode": self.mutation_mode,
             "params": {a: dataclasses.asdict(p)
                        for a, p in self.params.items()},

@@ -13,8 +13,9 @@ compute, per placement and per traffic type t in {C2C, C2M, C2I, M2I}
   link determines the saturation rate  alpha* = 1 / max_link_load.
 
 Everything rests on one batched Floyd-Warshall with shortest-path counts
-(``fw_impl``): the hand-written CUDA kernel on the card
-(``repro_torch.kernels.fw_counts``), the plain PyTorch version on the CPU.
+(``fw_impl``): by default the size dispatch between the two hand-written
+CUDA kernels on the card (``repro_torch.kernels.ops.fw_impl_tiled``), the
+plain PyTorch versions on the CPU.
 The rest is plain tensor code with the placement dimension written out.
 """
 from __future__ import annotations
@@ -24,7 +25,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..kernels.fw_counts import fw_counts
+from ..kernels.ops import fw_impl_tiled
 from ..kernels.ref import INF_CUT
 from .chiplets import COMPUTE, IO, MEMORY, ArchSpec
 from .objective import NORM_DIM, compile_objective, weights_vec
@@ -199,7 +200,7 @@ def _tensor(x, dtype, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
 
 
-def make_scorer(layout: Layout, *, fw_impl=fw_counts, chunk: int = 16,
+def make_scorer(layout: Layout, *, fw_impl=fw_impl_tiled, chunk: int = 16,
                 objective=None, device=None):
     """Build a batched scorer: dict of stacked arrays -> metric dict.
 

@@ -41,10 +41,21 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 SIGNATURES = {
     # W, D, N, B, V, device, stream
     "fw_counts_f32": [_P, _P, _P, _I, _I, _I, _P],
-    # W, D, N, row snapshots (D, N), column snapshots (D, N),
-    # B, V, padded V, device, stream
-    "fw_counts_tiled_f32": [_P, _P, _P, _P, _P, _P, _P,
-                            _I, _I, _I, _I, _P],
+    # W, D, N, B, V, cluster size, device, stream (measuring only)
+    "fw_counts_cluster_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # V, B -> the cluster size kernel 1 takes (0: its L2-resident path)
+    "fw_counts_cluster_size": [_I, _I],
+    # -> the largest V kernel 1 holds on chip
+    "fw_counts_onchip_max_v": [],
+    # W, D, N, scratch D, scratch N, snapshots, counters, B, V, padded V,
+    # device, stream
+    "fw_counts_tiled_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # B, V, device -> the threads a block of the blocked kernel's launch
+    "fw_counts_tiled_threads": [_I, _I, _I],
+    # fw_counts_tiled_f32 with a per-item trace after the counters
+    # (measuring only)
+    "fw_counts_tiled_traced_f32": [_P, _P, _P, _P, _P, _P, _P, _P,
+                                   _I, _I, _I, _I, _P],
     # A, B, out, M, N, K, device, stream
     "minplus_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
     # q, k, v, out, element strides (batch, seq, head) of q, k and v,

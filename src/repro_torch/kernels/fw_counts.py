@@ -3,8 +3,10 @@
 :func:`fw_counts` is the wrapper: it checks its input, then on a CUDA
 tensor launches the kernel on the current stream (raising if the build or
 the launch fails; there is no fallback), and on a CPU tensor calls the
-plain version ``ref.fw_counts_ref``.  The library is built and bound by
-:mod:`.build` at first use.
+plain version ``ref.fw_counts_ref``.  The kernel holds a placement in the
+registers of a thread-block cluster up to ``ONCHIP_MAX_V`` and runs its
+L2-resident loop above; the cluster size is its own choice of V.  The
+library is built and bound by :mod:`.build` at first use.
 """
 from __future__ import annotations
 
@@ -12,9 +14,34 @@ import torch
 
 from . import build, ref
 
-# Shared memory holds row k and column k of D and N: 16 * V bytes, within
-# the 232,448 bytes a block may have.
+# Above ONCHIP_MAX_V the kernel's L2-resident path holds row k and column k
+# of D and N in shared memory: 16 * V bytes, within the 232,448 bytes a
+# block may have.
 MAX_V = 232448 // 16
+# The largest V whose D and N a 16-CTA cluster holds in registers
+# (``kOnChipMaxV`` in the source).
+ONCHIP_MAX_V = 512
+# The cluster sizes the kernel takes (powers of two; 16 is Hopper's
+# non-portable maximum).
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
+
+
+def instance(V: int, C: int) -> tuple[int, int]:
+    """The kernel instance that holds V in C CTAs, (RW, CC): rows of 16 a
+    warp and columns of 32 a lane, each rounded up to the sizes the kernel
+    is compiled for (``row_groups`` and ``chunks`` in the source)."""
+    cc = -(-V // 32)
+    cc = next(x for x in (2, 4, 8, 12, 16, 1 << 20) if cc <= x)
+    rw = -(-(-(-V // C)) // 16)
+    rw = next(x for x in (1, 2, 4, 8, 1 << 20) if rw <= x)
+    return rw, cc
+
+
+def cluster_fits(V: int, C: int) -> bool:
+    """Whether C CTAs hold V on chip (``fits`` in the source): at most 32
+    cells a thread."""
+    rw, cc = instance(V, C)
+    return V <= ONCHIP_MAX_V and cc * rw <= 32
 
 # Launches of the kernel (not of the plain version), so a run can show that
 # its main path went through the kernel.
@@ -49,6 +76,22 @@ def fw_counts(W: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def _launch(W: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launches the kernel at the cluster size it picks for V."""
+    return _call(W, "fw_counts_f32")
+
+
+def launch_at_cluster(W: torch.Tensor, cluster: int
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """For measuring and testing only: the kernel at cluster size
+    ``cluster`` (one of ``CLUSTER_SIZES`` with ``cluster_fits``), the
+    measurement behind its own choice (``launch/kernel_compare.py
+    --clusters``).  W on the card, V <= ``ONCHIP_MAX_V``."""
+    check_fw_input(W, "fw_counts", ONCHIP_MAX_V)
+    return _call(W, "fw_counts_cluster_f32", cluster)
+
+
+def _call(W: torch.Tensor, entry: str, *extra: int
+          ) -> tuple[torch.Tensor, torch.Tensor]:
     global launches
     squeeze = W.dim() == 2
     W3 = W.unsqueeze(0) if squeeze else W
@@ -58,8 +101,8 @@ def _launch(W: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     if B and V:
         lib = build.load()
         stream = torch.cuda.current_stream(W.device).cuda_stream
-        rc = lib.fw_counts_f32(W3.data_ptr(), D.data_ptr(), N.data_ptr(),
-                               B, V, W.device.index, stream)
+        rc = getattr(lib, entry)(W3.data_ptr(), D.data_ptr(), N.data_ptr(),
+                                 B, V, *extra, W.device.index, stream)
         build.check_rc(lib, rc, "fw_counts")
         launches += 1
     if squeeze:

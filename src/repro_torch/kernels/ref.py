@@ -158,6 +158,154 @@ def fw_counts_tiled_ref(W: torch.Tensor, bt: int
     return D, N
 
 
+def fw_counts_tiled_sched_ref(W: torch.Tensor, bt: int, blocks: int = 1,
+                              seed: int | None = None
+                              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The blocked FW kernel's work queue (``kernels/fw_schedule.py``) run
+    on plain tensors, as ``blocks`` blocks of one persistent launch would
+    run it.  Bit for bit equal to :func:`fw_counts_ref` for every ``bt``.
+
+    Each block takes items in queue order.  A step of a block runs only
+    once the kernel's wait before it holds (the counters of
+    ``fw_schedule``); with ``seed`` a random runnable block takes each
+    step (half the time the one holding the newest item, so that older
+    items lag as far as the waits allow), else the first runnable one.  An
+    item reads its tiles and snapshots at its load step and writes them at
+    later steps, as the kernel does: a missing wait shows as a wrong
+    result, a wait on a later item as a ``RuntimeError`` (no block can
+    run).  Tiles live in a padded scratch
+    between items; a tile's first item reads the padded W, its last (pivot
+    block nb - 1) writes the output.  A items fuse phases 1 and 2: the
+    diagonal tile and one panel tile stepped pivot by pivot, each recording
+    its snapshots into buffer m % 3.
+    """
+    import random
+
+    from . import fw_schedule as fs
+
+    calls["fw_counts_tiled_sched_ref"] += 1
+    squeeze = W.dim() == 2
+    W3 = W.unsqueeze(0) if squeeze else W
+    B, V, _ = W3.shape
+    Vt = max(bt, -(-V // bt) * bt)
+    nb = Vt // bt
+    W0 = pad_isolated(W3, Vt)
+    N0 = _init_counts(W0)
+    D, N = W0.clone(), N0.clone()             # the scratch
+    D_out, N_out = torch.empty_like(D), torch.empty_like(N)
+    snap = W3.new_empty(3, 4, B, bt, Vt)      # rs_d, rs_n, cs_d, cs_n
+    # Per placement and pivot block.
+    a_loaded = [[0] * nb for _ in range(B)]
+    b_done = [[0] * nb for _ in range(B)]
+    ver = [[[0] * nb for _ in range(nb)] for _ in range(B)]
+    nA, n_out = fs.n_a(nb), fs.n_outer(nb)
+    q = fs.queue(B, nb)
+    head = 0
+    local = torch.arange(bt, device=W.device)
+
+    def sl(t: int) -> slice:
+        return slice(t * bt, (t + 1) * bt)
+
+    def load(b, m, ti, tj):
+        src = (W0, N0) if m == 0 else (D, N)
+        return tuple(x[b, sl(ti), sl(tj)].clone() for x in src)
+
+    def store(b, m, ti, tj, d, n):
+        dst = (D_out, N_out) if m == nb - 1 else (D, N)
+        dst[0][b, sl(ti), sl(tj)] = d
+        dst[1][b, sl(ti), sl(tj)] = n
+
+    def run_a(it):
+        m, b = it.m, it.b
+        panel = nb > 1
+        is_row = it.i == m
+        p = it.j if is_row else it.i
+        yield lambda: ((m < 3 or b_done[b][m - 3] >= n_out)
+                       and ver[b][m][m] >= m
+                       and (not panel or ver[b][it.i][it.j] >= m))
+        dd, dn = load(b, m, m, m)
+        if panel:
+            pd, pn = load(b, m, it.i, it.j)
+        a_loaded[b][m] += 1
+        yield lambda: True
+        buf = m % 3
+        for k in range(bt):
+            rd, rn = dd[k, :].clone(), dn[k, :].clone()
+            cd, cn = dd[:, k].clone(), dn[:, k].clone()
+            notk = local != k
+            dd, dn = _fw_step(dd, dn, cd[:, None], cn[:, None], rd[None, :],
+                              rn[None, :], notk[:, None] & notk[None, :])
+            if not panel:
+                continue
+            if is_row:
+                od, on = pd[k, :].clone(), pn[k, :].clone()
+                snap[buf, 0, b, k, sl(p)], snap[buf, 1, b, k, sl(p)] = od, on
+                pd, pn = _fw_step(pd, pn, cd[:, None], cn[:, None],
+                                  od[None, :], on[None, :], notk[:, None])
+            else:
+                od, on = pd[:, k].clone(), pn[:, k].clone()
+                snap[buf, 2, b, k, sl(p)], snap[buf, 3, b, k, sl(p)] = od, on
+                pd, pn = _fw_step(pd, pn, od[:, None], on[:, None],
+                                  rd[None, :], rn[None, :], notk[None, :])
+        if panel:
+            store(b, m, it.i, it.j, pd, pn)
+            ver[b][it.i][it.j] = m + 1
+        if fs.keeps_diag(it, nb):
+            yield lambda: a_loaded[b][m] >= nA
+            store(b, m, m, m, dd, dn)
+            ver[b][m][m] = m + 1
+
+    def run_b(it):
+        m, b = it.m, it.b
+        yield lambda: (ver[b][it.i][m] >= m + 1 and ver[b][m][it.j] >= m + 1
+                       and ver[b][it.i][it.j] >= m)
+        buf = m % 3
+        ad, an = (snap[buf, a, b, :, sl(it.i)].clone() for a in (2, 3))
+        bd, bn = (snap[buf, a, b, :, sl(it.j)].clone() for a in (0, 1))
+        d, n = load(b, m, it.i, it.j)
+        yield lambda: True
+        for k in range(bt):
+            d, n = _fw_step(d, n, ad[k][:, None], an[k][:, None],
+                            bd[k][None, :], bn[k][None, :])
+        store(b, m, it.i, it.j, d, n)
+        ver[b][it.i][it.j] = m + 1
+        b_done[b][m] += 1
+
+    holding = [-1] * blocks                   # each block's item
+
+    def block(x):
+        nonlocal head
+        while True:
+            yield lambda: True
+            e, head = head, head + 1
+            if e >= len(q):
+                return
+            holding[x] = e
+            yield from (run_a if q[e].kind == "A" else run_b)(q[e])
+
+    rng = random.Random(seed) if seed is not None else None
+    gens = [block(x) for x in range(blocks)]
+    pending = {x: next(g) for x, g in enumerate(gens)}
+    while pending:
+        runnable = [x for x, cond in pending.items() if cond()]
+        if not runnable:
+            raise RuntimeError("the FW work queue deadlocked")
+        if rng is None:
+            x = runnable[0]
+        elif rng.random() < 0.5:
+            x = max(runnable, key=lambda y: holding[y])
+        else:
+            x = rng.choice(runnable)
+        try:
+            pending[x] = next(gens[x])
+        except StopIteration:
+            del pending[x]
+    D, N = D_out[:, :V, :V], N_out[:, :V, :V]
+    if squeeze:
+        D, N = D[0], N[0]
+    return D, N
+
+
 def minplus_ref(A: torch.Tensor, B: torch.Tensor,
                 k_chunk: int = 64) -> torch.Tensor:
     """Tropical matrix product with the Pallas kernel's ceiling:

@@ -1,0 +1,319 @@
+"""Time the kernels of several checkouts of this repository on one card,
+in turns, with the same method.
+
+    python3 src/repro_torch/launch/kernel_compare.py \\
+        --trees PARENT . . PARENT [--walls] [--sass] [--clusters] \\
+        [--trace] [--out FILE]
+
+Each tree (a directory holding ``src/repro_torch``; ``.`` is this
+checkout) runs in a process of its own, in the order given, importing
+that tree's package and building its kernels from its own sources.  The
+method is this checkout's ``kernel_timing.py`` (loaded by path, so a tree
+without it is timed the same way), the one ``chip_smoke.py`` uses.  Each
+run times, with ``kernel_timing.batched_ms`` (launches back to back
+between one pair of CUDA events, behind a spin kernel so that the host's
+enqueue is not timed), every output held bit for bit (FW, min-plus) or to
+``FULL_LIMIT`` (scans) against the plain version's:
+
+* the FW kernels: ``fw_counts`` at homog32 baseline (B = 16, V = 216) and
+  homog64 placeit (B = 16, V = 480), ``fw_counts_tiled`` at homog256
+  placeit (B = 1, V = 1536) and homog100 baseline (B = 16, V = 552);
+* ``minplus`` at 1536^3 (a homog256 placeit score graph);
+* ``selective_scan`` and ``rglru_scan`` at the serve runs' prefill shapes
+  (B = 1, S = 2048 and 512);
+* with ``--walls``: the wall seconds of ``run_experiment`` for homog64
+  placeit and homog256 placeit (``kernel_timing.RUNS``, as
+  ``chip_smoke.py`` runs them), after a quickstart run that warms up;
+* with ``--clusters``: kernel 1 at every cluster size it takes and the
+  blocked kernel at V = 32 .. 512 (B = 16; trees with
+  ``fw_counts.launch_at_cluster``), and the blocked kernel at B = 1 from
+  V = 64 to 1536 (its critical path: nb fused chains);
+* with ``--sass``: the library rebuilt, ptxas's registers and spills per
+  kernel, a histogram of SASS mnemonics per FW or min-plus kernel
+  function and its hot loop (``kernel_timing.loop_issues``; the dump of
+  ``cuobjdump -sass`` written beside ``--out``);
+* with ``--trace``: one ``fw_counts_tiled`` call at homog256 placeit and
+  at homog100 baseline with the kernel's per-item trace
+  (``fw_counts_tiled.launch_traced``): each work item's wait and run time
+  (global ns), by kind, the blocks' busy share, and for each pivot block
+  when its A items were dequeued, started and ended and when its phase-3
+  items started and ended.
+
+The card's name and power limit head the output; each run prints one JSON
+line, and the parent process a table.  Needs a card; exits non-zero
+without one.
+"""
+from __future__ import annotations
+
+import argparse
+import collections
+import importlib.util
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+FULL_RTOL, FULL_ATOL = 2.0 ** -6, 1e-5
+
+
+def _load_timing():
+    """This checkout's ``kernel_timing.py``, loaded by path under its own
+    name, so it does not import the ``repro_torch`` of the tree timed."""
+    spec = importlib.util.spec_from_file_location(
+        "_kernel_timing", Path(__file__).with_name("kernel_timing.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+kt = _load_timing()
+
+
+def _equal(got, want, what: str) -> None:
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise SystemExit(f"{what}: kernel output differs from the plain "
+                         f"version's")
+
+
+def _close(got, want, what: str) -> None:
+    g, w = got.float(), want.float()
+    if ((g - w).abs() > FULL_ATOL + FULL_RTOL * w.abs()).any():
+        raise SystemExit(f"{what}: kernel output beyond FULL_LIMIT")
+
+
+def _sass(lib_path: Path, out: Path) -> dict:
+    """Per FW or min-plus kernel function of a built library: a histogram
+    of its SASS mnemonics and its hot loop (instructions, relaxations or
+    updates)."""
+    text = kt.sass(lib_path)
+    out.write_text(text)
+    res = {}
+    for f, instrs in kt.sass_functions(text).items():
+        if not any(p in f for p in ("fw_", "minplus", "diag", "panel",
+                                    "outer")):
+            continue
+        hist = collections.Counter(mn for _, mn, _ in instrs)
+        res[f] = {"mnemonics": dict(hist.most_common())}
+        op = "FADD" if "minplus" in f else "FMUL"
+        try:
+            res[f]["hot_loop"] = kt.loop_issues(instrs, op)
+        except ValueError:
+            res[f]["hot_loop"] = None
+    return res
+
+
+def _trace_stats(tr, nb: int) -> dict:
+    """Per-kind wait and run times (us) of a traced call, the blocks' busy
+    share, and per pivot block [A dequeued, first A start, last A start,
+    last A end, first B start, last B end] (us from the first dequeue);
+    items by the kind and pivot block the kernel decoded."""
+    import numpy as np
+    t = (tr[:, :3] - tr[:, 0].min()) / 1e3
+    kind = np.where(tr[:, 4] == 0, "A", "B")
+    m = tr[:, 5]
+    out = {"total_us": float(t[:, 2].max()),
+           "blocks": int(len(set(tr[:, 3].tolist())))}
+    out["busy_share"] = float((t[:, 2] - t[:, 1]).sum()
+                              / (out["blocks"] * out["total_us"]))
+    for k in ("A", "B"):
+        sel = kind == k
+        wait, run = t[sel, 1] - t[sel, 0], t[sel, 2] - t[sel, 1]
+        out[k] = {"items": int(sel.sum()),
+                  "run_us_median": float(np.median(run)),
+                  "wait_us_median": float(np.median(wait)),
+                  "run_us_sum": float(run.sum()),
+                  "wait_us_sum": float(wait.sum())}
+    out["per_pivot_block_us"] = [
+        [round(float(x), 1) for x in (
+            t[(kind == "A") & (m == p), 0].min(),
+            t[(kind == "A") & (m == p), 1].min(),
+            t[(kind == "A") & (m == p), 1].max(),
+            t[(kind == "A") & (m == p), 2].max(),
+            t[(kind == "B") & (m == p), 1].min()
+            if ((kind == "B") & (m == p)).any() else float("nan"),
+            t[(kind == "B") & (m == p), 2].max()
+            if ((kind == "B") & (m == p)).any() else float("nan"))]
+        for p in range(nb)]
+    return out
+
+
+def run_one(tree: Path, walls: bool, sass: bool, clusters: bool,
+            trace: bool, out: Path | None) -> dict:
+    sys.path.insert(0, str(tree / "src"))
+    from repro_torch import testing
+    from repro_torch.core import api
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import fw_counts as fwc
+    from repro_torch.kernels import fw_counts_tiled as fwt
+    from repro_torch.kernels import ref as plain
+
+    if not torch.cuda.is_available():
+        raise SystemExit("no CUDA device")
+    dev = torch.device("cuda", 0)
+    t0 = time.monotonic()
+    log = build.build(force=sass)
+    res = {"tree": str(tree), "build_s": time.monotonic() - t0, "ms": {}}
+    if sass:
+        res["ptxas"] = [ln.strip() for ln in log.splitlines()
+                        if "Compiling entry" in ln or "Used" in ln
+                        or "spill" in ln]
+
+    def fw_row(name, fn, W, launches, rounds):
+        t, o = kt.batched_ms({"k": lambda: fn(W)}, launches, rounds)
+        _equal(o["k"], plain.fw_counts_ref(W), name)
+        res["ms"][name] = t["k"]
+
+    for arch, cfg, B in (("homog32", "baseline", 16),
+                         ("homog64", "placeit", 16)):
+        W = torch.from_numpy(testing.score_graphs(arch, cfg, B)).to(dev)
+        fw_row(f"fw_counts {arch} {cfg} B={B} V={W.shape[-1]}",
+               ops.fw_counts, W, 10, 5)
+    for arch, cfg, B in (("homog256", "placeit", 1),
+                         ("homog100", "baseline", 16)):
+        W = torch.from_numpy(testing.score_graphs(arch, cfg, B)).to(dev)
+        fw_row(f"fw_counts_tiled {arch} {cfg} B={B} V={W.shape[-1]}",
+               ops.fw_counts_tiled, W, 10, 5)
+    W = torch.from_numpy(testing.score_graphs("homog256", "placeit",
+                                              1)[0]).to(dev)
+    t, o = kt.batched_ms({"k": lambda: ops.minplus(W, W)}, 20, 5)
+    _equal([o["k"]], [plain.minplus_ref(W, W)], "minplus")
+    res["ms"][f"minplus {W.shape[-1]}^3"] = t["k"]
+
+    g = torch.Generator(device=dev)
+    for S in (2048, 512):
+        g.manual_seed(S)
+        x = torch.randn(1, S, 8192, generator=g, device=dev).to(
+            torch.bfloat16)
+        dt = 1e-3 + 0.099 * torch.rand(1, S, 8192, generator=g, device=dev)
+        A = -torch.arange(1, 17, dtype=torch.float32, device=dev).expand(
+            8192, 16).contiguous()
+        Bm = torch.randn(1, S, 16, generator=g, device=dev)
+        Cm = torch.randn(1, S, 16, generator=g, device=dev)
+        args = [x, dt, A, Bm, Cm, torch.ones(8192, device=dev),
+                torch.zeros(1, 8192, 16, device=dev)]
+        t, o = kt.batched_ms({"k": lambda: ops.selective_scan(*args)},
+                             20, 5)
+        _close(o["k"][0], plain.selective_scan_ref(*args)[0],
+               "selective_scan")
+        res["ms"][f"selective_scan S={S}"] = t["k"]
+        xr = torch.randn(1, S, 4096, generator=g, device=dev).to(
+            torch.bfloat16)
+        a = (0.5 + 0.5 * torch.rand(1, S, 4096, generator=g,
+                                    device=dev)).to(torch.bfloat16)
+        args = [xr, a, torch.zeros(1, 4096, device=dev)]
+        t, o = kt.batched_ms({"k": lambda: ops.rglru_scan(*args)}, 20, 5)
+        _close(o["k"][0], plain.rglru_ref(*args)[0], "rglru_scan")
+        res["ms"][f"rglru_scan S={S}"] = t["k"]
+
+    if trace and hasattr(fwt, "launch_traced"):
+        res["trace"] = {}
+        for arch, cfg, B in (("homog256", "placeit", 1),
+                             ("homog100", "baseline", 16)):
+            W = torch.from_numpy(testing.score_graphs(arch, cfg, B)).to(dev)
+            V = W.shape[-1]
+            fwt.fw_counts_tiled(W)
+            D, N, tr = fwt.launch_traced(W)
+            _equal((D, N), plain.fw_counts_ref(W), f"traced {arch}")
+            res["trace"][f"{arch} {cfg} B={B}"] = _trace_stats(
+                tr.cpu().numpy(), -(-V // fwt.BT))
+
+    if clusters and hasattr(fwc, "launch_at_cluster"):
+        res["clusters"] = {}
+        for V in (32, 40, 48, 56, 64, 80, 96, 112, 130, 160, 216, 300, 384,
+                  480, 512):
+            W = torch.from_numpy(testing.random_graph(V, 3 * V, seed=V,
+                                                      batch=16)).to(dev)
+            want = plain.fw_counts_ref(W)
+            fns = {C: (lambda C=C: fwc.launch_at_cluster(W, C))
+                   for C in fwc.CLUSTER_SIZES if fwc.cluster_fits(V, C)}
+            t, o = kt.batched_ms(fns, 10, 5)
+            for C in fns:
+                _equal(o[C], want, f"fw_counts V={V} cluster {C}")
+            t["tiled"] = kt.batched_ms(
+                {"k": lambda: ops.fw_counts_tiled(W)}, 10, 5)[0]["k"]
+            res["clusters"][V] = t
+        res["chain"] = {}
+        for V in (64, 128, 256, 512, 1024, 1536):
+            W = torch.from_numpy(testing.random_graph(V, 3 * V, seed=V)).to(
+                dev)
+            t, o = kt.batched_ms({"k": lambda: ops.fw_counts_tiled(W)},
+                                 10, 5)
+            _equal(o["k"], plain.fw_counts_ref(W), f"tiled V={V}")
+            res["chain"][V] = t["k"]
+
+    if walls:
+        res["walls"] = {}
+        for name in ("quickstart", "homog64 placeit", "homog256 placeit"):
+            cfg = kt.experiment_config(api, name)
+            t1 = time.monotonic()
+            rec = api.run_experiment(cfg, device=dev)[0]
+            torch.cuda.synchronize()
+            res["walls"][name] = {"s": time.monotonic() - t1,
+                                  "backend": cfg.backend,
+                                  "best_cost": float(rec.result.best_cost)}
+    if sass:
+        dst = (out or Path("kernel_compare.json")).with_name(
+            f"sass_{tree.name}.txt")
+        res["sass_file"] = str(dst)
+        res["sass"] = _sass(build.LIB_PATH, dst)
+    return res
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--trees", nargs="+", default=["."])
+    ap.add_argument("--one", help=argparse.SUPPRESS)
+    ap.add_argument("--walls", action="store_true")
+    ap.add_argument("--sass", action="store_true")
+    ap.add_argument("--clusters", action="store_true")
+    ap.add_argument("--trace", action="store_true")
+    ap.add_argument("--out", type=Path)
+    args = ap.parse_args()
+    flags = [f for f in ("--walls", "--sass", "--clusters", "--trace")
+             if getattr(args, f[2:])]
+    if args.out:
+        args.out = args.out.resolve()
+    if args.one:
+        res = run_one(Path(args.one).resolve(), args.walls, args.sass,
+                      args.clusters, args.trace, args.out)
+        print("RESULT " + json.dumps(res))
+        return
+    print(kt.card_line(), flush=True)
+    results = []
+    for tree in args.trees:
+        t0 = time.monotonic()
+        cmd = [sys.executable, str(Path(__file__).resolve()), "--one",
+               str(Path(tree).resolve()),
+               *flags] + (["--out", str(args.out)] if args.out else [])
+        p = subprocess.run(cmd, capture_output=True, text=True,
+                           cwd=Path(tree).resolve())
+        lines = [ln for ln in p.stdout.splitlines()
+                 if ln.startswith("RESULT ")]
+        if p.returncode != 0 or not lines:
+            sys.stderr.write(p.stdout[-4000:] + p.stderr[-8000:])
+            raise SystemExit(f"the run of {tree} failed ({p.returncode})")
+        res = json.loads(lines[-1][len("RESULT "):])
+        res["run_s"] = time.monotonic() - t0
+        results.append(res)
+        print(json.dumps(res), flush=True)
+    names = list(results[0]["ms"])
+    print(f"{'kernel (ms)':44s} " + " ".join(
+        f"{r['tree'][-14:]:>14s}" for r in results))
+    for k in names:
+        print(f"{k:44s} " + " ".join(
+            f"{r['ms'].get(k, float('nan')):14.4f}" for r in results))
+    if "walls" in results[0]:
+        for k in results[0]["walls"]:
+            print(f"{'wall s ' + k:44s} " + " ".join(
+                f"{r['walls'][k]['s']:14.3f}" for r in results))
+    print(kt.card_line())
+    if args.out:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(json.dumps(results, indent=1))
+
+
+if __name__ == "__main__":
+    main()

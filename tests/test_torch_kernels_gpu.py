@@ -8,14 +8,23 @@ score graphs); the blocked FW kernel on every case of
 not connected, the count-clip graph and score graphs of the 100+-chiplet
 families); the min-plus kernel on every case of ``testing.minplus_cases``.
 All must be bit for bit equal, and each call must count one launch.
+Both FW kernels also at the edges of the redesigned kernels (V = 1, 2 and
+the 64-tile edges, every cluster-size boundary of kernel 1 and its on-chip
+limit, each +-1, at B = 1 and 16, disconnected and count-clip graphs), with
+kernel 1 at every cluster size it takes, and two launches bitwise equal.
+The blocked kernel's work queue as the card decodes it (its traced launch)
+equals ``kernels/fw_schedule.py``'s, and 80 of its calls queued back to
+back at the homog256 and homog100 shapes are each bitwise.
 Skips without a card; run it on the H100 with
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
 """
+import numpy as np
 import pytest
 import torch
 
 from repro_torch import testing
+from repro_torch.kernels import build
 from repro_torch.kernels import fw_counts as fwc
 from repro_torch.kernels import fw_counts_tiled as fwt
 from repro_torch.kernels import minplus as mp
@@ -83,15 +92,181 @@ def test_fw_tiled_kernel_squeezes_2d(cuda):
 
 
 def test_fw_impl_tiled_picks_the_tiled_kernel_from_the_measured_v(cuda):
-    for V, tiled in ((ops.FW_TILED_FROM_V - 1, False),
-                     (ops.FW_TILED_FROM_V, True)):
-        W = torch.from_numpy(testing.random_graph(V, 3 * V, seed=V)).to(cuda)
+    for V in ops.dispatch_edges():
+        tiled = ops.fw_takes_tiled(V)
+        W = torch.from_numpy(testing.random_graph(V, 3 * V, seed=V,
+                                                  batch=16)).to(cuda)
         one, blocked = fwc.launches, fwt.launches
         D, N = ops.fw_impl_tiled(W)
         assert (fwt.launches - blocked, fwc.launches - one) == (
-            (1, 0) if tiled else (0, 1))
+            (1, 0) if tiled else (0, 1)), V
         D2, N2 = tref.fw_counts_ref(W)
         assert torch.equal(D, D2) and torch.equal(N, N2)
+
+
+def _cluster_edges() -> list:
+    """Each V where kernel 1 changes its cluster size or path (the L2 loop
+    above its on-chip limit), +-1, at the scorer's B = 16."""
+    lib = build.load()
+    top = lib.fw_counts_onchip_max_v()
+    assert top == fwc.ONCHIP_MAX_V
+    sizes = [lib.fw_counts_cluster_size(V, 16) for V in range(1, top + 3)]
+    edges = {V + 1 for V in range(1, top + 2) if sizes[V] != sizes[V - 1]}
+    return sorted({v for e in edges for v in (e - 1, e, e + 1) if v >= 1})
+
+
+# V = 1 and 2, and the edges of the 64 tile (kernel 1's lanes walk 32
+# columns, so these are its chunk edges too).
+EDGE_V = (1, 2, 63, 64, 65, 127, 128, 129)
+
+
+@pytest.mark.parametrize("B", [1, 16])
+@pytest.mark.parametrize("kernel", ["fw_counts", "fw_counts_tiled"])
+def test_fw_kernels_bitwise_at_the_new_edges(cuda, kernel, B):
+    fn = fwc.fw_counts if kernel == "fw_counts" else fwt.fw_counts_tiled
+    for V in EDGE_V + tuple(_cluster_edges()):
+        W = torch.from_numpy(testing.random_graph(V, 3 * V, seed=V + B,
+                                                  batch=B)).to(cuda)
+        D1, N1 = fn(W)
+        D2, N2 = tref.fw_counts_ref(W)
+        assert torch.equal(D1, D2) and torch.equal(N1, N2), (kernel, V, B)
+
+
+@pytest.mark.parametrize("kernel", ["fw_counts", "fw_counts_tiled"])
+def test_fw_kernels_bitwise_disconnected_and_clip_at_the_edges(cuda, kernel):
+    fn = fwc.fw_counts if kernel == "fw_counts" else fwt.fw_counts_tiled
+    for V in (2, 65, 129) + tuple(_cluster_edges()[1::3]):
+        W = torch.from_numpy(testing.disconnected_graph(V, seed=V,
+                                                        batch=3)).to(cuda)
+        D1, N1 = fn(W)
+        D2, N2 = tref.fw_counts_ref(W)
+        assert torch.equal(D1, D2) and torch.equal(N1, N2), (kernel, V)
+    W = torch.from_numpy(testing.count_clip_graph(M=10, K=48)[None]).to(cuda)
+    D1, N1 = fn(W)
+    D2, N2 = tref.fw_counts_ref(W)
+    assert float(N2[0, 0, 1]) == float(np.float32(1e30))
+    assert torch.equal(D1, D2) and torch.equal(N1, N2)
+
+
+@pytest.mark.parametrize("V", [96, 130, 216, 300, 480, 512])
+def test_fw_kernel_bitwise_at_every_cluster_size(cuda, V):
+    W = torch.from_numpy(testing.random_graph(V, 3 * V, seed=V,
+                                              batch=16)).to(cuda)
+    D2, N2 = tref.fw_counts_ref(W)
+    sizes = [C for C in fwc.CLUSTER_SIZES if fwc.cluster_fits(V, C)]
+    assert sizes
+    for C in sizes:
+        D1, N1 = fwc.launch_at_cluster(W, C)
+        assert torch.equal(D1, D2) and torch.equal(N1, N2), (V, C)
+
+
+@pytest.mark.parametrize("kernel", ["fw_counts", "fw_counts_tiled"])
+def test_fw_kernels_two_launches_bitwise_equal(cuda, kernel):
+    fn = fwc.fw_counts if kernel == "fw_counts" else fwt.fw_counts_tiled
+    for arch, cfg, B in (("homog64", "placeit", 16),
+                         ("homog100", "baseline", 16)):
+        W = torch.from_numpy(testing.score_graphs(arch, cfg, B)).to(cuda)
+        D1, N1 = fn(W)
+        D2, N2 = fn(W)
+        assert torch.equal(D1, D2) and torch.equal(N1, N2), (kernel, arch)
+
+
+def test_fw_tiled_lookahead_and_scratch_reuse(cuda):
+    """nb = 2 to 9 tile rows (every group of the keyed queue present),
+    calls of several shapes in a row on one scratch, in both of the kernel's
+    layouts (512 threads where B * 2 (nb - 1) <= the SMs, else 256), each
+    bitwise; the counters are left zero after every call."""
+    for V, B in ((130, 4), (192, 2), (300, 16), (65, 16), (552, 3),
+                 (191, 1), (480, 16), (400, 12)):
+        W = torch.from_numpy(testing.random_graph(V, 3 * V, seed=V,
+                                                  batch=B)).to(cuda)
+        D1, N1 = fwt.fw_counts_tiled(W)
+        D2, N2 = tref.fw_counts_ref(W)
+        assert torch.equal(D1, D2) and torch.equal(N1, N2), (V, B)
+        stream = torch.cuda.current_stream(cuda).cuda_stream
+        _, cnt = fwt._scratch[(W.device.index, stream)]
+        assert int(cnt.abs().sum()) == 0
+
+
+def test_fw_tiled_trace_records_every_item(cuda):
+    """The traced launch leaves the result bitwise and times every work
+    item: dequeued <= waits met <= done, on a block of the grid."""
+    W = torch.from_numpy(testing.random_graph(300, 900, seed=3,
+                                              batch=4)).to(cuda)
+    launches = fwt.launches
+    D1, N1, tr = fwt.launch_traced(W)
+    assert fwt.launches == launches + 1
+    D2, N2 = tref.fw_counts_ref(W)
+    assert torch.equal(D1, D2) and torch.equal(N1, N2)
+    t = tr.cpu()
+    assert t.shape == (fwt.queue_items(4, 300), fwt.TRACE_COLS)
+    assert (t[:, 0] > 0).all()
+    assert (t[:, 1] >= t[:, 0]).all() and (t[:, 2] >= t[:, 1]).all()
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert (t[:, 3] >= 0).all() and (t[:, 3] < 2 * sms).all()
+
+
+# (B, V): nb = 1, 2, 3, 4, 5, 9 and 24 tile rows (homog256's V = 1536).
+QUEUE_SHAPES = ((1, 64), (3, 40), (1, 128), (4, 100), (1, 192), (2, 130),
+                (16, 256), (5, 300), (1, 576), (1, 1536))
+
+
+@pytest.mark.parametrize("B,V", QUEUE_SHAPES)
+def test_fw_tiled_queue_matches_fw_schedule(cuda, B, V):
+    """The kernel decodes its work queue as ``fw_schedule.queue`` lists
+    it (the Python copy that the CPU tests run under adversarial
+    interleavings): every item's kind, pivot block, placement, tile and
+    whether it stores the diagonal, in queue order."""
+    from repro_torch.kernels import fw_schedule as fs
+    W = torch.from_numpy(testing.random_graph(V, 3 * V, seed=V,
+                                              batch=B)).to(cuda)
+    D1, N1, tr = fwt.launch_traced(W)
+    D2, N2 = tref.fw_counts_ref(W)
+    assert torch.equal(D1, D2) and torch.equal(N1, N2)
+    nb = -(-V // fwt.BT)
+    want = [(0 if it.kind == "A" else 1, it.m, it.b, it.i, it.j,
+             int(it.kind == "A" and fs.keeps_diag(it, nb)))
+            for it in fs.queue(B, nb)]
+    got = [tuple(r) for r in tr[:, 4:].cpu().tolist()]
+    assert got == want
+
+
+def test_fw_tiled_many_back_to_back_calls(cuda):
+    """Calls at the homog256 placeit and homog100 baseline shapes, traced
+    and untraced in turn, queued back to back on one stream with no sync
+    between them: each result bitwise equal to the plain FW's, and the
+    counters left zero (a stalled queue would fail the launch)."""
+    shapes = [testing.score_graphs("homog256", "placeit", 1),
+              testing.score_graphs("homog100", "baseline", 16)]
+    Ws = [torch.from_numpy(x).to(cuda) for x in shapes]
+    wants = [tref.fw_counts_ref(W) for W in Ws]
+    outs = []
+    for r in range(40):
+        for k, W in enumerate(Ws):
+            if r % 4 == 3:
+                outs.append((k, fwt.launch_traced(W)[:2]))
+            else:
+                outs.append((k, fwt.fw_counts_tiled(W)))
+    torch.cuda.synchronize()
+    for k, (D, N) in outs:
+        assert torch.equal(D, wants[k][0]) and torch.equal(N, wants[k][1])
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    _, cnt = fwt._scratch[(Ws[0].device.index, stream)]
+    assert int(cnt.abs().sum()) == 0
+
+
+def test_fw_tiled_kernel_no_host_sync(cuda):
+    W = torch.from_numpy(testing.score_graphs("homog100", "placeit",
+                                              4)).to(cuda)
+    fwt.fw_counts_tiled(W)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fwt.fw_counts_tiled(W)
+        fwc.fw_counts(W[:, :200, :200].contiguous())
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("name", list(MINPLUS))

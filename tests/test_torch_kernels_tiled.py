@@ -197,6 +197,11 @@ def test_build_command_lists_every_source():
                      "selective_scan.cu", "rglru_scan.cu"]
     assert [c[-1] for c in compiles] == [str(s) for s in build.SOURCES]
     assert set(build.SIGNATURES) == {"fw_counts_f32", "fw_counts_tiled_f32",
+                                     "fw_counts_cluster_f32",
+                                     "fw_counts_cluster_size",
+                                     "fw_counts_onchip_max_v",
+                                     "fw_counts_tiled_threads",
+                                     "fw_counts_tiled_traced_f32",
                                      "minplus_f32", "flash_attention_fwd",
                                      "decode_attention_fwd",
                                      "selective_scan_fwd", "rglru_scan_fwd"}

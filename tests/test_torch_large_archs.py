@@ -77,7 +77,7 @@ def test_fw_tiled_config_loads_and_scores():
     ct = interop.config_from_json(cj.to_json())
     assert ct.backend == "fw-tiled"
     assert ct.to_dict() == cj.to_dict()
-    assert tapi.ExperimentConfig(arch="homog100").backend == "fw-cuda"
+    assert tapi.ExperimentConfig(arch="homog100").backend == "fw-tiled"
     rep = tapi.make_rep(tchiplets.resolve_arch("homog32"), "homog32")
     scorer = tapi.get_scorer(rep.layout, chunk=4, backend="fw-tiled",
                              device="cpu")
