@@ -10,7 +10,10 @@ Phases (any failure exits non-zero; nothing is caught):
    registers and spills per kernel instance, and from this build's SASS
    (``cuobjdump -sass``) the hot loop of each FW and min-plus kernel
    instance: the instructions every warp issues a trip over the
-   relaxations (or min-plus updates) in it (``kernel_timing.loop_issues``);
+   relaxations (or min-plus updates) in it (``kernel_timing.loop_issues``),
+   and the scans' (``kernel_timing.SCAN_LOOPS``): the selective scan's
+   over its (step, state) exps, RG-LRU's walker's over its steps and its
+   producers' over their (step, channel) square roots;
 3. parity — each kernel against its plain PyTorch version on the card.
    The FW and min-plus kernels bit for bit (``torch.equal``): the FW
    kernel on random, disconnected, count-clip and real homog32/homog64
@@ -60,8 +63,11 @@ Phases (any failure exits non-zero; nothing is caught):
    prefill shapes (B = 1, S in {512, 2048}; falcon-mamba-7b's Di = 8192,
    N = 16 with x in bfloat16 and dt in float32; recurrentgemma-9b's
    D = 4096 in bfloat16),
-   beside the plain versions and their bounds (no PyTorch call computes a
-   scan), outputs held to ``FULL_LIMIT`` and final states to 3e-5;
+   beside the plain versions, their bounds and their issue floors (the
+   build phase's instructions an item over 128 lanes an SM at the top SM
+   clock; RG-LRU's walker, one warp a block, S steps at one instruction a
+   clock; no PyTorch call computes a scan), outputs held to
+   ``FULL_LIMIT`` and final states to 3e-5;
 5. main path — each path driven through its entry points on the card,
    with every kernel's launch count and every plain version's call count
    set to 0 just before each run and read just after:
@@ -243,6 +249,13 @@ def build_phase() -> dict:
             n, k = kt.loop_issues(funcs[f], op)
             print(f"    {_kernel_name(f):34s} {n:5d} / {k:3d} = "
                   f"{n / k:.4f}")
+    print("  the scans' hot loops (instructions every warp issues a trip / "
+          "(step, state) or (step, channel) items a lane in it):")
+    for loop, (fn, op, without) in kt.SCAN_LOOPS.items():
+        for f in sorted(x for x in funcs if fn in x):
+            n, k = kt.loop_issues(funcs[f], op, without)
+            print(f"    {_kernel_name(f) + ' ' + loop.split()[-1]:34s} "
+                  f"{n:5d} / {k:3d} = {n / k:.4f}")
     return funcs
 
 
@@ -787,41 +800,20 @@ def scan_parity_phase(dev, worst: dict) -> None:
               f"{worst['rglru_scan']:.3g})")
 
 
-def _serve_scan_operands(kernel: str, S: int, dev) -> list:
-    """Operands at a serve run's prefill shape (B = 1), drawn on the card
-    from seed S in the ranges the models give: falcon-mamba dt in
-    [1e-3, 0.1) (its dt bias's range) and A = -(1..16) (the S4D-real
-    init), D = 1, h0 = 0; recurrentgemma a in [0.5, 1)."""
-    g = torch.Generator(device=dev).manual_seed(S)
-    f32, bf16 = torch.float32, torch.bfloat16
-    if kernel == "selective_scan":
-        Di, N = SSCAN_FULL["Di"], SSCAN_FULL["N"]
-        x = torch.randn(1, S, Di, generator=g, device=dev).to(bf16)
-        dt = 1e-3 + 0.099 * torch.rand(1, S, Di, generator=g, device=dev)
-        A = -torch.arange(1, N + 1, dtype=f32, device=dev).expand(
-            Di, N).contiguous()
-        B = torch.randn(1, S, N, generator=g, device=dev)
-        C = torch.randn(1, S, N, generator=g, device=dev)
-        return [x, dt, A, B, C, torch.ones(Di, device=dev),
-                torch.zeros(1, Di, N, device=dev)]
-    D = RGLRU_FULL["D"]
-    x = torch.randn(1, S, D, generator=g, device=dev).to(bf16)
-    a = (0.5 + 0.5 * torch.rand(1, S, D, generator=g, device=dev)).to(bf16)
-    return [x, a, torch.zeros(1, D, device=dev)]
-
-
-def scan_timing_phase(dev, worst: dict) -> dict:
+def scan_timing_phase(dev, worst: dict, funcs: dict) -> dict:
     """Times the scan kernels at the serve runs' prefill shapes; every
     timed output is held to ``FULL_LIMIT``, the final state to
-    ``STATE_TOL``, against the plain version's."""
+    ``STATE_TOL``, against the plain version's.  Issue floors come from
+    ``funcs``, the SASS of this run's build (``kt.scan_issues``)."""
     sfu = sfu_rate(dev)
+    issues = kt.scan_issues(funcs)
     rows = {}
     phase(f"timing: selective_scan and rglru_scan at the serve runs' prefill "
           f"shapes (outputs {FULL_LIMIT}, final states {STATE_TOL:g}; bound "
           f"with the SFUs at the card's max SM clock, {sfu:.4g} results/s)")
     for kernel in ("selective_scan", "rglru_scan"):
         for S in SCAN_TIMED_S:
-            args = _serve_scan_operands(kernel, S, dev)
+            args = kt.scan_serve_operands(kernel, S, dev)
             fn, ref_fn = SCAN_FNS[kernel]
             t, out = kt.batched_ms({"kernel": lambda: fn(*args)},
                                    launches=20, rounds=5)
@@ -837,17 +829,24 @@ def scan_timing_phase(dev, worst: dict) -> dict:
                 shape = f"B=1 S={S} Di={SSCAN_FULL['Di']} N={SSCAN_FULL['N']}"
                 t["bound"], t["bound_by"] = sscan_bound_ms(
                     1, S, **SSCAN_FULL, x_item=2, dt_item=4, sfu_per_s=sfu)
+                width = SSCAN_FULL["Di"]
             else:
                 shape = f"B=1 S={S} D={RGLRU_FULL['D']}"
                 t["bound"], t["bound_by"] = rglru_bound_ms(
                     1, S, **RGLRU_FULL, item=2, sfu_per_s=sfu)
+                width = RGLRU_FULL["D"]
+            floors = kt.scan_floors_ms(issues, 1, S, width, kernel, dev)
+            t["floor"] = max(floors.values())
+            floor_text = ", ".join(f"{k} {v:.4f} ms"
+                                   for k, v in floors.items())
             t["max_abs_err"], t["limit_share"] = err, share
             t["max_abs_out"] = float(yw.float().abs().max())
             rows[f"{kernel} S={S}"] = t
             print(f"  {kernel} {shape}: kernel {t['kernel']:.4f} ms, plain "
                   f"{t['plain']:.3f} ms, library call: none, bound "
                   f"{t['bound']:.4f} ms ({t['bound_by']}), "
-                  f"{t['bound'] / t['kernel']:.4f} of bound; max abs err vs "
+                  f"{t['bound'] / t['kernel']:.4f} of bound; issue floor "
+                  f"{floor_text}; max abs err vs "
                   f"plain {err:.3g} (max |out| {t['max_abs_out']:.3g}; "
                   f"{share:.3f} of the limit), final state {err_h:.3g}")
     return rows
@@ -1284,7 +1283,7 @@ def main() -> None:
     scan_parity_phase(dev, max_err)
     timing = timing_phase(dev, max_err, funcs)
     timing.update(attention_timing_phase(dev, max_err))
-    timing.update(scan_timing_phase(dev, max_err))
+    timing.update(scan_timing_phase(dev, max_err, funcs))
     launches = main_path_phase(dev)
     profile_phase(dev)
     for k, n in serve_all_phase(dev).items():

@@ -1,5 +1,7 @@
 // Warp-level tensor-core and async-copy helpers for sm_90a, shared by the
-// bf16 attention kernels (flash_attention.cu, decode_attention.cu).
+// bf16 attention kernels (flash_attention.cu, decode_attention.cu); the
+// scan kernels (selective_scan.cu, rglru_scan.cu) use its cp.async and
+// exp2_approx.
 //
 // - cp_async16: a 16-byte cp.async.cg (global -> shared, bypassing L1);
 //   with pred false it writes 16 zero bytes and reads nothing.

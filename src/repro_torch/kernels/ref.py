@@ -535,3 +535,88 @@ def rglru_ref(x: torch.Tensor, a: torch.Tensor,
     out = (torch.stack(hs, 1) if hs
            else x.new_zeros(Bt, 0, Dd, dtype=torch.float32))
     return out.to(x.dtype), h
+
+
+# -- the scan kernels' orders of operations (for the tests) ----------------
+
+# Lanes of a channel in csrc/selective_scan.cu; lane q holds states q and
+# q + SSCAN_LANES.
+SSCAN_LANES = 8
+LOG2E = 1.4426950408889634
+
+
+def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """fmaf in float32: a * b + c rounded once (the product of two float32
+    values is exact in float64; the sum is rounded to float64 first, which
+    moves the result by at most one float32 ulp, and only at a tie)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def lane_tree_sum(v: torch.Tensor) -> torch.Tensor:
+    """The sum over the last axis (2^k lanes) in the selective-scan
+    kernel's transpose-reduce order: the first round adds lanes half the
+    width apart (l and l + L/2), the next lanes a quarter apart, ...: for
+    8 lanes ((L0 + L4) + (L2 + L6)) + ((L1 + L5) + (L3 + L7))."""
+    while v.shape[-1] > 1:
+        half = v.shape[-1] // 2
+        v = v[..., :half] + v[..., half:]
+    return v[..., 0]
+
+
+def selective_scan_kernel_order_ref(x: torch.Tensor, dt: torch.Tensor,
+                                    A: torch.Tensor, B: torch.Tensor,
+                                    C: torch.Tensor, D: torch.Tensor,
+                                    h0: torch.Tensor | None = None
+                                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`selective_scan_ref` in the order of operations of
+    ``csrc/selective_scan.cu``, in float32 on the CPU: A prescaled once,
+    A' = A log2(e); per step dA = 2^(dt A') (the kernel's ex2.approx adds
+    at most 2 ulp to this), u = (dt x) B, h = fmaf(dA, h, u); lane q's
+    partial fmaf(h[q + 8], C[q + 8], h[q] C[q]) (states past N are 0); the
+    lanes summed by :func:`lane_tree_sum`; y = fmaf(D, x, sum)."""
+    calls["selective_scan_kernel_order_ref"] += 1
+    Bt, S, Di = x.shape
+    N = A.shape[-1]
+    width = 2 * SSCAN_LANES
+    pad = (0, width - N)
+    Ap = torch.nn.functional.pad(A.float(), pad) * LOG2E
+    h = (torch.zeros(Bt, Di, N) if h0 is None else h0.float())
+    h = torch.nn.functional.pad(h, pad)
+    xf, dtf = x.float(), dt.float()
+    Bf = torch.nn.functional.pad(B.float(), pad)
+    Cf = torch.nn.functional.pad(C.float(), pad)
+    Df = D.float()
+    ys = []
+    for t in range(S):
+        d = dtf[:, t, :, None]                          # [Bt, Di, 1]
+        dA = torch.exp2(d * Ap[None])
+        u = (dtf[:, t] * xf[:, t])[..., None] * Bf[:, t, None, :]
+        h = fma32(dA, h, u)
+        c = Cf[:, t, None, :].expand_as(h)
+        lo, hi = slice(0, SSCAN_LANES), slice(SSCAN_LANES, width)
+        part = fma32(h[..., hi], c[..., hi], h[..., lo] * c[..., lo])
+        ys.append(fma32(Df[None], xf[:, t], lane_tree_sum(part)))
+    y = (torch.stack(ys, 1) if ys
+         else x.new_zeros(Bt, 0, Di, dtype=torch.float32))
+    return y.to(x.dtype), h[..., :N].contiguous()
+
+
+def rglru_kernel_order_ref(x: torch.Tensor, a: torch.Tensor,
+                           h0: torch.Tensor | None = None
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`rglru_ref` in the order of operations of
+    ``csrc/rglru_scan.cu``, in float32 on the CPU: b = sqrt(max(1 - a a,
+    0)) x for the whole chunk first (the producer warps), then the walk
+    h = fmaf(a, h, b) (the walker warp)."""
+    calls["rglru_kernel_order_ref"] += 1
+    Bt, S, Dd = x.shape
+    af = a.float()
+    b = torch.sqrt(torch.clamp(1.0 - af * af, min=0.0)) * x.float()
+    h = torch.zeros(Bt, Dd) if h0 is None else h0.float()
+    hs = []
+    for t in range(S):
+        h = fma32(af[:, t], h, b[:, t])
+        hs.append(h)
+    out = (torch.stack(hs, 1) if hs
+           else x.new_zeros(Bt, 0, Dd, dtype=torch.float32))
+    return out.to(x.dtype), h

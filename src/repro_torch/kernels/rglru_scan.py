@@ -12,6 +12,11 @@ import torch
 from . import build, ref
 from .selective_scan import check_scan_inputs
 
+# The kernel's geometry (csrc/rglru_scan.cu): channels a block (the
+# walker warp's lanes), and steps a chunk (a stage of its ring).
+BLOCK_CHANNELS = 32
+CHUNK = 64
+
 # Launches of the kernel (not of the plain version).
 launches = 0
 

@@ -13,9 +13,13 @@ import torch
 
 from . import build, ref
 
-# The largest state size N the kernel holds in registers (4 threads a
-# channel, 4 states each); every published Mamba-1 model has N = 16.
+# The largest state size N the kernel holds in registers (8 lanes a
+# channel, 2 states each); every published Mamba-1 model has N = 16.
 MAX_STATE = 16
+# The kernel's geometry (csrc/selective_scan.cu): channels a block, and
+# steps a chunk (a stage of its shared-memory ring).
+BLOCK_CHANNELS = 16
+CHUNK = 32
 
 # Launches of the kernel (not of the plain version).
 launches = 0

@@ -3,7 +3,7 @@ in turns, with the same method.
 
     python3 src/repro_torch/launch/kernel_compare.py \\
         --trees PARENT . . PARENT [--walls] [--sass] [--clusters] \\
-        [--trace] [--out FILE]
+        [--trace] [--prefill] [--out FILE]
 
 Each tree (a directory holding ``src/repro_torch``; ``.`` is this
 checkout) runs in a process of its own, in the order given, importing
@@ -29,9 +29,17 @@ enqueue is not timed), every output held bit for bit (FW, min-plus) or to
   ``fw_counts.launch_at_cluster``), and the blocked kernel at B = 1 from
   V = 64 to 1536 (its critical path: nb fused chains);
 * with ``--sass``: the library rebuilt, ptxas's registers and spills per
-  kernel, a histogram of SASS mnemonics per FW or min-plus kernel
-  function and its hot loop (``kernel_timing.loop_issues``; the dump of
-  ``cuobjdump -sass`` written beside ``--out``);
+  kernel, a histogram of SASS mnemonics per FW, min-plus or scan kernel
+  function and its hot loop (``kernel_timing.loop_issues``; the scans'
+  loops as ``kernel_timing.SCAN_LOOPS`` names them, and from them the
+  scans' issue floors at the timed shapes; the dump of ``cuobjdump
+  -sass`` written beside ``--out``);
+* with ``--prefill``: one falcon-mamba-7b and one recurrentgemma-9b at
+  full width in bfloat16 (weights from ``torch.Generator`` seed 0 on the
+  card, one model at a time), each prefilling one prompt of 1024 and of
+  2048 tokens (B = 1, a 4096-token cache): the median wall of three
+  prefills ending in a synchronize, as tokens/s, and the device kernel
+  time of one more under ``torch.profiler``;
 * with ``--trace``: one ``fw_counts_tiled`` call at homog256 placeit and
   at homog100 baseline with the kernel's per-item trace
   (``fw_counts_tiled.launch_traced``): each work item's wait and run time
@@ -57,6 +65,10 @@ from pathlib import Path
 import torch
 
 FULL_RTOL, FULL_ATOL = 2.0 ** -6, 1e-5
+# --prefill: the recurrent serve runs' models and the prompt lengths.
+PREFILL_ARCHS = ("falcon-mamba-7b", "recurrentgemma-9b")
+PREFILL_S = (1024, 2048)
+PREFILL_CACHE = 4096
 
 
 def _load_timing():
@@ -85,23 +97,86 @@ def _close(got, want, what: str) -> None:
 
 
 def _sass(lib_path: Path, out: Path) -> dict:
-    """Per FW or min-plus kernel function of a built library: a histogram
-    of its SASS mnemonics and its hot loop (instructions, relaxations or
-    updates)."""
+    """Per FW, min-plus or scan kernel function of a built library: a
+    histogram of its SASS mnemonics and its hot loops (instructions, ops:
+    relaxations, updates, or the scans' (step, state) / (step, channel)
+    items)."""
     text = kt.sass(lib_path)
     out.write_text(text)
     res = {}
     for f, instrs in kt.sass_functions(text).items():
         if not any(p in f for p in ("fw_", "minplus", "diag", "panel",
-                                    "outer")):
+                                    "outer", "scan_kernel")):
             continue
         hist = collections.Counter(mn for _, mn, _ in instrs)
         res[f] = {"mnemonics": dict(hist.most_common())}
-        op = "FADD" if "minplus" in f else "FMUL"
-        try:
-            res[f]["hot_loop"] = kt.loop_issues(instrs, op)
-        except ValueError:
-            res[f]["hot_loop"] = None
+        if "scan_kernel" in f:
+            loops = {k: v for k, v in kt.SCAN_LOOPS.items() if v[0] in f}
+        else:
+            loops = {"hot_loop": (None, "FADD" if "minplus" in f
+                                  else "FMUL", ())}
+        for k, (_, op, without) in loops.items():
+            try:
+                res[f][k] = kt.loop_issues(instrs, op, without)
+            except ValueError:
+                res[f][k] = None
+    return res
+
+
+def _scan_floors(lib_path: Path, dev) -> dict:
+    """The scans' issue floors (ms) at the timed shapes, from this
+    build's SASS."""
+    issues = kt.scan_issues(kt.sass_functions(kt.sass(lib_path)))
+    out = {}
+    for S in (2048, 512):
+        out[f"selective_scan S={S}"] = kt.scan_floors_ms(
+            issues, 1, S, 8192, "selective_scan", dev)
+        out[f"rglru_scan S={S}"] = kt.scan_floors_ms(
+            issues, 1, S, 4096, "rglru_scan", dev)
+    return {"issues": issues, "floors_ms": out}
+
+
+def _prefill(dev) -> dict:
+    """``--prefill``: per model and prompt length, the median wall (s)
+    of three prefills, tokens/s from it, and the device kernel ms of one
+    more prefill under torch.profiler."""
+    import gc
+    import statistics
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import LM
+    res = {}
+    for arch in PREFILL_ARCHS:
+        cfg = get_config(arch)
+        model = LM(cfg, dev, torch.Generator(device=dev).manual_seed(0))
+        for S in PREFILL_S:
+            toks = torch.as_tensor(np.random.default_rng(S).integers(
+                3, cfg.vocab, size=(1, S)), dtype=torch.long, device=dev)
+            fn = lambda: model.prefill({"tokens": toks}, PREFILL_CACHE)
+            fn()
+            torch.cuda.synchronize()
+            walls = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            dev_ms = sum(
+                e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+            wall = statistics.median(walls)
+            res[f"{arch} S={S}"] = {"wall_s": wall, "tokens_per_s": S / wall,
+                                    "device_ms": dev_ms}
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
     return res
 
 
@@ -141,7 +216,7 @@ def _trace_stats(tr, nb: int) -> dict:
 
 
 def run_one(tree: Path, walls: bool, sass: bool, clusters: bool,
-            trace: bool, out: Path | None) -> dict:
+            trace: bool, prefill: bool, out: Path | None) -> dict:
     sys.path.insert(0, str(tree / "src"))
     from repro_torch import testing
     from repro_torch.core import api
@@ -254,11 +329,17 @@ def run_one(tree: Path, walls: bool, sass: bool, clusters: bool,
             res["walls"][name] = {"s": time.monotonic() - t1,
                                   "backend": cfg.backend,
                                   "best_cost": float(rec.result.best_cost)}
+    if prefill:
+        res["prefill"] = _prefill(dev)
     if sass:
         dst = (out or Path("kernel_compare.json")).with_name(
             f"sass_{tree.name}.txt")
         res["sass_file"] = str(dst)
         res["sass"] = _sass(build.LIB_PATH, dst)
+        try:
+            res["scan_floors"] = _scan_floors(build.LIB_PATH, dev)
+        except ValueError:          # a tree whose scans lack these loops
+            res["scan_floors"] = None
     return res
 
 
@@ -270,15 +351,16 @@ def main() -> None:
     ap.add_argument("--sass", action="store_true")
     ap.add_argument("--clusters", action="store_true")
     ap.add_argument("--trace", action="store_true")
+    ap.add_argument("--prefill", action="store_true")
     ap.add_argument("--out", type=Path)
     args = ap.parse_args()
-    flags = [f for f in ("--walls", "--sass", "--clusters", "--trace")
-             if getattr(args, f[2:])]
+    flags = [f for f in ("--walls", "--sass", "--clusters", "--trace",
+                         "--prefill") if getattr(args, f[2:])]
     if args.out:
         args.out = args.out.resolve()
     if args.one:
         res = run_one(Path(args.one).resolve(), args.walls, args.sass,
-                      args.clusters, args.trace, args.out)
+                      args.clusters, args.trace, args.prefill, args.out)
         print("RESULT " + json.dumps(res))
         return
     print(kt.card_line(), flush=True)
@@ -309,6 +391,12 @@ def main() -> None:
         for k in results[0]["walls"]:
             print(f"{'wall s ' + k:44s} " + " ".join(
                 f"{r['walls'][k]['s']:14.3f}" for r in results))
+    if "prefill" in results[0]:
+        for k in results[0]["prefill"]:
+            for col, fmt in (("tokens_per_s", "14.1f"),
+                             ("device_ms", "14.3f")):
+                print(f"{'prefill ' + k + ' ' + col:44s} " + " ".join(
+                    f"{r['prefill'][k][col]:{fmt}}" for r in results))
     print(kt.card_line())
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)

@@ -9,9 +9,10 @@ time another checkout's kernels (one without this module) the same way.
   back between one pair of CUDA events behind a spin kernel, so the
   host's enqueue is not timed; :func:`median_ms` times single calls.
 * :func:`loop_issues`: the single-issue instructions a relaxation (or a
-  min-plus update) costs in a kernel's inner loop, counted from the SASS
-  of the library just built (``cuobjdump -sass``), and :func:`issue_rate`,
-  the card's instructions a second; their quotient is the issue floor.
+  min-plus update, or a scan's (step, state) or (step, channel)) costs in
+  a kernel's inner loop, counted from the SASS of the library just built
+  (``cuobjdump -sass``), and :func:`issue_rate`, the card's instructions
+  a second; their quotient is the issue floor.
 * :data:`RUNS` and :func:`experiment_config`: the ``run_experiment``
   configurations whose walls both scripts time.
 """
@@ -91,15 +92,20 @@ def card_line() -> str:
         timeout=60, check=True).stdout.strip()
 
 
-def issue_rate(dev) -> float:
-    """Single-issue instructions a second: 128 lanes a clock on each of
-    the card's SMs at its top SM clock (nvidia-smi)."""
+def max_sm_clock_hz() -> float:
+    """The card's top SM clock (nvidia-smi ``clocks.max.sm``)."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
         timeout=60, check=True)
+    return float(smi.stdout.split()[0]) * 1e6
+
+
+def issue_rate(dev) -> float:
+    """Single-issue instructions a second: 128 lanes a clock on each of
+    the card's SMs at its top SM clock (nvidia-smi)."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    return LANES_PER_SM * sms * float(smi.stdout.split()[0]) * 1e6
+    return LANES_PER_SM * sms * max_sm_clock_hz()
 
 
 # -- SASS -------------------------------------------------------------------
@@ -138,11 +144,15 @@ def _branch_target(mnemonic: str, operands: str) -> int | None:
     return int(t[-1], 16) if t else None
 
 
-def loop_issues(instrs: list, op: str) -> tuple[int, int]:
+def loop_issues(instrs: list, op: str, without: tuple = ()
+                ) -> tuple[int, int]:
     """(instructions, ops) of one trip of a kernel's hot loop: of its
     loops (each the range of a backward branch), the one with the most
     ``op`` instructions (FMUL: one a FW relaxation; FADD: one a min-plus
-    update) that every warp issues each trip, and of equals the shortest.
+    update; MUFU: one a selective-scan (step, state) or an RG-LRU
+    producer's (step, channel); FFMA without MUFU: one an RG-LRU walker's
+    step) that every warp issues each trip, and of equals the shortest;
+    loops that issue any mnemonic of ``without`` each trip are passed over.
     Left out of a loop's count: what a forward branch inside it may skip
     (guarded code, such as kernel 1's row publish or min-plus's tile
     loads) and the bodies of loops nested in it, whose trips vary.  So
@@ -164,12 +174,92 @@ def loop_issues(instrs: list, op: str) -> tuple[int, int]:
             if tgt is not None and addr < tgt <= a:
                 left_out.update(x[0] for x in body if addr < x[0] < tgt)
         kept = [x for x in body if x[0] not in left_out]
+        if any(x[1] in without for x in kept):
+            continue
         n_ops = sum(1 for x in kept if x[1] == op)
         if best is None or (n_ops, -len(kept)) > (best[1], -best[0]):
             best = (len(kept), n_ops)
     if not best or not best[1]:
         raise ValueError(f"no loop with {op} instructions")
     return best
+
+
+# The scans' hot loops: (kernel function, op, ops passed over).  The
+# selective scan issues one MUFU (ex2) a (step, state); an RG-LRU
+# producer one MUFU (the square root's rsqrt) a (step, channel), and the
+# walker warp one FFMA a step, in the one loop with no MUFU.
+SCAN_LOOPS = {
+    "selective_scan": ("selective_scan_kernel", "MUFU", ()),
+    "rglru_scan walker": ("rglru_scan_kernel", "FFMA", ("MUFU",)),
+    "rglru_scan producers": ("rglru_scan_kernel", "MUFU", ()),
+}
+# The instances the serve runs launch: falcon-mamba-7b's x in bfloat16
+# with dt in float32; recurrentgemma-9b's x and a in bfloat16.
+SCAN_SERVE_INSTANCE = {"selective_scan": "I13__nv_bfloat16fE",
+                       "rglru_scan": "I13__nv_bfloat16E"}
+
+
+def scan_issues(funcs: dict) -> dict:
+    """Instructions a (step, state) of the selective scan, and a (step,
+    channel) of RG-LRU's walker and producers, in the serve instances'
+    hot loops (``SCAN_LOOPS``, ``loop_issues``): loop -> (instructions,
+    ops) of one trip."""
+    out = {}
+    for loop, (fn, op, without) in SCAN_LOOPS.items():
+        name = find_function(funcs, fn + SCAN_SERVE_INSTANCE[
+            loop.split()[0]])
+        out[loop] = loop_issues(funcs[name], op, without)
+    return out
+
+
+def scan_floors_ms(issues: dict, B: int, S: int, width: int, kernel: str,
+                   dev) -> dict:
+    """Issue floors (ms) of one scan call from ``scan_issues``: the
+    selective scan's B * S * width * 16 (step, state) lanes (16 states a
+    channel whatever N) and RG-LRU's producers' B * S * width (step,
+    channel) lanes at the card's issue rate; RG-LRU's walker, one warp a
+    block that issues at most one instruction a clock, S steps at its
+    instructions a step at the top SM clock (one wave: B * width <= 32 per
+    SM)."""
+    rate = issue_rate(dev)
+    if kernel == "selective_scan":
+        n, k = issues["selective_scan"]
+        return {"selective_scan": 1e3 * B * S * width * 16 * n / k / rate}
+    n, k = issues["rglru_scan producers"]
+    nw, kw = issues["rglru_scan walker"]
+    return {"producers": 1e3 * B * S * width * n / k / rate,
+            "walker": 1e3 * S * nw / kw / max_sm_clock_hz()}
+
+
+def scan_serve_operands(kernel: str, S: int, dev, seed: int | None = None,
+                        h0: bool = False) -> list:
+    """A scan's operands at its serve run's prefill shape (B = 1), drawn on
+    the card from ``seed`` (S by default) in the ranges the models give:
+    falcon-mamba-7b's selective scan (Di = 8192, N = 16; x in bfloat16, dt
+    in [1e-3, 0.1) from its dt bias, A = -(1..16) from the S4D-real init,
+    D = 1) and recurrentgemma-9b's RG-LRU (D = 4096; x and a in [0.5, 1)
+    in bfloat16); h0 zeros, or standard normal with ``h0``."""
+    g = torch.Generator(device=dev).manual_seed(S if seed is None else seed)
+    f32, bf16 = torch.float32, torch.bfloat16
+    if kernel == "selective_scan":
+        Di, N = 8192, 16
+        args = [torch.randn(1, S, Di, generator=g, device=dev).to(bf16),
+                1e-3 + 0.099 * torch.rand(1, S, Di, generator=g, device=dev),
+                -torch.arange(1, N + 1, dtype=f32, device=dev).expand(
+                    Di, N).contiguous(),
+                torch.randn(1, S, N, generator=g, device=dev),
+                torch.randn(1, S, N, generator=g, device=dev),
+                torch.ones(Di, device=dev)]
+        state = (1, Di, N)
+    else:
+        D = 4096
+        args = [torch.randn(1, S, D, generator=g, device=dev).to(bf16),
+                (0.5 + 0.5 * torch.rand(1, S, D, generator=g,
+                                        device=dev)).to(bf16)]
+        state = (1, D)
+    args.append(torch.randn(*state, generator=g, device=dev) if h0
+                else torch.zeros(*state, device=dev))
+    return args
 
 
 def find_function(funcs: dict, *parts: str) -> str:

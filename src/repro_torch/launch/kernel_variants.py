@@ -1,0 +1,265 @@
+"""Build variants of the scan kernels and time them against each other on
+one card, in one process.
+
+    python3 src/repro_torch/launch/kernel_variants.py --set geometry \\
+        [--set diagnostics] [--out FILE]
+
+A variant is a copy of a kernel source from ``src/repro_torch/kernels/csrc``
+with some ``constexpr`` constants set to other values and, for the
+diagnostics, some lines of code replaced (each replacement must match the
+source once, so a stale variant fails to build rather than timing
+something else).  Each is compiled by its own ``nvcc`` (the flags of
+``kernels/build.py``, all started together) into a library of its own,
+bound with the C signature of ``build.SIGNATURES``, and timed with
+``kernel_timing.batched_ms`` (all variants of a kernel taking turns) at
+the serve runs' prefill shapes: falcon-mamba-7b's selective scan (B = 1,
+Di = 8192, N = 16, x in bfloat16, dt in float32) and recurrentgemma-9b's
+RG-LRU (B = 1, D = 4096, bfloat16), S = 2048 and 512, operands from
+``kernel_timing.scan_serve_operands`` as ``chip_smoke.py`` draws them.
+Each output is checked against the plain version (``FULL_LIMIT`` on
+outputs, 3e-5 on final states); the diagnostics take work out of the
+kernel and are expected to fail it.
+
+Sets:
+
+* ``geometry``: the kernels as built, and other lane layouts, block
+  sizes, chunk lengths, ring depths and producer counts;
+* ``diagnostics``: the kernels as built with one piece of work taken out
+  (the exp, the transpose-reduce, the B / C or dt loads, the rewrite;
+  RG-LRU's square root, its output writes, its walk), to see what each
+  piece costs.
+
+Needs a card and nvcc; prints a table and the card's name and power
+limit.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
+
+from repro_torch.kernels import build, ref  # noqa: E402
+from repro_torch.launch import kernel_timing as kt  # noqa: E402
+
+CSRC = Path(build.__file__).resolve().parent / "csrc"
+OUT_DIR = build.BUILD_DIR.parent / "variants"
+FULL_RTOL, FULL_ATOL, STATE_TOL = 2.0 ** -6, 1e-5, 3e-5
+TIMED_S = (2048, 512)
+
+SS, RG = "selective_scan.cu", "rglru_scan.cu"
+# Code of the kernels as built, and what a diagnostic puts in its place.
+_B_LOAD = "load4(bu[j], &sm.bT[q + kLanesPerCh * j][r]);"
+_C_LOAD = "load4(cc[j], &sm.cT[q + kLanesPerCh * j][r]);"
+_DT_LOAD = "load4(d, &sm.dtT[cl][r]);"
+_DTX_LOAD = "load4(u, &sm.dtxT[cl][r]);"
+_REWRITE = ("      sm.dtT[col][r] = d;\n"
+            "      sm.dtxT[col][r] = d * to_float(sm.x[st][r][col]);")
+_WALK_LOADS = ("          av[u] = sm.af[j][r + u][lane];\n"
+               "          bv[u] = sm.bf[j][r + u][lane];")
+_WALK_STEP = ("          h = fmaf(av[u], h, bv[u]);\n"
+              "          sm.bf[j][r + u][lane] = h;")
+_NO_WALK = [(_WALK_LOADS, "          av[u] = 0.5f + u;\n"
+                          "          bv[u] = 0.25f * u;"),
+            (_WALK_STEP, "          h += av[u] * bv[u];")]
+_NO_COMPUTE = [("    compute(k % kStages, k, j);", "")]
+_NO_WRITE = [("        if (c0 + col < D) from_floats(dst, hv);",
+              "        if (c0 + col > 2 * D) from_floats(dst, hv);")]
+
+# name -> (source, constants, replacements)
+SETS = {
+    "geometry": {
+        "sscan as built": (SS, {}, []),
+        "sscan 16 lanes a channel": (SS, {"kLanesPerCh": 16,
+                                          "kMinBlocks": 8, "kBatch": 2}, []),
+        "sscan 16 lanes, 256 threads": (SS, {"kLanesPerCh": 16,
+                                             "kThreads": 256, "kBatch": 2},
+                                        []),
+        "sscan 4 lanes a channel": (SS, {"kLanesPerCh": 4,
+                                         "kMinBlocks": 2}, []),
+        "sscan 256 threads": (SS, {"kThreads": 256, "kMinBlocks": 2}, []),
+        "sscan 16-step chunks, 4 stages": (SS, {"kSteps": 16,
+                                                "kStages": 4, "kBatch": 2},
+                                           []),
+        "sscan 64-step chunks, 2 stages": (SS, {"kSteps": 64,
+                                                "kStages": 2}, []),
+        "sscan 64-step chunks, 3 stages": (SS, {"kSteps": 64,
+                                                "kStages": 3}, []),
+        "sscan one group a reduce": (SS, {"kBatch": 1}, []),
+        "rglru as built": (RG, {}, []),
+        "rglru 4 producer warps": (RG, {"kProducers": 4}, []),
+        "rglru 16 producers, 128-step chunks": (RG, {"kProducers": 16,
+                                                     "kSteps": 128}, []),
+        "rglru 3 stages": (RG, {"kStages": 3}, []),
+        "rglru 10 stages": (RG, {"kStages": 10}, []),
+        "rglru 128-step chunks": (RG, {"kSteps": 128}, []),
+    },
+    "diagnostics": {
+        "sscan as built": (SS, {}, []),
+        "sscan without the exp": (SS, {}, [(
+            "e[j][s] = exp2_approx(d[s] * Al[j]);",
+            "e[j][s] = d[s] * Al[j];")]),
+        "sscan without the reduce": (SS, {}, [(
+            "      reduce_groups(p, q);\n", "")]),
+        "sscan without B, C loads": (SS, {}, [
+            (_B_LOAD, "load4(bu[j], &sm.dtT[cl][r]);"),
+            (_C_LOAD, "load4(cc[j], &sm.dtxT[cl][r]);")]),
+        "sscan without dt, dt x loads": (SS, {}, [
+            (_DT_LOAD, "load4(d, &sm.bT[q][r]);"),
+            (_DTX_LOAD, "load4(u, &sm.cT[q][r]);")]),
+        "sscan without the dt rewrite": (SS, {}, [(_REWRITE, "")]),
+        "rglru as built": (RG, {}, []),
+        "rglru without the sqrt": (RG, {}, [(
+            "bv[v] = sqrtf(fmaxf(1.f - av[v] * av[v], 0.f)) * xv[v];",
+            "bv[v] = av[v] * xv[v];")]),
+        "rglru without the writes": (RG, {}, _NO_WRITE),
+        "rglru without the walk": (RG, {}, _NO_WALK),
+        "rglru stream: no compute, no walk": (RG, {},
+                                              _NO_COMPUTE + _NO_WALK),
+        "rglru stream, reads only": (RG, {},
+                                     _NO_COMPUTE + _NO_WALK + _NO_WRITE),
+    },
+}
+
+
+def variant_source(src: str, consts: dict, replace: list) -> str:
+    """The kernel source with ``consts`` set and ``replace`` applied; raises
+    if a constant or a replaced text does not occur exactly once."""
+    s = (CSRC / src).read_text()
+    for k, v in consts.items():
+        s, n = re.subn(rf"constexpr (\w+) {k} = [^;]+;",
+                       rf"constexpr \g<1> {k} = {v};", s)
+        if n != 1:
+            raise ValueError(f"{src}: constant {k} found {n} times")
+    for old, new in replace:
+        if s.count(old) != 1:
+            raise ValueError(f"{src}: {old!r} found {s.count(old)} times")
+        s = s.replace(old, new)
+    return s
+
+
+def _slug(name: str) -> str:
+    return re.sub(r"[^a-z0-9]+", "_", name.lower()).strip("_")
+
+
+def build_variants(variants: dict) -> dict:
+    """Compiles every variant side by side; returns name -> ctypes library
+    (with the scan entry point's signature set) and prints ptxas's
+    registers and spills of each."""
+    nvcc = build.find_nvcc()
+    procs = {}
+    for name, (src, consts, replace) in variants.items():
+        d = OUT_DIR / _slug(name)
+        d.mkdir(parents=True, exist_ok=True)
+        for h in build.HEADERS:
+            (d / h.name).write_text(h.read_text())
+        (d / src).write_text(variant_source(src, consts, replace))
+        procs[name] = subprocess.Popen(
+            [nvcc, *build.NVCC_FLAGS, "-shared", "-o", str(d / "lib.so"),
+             str(d / src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+    libs = {}
+    for name, p in procs.items():
+        log = p.communicate()[0]
+        if p.returncode != 0:
+            raise SystemExit(f"variant {name!r} did not build:\n{log}")
+        regs = sorted({ln.split(":", 1)[-1].strip() for ln in log.splitlines()
+                       if "Used" in ln or ("spill" in ln
+                                           and " 0 bytes spill" not in ln)})
+        print(f"  {name:40s} {'; '.join(regs)[:150]}")
+        lib = ctypes.CDLL(str(OUT_DIR / _slug(name) / "lib.so"))
+        fn = ("selective_scan_fwd" if variants[name][0] == SS
+              else "rglru_scan_fwd")
+        getattr(lib, fn).argtypes = build.SIGNATURES[fn]
+        getattr(lib, fn).restype = ctypes.c_int
+        libs[name] = lib
+    return libs
+
+
+def _call(lib, kernel: str, args: list, dev):
+    """One launch of a variant's entry point on the current stream."""
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    y = torch.empty_like(args[0])
+    hf = torch.empty_like(args[-1])
+    if kernel == SS:
+        x, dt, A, B, C, D, h0 = args
+        rc = lib.selective_scan_fwd(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+            C.data_ptr(), D.data_ptr(), h0.data_ptr(), y.data_ptr(),
+            hf.data_ptr(), 1, x.shape[1], x.shape[2], A.shape[1],
+            build.DTYPE_CODES["bfloat16"], build.DTYPE_CODES["float32"],
+            dev.index, stream)
+    else:
+        x, a, h0 = args
+        rc = lib.rglru_scan_fwd(
+            x.data_ptr(), a.data_ptr(), h0.data_ptr(), y.data_ptr(),
+            hf.data_ptr(), 1, x.shape[1], x.shape[2],
+            build.DTYPE_CODES["bfloat16"], dev.index, stream)
+    if rc != 0:
+        raise RuntimeError(f"variant launch failed (cudaError {rc})")
+    return y, hf
+
+
+def time_variants(variants: dict, libs: dict, dev) -> dict:
+    """name -> {"S=...": {"ms", "ok"}}; each kernel's variants take turns
+    in every round of ``batched_ms``."""
+    res = {name: {} for name in variants}
+    for kernel in (SS, RG):
+        names = [n for n in variants if variants[n][0] == kernel]
+        if not names:
+            continue
+        for S in TIMED_S:
+            args = kt.scan_serve_operands(
+                "selective_scan" if kernel == SS else "rglru_scan", S, dev)
+            plain = (ref.selective_scan_ref if kernel == SS
+                     else ref.rglru_ref)
+            yw, hw = plain(*args)
+            fns = {n: (lambda n=n: _call(libs[n], kernel, args, dev))
+                   for n in names}
+            t, outs = kt.batched_ms(fns, 20, 5)
+            for n in names:
+                y, h = outs[n]
+                ok = bool((((y.float() - yw.float()).abs()
+                            <= FULL_ATOL + FULL_RTOL * yw.float().abs())
+                           .all()) and torch.allclose(h, hw, rtol=STATE_TOL,
+                                                      atol=STATE_TOL))
+                res[n][f"S={S}"] = {"ms": t[n], "ok": ok}
+    return res
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--set", action="append", choices=sorted(SETS),
+                    required=True)
+    ap.add_argument("--out", type=Path)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: kernel_variants.py runs on a card")
+    dev = torch.device("cuda", 0)
+    print(kt.card_line(), flush=True)
+    results = {}
+    for name in args.set:
+        variants = SETS[name]
+        print(f"== {name}: building {len(variants)} variants", flush=True)
+        libs = build_variants(variants)
+        res = time_variants(variants, libs, dev)
+        for v, r in res.items():
+            print(f"  {v:40s} " + "  ".join(
+                f"{s} {x['ms']:.4f} ms{'' if x['ok'] else ' (fails)'}"
+                for s, x in r.items()), flush=True)
+        results[name] = res
+    print(kt.card_line())
+    if args.out:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(json.dumps(results, indent=1))
+
+
+if __name__ == "__main__":
+    main()

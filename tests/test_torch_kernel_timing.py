@@ -9,9 +9,11 @@ import importlib.util
 from pathlib import Path
 
 import pytest
+import torch
 
 from repro_torch.core import api
 from repro_torch.launch import kernel_timing as kt
+from repro_torch.launch import kernel_variants as kv
 
 SASS = """
 Fatbin elf code:
@@ -108,3 +110,104 @@ def test_kernel_timing_loads_by_path_without_the_package():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     assert mod.RUNS == kt.RUNS
+
+
+SCAN_SASS = """
+\t\tFunction : _ZN12_GLOBAL__N_121selective_scan_kernelI13__nv_bfloat16fEEvPKT_
+        /*0000*/                   LDS R1, [R2] ;                         /* 0x0000000002017984 */
+        /*0010*/                   FMUL R3, R1, R4 ;                      /* 0x0000000401037220 */
+        /*0020*/                   MUFU.EX2 R3, R3 ;                      /* 0x0000000300037308 */
+        /*0030*/                   FFMA R5, R3, R5, R6 ;                  /* 0x0000000503057223 */
+        /*0040*/                   MUFU.EX2 R7, R7 ;                      /* 0x0000000700077308 */
+        /*0050*/               @P0 BRA 0x0 ;                              /* 0xfffffffc00e80947 */
+        /*0060*/                   EXIT ;                                 /* 0x000000000000794d */
+\t\tFunction : _ZN12_GLOBAL__N_117rglru_scan_kernelI13__nv_bfloat16EEvPKT_
+        /*0000*/                   LDS R1, [R2] ;                         /* 0x0000000002017984 */
+        /*0010*/                   LDS R3, [R4] ;                         /* 0x0000000004037984 */
+        /*0020*/                   FFMA R5, R1, R5, R3 ;                  /* 0x0000000301057223 */
+        /*0030*/                   STS [R4], R5 ;                         /* 0x0000000504007388 */
+        /*0040*/               @P0 BRA 0x0 ;                              /* 0xfffffffc00e80947 */
+        /*0050*/                   LDS R6, [R2] ;                         /* 0x0000000002067984 */
+        /*0060*/                   FFMA R7, R6, R6, -1 ;                  /* 0x0000000606077223 */
+        /*0070*/                   MUFU.RSQ R8, R7 ;                      /* 0x0000000700087308 */
+        /*0080*/                   FFMA R9, R8, R7, R6 ;                  /* 0x0000000708097223 */
+        /*0090*/                   FFMA R9, R9, R7, R6 ;                  /* 0x0000000709097223 */
+        /*00a0*/                   STS [R2], R9 ;                         /* 0x0000000902007388 */
+        /*00b0*/               @P1 BRA 0x50 ;                             /* 0xfffffffc00e81947 */
+        /*00c0*/                   EXIT ;                                 /* 0x000000000000794d */
+"""
+
+
+def test_loop_issues_passes_over_loops_with_the_ops_left_out():
+    funcs = kt.sass_functions(SCAN_SASS)
+    rg = funcs["_ZN12_GLOBAL__N_117rglru_scan_kernelI13__nv_bfloat16EEvPKT_"]
+    # The producer loop (0x50-0xb0) holds more FFMA than the walker's
+    # (0x00-0x40); without MUFU only the walker's is left.
+    assert kt.loop_issues(rg, "FFMA") == (7, 3)
+    assert kt.loop_issues(rg, "FFMA", without=("MUFU",)) == (5, 1)
+    assert kt.loop_issues(rg, "MUFU") == (7, 1)
+    with pytest.raises(ValueError):
+        kt.loop_issues(rg, "FFMA", without=("MUFU", "STS"))
+
+
+def test_scan_issues_reads_each_scan_loop_of_the_serve_instances():
+    funcs = kt.sass_functions(SCAN_SASS)
+    assert kt.scan_issues(funcs) == {"selective_scan": (6, 2),
+                                     "rglru_scan walker": (5, 1),
+                                     "rglru_scan producers": (7, 1)}
+
+
+def test_scan_floors_ms_from_the_issue_counts(monkeypatch):
+    """The selective scan: 16 (step, state) lanes a (step, channel) at the
+    card's issue rate; RG-LRU's producers a lane a (step, channel), its
+    walker S steps at one instruction a clock."""
+    monkeypatch.setattr(kt, "issue_rate", lambda dev: 1e12)
+    monkeypatch.setattr(kt, "max_sm_clock_hz", lambda: 2e9)
+    issues = {"selective_scan": (600, 64), "rglru_scan walker": (68, 16),
+              "rglru_scan producers": (136, 8)}
+    got = kt.scan_floors_ms(issues, 1, 2048, 8192, "selective_scan", None)
+    assert got == {"selective_scan": pytest.approx(
+        1e3 * 2048 * 8192 * 16 * 600 / 64 / 1e12)}
+    got = kt.scan_floors_ms(issues, 2, 512, 4096, "rglru_scan", None)
+    assert got == {"producers": pytest.approx(1e3 * 2 * 512 * 4096 * 17
+                                              / 1e12),
+                   "walker": pytest.approx(1e3 * 512 * 68 / 16 / 2e9)}
+
+
+@pytest.mark.parametrize("set_name", sorted(kv.SETS))
+def test_kernel_variants_apply_to_the_sources(set_name):
+    """Every variant's constants and replaced lines occur once in the
+    kernel sources as built, so a variant times what its name says."""
+    for name, (src, consts, replace) in kv.SETS[set_name].items():
+        s = kv.variant_source(src, consts, replace)
+        for k, v in consts.items():
+            assert f" {k} = {v};" in s, name
+        for old, new in replace:
+            assert new in s, name
+    with pytest.raises(ValueError):
+        kv.variant_source(kv.SS, {"kNoSuchConstant": 1}, [])
+    with pytest.raises(ValueError):
+        kv.variant_source(kv.RG, {}, [("no such line", "")])
+
+
+@pytest.mark.parametrize("kernel", ["selective_scan", "rglru_scan"])
+def test_scan_serve_operands_shapes_and_ranges(kernel):
+    """The serve-shape operands chip_smoke.py, kernel_variants.py and the
+    GPU tests share, drawn here on the CPU at a short S."""
+    args = kt.scan_serve_operands(kernel, 8, "cpu")
+    again = kt.scan_serve_operands(kernel, 8, "cpu")
+    assert all(torch.equal(a, b) for a, b in zip(args, again))
+    assert args[0].dtype == torch.bfloat16
+    if kernel == "selective_scan":
+        x, dt, A, B, C, D, h0 = args
+        assert x.shape == dt.shape == (1, 8, 8192) and A.shape == (8192, 16)
+        assert B.shape == C.shape == (1, 8, 16) and h0.shape == (1, 8192, 16)
+        assert 1e-3 <= dt.min() and dt.max() < 0.1
+        assert torch.equal(A[0], -torch.arange(1.0, 17.0))
+    else:
+        x, a, h0 = args
+        assert a.dtype == torch.bfloat16 and h0.shape == (1, 4096)
+        assert 0.5 <= a.float().min() and a.float().max() <= 1.0
+    assert not h0.any()
+    assert kt.scan_serve_operands(kernel, 8, "cpu", seed=1,
+                                  h0=True)[-1].any()

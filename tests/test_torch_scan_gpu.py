@@ -8,7 +8,13 @@ rtol = atol = 3e-5 (the kernels use fused multiply-adds and sum the
 states in another order), bfloat16 outputs to 2e-2 (both sum in float32
 and round once; one bfloat16 ulp where they straddle a rounding
 boundary), the float32 final states to 3e-5.  A sequence split across two
-kernel calls equals one call.  Then reduced falcon-mamba-7b and
+kernel calls equals one call.  The edges of the kernels' geometry
+(``selective_scan.CHUNK`` / ``BLOCK_CHANNELS``, ``rglru_scan.CHUNK`` /
+``BLOCK_CHANNELS``): sequences shorter than one chunk and ending one step
+into a chunk, widths that end inside a block (16-byte and plain-load
+staging), N = 5, three batch rows, a sequence split bit for bit at a chunk
+edge and inside a chunk, and 80 calls at both serve shapes queued back to
+back with every output checked.  Then reduced falcon-mamba-7b and
 recurrentgemma-9b prefills and decode steps on the card against the same
 models on the CPU (float32, rtol = atol = 2e-4, the CPU parity tests'
 tolerance), through the kernels only.  Skips without a card; run it on
@@ -27,6 +33,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import rglru_scan as trg
 from repro_torch.kernels import selective_scan as tss
+from repro_torch.launch import kernel_timing as kt
 
 pytestmark = pytest.mark.gpu
 
@@ -100,6 +107,108 @@ def test_scan_kernel_carries_state(cuda, kernel, dtype):
     assert torch.allclose(torch.cat([y1, y2], 1).float(), y_full.float(),
                           rtol=1e-6, atol=1e-6)
     assert torch.allclose(h2, h_full, rtol=1e-6, atol=1e-6)
+
+
+def _edge_cases() -> dict:
+    """Named operand factories at the edges of the kernels' geometry:
+    S < one chunk, S one step into the second and third chunks, widths
+    past a block's multiple (a multiple of 8: 16-byte staging; odd: plain
+    loads), N = 5 and three batch rows."""
+    cs, bs = tss.CHUNK, tss.BLOCK_CHANNELS
+    cr, br = trg.CHUNK, trg.BLOCK_CHANNELS
+    specs = [
+        ("selective_scan", dict(Bt=1, S=cs // 2 + 1, Di=bs, N=16)),
+        ("selective_scan", dict(Bt=1, S=cs + 1, Di=2 * bs + 8, N=16)),
+        ("selective_scan", dict(Bt=2, S=2 * cs + 1, Di=3 * bs + 5, N=16,
+                                h0=True)),
+        ("selective_scan", dict(Bt=3, S=cs - 1, Di=bs + 8, N=5, h0=True)),
+        ("selective_scan", dict(Bt=3, S=3 * cs, Di=2 * bs, N=5)),
+        ("rglru", dict(B=1, S=cr // 2 + 3, D=br)),
+        ("rglru", dict(B=1, S=cr + 1, D=2 * br + 8)),
+        ("rglru", dict(B=2, S=2 * cr + 1, D=3 * br + 5, h0=True)),
+        ("rglru", dict(B=3, S=cr - 1, D=br + 8, h0=True)),
+        ("rglru", dict(B=3, S=7 * cr, D=2 * br)),
+    ]
+    cases = {}
+    for i, (kernel, kw) in enumerate(specs):
+        make = (testing.sscan_operands if kernel == "selective_scan"
+                else testing.rglru_operands)
+        name = kernel + " " + " ".join(f"{k}={v}" for k, v in kw.items())
+        cases[name] = (lambda make=make, kw=kw, i=i:
+                       make(**kw, seed=300 + i))
+    return cases
+
+
+EDGES = _edge_cases()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("name", list(EDGES))
+def test_scan_kernel_geometry_edges(cuda, name, dtype):
+    args = [None if a is None else torch.from_numpy(a).to(cuda)
+            for a in EDGES[name]()]
+    args[0], args[1] = (t.to(getattr(torch, dtype)) for t in args[:2])
+    (y, h), (yw, hw) = _call(name, args)
+    torch.cuda.synchronize()
+    tol = Y_TOL[dtype]
+    assert_allclose(y.float().cpu().numpy(), yw.float().cpu().numpy(),
+                    rtol=tol, atol=tol)
+    assert_allclose(h.cpu().numpy(), hw.cpu().numpy(), rtol=H_TOL,
+                    atol=H_TOL)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kernel", ["selective_scan", "rglru"])
+def test_scan_kernel_split_at_chunk_edges_is_exact(cuda, kernel, dtype):
+    """A sequence cut at a chunk edge, one step past it and inside a
+    chunk: the two calls' outputs and final state equal one call's bit
+    for bit (every recurrence is the same fmaf sequence from h0)."""
+    if kernel == "selective_scan":
+        chunk, arrays = tss.CHUNK, testing.sscan_operands(2, 200, 40, 16,
+                                                          seed=7, h0=True)
+        seq = (0, 1, 3, 4)
+    else:
+        chunk, arrays = trg.CHUNK, testing.rglru_operands(2, 200, 72,
+                                                          seed=8, h0=True)
+        seq = (0, 1)
+    args = [torch.from_numpy(a).to(cuda) for a in arrays]
+    args[0], args[1] = (t.to(getattr(torch, dtype)) for t in args[:2])
+    (y_full, h_full), _ = _call(kernel, args)
+    for cut in (chunk, chunk + 1, chunk // 2 + 3, 2 * chunk):
+        first = [a[:, :cut] if i in seq else a for i, a in enumerate(args)]
+        rest = [a[:, cut:] if i in seq else a for i, a in enumerate(args)]
+        (y1, h1), _ = _call(kernel, first)
+        rest[-1] = h1
+        (y2, h2), _ = _call(kernel, rest)
+        torch.cuda.synchronize()
+        assert torch.equal(torch.cat([y1, y2], 1), y_full), cut
+        assert torch.equal(h2, h_full), cut
+
+
+def test_scan_kernels_many_back_to_back_calls(cuda):
+    """80 calls of each scan at its serve shape, two operand sets in turn,
+    queued on one stream with no sync between them: each output bitwise
+    equal to its set's first output, and that within chip_smoke.py's
+    FULL_LIMIT (outputs) and 3e-5 (final states) of the plain version, so
+    a fault in the kernels' ring or hand-offs shows up."""
+    rtol, atol = 2.0 ** -6, 1e-5
+    for kernel in ("selective_scan", "rglru"):
+        sets = [kt.scan_serve_operands(
+            "selective_scan" if kernel == "selective_scan" else "rglru_scan",
+            2048, cuda, seed=s, h0=True) for s in (1, 2)]
+        fn = ops.selective_scan if kernel == "selective_scan" else \
+            ops.rglru_scan
+        outs = [(i % 2, fn(*sets[i % 2])) for i in range(80)]
+        torch.cuda.synchronize()
+        for k in (0, 1):
+            y0, h0 = outs[k][1]
+            _, (yw, hw) = _call(kernel, sets[k])
+            assert torch.allclose(y0.float(), yw.float(), rtol=rtol,
+                                  atol=atol), kernel
+            assert torch.allclose(h0, hw, rtol=H_TOL, atol=H_TOL), kernel
+        for k, (y, h) in outs:
+            assert torch.equal(y, outs[k][1][0]), kernel
+            assert torch.equal(h, outs[k][1][1]), kernel
 
 
 def test_scan_kernels_refuse_what_they_do_not_take(cuda):
