@@ -20,10 +20,14 @@ Phases (any failure exits non-zero; nothing is caught):
    score graphs; the blocked FW kernel against the plain blocked FW, the
    plain FW and the FW kernel on graphs at the tile edges, disconnected
    graphs, the count-clip graph and score graphs of the four
-   100+-chiplet families; the min-plus kernel on ragged shapes and on
-   sums above its 1e9 ceiling; APSP against the plain FW's distances on
-   homog256 graphs.  The attention kernels to the JAX tests' tolerances
-   (flash 2e-5, decode 3e-5 in float32, both 2e-2 in bfloat16) on
+   100+-chiplet families; the min-plus kernel (NaN-aware: NaN in the same
+   places) on ragged shapes at its tile and K-step edges, on shapes that
+   take the guarded copies, on sums above its 1e9 ceiling and on NaN,
+   +-inf and negative operands, and with a fused C against
+   ``ref.minplus_ref(A, B, C)``; APSP against the plain FW's distances on
+   homog256 graphs.  The attention kernels to the
+   JAX tests' tolerances (flash 2e-5, decode 3e-5 in float32, both 2e-2
+   in bfloat16) on
    ``testing.attention_cases`` / ``decode_cases`` and on the edges of the
    kernels' tiles and splits (``attention_tile_cases`` /
    ``decode_split_cases``) in both dtypes, and at the serve shapes in
@@ -46,9 +50,17 @@ Phases (any failure exits non-zero; nothing is caught):
    kernel 1's cluster size and the kernel the dispatch picks).  Every
    timed output is held bit for bit against the plain version's output
    on the same input, so the kernels are also checked at the main path's
-   full shapes (min-plus at 1536^3, APSP at V = 1536).  The attention
-   kernels at the serve runs' shapes in bfloat16, causal, 20 launches an
-   event pair: qwen3-1.7b's (flash: B = 1,
+   full shapes (min-plus at 1536^3, APSP at V = 1536).  Min-plus at 1536^3
+   and at 702^3 (hex127, ragged against every tile) beside its
+   instruction bound (2 M N K instructions, an FADD and an FMNMX an
+   update, at 128 lanes a clock an SM; the 67 TFLOP/s figure printed
+   beside it as out of reach), its issue floor at 1536^3 (the steady-state
+   loop's instructions an update, its 16-byte staging included; 702^3
+   stages every slab by guarded copies, which the count leaves out) and
+   its tile-fill share (``minplus.tile_fill``: tiles, SMs, blocks resident
+   an SM, tiles on the busiest SM).  The
+   attention kernels at the serve runs' shapes in bfloat16, causal, 20
+   launches an event pair: qwen3-1.7b's (flash: B = 1,
    Sq = Sk in {512, 2048}; decode: B = 8 over a 4096-token cache) and
    recurrentgemma-9b's (16 query heads on 1 KV head, head dim 256; flash
    with its 2048-token window at Sq = Sk in {2048, 3072}; decode: B = 8
@@ -172,8 +184,10 @@ KERNELS = {"fw_counts": fwc, "fw_counts_tiled": fwt, "minplus": mp,
 # Attention tolerances (the JAX kernel tests'), by kernel and dtype.
 ATTN_TOL = {"flash_attention": {"float32": 2e-5, "bfloat16": 2e-2},
             "decode_attention": {"float32": 3e-5, "bfloat16": 2e-2}}
-# The arch whose score graphs time min-plus and check APSP (V = 1536).
+# The arch whose score graphs time min-plus and check APSP (V = 1536),
+# and the one whose V = 702 is ragged against every min-plus tile.
 APSP_ARCH = "homog256"
+MINPLUS_RAGGED_ARCH = "hex127"
 
 # The main path's runs.  Slice 1: the quickstart and homog64 placeit on
 # the default backend (the size dispatch), and the quickstart once more on
@@ -214,8 +228,10 @@ def _kernel_name(line: str) -> str:
         name = m.group(2)[:int(m.group(1))]
         if len(name) == int(m.group(1)) and name.endswith("_kernel"):
             rest = line[m.start(2) + len(name):]
+            # ILi4ELi8E (min-plus: INS_8GeometryILi96E..EELi4E), then a
+            # type (13__nv_bfloat16, f)
             t = re.match(r"I?((?:Li\d+E)*)(13__nv_bfloat16|f)?", rest)
-            args = re.findall(r"Li(\d+)E", t.group(1)) + (
+            args = re.findall(r"Li(\d+)E", rest.split("EEv")[0]) + (
                 [{"f": "f32", "13__nv_bfloat16": "bf16"}[t.group(2)]]
                 if t.group(2) else [])
             return name + (f"<{', '.join(args)}>" if args else "")
@@ -242,11 +258,12 @@ def build_phase() -> dict:
     print("  hot loops in the SASS (cuobjdump -sass of this build; "
           "instructions every warp issues a trip / relaxations or updates "
           "in it):")
-    for parts, op in ((("fw_counts_cluster_kernel",), "FMUL"),
-                      (("fw_tiled_kernel",), "FMUL"),
-                      (("minplus_kernel",), "FADD")):
+    for parts, op, needs in ((("fw_counts_cluster_kernel",), "FMUL", ()),
+                             (("fw_tiled_kernel",), "FMUL", ()),
+                             (("minplus_kernel",), "FADD",
+                              kt.MINPLUS_LOOP_NEEDS)):
         for f in sorted(x for x in funcs if all(p in x for p in parts)):
-            n, k = kt.loop_issues(funcs[f], op)
+            n, k = kt.loop_issues(funcs[f], op, needs=needs)
             print(f"    {_kernel_name(f):34s} {n:5d} / {k:3d} = "
                   f"{n / k:.4f}")
     print("  the scans' hot loops (instructions every warp issues a trip / "
@@ -294,6 +311,20 @@ def _require_equal(what: str, name: str, got, want) -> float:
     return err
 
 
+def _require_nan_equal(what: str, name: str, got, want) -> float:
+    """``_require_equal`` NaN-aware (``testing.nan_equal``: NaN in the same
+    places, equal values elsewhere); the error over the entries that are
+    not NaN in either."""
+    for a, b in zip(got, want):
+        if not testing.nan_equal(a, b):
+            raise SystemExit(f"{what} differs on {name}")
+    return _max_err((torch.where(torch.isnan(a) | torch.isnan(b),
+                                 torch.zeros_like(a), a),
+                     torch.where(torch.isnan(a) | torch.isnan(b),
+                                 torch.zeros_like(b), b))
+                    for a, b in zip(got, want))
+
+
 def parity_phase(dev) -> dict:
     worst = dict.fromkeys(KERNELS, 0.0)
     phase("parity: fw_counts kernel vs plain version (bitwise)")
@@ -320,15 +351,23 @@ def parity_phase(dev) -> dict:
         worst["fw_counts_tiled"] = max(worst["fw_counts_tiled"], err)
         print(f"  {name:34s} equal to all three")
 
-    phase("parity: minplus kernel vs plain version (bitwise), apsp vs "
-          "plain FW distances")
+    phase("parity: minplus kernel vs plain version (bitwise, NaN-aware; "
+          "with a fused C), apsp vs plain FW distances")
+    rng = np.random.default_rng(0)
     for name, make in testing.minplus_cases().items():
         A, B = (torch.from_numpy(x).to(dev) for x in make())
+        want = plain.minplus_ref(A, B)
         got = ops.minplus(A, B)
+        C = torch.from_numpy((30 * rng.random(want.shape) - 5).astype(
+            np.float32)).to(dev)
+        C[0, 0] = float("nan")
+        fused = ops.minplus(A, B, C)
         torch.cuda.synchronize()
-        worst["minplus"] = max(worst["minplus"], _require_equal(
-            "minplus vs plain", name, [got], [plain.minplus_ref(A, B)]))
-        print(f"  minplus {name:34s} equal")
+        worst["minplus"] = max(worst["minplus"], _require_nan_equal(
+            "minplus vs plain", name, [got], [want]),
+            _require_nan_equal("minplus with C vs plain", name, [fused],
+                               [plain.minplus_ref(A, B, C)]))
+        print(f"  minplus {name:44s} equal (and with a fused C)")
     for cfg in ("baseline", "placeit"):
         W = torch.from_numpy(testing.score_graphs(APSP_ARCH, cfg, 1)[0])
         W = W.to(dev)
@@ -363,8 +402,20 @@ def minplus_floor_ms(M: int, K: int, N: int, issues: float,
     return 1e3 * M * N * K * issues / rate
 
 
-def minplus_bound_ms(M: int, K: int, N: int) -> tuple[float, str]:
-    return _bound(2 * M * N * K, (M * K + K * N + M * N) * 4)
+def minplus_bound_ms(M: int, K: int, N: int, dev) -> tuple[float, str]:
+    """The larger of the instruction bound (``kt.minplus_bound_ms`` at the
+    card's SMs and top SM clock) and the bytes, A, B and out once."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    ops_ms = kt.minplus_bound_ms(M, K, N, sms, kt.max_sm_clock_hz())
+    bytes_ms = 1e3 * (M * K + K * N + M * N) * 4 / PEAK_BYTES
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
+                                   else "bytes")
+
+
+def minplus_flop_ms(M: int, K: int, N: int) -> float:
+    """2 M N K operations at the 67 TFLOP/s float32 peak: out of reach for
+    min-plus, whose add and min cannot pair as an FFMA's do."""
+    return 1e3 * 2 * M * N * K / PEAK_F32_OPS
 
 
 def _scorer_batch(arch_name: str, config: str) -> int:
@@ -433,23 +484,47 @@ def timing_phase(dev, worst: dict, funcs: dict) -> dict:
               f"{picked}"
               f"{'' if picked == faster else ' (the slower here)'}; equal")
 
-    phase(f"timing: minplus (M = N = K = V) and apsp on a {APSP_ARCH} "
-          f"placeit score graph (outputs bitwise vs the plain versions)")
-    W = torch.from_numpy(testing.score_graphs(APSP_ARCH, "placeit", 1)[0])
-    W = W.to(dev)
+    phase(f"timing: minplus (M = N = K = V) on a {APSP_ARCH} placeit and a "
+          f"{MINPLUS_RAGGED_ARCH} baseline score graph, and apsp on the "
+          f"first (outputs bitwise vs the plain versions; the instruction "
+          f"bound, 2 M N K instructions at {kt.LANES_PER_SM} lanes a clock "
+          f"an SM; the issue floor of the 16-byte steady-state loop)")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_mp, k_mp = kt.minplus_issues(
+        funcs[kt.find_function(funcs, "minplus_kernel")])
+    Ws = {}
+    for key, arch, cfg in (("minplus", APSP_ARCH, "placeit"),
+                           ("minplus ragged", MINPLUS_RAGGED_ARCH,
+                            "baseline")):
+        W = torch.from_numpy(testing.score_graphs(arch, cfg, 1)[0]).to(dev)
+        V = W.shape[-1]
+        Ws[key] = W
+        p = mp.tile_fill(V, V, sms)
+        copies = "16-byte" if V % 4 == 0 else "guarded 4-byte"
+        print(f"  {key} V={V}: {mp.TILE[0]} x {mp.TILE[1]} tiles, "
+              f"{mp.THREADS} threads, {copies} copies: {p['tiles']} tiles "
+              f"on {sms} SMs, {p['resident']} block resident an SM, at most "
+              f"{p['most']} on one SM: fill share {p['share']:.4f}")
+        if key == "minplus" and p["share"] < 0.9:
+            raise SystemExit(f"minplus at {V}^3 fills {p['share']:.4f} of "
+                             f"the SMs (< 0.9)")
+        t, out = kt.batched_ms({"kernel": lambda: ops.minplus(W, W)},
+                               launches=20, rounds=5)
+        pl, want = kt.median_ms({"p": lambda: plain.minplus_ref(W, W)},
+                                reps=3)
+        worst["minplus"] = max(worst["minplus"], _require_equal(
+            "timed minplus vs plain", f"{arch} {cfg} W x W",
+            [out["kernel"]], [want["p"]]))
+        t["plain"] = pl["p"]
+        t["bound"], t["bound_by"] = minplus_bound_ms(V, V, V, dev)
+        t["flop_ms"] = minplus_flop_ms(V, V, V)
+        t["issues"] = n_mp / k_mp if V % 4 == 0 else None
+        t["floor"] = (minplus_floor_ms(V, V, V, n_mp / k_mp, rate)
+                      if V % 4 == 0 else None)
+        t["share"], t["V"] = p["share"], V
+        rows[key] = t
+    W = Ws["minplus"]
     V = W.shape[-1]
-    t, out = kt.batched_ms({"kernel": lambda: ops.minplus(W, W)},
-                           launches=20, rounds=5)
-    p, want = kt.median_ms({"p": lambda: plain.minplus_ref(W, W)}, reps=3)
-    worst["minplus"] = max(worst["minplus"], _require_equal(
-        "timed minplus vs plain", f"{APSP_ARCH} placeit W x W",
-        [out["kernel"]], [want["p"]]))
-    t["plain"] = p["p"]
-    t["bound"], t["bound_by"] = minplus_bound_ms(V, V, V)
-    mp_fn = kt.find_function(funcs, "minplus_kernel")
-    n_mp, k_mp = kt.loop_issues(funcs[mp_fn], "FADD")
-    t["floor"] = minplus_floor_ms(V, V, V, n_mp / k_mp, rate)
-    rows["minplus"] = t
     n = plain.apsp_squarings(V)
     a, out = kt.batched_ms({"kernel": lambda: ops.apsp(W)}, launches=3,
                            rounds=5)
@@ -458,18 +533,24 @@ def timing_phase(dev, worst: dict, funcs: dict) -> dict:
         "timed apsp vs plain", f"{APSP_ARCH} placeit", [out["kernel"]],
         [want["p"]]))
     a["plain"] = p["p"]
-    b_ms, b_by = minplus_bound_ms(V, V, V)
-    a["bound"], a["bound_by"] = n * b_ms, b_by
-    a["floor"] = n * t["floor"]
+    a["bound"], a["bound_by"] = n * rows["minplus"]["bound"], "operations"
+    a["flop_ms"] = n * rows["minplus"]["flop_ms"]
+    a["floor"] = n * rows["minplus"]["floor"]
+    a["issues"], a["share"], a["V"] = (rows["minplus"]["issues"],
+                                       rows["minplus"]["share"], V)
     rows["apsp"] = a
-    for k in ("minplus", "apsp"):
+    for k in ("minplus", "minplus ragged", "apsp"):
         r = rows[k]
-        print(f"  {k} V={V}: kernel {r['kernel']:.4f} ms, bound "
-              f"{r['bound']:.4f} ms ({r['bound_by']}), issue floor "
-              f"{r['floor']:.4f} ms, "
-              f"{r['bound'] / r['kernel']:.4f} of bound; plain version "
-              f"{r['plain']:.3f} ms; library call: none; output equal to "
-              f"the plain version's")
+        floor = ("not counted (guarded copies)" if r["floor"] is None else
+                 f"{r['floor']:.4f} ms ({r['issues']:.4f} instructions an "
+                 f"update)")
+        print(f"  {k} V={r['V']}: kernel {r['kernel']:.4f} ms, instruction "
+              f"bound {r['bound']:.4f} ms ({r['bound_by']}; "
+              f"{r['bound'] / r['kernel']:.4f} of it), issue floor "
+              f"{floor}, fill share {r['share']:.4f}; 67 TFLOP/s figure "
+              f"{r['flop_ms']:.4f} ms (unreachable: it counts an FFMA as two "
+              f"operations); plain version {r['plain']:.3f} ms; library "
+              f"call: none; output equal to the plain version's")
     return rows
 
 # -- attention (slice 3) ----------------------------------------------------

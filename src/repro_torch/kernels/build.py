@@ -56,8 +56,8 @@ SIGNATURES = {
     # (measuring only)
     "fw_counts_tiled_traced_f32": [_P, _P, _P, _P, _P, _P, _P, _P,
                                    _I, _I, _I, _I, _P],
-    # A, B, out, M, N, K, device, stream
-    "minplus_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # A, B, C (or null: no fused min), out, M, N, K, device, stream
+    "minplus_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # q, k, v, out, element strides (batch, seq, head) of q, k and v,
     # B, Sq, Sk, Hq, Hkv, d, dtype code, scale, softcap, causal, window,
     # pos_offset, device, stream

@@ -307,23 +307,31 @@ def fw_counts_tiled_sched_ref(W: torch.Tensor, bt: int, blocks: int = 1,
 
 
 def minplus_ref(A: torch.Tensor, B: torch.Tensor,
+                C: torch.Tensor | None = None,
                 k_chunk: int = 64) -> torch.Tensor:
     """Tropical matrix product with the Pallas kernel's ceiling:
     ``out[i, j] = min(1e9, min_k A[i, k] + B[k, j])`` for A [M, K] and
-    B [K, N].
+    B [K, N]; with C [M, N] the accumulator starts at ``min(1e9, C)``,
+    which is ``torch.minimum(C, minplus_ref(A, B))`` bit for bit, since min
+    is exact (APSP's fused step, as the kernel takes it).
 
     ``repro.kernels.minplus.minplus_tiled_pallas`` starts its accumulator
     at 1e9 (and pads with 1e9), so wherever every sum exceeds 1e9 it
     returns 1e9; ``repro.kernels.ref.minplus_ref`` has no such ceiling and
     returns the smallest sum.  This function follows the kernel.  APSP
     agrees either way, since it takes ``min(D, .)`` and 1e9 means no edge.
-    Each sum is rounded once and ``min`` is exact, so the result does not
-    depend on the order over k; K is walked in chunks of ``k_chunk`` to
-    bound the [M, k_chunk, N] temporary.
+    A NaN operand gives NaN (``torch.minimum`` and ``amin`` propagate it,
+    as ``jnp.minimum`` does): a NaN in A[i, :] makes row i NaN, one in
+    B[:, j] column j, one in C[i, j] that entry.  Each sum is rounded once
+    and ``min`` is exact, so the result does not depend on the order over
+    k; K is walked in chunks of ``k_chunk`` to bound the [M, k_chunk, N]
+    temporary.
     """
     calls["minplus_ref"] += 1
     M, N = A.shape[0], B.shape[1]
     out = torch.full((M, N), NO_EDGE, dtype=A.dtype, device=A.device)
+    if C is not None:
+        out = torch.minimum(out, C)
     for k0 in range(0, A.shape[1], k_chunk):
         s = A[:, k0:k0 + k_chunk, None] + B[None, k0:k0 + k_chunk, :]
         out = torch.minimum(out, s.amin(1))
@@ -338,10 +346,11 @@ def apsp_squarings(V: int) -> int:
 
 def apsp_ref(W: torch.Tensor) -> torch.Tensor:
     """All-pairs shortest distances of W [V, V] by repeated min-plus
-    squaring, ``D = min(D, D (min,+) D)``."""
+    squaring, ``D = min(D, D (min,+) D)``, each squaring one fused step
+    (``minplus_ref(D, D, D)``)."""
     D = W
     for _ in range(apsp_squarings(W.shape[-1])):
-        D = torch.minimum(D, minplus_ref(D, D))
+        D = minplus_ref(D, D, D)
     return D
 
 

@@ -18,7 +18,12 @@ enqueue is not timed), every output held bit for bit (FW, min-plus) or to
 * the FW kernels: ``fw_counts`` at homog32 baseline (B = 16, V = 216) and
   homog64 placeit (B = 16, V = 480), ``fw_counts_tiled`` at homog256
   placeit (B = 1, V = 1536) and homog100 baseline (B = 16, V = 552);
-* ``minplus`` at 1536^3 (a homog256 placeit score graph);
+* ``minplus`` at 1536^3 (a homog256 placeit score graph) and at 702^3 (a
+  hex127 baseline score graph, ragged against every tile), and ``apsp``
+  at V = 1536 (the homog256 graph; ``ref.apsp_squarings`` products); and
+  whether min-plus keeps NaN as the plain version does (``NAN_CASES``: a
+  NaN in A, a NaN in B, -inf beside +inf; reported, not required, since
+  a kernel that takes its mins with ``fminf`` drops NaN);
 * ``selective_scan`` and ``rglru_scan`` at the serve runs' prefill shapes
   (B = 1, S = 2048 and 512);
 * with ``--walls``: the wall seconds of ``run_experiment`` for homog64
@@ -65,6 +70,11 @@ from pathlib import Path
 import torch
 
 FULL_RTOL, FULL_ATOL = 2.0 ** -6, 1e-5
+# Min-plus operands [M, K] x [K, N] = [192, 64] x [64, 192] with NaN or
+# -inf planted: (name, which, value).
+NAN_CASES = (("nan in A", "A", float("nan")), ("nan in B", "B",
+                                                float("nan")),
+             ("-inf and +inf", "AB", float("-inf")))
 # --prefill: the recurrent serve runs' models and the prompt lengths.
 PREFILL_ARCHS = ("falcon-mamba-7b", "recurrentgemma-9b")
 PREFILL_S = (1024, 2048)
@@ -110,11 +120,13 @@ def _sass(lib_path: Path, out: Path) -> dict:
             continue
         hist = collections.Counter(mn for _, mn, _ in instrs)
         res[f] = {"mnemonics": dict(hist.most_common())}
+        if "minplus" in f:
+            res[f]["hot_loop"] = kt.minplus_issues(instrs)
+            continue
         if "scan_kernel" in f:
             loops = {k: v for k, v in kt.SCAN_LOOPS.items() if v[0] in f}
         else:
-            loops = {"hot_loop": (None, "FADD" if "minplus" in f
-                                  else "FMUL", ())}
+            loops = {"hot_loop": (None, "FMUL", ())}
         for k, (_, op, without) in loops.items():
             try:
                 res[f][k] = kt.loop_issues(instrs, op, without)
@@ -134,6 +146,31 @@ def _scan_floors(lib_path: Path, dev) -> dict:
         out[f"rglru_scan S={S}"] = kt.scan_floors_ms(
             issues, 1, S, 4096, "rglru_scan", dev)
     return {"issues": issues, "floors_ms": out}
+
+
+def _minplus_nan(ops, plain, dev) -> dict:
+    """Per ``NAN_CASES``: the NaN entries of the kernel's output and of the
+    plain version's, and whether the two are equal NaN-aware."""
+    import numpy as np
+    res = {}
+    for name, which, value in NAN_CASES:
+        rng = np.random.default_rng(len(name))
+        A = (10 * rng.random((192, 64))).astype(np.float32)
+        B = (10 * rng.random((64, 192))).astype(np.float32)
+        if which == "AB":              # -inf + inf is NaN
+            A[rng.random(A.shape) < 0.25] = np.inf
+            B[rng.random(B.shape) < 0.25] = np.inf
+        for X in ((A,) if which == "A" else (B,) if which == "B"
+                  else (A, B)):
+            X[rng.integers(X.shape[0], size=3),
+              rng.integers(X.shape[1], size=3)] = value
+        A, B = torch.from_numpy(A).to(dev), torch.from_numpy(B).to(dev)
+        got, want = ops.minplus(A, B), plain.minplus_ref(A, B)
+        gn, wn = torch.isnan(got), torch.isnan(want)
+        res[name] = {"kernel_nan": int(gn.sum()), "plain_nan": int(wn.sum()),
+                     "nan_equal": bool(torch.equal(gn, wn) and torch.equal(
+                         got[~gn], want[~wn]))}
+    return res
 
 
 def _prefill(dev) -> dict:
@@ -251,11 +288,17 @@ def run_one(tree: Path, walls: bool, sass: bool, clusters: bool,
         W = torch.from_numpy(testing.score_graphs(arch, cfg, B)).to(dev)
         fw_row(f"fw_counts_tiled {arch} {cfg} B={B} V={W.shape[-1]}",
                ops.fw_counts_tiled, W, 10, 5)
+    for arch, cfg in (("homog256", "placeit"), ("hex127", "baseline")):
+        W = torch.from_numpy(testing.score_graphs(arch, cfg, 1)[0]).to(dev)
+        t, o = kt.batched_ms({"k": lambda: ops.minplus(W, W)}, 20, 5)
+        _equal([o["k"]], [plain.minplus_ref(W, W)], f"minplus {arch}")
+        res["ms"][f"minplus {W.shape[-1]}^3"] = t["k"]
     W = torch.from_numpy(testing.score_graphs("homog256", "placeit",
                                               1)[0]).to(dev)
-    t, o = kt.batched_ms({"k": lambda: ops.minplus(W, W)}, 20, 5)
-    _equal([o["k"]], [plain.minplus_ref(W, W)], "minplus")
-    res["ms"][f"minplus {W.shape[-1]}^3"] = t["k"]
+    t, o = kt.batched_ms({"k": lambda: ops.apsp(W)}, 3, 5)
+    _equal([o["k"]], [plain.fw_counts_ref(W)[0]], "apsp")
+    res["ms"][f"apsp V={W.shape[-1]}"] = t["k"]
+    res["minplus_nan"] = _minplus_nan(ops, plain, dev)
 
     g = torch.Generator(device=dev)
     for S in (2048, 512):
@@ -335,6 +378,7 @@ def run_one(tree: Path, walls: bool, sass: bool, clusters: bool,
         dst = (out or Path("kernel_compare.json")).with_name(
             f"sass_{tree.name}.txt")
         res["sass_file"] = str(dst)
+        dst.parent.mkdir(parents=True, exist_ok=True)
         res["sass"] = _sass(build.LIB_PATH, dst)
         try:
             res["scan_floors"] = _scan_floors(build.LIB_PATH, dev)
@@ -387,6 +431,11 @@ def main() -> None:
     for k in names:
         print(f"{k:44s} " + " ".join(
             f"{r['ms'].get(k, float('nan')):14.4f}" for r in results))
+    for k in results[0]["minplus_nan"]:
+        print(f"{'minplus NaN kernel/plain, equal: ' + k:44s} " + " ".join(
+            f"{x['kernel_nan']:>5d}/{x['plain_nan']:<5d} "
+            f"{'yes' if x['nan_equal'] else 'no':>3s}"
+            for x in (r["minplus_nan"][k] for r in results)))
     if "walls" in results[0]:
         for k in results[0]["walls"]:
             print(f"{'wall s ' + k:44s} " + " ".join(

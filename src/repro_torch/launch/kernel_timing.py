@@ -144,15 +144,17 @@ def _branch_target(mnemonic: str, operands: str) -> int | None:
     return int(t[-1], 16) if t else None
 
 
-def loop_issues(instrs: list, op: str, without: tuple = ()
-                ) -> tuple[int, int]:
+def loop_issues(instrs: list, op: str, without: tuple = (),
+                needs: tuple = ()) -> tuple[int, int]:
     """(instructions, ops) of one trip of a kernel's hot loop: of its
     loops (each the range of a backward branch), the one with the most
     ``op`` instructions (FMUL: one a FW relaxation; FADD: one a min-plus
     update; MUFU: one a selective-scan (step, state) or an RG-LRU
     producer's (step, channel); FFMA without MUFU: one an RG-LRU walker's
     step) that every warp issues each trip, and of equals the shortest;
-    loops that issue any mnemonic of ``without`` each trip are passed over.
+    loops that issue any mnemonic of ``without`` each trip, or not every
+    mnemonic of ``needs`` (min-plus: LDGSTS, the 16-byte staging of its
+    steady-state loop), are passed over.
     Left out of a loop's count: what a forward branch inside it may skip
     (guarded code, such as kernel 1's row publish or min-plus's tile
     loads) and the bodies of loops nested in it, whose trips vary.  So
@@ -174,7 +176,8 @@ def loop_issues(instrs: list, op: str, without: tuple = ()
             if tgt is not None and addr < tgt <= a:
                 left_out.update(x[0] for x in body if addr < x[0] < tgt)
         kept = [x for x in body if x[0] not in left_out]
-        if any(x[1] in without for x in kept):
+        if any(x[1] in without for x in kept) or not all(
+                any(x[1] == m for x in kept) for m in needs):
             continue
         n_ops = sum(1 for x in kept if x[1] == op)
         if best is None or (n_ops, -len(kept)) > (best[1], -best[0]):
@@ -260,6 +263,33 @@ def scan_serve_operands(kernel: str, S: int, dev, seed: int | None = None,
     args.append(torch.randn(*state, generator=g, device=dev) if h0
                 else torch.zeros(*state, device=dev))
     return args
+
+
+# Min-plus: its steady-state loop is the one that stages by 16-byte
+# cp.async (LDGSTS) every trip; the loop of edge tiles stages only in
+# guarded code.  A kernel without it (the first port's) has one loop.
+MINPLUS_LOOP_NEEDS = ("LDGSTS",)
+
+
+def minplus_issues(instrs: list) -> tuple[int, int]:
+    """(instructions, updates) of one trip of a min-plus kernel's
+    steady-state loop, staging included (``MINPLUS_LOOP_NEEDS``); for a
+    kernel that stages without cp.async, its loop with the most FADD."""
+    try:
+        return loop_issues(instrs, "FADD", needs=MINPLUS_LOOP_NEEDS)
+    except ValueError:
+        return loop_issues(instrs, "FADD")
+
+
+def minplus_bound_ms(M: int, K: int, N: int, sms: int,
+                     clock_hz: float) -> float:
+    """The instruction bound of an [M, K] x [K, N] min-plus product: each
+    of its M N K updates is an FADD and an FMNMX, two instructions that
+    nothing on Hopper fuses or packs, at ``LANES_PER_SM`` lanes a clock on
+    each of ``sms`` SMs (0.2167 ms at 1536^3 on 132 SMs at 1 980 MHz).
+    The float32 peak of 67 TFLOP/s counts an FFMA as two operations, so
+    2 M N K over it (half this) is out of reach."""
+    return 1e3 * 2 * M * N * K / (LANES_PER_SM * sms * clock_hz)
 
 
 def find_function(funcs: dict, *parts: str) -> str:

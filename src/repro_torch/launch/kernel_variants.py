@@ -1,8 +1,8 @@
-"""Build variants of the scan kernels and time them against each other on
-one card, in one process.
+"""Build variants of the scan and min-plus kernels and time them against
+each other on one card, in one process.
 
     python3 src/repro_torch/launch/kernel_variants.py --set geometry \\
-        [--set diagnostics] [--out FILE]
+        [--set diagnostics] [--set minplus] [--out FILE]
 
 A variant is a copy of a kernel source from ``src/repro_torch/kernels/csrc``
 with some ``constexpr`` constants set to other values and, for the
@@ -18,7 +18,10 @@ RG-LRU (B = 1, D = 4096, bfloat16), S = 2048 and 512, operands from
 ``kernel_timing.scan_serve_operands`` as ``chip_smoke.py`` draws them.
 Each output is checked against the plain version (``FULL_LIMIT`` on
 outputs, 3e-5 on final states); the diagnostics take work out of the
-kernel and are expected to fail it.
+kernel and are expected to fail it.  Min-plus variants are timed at
+1536^3 (a homog256 placeit score graph, APSP's shape) and at 702^3 (hex127
+baseline, ragged against every tile, so every slab takes the guarded
+copies), and held bit for bit (NaN-aware) against ``ref.minplus_ref``.
 
 Sets:
 
@@ -27,7 +30,13 @@ Sets:
 * ``diagnostics``: the kernels as built with one piece of work taken out
   (the exp, the transpose-reduce, the B / C or dt loads, the rewrite;
   RG-LRU's square root, its output writes, its walk), to see what each
-  piece costs.
+  piece costs;
+* ``minplus``: the min-plus kernel as built, other tile sizes, micro-tiles,
+  k-groups, K-steps, stages and update order, and diagnostics: plain
+  ``min`` for ``min.NaN``, the min replaced by an add (two FADD an update,
+  the FMA pipe) or the add by a min (two FMNMX an update: FMNMX's own
+  rate), the full slabs' 16-byte copies, the guarded 4-byte copies (every
+  slab at 702^3) or the steady-state loop's barrier taken out.
 
 Needs a card and nvcc; prints a table and the card's name and power
 limit.
@@ -54,7 +63,7 @@ OUT_DIR = build.BUILD_DIR.parent / "variants"
 FULL_RTOL, FULL_ATOL, STATE_TOL = 2.0 ** -6, 1e-5, 3e-5
 TIMED_S = (2048, 512)
 
-SS, RG = "selective_scan.cu", "rglru_scan.cu"
+SS, RG, MP = "selective_scan.cu", "rglru_scan.cu", "minplus.cu"
 # Code of the kernels as built, and what a diagnostic puts in its place.
 _B_LOAD = "load4(bu[j], &sm.bT[q + kLanesPerCh * j][r]);"
 _C_LOAD = "load4(cc[j], &sm.cT[q + kLanesPerCh * j][r]);"
@@ -72,6 +81,23 @@ _NO_WALK = [(_WALK_LOADS, "          av[u] = 0.5f + u;\n"
 _NO_COMPUTE = [("    compute(k % kStages, k, j);", "")]
 _NO_WRITE = [("        if (c0 + col < D) from_floats(dst, hv);",
               "        if (c0 + col > 2 * D) from_floats(dst, hv);")]
+
+_MP_UPDATE = "acc[r][c] = min_nan(acc[r][c], __fadd_rn(ar, b[c]));"
+_MP_ORDER = """      for (int r = 0; r < G::TM; ++r) {
+        const float ar = lane(a[r], u);
+#pragma unroll
+        for (int c = 0; c < 8; ++c)
+          acc[r][c] = min_nan(acc[r][c], __fadd_rn(ar, b[c]));
+      }"""
+_MP_MIN = '  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));'
+_MP_COPY_A = "    cp_async<4>(st + sa + it * S::RA * G::SA, a[it] + ka);"
+_MP_COPY_B = ("    cp_async<4>(st + sb + it * S::RB * G::BN,\n"
+              "                b + static_cast<size_t>(it * S::RB) * N);")
+_MP_GUARDED_A = "      cp_async<1>(dst, A + static_cast<size_t>(i) * K + ka);"
+_MP_GUARDED_B = "      cp_async<1>(dst, B + static_cast<size_t>(k) * N + j);"
+_MP_BARRIER = ("      cp_async_wait<G::STAGES - 2>();\n"
+               "      __syncthreads();\n"
+               "      load_full<G>(wr")
 
 # name -> (source, constants, replacements)
 SETS = {
@@ -126,7 +152,49 @@ SETS = {
         "rglru stream, reads only": (RG, {},
                                      _NO_COMPUTE + _NO_WALK + _NO_WRITE),
     },
+    "minplus": {
+        "minplus as built": (MP, {}, []),
+        "one k-group (192 threads, 2 blocks an SM)": (MP, {
+            "kKG": 1, "kMinBlocks": 2}, []),
+        "16-deep K-steps": (MP, {"kBK": 16}, []),
+        "64-deep K-steps": (MP, {"kBK": 64}, []),
+        "2 stages": (MP, {"kStages": 2}, []),
+        "4 stages": (MP, {"kStages": 4}, []),
+        "3 x 8 a thread, one k-group, 2 blocks": (MP, {
+            "kTM": 3, "kKG": 1, "kMinBlocks": 2}, []),
+        "64 x 64 tiles of 8 x 8, four k-groups": (MP, {
+            "kBM": 64, "kBN": 64, "kTM": 8, "kKG": 4, "kBK": 64}, []),
+        "128 x 128 tiles of 8 x 8, one k-group": (MP, {
+            "kBM": 128, "kBN": 128, "kTM": 8, "kKG": 1}, []),
+        "updates column-major": (MP, {}, [(_MP_ORDER, """\
+      for (int c = 0; c < 8; ++c)
+#pragma unroll
+        for (int r = 0; r < G::TM; ++r)
+          acc[r][c] = min_nan(acc[r][c],
+                              __fadd_rn(lane(a[r], u), b[c]));""")]),
+        "plain min for min.NaN": (MP, {}, [(
+            _MP_MIN, _MP_MIN.replace("min.NaN.f32", "min.f32"))]),
+        "min replaced by an add": (MP, {}, [(
+            _MP_UPDATE,
+            "acc[r][c] = __fadd_rn(acc[r][c], __fadd_rn(ar, b[c]));")]),
+        "add replaced by a min": (MP, {}, [(
+            _MP_UPDATE,
+            "acc[r][c] = min_nan(acc[r][c], min_nan(ar, b[c]));")]),
+        "without the full-slab copies": (MP, {}, [
+            (_MP_COPY_A, "    (void)a;"), (_MP_COPY_B, "    (void)b;")]),
+        "without the guarded copies": (MP, {}, [
+            (_MP_GUARDED_A, "      (void)i;"),
+            (_MP_GUARDED_B, "      (void)j;")]),
+        "without the steady loop's barrier": (MP, {}, [(
+            _MP_BARRIER, _MP_BARRIER.replace("      __syncthreads();\n",
+                                             ""))]),
+    },
 }
+# The entry point each source binds.
+ENTRY = {SS: "selective_scan_fwd", RG: "rglru_scan_fwd", MP: "minplus_f32"}
+# Min-plus timed shapes: (label, arch, config).
+MINPLUS_TIMED = (("1536^3", "homog256", "placeit"),
+                 ("702^3", "hex127", "baseline"))
 
 
 def variant_source(src: str, consts: dict, replace: list) -> str:
@@ -175,8 +243,7 @@ def build_variants(variants: dict) -> dict:
                                            and " 0 bytes spill" not in ln)})
         print(f"  {name:40s} {'; '.join(regs)[:150]}")
         lib = ctypes.CDLL(str(OUT_DIR / _slug(name) / "lib.so"))
-        fn = ("selective_scan_fwd" if variants[name][0] == SS
-              else "rglru_scan_fwd")
+        fn = ENTRY[variants[name][0]]
         getattr(lib, fn).argtypes = build.SIGNATURES[fn]
         getattr(lib, fn).restype = ctypes.c_int
         libs[name] = lib
@@ -207,10 +274,41 @@ def _call(lib, kernel: str, args: list, dev):
     return y, hf
 
 
+def _minplus_call(lib, W, dev):
+    """One launch of a min-plus variant: W x W."""
+    V = W.shape[-1]
+    out = torch.empty_like(W)
+    rc = lib.minplus_f32(W.data_ptr(), W.data_ptr(), None, out.data_ptr(),
+                         V, V, V, dev.index,
+                         torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"variant launch failed (cudaError {rc})")
+    return out
+
+
+def time_minplus_variants(names: list, libs: dict, dev) -> dict:
+    """name -> {shape label: {"ms", "ok"}} at ``MINPLUS_TIMED``."""
+    from repro_torch import testing
+    res = {n: {} for n in names}
+    for label, arch, cfg in MINPLUS_TIMED:
+        W = torch.from_numpy(testing.score_graphs(arch, cfg, 1)[0]).to(dev)
+        want = ref.minplus_ref(W, W)
+        fns = {n: (lambda n=n: _minplus_call(libs[n], W, dev))
+               for n in names}
+        t, outs = kt.batched_ms(fns, 20, 5)
+        for n in names:
+            res[n][label] = {"ms": t[n],
+                             "ok": testing.nan_equal(outs[n], want)}
+    return res
+
+
 def time_variants(variants: dict, libs: dict, dev) -> dict:
     """name -> {"S=...": {"ms", "ok"}}; each kernel's variants take turns
     in every round of ``batched_ms``."""
     res = {name: {} for name in variants}
+    mp_names = [n for n in variants if variants[n][0] == MP]
+    if mp_names:
+        res.update(time_minplus_variants(mp_names, libs, dev))
     for kernel in (SS, RG):
         names = [n for n in variants if variants[n][0] == kernel]
         if not names:

@@ -32,6 +32,19 @@ def random_graph(V: int, n_edges: int, seed: int = 0,
     return W
 
 
+def directed_graph(V: int, n_edges: int, seed: int = 0) -> np.ndarray:
+    """[V, V] directed graph: one-way edges with integer weights in
+    [1, 8] (W[i, j] need not equal W[j, i]), 0 on the diagonal."""
+    rng = np.random.default_rng(seed)
+    W = np.full((V, V), NO_EDGE, np.float32)
+    np.fill_diagonal(W, 0)
+    for _ in range(n_edges):
+        i, j = rng.integers(V, size=2)
+        if i != j:
+            W[i, j] = min(W[i, j], float(rng.integers(1, 9)))
+    return W
+
+
 def disconnected_graph(V: int, seed: int = 0, batch: int = 1) -> np.ndarray:
     """Random graphs cut into two components (first half / second half)
     plus one isolated node, so D keeps 1e9 entries and N zeros."""
@@ -137,20 +150,82 @@ def minplus_operands(M: int, K: int, N: int, seed: int = 0,
     return A, B
 
 
+# Entries the special-value min-plus cases plant (``minplus_special``).
+MINPLUS_SPECIALS = ("nan in A", "nan in B", "+inf", "-inf and +inf",
+                    "negative")
+
+
+def minplus_special(M: int, K: int, N: int, kind: str, seed: int = 0
+                    ) -> tuple[np.ndarray, np.ndarray]:
+    """``minplus_operands`` with special entries planted (``kind`` one of
+    ``MINPLUS_SPECIALS``): a NaN in a few rows of A or columns of B (their
+    rows or columns of out are NaN); +inf on a quarter of both operands
+    and on two whole rows of A (sums that hit the 1e9 ceiling); -inf
+    beside +inf (-inf + inf is NaN, -inf + x is -inf); or entries in
+    [-5, 5)."""
+    rng = np.random.default_rng(seed)
+    if kind == "negative":
+        return minplus_operands(M, K, N, seed=seed, offset=-5.0)
+    A, B = minplus_operands(M, K, N, seed=seed)
+    if kind == "nan in A":
+        A[rng.integers(M, size=3), rng.integers(K, size=3)] = np.nan
+    elif kind == "nan in B":
+        B[rng.integers(K, size=3), rng.integers(N, size=3)] = np.nan
+    elif kind in ("+inf", "-inf and +inf"):
+        A[rng.random((M, K)) < 0.25] = np.inf
+        B[rng.random((K, N)) < 0.25] = np.inf
+        A[rng.integers(M, size=2)] = np.inf     # rows at the ceiling
+        if kind == "-inf and +inf":
+            A[rng.integers(M, size=2), rng.integers(K, size=2)] = -np.inf
+            B[rng.integers(K, size=2), rng.integers(N, size=2)] = -np.inf
+    else:
+        raise ValueError(f"no special kind {kind!r}")
+    return A, B
+
+
 def minplus_cases() -> dict:
     """Named factories of (A, B) for the min-plus product: the shapes of
-    ``tests/test_kernels.py::test_minplus_tiled``, ragged M, N and K
-    around the kernel's 64 x 64 x 16 tiles, and one case where every sum
-    exceeds 1e9 (so every entry is the 1e9 ceiling)."""
+    ``tests/test_kernels.py::test_minplus_tiled``; ragged M, N and K at the
+    edges of the kernel's 96 x 96 tiles and 32-deep K-steps (and of 64 x
+    64 tiles with 64-deep steps): each tile dimension -1, +1 and 2 tiles +
+    1, K = 1, K not a multiple of the K-step, K and N multiples of 4 (the
+    16-byte copies) or not (the guarded ones), M = 1 or N = 1 with
+    K = 1536, and whole tiles over several K-steps (the steady-state
+    loop); one
+    case where every sum exceeds 1e9 (so every entry is the 1e9 ceiling);
+    and NaN, +-inf and negative operands (``minplus_special``)."""
     cases = {}
     for M, K, N in ((64, 64, 64), (100, 70, 130), (128, 128, 128),
-                    (1, 1, 1), (65, 17, 63), (130, 33, 129)):
+                    (1, 1, 1), (65, 17, 63), (130, 33, 129),
+                    (95, 16, 97), (97, 17, 95), (193, 48, 193),
+                    (63, 32, 65), (65, 31, 63), (129, 64, 129),
+                    (96, 1, 96), (64, 1, 64), (96, 47, 96), (64, 33, 64),
+                    (96, 33, 96), (64, 65, 64), (1, 1536, 200),
+                    (200, 1536, 1), (192, 160, 288), (192, 170, 192),
+                    (200, 166, 202), (131, 197, 129), (256, 256, 256)):
         cases[f"M={M} K={K} N={N}"] = (
             lambda M=M, K=K, N=N: minplus_operands(M, K, N, seed=M + K + N))
     cases["all sums > 1e9, M=40 K=24 N=72"] = (
         lambda: minplus_operands(40, 24, 72, seed=1, scale=1e8,
                                  offset=6e8))
+    for kind in MINPLUS_SPECIALS:
+        for M, K, N in ((70, 40, 90), (192, 64, 192)):
+            cases[f"{kind}, M={M} K={K} N={N}"] = (
+                lambda M=M, K=K, N=N, kind=kind: minplus_special(
+                    M, K, N, kind, seed=M + K))
     return cases
+
+
+def nan_equal(a, b) -> bool:
+    """Bit for bit, NaN-aware: the same shape, NaN in the same places and
+    equal values (``torch.equal``) everywhere else."""
+    import torch
+    if a.shape != b.shape:
+        return False
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return bool(torch.equal(na, nb)) and bool(torch.equal(
+        torch.where(na, torch.zeros_like(a), a),
+        torch.where(nb, torch.zeros_like(b), b)))
 
 
 def attention_operands(B: int, Sq: int, Sk: int, Hq: int, Hkv: int, d: int,

@@ -211,3 +211,56 @@ def test_scan_serve_operands_shapes_and_ranges(kernel):
     assert not h0.any()
     assert kt.scan_serve_operands(kernel, 8, "cpu", seed=1,
                                   h0=True)[-1].any()
+
+
+MINPLUS_SASS = """
+\t\tFunction : _ZN12_GLOBAL__N_114minplus_kernelINS_8GeometryILi96ELi96ELi6EEEEvPKf
+        /*0000*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;          /* 0x0000000000007b1d */
+        /*0010*/                   LDGSTS.E.BYPASS.LTC128B.128 [R2], desc[UR4][R4.64] ; /* 0x0000000004027fae */
+        /*0018*/                   LDGSTS.E.BYPASS.LTC128B.128 [R2+0x10], desc[UR4][R6.64] ; /* 0x0000000006027fae */
+        /*0020*/                   LDS.128 R8, [R3] ;                     /* 0x0000000003087984 */
+        /*0030*/                   FADD R9, R8, R10 ;                     /* 0x0000000a08097221 */
+        /*0040*/                   FMNMX.NAN R11, R11, R9, PT ;           /* 0x000000090b0b7209 */
+        /*0050*/                   FADD R9, R8, R12 ;                     /* 0x0000000c08097221 */
+        /*0060*/                   FMNMX.NAN R13, R13, R9, PT ;           /* 0x000000090d0d7209 */
+        /*0070*/               @P0 BRA 0x0 ;                              /* 0xfffffffc00e80947 */
+        /*0080*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;          /* 0x0000000000007b1d */
+        /*0090*/              @!P1 BRA 0xb0 ;                             /* 0x0000000000048947 */
+        /*00a0*/                   LDGSTS.E.LTC128B [R2], desc[UR4][R4.64] ; /* 0x0000000004027fae */
+        /*00b0*/                   LDS.128 R8, [R3] ;                     /* 0x0000000003087984 */
+        /*00c0*/                   FADD R9, R8, R10 ;                     /* 0x0000000a08097221 */
+        /*00d0*/                   FMNMX.NAN R11, R11, R9, PT ;           /* 0x000000090b0b7209 */
+        /*00e0*/                   FADD R9, R8, R12 ;                     /* 0x0000000c08097221 */
+        /*00f0*/                   FMNMX.NAN R13, R13, R9, PT ;           /* 0x000000090d0d7209 */
+        /*0100*/               @P2 BRA 0x80 ;                             /* 0xfffffffc00e82947 */
+        /*0110*/                   EXIT ;                                 /* 0x000000000000794d */
+"""
+
+
+def test_minplus_issues_count_the_steady_loop_with_its_staging():
+    """The steady-state loop stages by cp.async (LDGSTS) every trip; the
+    edge loop's copy is guarded (skipped by a forward branch), so its count
+    is shorter, and without ``needs`` the shortest of equals would win."""
+    instrs = kt.sass_functions(MINPLUS_SASS)[
+        "_ZN12_GLOBAL__N_114minplus_kernelINS_8GeometryILi96ELi96ELi6EEEEvPKf"]
+    assert kt.loop_issues(instrs, "FADD") == (8, 2)
+    assert kt.loop_issues(instrs, "FADD", needs=("LDGSTS",)) == (9, 2)
+    assert kt.minplus_issues(instrs) == (9, 2)
+    assert kt.MINPLUS_LOOP_NEEDS == ("LDGSTS",)
+    # A kernel that stages without cp.async (the first port's) falls back.
+    plain = [x for x in instrs if x[1] != "LDGSTS"]
+    assert kt.minplus_issues(plain) == kt.loop_issues(plain, "FADD")
+
+
+def test_minplus_bound_is_the_instruction_bound():
+    """2 M N K instructions (an FADD and an FMNMX an update) at 128 lanes a
+    clock on each SM: 0.21665 ms at 1536^3 on 132 SMs at 1 980 MHz, twice
+    the 67 TFLOP/s figure, which counts an FFMA as two operations."""
+    ms = kt.minplus_bound_ms(1536, 1536, 1536, 132, 1.98e9)
+    assert ms == pytest.approx(0.21665, abs=1e-5)
+    assert ms == pytest.approx(1e3 * 2 * 1536 ** 3 / (132 * 128 * 1.98e9))
+    assert ms > 1.9 * 1e3 * 2 * 1536 ** 3 / 67e12
+    assert kt.minplus_bound_ms(702, 702, 702, 132, 1.98e9) == pytest.approx(
+        0.020684, abs=1e-5)
+    # The APSP of the smoke: 11 squarings at V = 1536.
+    assert 11 * ms == pytest.approx(2.384, abs=1e-3)

@@ -6,8 +6,13 @@ graphs that are not connected, the count-clip graph and real homog32/homog64
 score graphs); the blocked FW kernel on every case of
 ``testing.tiled_cases`` (V at the tile edges, graphs that are
 not connected, the count-clip graph and score graphs of the 100+-chiplet
-families); the min-plus kernel on every case of ``testing.minplus_cases``.
-All must be bit for bit equal, and each call must count one launch.
+families); the min-plus kernel on every case of ``testing.minplus_cases``
+(tile and K-step edges, NaN, +-inf and negative operands) with aligned
+operands and with misaligned ones (every slab by guarded copies), with a
+fused C against ``ref.minplus_ref(A, B, C)``, at 1536^3 on the homog256 W
+and 40 calls queued back to back; APSP on the homog100 W, a directed W and
+a W with a NaN.  All must be bit for bit equal (NaN-aware where NaN can
+appear: ``testing.nan_equal``), and each call must count one launch.
 Both FW kernels also at the edges of the redesigned kernels (V = 1, 2 and
 the 64-tile edges, every cluster-size boundary of kernel 1 and its on-chip
 limit, each +-1, at B = 1 and 16, disconnected and count-clip graphs), with
@@ -276,7 +281,7 @@ def test_minplus_kernel_bitwise(cuda, name):
     out = mp.minplus(A, B)
     torch.cuda.synchronize()
     assert mp.launches == launches + 1
-    assert torch.equal(out, tref.minplus_ref(A, B)), name
+    assert testing.nan_equal(out, tref.minplus_ref(A, B)), name
 
 
 def test_apsp_matches_fw_distances(cuda):
@@ -287,3 +292,105 @@ def test_apsp_matches_fw_distances(cuda):
     assert mp.launches == launches + tref.apsp_squarings(W.shape[-1])
     assert torch.equal(D, tref.fw_counts_ref(W)[0])
     assert torch.equal(D, tref.apsp_ref(W))
+
+
+# -- the redesigned min-plus kernel: both stagings, NaN, the fused C -------
+
+def _misaligned(X: torch.Tensor) -> torch.Tensor:
+    """X's values in a contiguous tensor whose data lies 4 bytes past a
+    16-byte boundary (so the kernel takes its guarded copies)."""
+    buf = torch.empty(X.numel() + 1, dtype=X.dtype, device=X.device)
+    Y = buf[1:].view(X.shape)
+    Y.copy_(X)
+    assert Y.is_contiguous() and Y.data_ptr() % 16 == 4
+    return Y
+
+
+@pytest.mark.parametrize("name", list(MINPLUS))
+def test_minplus_guarded_copies_bitwise(cuda, name):
+    """Every case with A and B misaligned: every slab by guarded copies."""
+    A, B = (_misaligned(torch.from_numpy(x).to(cuda))
+            for x in MINPLUS[name]())
+    launches = mp.launches
+    out = mp.minplus(A, B)
+    torch.cuda.synchronize()
+    assert mp.launches == launches + 1
+    assert testing.nan_equal(out, tref.minplus_ref(A, B)), name
+
+
+def _fused_operands(M, K, N, seed):
+    A, B = testing.minplus_special(M, K, N, "negative", seed=seed)
+    rng = np.random.default_rng(seed)
+    C = (20 * rng.random((M, N)) - 5).astype(np.float32)
+    C[rng.random((M, N)) < 0.2] = np.float32(1e9)
+    C[rng.random((M, N)) < 0.05] = np.inf
+    C[rng.integers(M, size=3), rng.integers(N, size=3)] = np.nan
+    return A, B, C
+
+
+@pytest.mark.parametrize("misaligned", [False, True])
+@pytest.mark.parametrize("shape", [(70, 40, 90), (192, 160, 288),
+                                   (97, 33, 95), (1, 1536, 200)])
+def test_minplus_fused_c_bitwise(cuda, shape, misaligned):
+    A, B, C = (torch.from_numpy(x).to(cuda)
+               for x in _fused_operands(*shape, seed=sum(shape)))
+    if misaligned:
+        A, B, C = map(_misaligned, (A, B, C))
+    launches = mp.launches
+    out = mp.minplus(A, B, C)
+    torch.cuda.synchronize()
+    assert mp.launches == launches + 1
+    assert testing.nan_equal(out, tref.minplus_ref(A, B, C))
+    assert testing.nan_equal(out, torch.minimum(C, tref.minplus_ref(A, B)))
+
+
+def test_minplus_homog256_1536(cuda):
+    W = torch.from_numpy(testing.score_graphs("homog256", "placeit",
+                                              1)[0]).to(cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    out = mp.minplus(W, W)
+    torch.cuda.synchronize()
+    assert W.shape == (1536, 1536)
+    assert torch.equal(out, tref.minplus_ref(W, W))
+    assert mp.tile_fill(1536, 1536, sms)["share"] >= 0.9
+
+
+def test_apsp_directed_graph(cuda):
+    W = torch.from_numpy(testing.directed_graph(300, 900, seed=4)).to(cuda)
+    assert not torch.equal(W, W.t())
+    W0 = W.clone()
+    launches = mp.launches
+    D = ops.apsp(W)
+    torch.cuda.synchronize()
+    assert mp.launches == launches + tref.apsp_squarings(300)
+    assert torch.equal(W, W0)
+    assert torch.equal(D, tref.apsp_ref(W))
+    assert torch.equal(D, tref.fw_counts_ref(W[None])[0][0])
+
+
+def test_apsp_with_nan_propagates(cuda):
+    W = torch.from_numpy(testing.random_graph(130, 400, seed=6)[0])
+    W[7, 9] = float("nan")
+    W = W.to(cuda)
+    D = ops.apsp(W)
+    assert testing.nan_equal(D, tref.apsp_ref(W))
+    assert torch.isnan(D[7]).all()
+
+
+def test_minplus_many_back_to_back_calls(cuda):
+    """40 calls queued without a sync between them, alternating shapes,
+    aligned and misaligned operands and the fused C: each output
+    bitwise."""
+    ops_in = [[torch.from_numpy(x).to(cuda) for x in _fused_operands(
+        *shape, seed=sum(shape))] for shape in ((192, 160, 288),
+                                                 (97, 33, 95))]
+    ops_in += [list(map(_misaligned, ops_in[0]))]
+    outs = []
+    for n in range(40):
+        A, B, C = ops_in[n % 3]
+        outs.append(mp.minplus(A, B, C if n % 4 < 2 else None))
+    torch.cuda.synchronize()
+    for n, out in enumerate(outs):
+        A, B, C = ops_in[n % 3]
+        want = tref.minplus_ref(A, B, C if n % 4 < 2 else None)
+        assert testing.nan_equal(out, want), n
