@@ -35,7 +35,16 @@ Phases (any failure exits non-zero; nothing is caught):
    entry plus 1e-5, ``FULL_LIMIT``).
    The scan kernels (selective scan, RG-LRU) on ``testing.scan_cases`` in
    both dtypes (3e-5 in float32, 2e-2 in bfloat16, final states 3e-5), and
-   a sequence split across two calls bit for bit equal to one call;
+   a sequence split across two calls bit for bit equal to one call.
+   The batched score-graph builds of the device pipeline on the card
+   (``testing.batched_build_parity``, 64 random placements each of homog64
+   placeit, homog256 placeit and hex127 baseline through
+   ``HomogGraphBatch``, of hetero32 and hetero64 placeit through
+   ``HeteroBatch.geometry_batch`` + ``HeteroGraphBatch``) against the host
+   ``score_graph``: every stacked array bit for bit, slot for slot, equal
+   edge sets and ``connected``, no overflow, and the scorer's metrics and
+   cost from the two builds bit-equal; each prints its batched build's
+   wall time (and the host corner placement's);
 4. timing — each kernel at the main path's shapes, its calls back to
    back between one pair of CUDA events behind a spin kernel, so that the
    host's enqueue is not counted (``kernel_timing.batched_ms``), beside
@@ -91,9 +100,18 @@ Phases (any failure exits non-zero; nothing is caught):
      kernel its backend picks, and the runs both FW kernels;
    - slice 2, the default backend: homog256 placeit (V = 1536) and hex127
      baseline (V = 702), GA at the large families' defaults;
+   - slice 9, the default backend: hetero32 placeit (V = 240) through the
+     host GA at the paper's 30 / 6 / 6; hetero64 placeit (V = 480)
+     through ga-batched at the paper's 20 / 5 / 5; homog256 placeit
+     through ga-batched at ``LARGE_DEFAULTS``, two generations as slice
+     2's host GA, the two walls and evaluations/s printed side by side
+     (a record, not a claim); a short br-batched run on hetero32 placeit
+     and sa-batched on homog64 placeit, so that every registered optimizer
+     runs on the card; each must launch the blocked FW kernel, which its
+     V takes, and no plain version;
    - ``ops.apsp`` on the homog256 winner's score graph (min-plus kernel);
-   the homog32 and homog256 winners are re-scored with the plain FW, and
-   the APSP distances must equal the plain FW's;
+   the homog32, homog256 and homog256 ga-batched winners are re-scored
+   with the plain FW, and the APSP distances must equal the plain FW's;
    - slices 3 and 4, the LM serving paths, each model at full width
      (bfloat16, weights from a ``torch.Generator`` seeded 0 on the card)
      through ``ServeEngine`` (8 slots, cache 4096, no EOS; 16 requests of
@@ -112,8 +130,10 @@ Phases (any failure exits non-zero; nothing is caught):
      its RG-LRU Lambda negated, where the states carry (as initialised
      they barely do);
 6. profile — ``torch.profiler`` over one blocked FW call at homog256
-   (device time by kernel) and one homog256 placeit run (device busy
-   share); for each served model, after its run, one prefill of 1024
+   (device time by kernel) and one homog256 placeit run through the host
+   GA and one through ga-batched (device busy share, the copies' time by
+   direction), and the Evaluator's 20 host norm samples alone; for each
+   served model, after its run, one prefill of 1024
    tokens and 8 decode ticks of the 8-slot pool (device busy share, time
    by kernel).
 
@@ -200,6 +220,15 @@ QUICKSTART_KERNEL1 = dataclasses.replace(QUICKSTART, backend="fw-cuda")
 HOMOG64 = kt.experiment_config(api, "homog64 placeit")
 HOMOG256 = kt.experiment_config(api, "homog256 placeit")
 HEX127 = kt.experiment_config(api, "hex127 baseline")
+# Slice 9: the heterogeneous archs and the device-resident pipeline.
+HETERO32 = kt.experiment_config(api, "hetero32 placeit")
+HETERO64_BATCHED = kt.experiment_config(api, "hetero64 placeit ga-batched")
+HOMOG256_BATCHED = kt.experiment_config(api, "homog256 placeit ga-batched")
+BR_BATCHED = kt.experiment_config(api, "hetero32 placeit br-batched")
+SA_BATCHED = kt.experiment_config(api, "homog64 placeit sa-batched")
+# Random placements of each arch of ``testing.PIPELINE_ARCHS`` whose
+# batched build the parity phase holds against the host build.
+PIPELINE_N = 64
 
 
 def phase(name: str) -> None:
@@ -1179,7 +1208,8 @@ def read_counts() -> tuple[dict, int]:
 
 def _run(cfg: ExperimentConfig, dev) -> tuple:
     """One experiment and its baseline, with the counts reset before and
-    read after.  Returns the record and the kernel launch counts."""
+    read after.  Returns the record, the kernel launch counts and the
+    wall seconds of ``run_experiment``."""
     reset_counts()
     t0 = time.monotonic()
     rec = run_experiment(cfg, device=dev)[0]     # returns host numpy
@@ -1190,7 +1220,8 @@ def _run(cfg: ExperimentConfig, dev) -> tuple:
     launches, plain_calls = read_counts()
     res = rec.result
     n_scored = res.n_evaluated + cfg.norm_samples
-    print(f"  {cfg.arch} {cfg.config} ({cfg.backend}): best cost "
+    print(f"  {cfg.arch} {cfg.config} {cfg.algorithms[0]} ({cfg.backend}): "
+          f"best cost "
           f"{res.best_cost:.4f} vs 2D mesh {base_cost:.4f}; run_experiment "
           f"{wall:.2f} s wall ({n_scored} placements scored incl. "
           f"{cfg.norm_samples} norm samples, {n_scored / wall:.1f} "
@@ -1217,7 +1248,7 @@ def _run(cfg: ExperimentConfig, dev) -> tuple:
     if tuple(counts) != arch.counts() or tuple(kinds) != (0, 1, 2):
         raise SystemExit(f"best placement holds {counts}, not "
                          f"{arch.counts()} chiplets")
-    return rec, launches
+    return rec, launches, wall
 
 
 def _fw_kernel(cfg: ExperimentConfig) -> str:
@@ -1254,6 +1285,27 @@ def _rescore_plain(cfg: ExperimentConfig, rec, dev) -> None:
           f"{len(res.best_metrics)} metrics agree (rtol 1e-6)")
 
 
+def pipeline_parity_phase(dev) -> None:
+    """The batched score-graph builds on the card against the host
+    build (``testing.batched_build_parity``): every stacked array bit for
+    bit, slot for slot, equal edge sets and ``connected``, no overflow,
+    and the scorer's metrics and cost from the two builds bit-equal."""
+    phase(f"parity: batched score-graph builds on the card vs the host "
+          f"build ({PIPELINE_N} random placements an arch, bitwise; "
+          f"metrics and cost from both builds bitwise)")
+    for arch_name, config in testing.PIPELINE_ARCHS:
+        try:
+            out = testing.batched_build_parity(arch_name, config,
+                                               PIPELINE_N, device=dev)
+        except AssertionError as e:
+            raise SystemExit(f"batched build parity failed: {e}") from e
+        host = f", host geometry {out['geometry_s']:.3f} s" \
+            if "geometry_s" in out else ""
+        print(f"  {arch_name} {config}: equal; {out['connected']} of "
+              f"{out['n']} connected, {out['links']:.1f} links a placement; "
+              f"batched build {1e3 * out['build_s']:.2f} ms{host}")
+
+
 def main_path_phase(dev) -> dict:
     total = dict.fromkeys(KERNELS, 0)
 
@@ -1266,7 +1318,7 @@ def main_path_phase(dev) -> dict:
           f"{QUICKSTART_KERNEL1.backend}): run_experiment + baseline_cost "
           f"on the card")
     for cfg in (QUICKSTART, HOMOG64, QUICKSTART_KERNEL1):
-        rec, launches = _run(cfg, dev)
+        rec, launches, _ = _run(cfg, dev)
         add(launches)
         want = _fw_kernel(cfg)
         if launches[want] <= 0:
@@ -1277,12 +1329,12 @@ def main_path_phase(dev) -> dict:
 
     phase("main path, slice 2 (the default backend): run_experiment + "
           "baseline_cost on the card")
-    rec256, launches = _run(HOMOG256, dev)
+    rec256, launches, wall256 = _run(HOMOG256, dev)
     add(launches)
     if launches[_fw_kernel(HOMOG256)] <= 0:
         raise SystemExit(f"{HOMOG256.arch} did not go through "
                          f"{_fw_kernel(HOMOG256)}")
-    _, launches = _run(HEX127, dev)
+    _, launches, _ = _run(HEX127, dev)
     add(launches)
     if launches[_fw_kernel(HEX127)] <= 0:
         raise SystemExit(f"{HEX127.arch} did not go through "
@@ -1290,6 +1342,30 @@ def main_path_phase(dev) -> dict:
     _rescore_plain(HOMOG256, rec256, dev)
     if total["fw_counts"] <= 0 or total["fw_counts_tiled"] <= 0:
         raise SystemExit("the PlaceIT runs did not launch both FW kernels")
+
+    phase("main path, slice 9 (the default backend): the heterogeneous "
+          "archs and the device-resident pipeline, run_experiment + "
+          "baseline_cost on the card")
+    for cfg in (HETERO32, HETERO64_BATCHED, HOMOG256_BATCHED, BR_BATCHED,
+                SA_BATCHED):
+        rec, launches, wall = _run(cfg, dev)
+        add(launches)
+        if launches[_fw_kernel(cfg)] <= 0:
+            raise SystemExit(f"{cfg.arch} {cfg.algorithms[0]} did not go "
+                             f"through {_fw_kernel(cfg)}")
+        if cfg is HOMOG256_BATCHED:
+            rec256b, wall256b = rec, wall
+    print(f"  {HOMOG256.arch} {HOMOG256.config}, host GA against ga-batched "
+          f"(the same GA, two generations each):")
+    for name, cfg, rec, wall in (
+            ("ga", HOMOG256, rec256, wall256),
+            ("ga-batched", HOMOG256_BATCHED, rec256b, wall256b)):
+        n = rec.result.n_evaluated + cfg.norm_samples
+        print(f"    {name:10s} wall {wall:7.3f} s, {n} placements scored "
+              f"({rec.result.n_evaluated} by the search), "
+              f"{n / wall:7.1f} evaluations/s; search alone "
+              f"{rec.result.n_evaluated / rec.seconds:7.1f} evaluations/s")
+    _rescore_plain(HOMOG256_BATCHED, rec256b, dev)
 
     phase(f"main path: ops.apsp on the {HOMOG256.arch} winner's score "
           f"graph")
@@ -1324,9 +1400,11 @@ def _kernel_times(prof) -> tuple[list, float]:
 
 def profile_phase(dev) -> None:
     """torch.profiler over one blocked FW call at homog256 placeit (time
-    by phase kernel) and over one homog256 placeit run (device busy
-    share).  Profiling adds host time, so the run's wall here is longer
-    than the main path's."""
+    by phase kernel), over one homog256 placeit run through the host GA
+    and one through ga-batched (device busy share, every copy), and over
+    the Evaluator's norm-sample draw alone (the host-built graphs both
+    runs still score).  Profiling adds host time, so the runs' walls here
+    are longer than the main path's."""
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     phase("profile: one fw_counts_tiled call at homog256 placeit")
@@ -1341,18 +1419,31 @@ def profile_phase(dev) -> None:
     print(f"  device kernel time {total:.4f} ms in {len(rows)} kernels")
     for name, ms, n in rows[:8]:
         print(f"  {ms:10.4f} ms {n:5d} x  {name[:90]}")
-    phase(f"profile: one {HOMOG256.arch} {HOMOG256.config} run_experiment "
-          f"(device busy share)")
-    with profile(activities=acts) as prof:
-        t0 = time.monotonic()
-        run_experiment(HOMOG256, device=dev)
-        torch.cuda.synchronize()
-        wall = time.monotonic() - t0
-    rows, total = _kernel_times(prof)
-    print(f"  wall {wall:.3f} s under the profiler, device kernel time "
-          f"{total / 1e3:.4f} s ({100 * total / 1e3 / wall:.2f} % busy)")
-    for name, ms, n in rows[:10]:
-        print(f"  {ms:10.3f} ms {n:6d} x  {name[:90]}")
+    arch = resolve_arch(HOMOG256.arch, HOMOG256.config)
+    rep = make_rep(arch, HOMOG256.arch)
+    runs = [(f"one {cfg.arch} {cfg.config} {cfg.algorithms[0]} "
+             f"run_experiment", lambda cfg=cfg: run_experiment(cfg, device=dev))
+            for cfg in (HOMOG256, HOMOG256_BATCHED)]
+    runs.append((f"the Evaluator's {HOMOG256.norm_samples} {HOMOG256.arch} "
+                 f"norm samples alone",
+                 lambda: api.make_evaluator(
+                     rep, arch, rng=np.random.default_rng(HOMOG256.seed),
+                     norm_samples=HOMOG256.norm_samples, device=dev)))
+    for what, fn in runs:
+        phase(f"profile: {what} (device busy share, copies)")
+        with profile(activities=acts) as prof:
+            t0 = time.monotonic()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+        rows, total = _kernel_times(prof)
+        print(f"  wall {wall:.3f} s under the profiler, device kernel time "
+              f"{total / 1e3:.4f} s ({100 * total / 1e3 / wall:.2f} % busy)")
+        for name, ms, n in rows[:10]:
+            print(f"  {ms:10.3f} ms {n:6d} x  {name[:90]}")
+        for name, ms, n in rows:
+            if name.startswith("Memcpy"):
+                print(f"  copies: {ms:10.3f} ms {n:6d} x  {name}")
 
 
 def main() -> None:
@@ -1362,6 +1453,7 @@ def main() -> None:
     max_err = parity_phase(dev)
     attention_parity_phase(dev, max_err)
     scan_parity_phase(dev, max_err)
+    pipeline_parity_phase(dev)
     timing = timing_phase(dev, max_err, funcs)
     timing.update(attention_timing_phase(dev, max_err))
     timing.update(scan_timing_phase(dev, max_err, funcs))

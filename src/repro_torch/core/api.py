@@ -9,7 +9,9 @@ The port of the single-experiment part of ``repro.core.api``:
   back as ``"fw-pallas"``).
 * :class:`Budget` and the typed per-algorithm hyper-parameters
   (:class:`BRParams`, :class:`GAParams`, :class:`SAParams`) with the
-  paper's Table III/IV defaults.
+  paper's Table III/IV defaults, for the host loops ``"br"``, ``"ga"``,
+  ``"sa"`` and their device-resident forms ``"br-batched"``,
+  ``"ga-batched"``, ``"sa-batched"`` (``optimize.DevicePipeline``).
 * Named scorer backends: ``"fw-tiled"`` (the default: a size dispatch
   between the two hand-written CUDA FW kernels, ``ops.fw_impl_tiled``),
   ``"fw-cuda"`` (the cluster-resident CUDA FW kernel for every V) and
@@ -22,9 +24,8 @@ Per-algorithm RNG streams are derived with :func:`algo_seed` from a stable
 CRC32 digest of the algorithm name, as in the reference, so a seed gives
 the same placements in both packages.
 
-Not ported yet: ``run_sweep`` (ROADMAP queue 1 item 7), Pareto sweeps
-(item 10), the design service (item 13), hetero archs (item 8) and the 3D
-families (item 12).
+Not ported yet: ``run_sweep`` (ROADMAP queue 1 item 7b), Pareto sweeps
+(item 10), the design service (item 13) and the 3D families (item 12).
 """
 from __future__ import annotations
 
@@ -42,8 +43,11 @@ from .baseline import MeshBaseline
 from .cache import LRUCache
 from .chiplets import ARCH3D, LARGE_HOMOG, ArchSpec, resolve_arch
 from .objective import Objective, Schedule
-from .optimize import (Evaluator, OptResult, best_random, genetic_algorithm,
-                       simulated_annealing)
+from .optimize import (Evaluator, OptResult, best_random,
+                       best_random_batched, genetic_algorithm,
+                       genetic_algorithm_batched, simulated_annealing,
+                       simulated_annealing_batched)
+from .placement_hetero import HeteroRep
 from .placement_homog import HomogRep, hex_mask
 from .proxies import make_scorer, resolve_device
 from .registries import (OPTIMIZERS, OptimizerEntry, register_optimizer,
@@ -172,6 +176,44 @@ def _run_sa(evaluator: Evaluator, rng: np.random.Generator, budget: Budget,
     return simulated_annealing(evaluator, rng, **_sa_kwargs(budget, params))
 
 
+# Device-resident variants: whole generations / chain-blocks are produced
+# as batched generate→graph→score requests via optimize.DevicePipeline,
+# with invalid individuals masked-and-resampled in batch.  Same typed
+# params as their host-loop counterparts; paper defaults apply through the
+# "-batched" suffix stripping in _base_params.
+
+@register_optimizer("br-batched", params_cls=BRParams)
+def _run_br_batched(evaluator: Evaluator, rng: np.random.Generator,
+                    budget: Budget, params: BRParams) -> OptResult:
+    return best_random_batched(evaluator, rng, **_br_kwargs(budget, params))
+
+
+def _ga_batched_kwargs(budget: Budget, params: GAParams) -> dict:
+    # ga-batched scores elites once (population up front, then only the
+    # population - elitism children per generation), so the evals->
+    # generations conversion differs from the host GA's evals//population.
+    per_gen = max(params.population - params.elitism, 1)
+    max_gen = (None if budget.evals is None
+               else max(1, (budget.evals - params.population) // per_gen))
+    return dict(population=params.population, elitism=params.elitism,
+                tournament=params.tournament, p_mutation=params.p_mutation,
+                time_budget_s=budget.seconds, max_generations=max_gen)
+
+
+@register_optimizer("ga-batched", params_cls=GAParams)
+def _run_ga_batched(evaluator: Evaluator, rng: np.random.Generator,
+                    budget: Budget, params: GAParams) -> OptResult:
+    return genetic_algorithm_batched(evaluator, rng,
+                                     **_ga_batched_kwargs(budget, params))
+
+
+@register_optimizer("sa-batched", params_cls=SAParams)
+def _run_sa_batched(evaluator: Evaluator, rng: np.random.Generator,
+                    budget: Budget, params: SAParams) -> OptResult:
+    return simulated_annealing_batched(evaluator, rng,
+                                       **_sa_kwargs(budget, params))
+
+
 # ---------------------------------------------------------------------------
 # Scorer backends (the fw_impl seam; paper Table V hot spot).
 # ---------------------------------------------------------------------------
@@ -277,19 +319,17 @@ def algo_seed(seed: int, repetition: int, algo: str) -> int:
 
 
 def make_rep(arch: ArchSpec, arch_name: str,
-             mutation_mode: str | None = None) -> HomogRep:
-    """Placement representation for a named homogeneous architecture (§V-A,
+             mutation_mode: str | None = None) -> HomogRep | HeteroRep:
+    """Placement representation for a named architecture (§V-A / §VI-A,
     plus the LARGE_GRIDS 100+-chiplet families)."""
     fam, _ = arch_family(arch_name)
     if fam == "arch3d":
         raise NotImplementedError(
             f"3D / hierarchical arch {arch_name!r} is not ported yet: "
             f"ROADMAP queue 1 item 12")
-    if fam == "hetero":
-        raise NotImplementedError(
-            f"heterogeneous arch {arch_name!r} is not ported yet: ROADMAP "
-            f"queue 1 item 8")
     mode = mutation_mode or paper_defaults(arch_name).mutation_mode
+    if fam == "hetero":
+        return HeteroRep(arch, mutation_mode=mode)
     if arch_name in LARGE_GRIDS:
         R, C, hex_side = LARGE_GRIDS[arch_name]
         allowed = None if hex_side is None else hex_mask(hex_side)
@@ -421,9 +461,12 @@ class ExperimentConfig:
             d = paper_defaults(self.arch)
         except KeyError:
             d = None
-        if d is not None and isinstance(getattr(d, algo, None),
+        # "-batched" variants inherit their host-loop counterpart's paper
+        # defaults (same search hyper-parameters, different execution).
+        base = algo[:-len("-batched")] if algo.endswith("-batched") else algo
+        if d is not None and isinstance(getattr(d, base, None),
                                         entry.params_cls):
-            return getattr(d, algo)
+            return getattr(d, base)
         return entry.params_cls()
 
     def resolved_params(self, algo: str):

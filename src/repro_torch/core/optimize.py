@@ -1,23 +1,36 @@
 """Optimization algorithms (paper §II-B) over placement representations.
 
-The port of the host half of ``repro.core.optimize``: Best Random (BR),
-Genetic Algorithm (GA) and Simulated Annealing (SA), all driven through the
-four representation functions random_placement / mutate / merge / get_cost
+The port of ``repro.core.optimize``: Best Random (BR), Genetic Algorithm
+(GA) and Simulated Annealing (SA), all driven through the four
+representation functions random_placement / mutate / merge / get_cost
 (§IV).  Invalid placements (unconnected chiplets) cause the generating
 operation to be repeated, exactly as in §V-A / §VI-A.
 
-Individuals are generated, mutated and merged one at a time in host numpy
-from a ``np.random.Generator`` (so the same seed gives the reference's
-placements), and each GA generation / SA chain-block is scored in one
-batched call of the Evaluator's scorer on its device.  The optimizers are
-*step generators* (``best_random_steps`` / ``genetic_algorithm_steps`` /
-``simulated_annealing_steps``) that yield scoring requests and receive
-``(costs, metrics)``; ``_drive`` runs one against one Evaluator.
+Two execution styles coexist, as in the reference:
+
+* **Host-loop** (``best_random`` / ``genetic_algorithm`` /
+  ``simulated_annealing``): individuals are generated, mutated and merged
+  one at a time in host numpy from a ``np.random.Generator`` (so the same
+  seed gives the reference's placements), and each GA generation / SA
+  chain-block is scored in one batched call of the Evaluator's scorer on
+  its device.
+* **Device-resident** (``best_random_batched`` /
+  ``genetic_algorithm_batched`` / ``simulated_annealing_batched``): whole
+  generations / chain-blocks are produced by :class:`DevicePipeline` as
+  batched generate→graph→score calls over stacked tensors — on the device
+  end to end for homogeneous grids, with a vectorized host corner-placement
+  stage for heterogeneous archs — and invalid individuals are
+  masked-and-resampled in batch instead of retried one by one.  Their
+  device draws come from a ``torch.Generator``, so they match the
+  reference in distribution, not draw for draw.
+
+All six are *step generators* (``*_steps``) that yield scoring requests
+and receive ``(costs, metrics)``; ``_drive`` runs one against one
+Evaluator.
 
 Not ported yet: the population archive (``PopArchive``, ROADMAP queue 1
-item 13), the device-resident pipeline and ``*_batched`` drivers, and
-stacked cross-run scoring (``score_stacked`` / ``drive_stacked``, queue 1
-item 7).
+item 13) and stacked cross-run scoring (``score_stacked`` /
+``drive_stacked``, queue 1 item 7b).
 """
 from __future__ import annotations
 
@@ -25,12 +38,17 @@ import time
 from dataclasses import dataclass, field
 
 import numpy as np
+import torch
 
+from .cache import LRUCache
 from .cost import CostNormalizers
 from .objective import (NORM_DIM, Objective, compile_schedule, norms_vec,
                         objective_cost_host, weights_vec)
-from .proxies import make_scorer
-from .topology import ScoreGraph, stack_graphs
+from .placement_hetero import HeteroRep
+from .placement_homog import HomogRep
+from .proxies import make_scorer, resolve_device
+from .topology import (HeteroGraphBatch, HomogGraphBatch, ScoreGraph,
+                       stack_graphs)
 
 
 @dataclass
@@ -61,6 +79,10 @@ class Evaluator:
     vector at their current progress and tag their scoring requests with
     it.  ``norm`` re-uses an existing ``CostNormalizers`` draw instead of
     re-drawing ``norm_samples`` placements.
+
+    ``device`` is the scorer's (``score.device``); the device pipeline
+    (:meth:`pipeline`) runs there too.  ``archive`` stays ``None``: the
+    population archive is not ported yet.
     """
 
     def __init__(self, rep, arch, *, rng: np.random.Generator,
@@ -92,8 +114,13 @@ class Evaluator:
             if fw_impl is not None:
                 kw["fw_impl"] = fw_impl
             self.scorer = make_scorer(rep.layout, **kw)
+        self.device = getattr(self.scorer, "device", None)
+        if self.device is None:
+            self.device = resolve_device(device)
         self.n_generated = 0
         self.n_score_calls = 0
+        self.archive = None
+        self._pipeline: DevicePipeline | None = None
         if norm is not None:
             self.norm = norm
             self._norm_vec = norms_vec(self.norm)
@@ -176,23 +203,53 @@ class Evaluator:
         metrics = self.score(graphs)
         return self.costs_from(metrics), metrics
 
+    def pipeline(self) -> "DevicePipeline":
+        """Cached device-resident generate→graph→score pipeline."""
+        if self._pipeline is None:
+            self._pipeline = DevicePipeline(self)
+        return self._pipeline
+
 
 def _metrics_row(metrics: dict, i: int) -> dict:
     return {k: float(v[i]) for k, v in metrics.items()}
 
 
 # ---------------------------------------------------------------------------
-# Step-generator execution.  Optimizers yield *scoring requests* — a list of
-# host ScoreGraphs, optionally tagged with a per-request ``weights`` vector
-# (a schedule's ramped objective weights at the run's current progress) —
-# and receive ``(costs, metrics)`` back.  _drive runs one generator against
-# one Evaluator (the classic entry points below).
+# Step-generator execution.  Optimizers yield *scoring requests* — either a
+# list of host ScoreGraphs or a pre-stacked (device) batch dict, optionally
+# carrying its own ``connected`` flags (the hetero Borůvka-component rule,
+# which overrides the scorer's FW reachability) and/or a per-request
+# ``weights`` vector (a schedule's ramped objective weights at the run's
+# current progress) — and receive ``(costs, metrics)`` back.  _drive runs
+# one generator against one Evaluator (the classic entry points below).
 # ---------------------------------------------------------------------------
+
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _request_parts(req):
+    """Normalize a scoring request to
+    ``(batch, conn_override, size, weights_override)``."""
+    wrow = None
+    if isinstance(req, tuple):            # weight-tagged host graph list
+        req, wrow = req
+    if isinstance(req, dict):
+        batch = dict(req)
+        gconn = batch.pop("connected", None)
+        wrow = batch.pop("weights", wrow)
+        return batch, gconn, int(batch["W"].shape[0]), wrow
+    return stack_graphs(req), None, len(req), wrow
+
 
 def _tag(req, weights):
     """Attach a schedule's weight vector to a scoring request (no-op when
     ``weights`` is None — the evaluator's static weights then apply)."""
-    return req if weights is None else (req, weights)
+    if weights is None:
+        return req
+    if isinstance(req, dict):
+        return dict(req, weights=weights)
+    return (req, weights)
 
 
 def _sched_progress(done, total, t0: float,
@@ -207,8 +264,10 @@ def _sched_progress(done, total, t0: float,
 
 
 def _score_request(ev: Evaluator, req) -> tuple[np.ndarray, dict]:
-    graphs, wrow = req if isinstance(req, tuple) else (req, None)
-    metrics = ev.score_batch(stack_graphs(graphs), weights=wrow)
+    batch, gconn, _, wrow = _request_parts(req)
+    metrics = ev.score_batch(batch, weights=wrow)
+    if gconn is not None:
+        metrics["connected"] = _host(gconn)
     return ev.costs_from(metrics), metrics
 
 
@@ -478,3 +537,469 @@ def simulated_annealing(ev: Evaluator, rng: np.random.Generator, *,
         beta=beta, chains=chains, time_budget_s=time_budget_s,
         max_iters=max_iters), ev)
 
+
+
+# ---------------------------------------------------------------------------
+# Device-resident pipeline: batched generate→graph→score over stacked
+# tensors.
+# ---------------------------------------------------------------------------
+
+class DevicePipeline:
+    """Batched produce→graph→score path for both placement families.
+
+    Couples the vectorized representation operators
+    (:class:`placement_homog.HomogBatch` / :class:`placement_hetero.
+    HeteroBatch`), the batched ScoreGraph assembly
+    (:class:`topology.HomogGraphBatch` with masked selection over the static
+    grid adjacency, or :class:`topology.HeteroGraphBatch` with the batched
+    Borůvka MST + augmentation over padded candidate edges) and the
+    Evaluator's scorer, all on the Evaluator's device.  Each ``sample_*``
+    call produces a whole batch; invalid individuals are masked and
+    resampled in batch (valid slots are kept) — the device equivalent of
+    the paper's retry-until-connected loop.
+
+    Homogeneous grids run generate→graph on the device end to end: the
+    scorer receives device tensors, and W never crosses from the host.  The
+    heterogeneous corner placement is inherently sequential per individual
+    and stays host-side, but vectorized across the population
+    (``HeteroBatch.geometry_batch``): the orders go to the host and the PHY
+    positions come back, two copies a batch.  Connectivity masking uses the
+    scorer's FW-derived ``connected`` for grids and the Borůvka-component
+    flag (identical to the fixed host union-find rule) for hetero archs.
+
+    The produce→graph stages only depend on the arch statics (grid dims,
+    mask, mutation mode) and the device, so they are cached module-wide and
+    shared by every Evaluator over the same arch, with their static W
+    already on the device.  The cache is a bounded LRU; live pipelines hold
+    their own stage references, so eviction only drops the shared entry.
+    """
+
+    _STAGE_CACHE: LRUCache = LRUCache(32)
+
+    @classmethod
+    def _stages(cls, rep, device):
+        dev = torch.device(device)
+        if isinstance(rep, HomogRep):
+            # The allowed-cell mask shapes every stage (generation,
+            # mutation, area); two reps differing only in mask must not
+            # share stages.
+            mask_key = (None if rep.allowed is None
+                        else rep.allowed.tobytes())
+            key = ("homog", rep.arch, rep.R, rep.C, rep.mutation_mode,
+                   mask_key, str(dev))
+        elif isinstance(rep, HeteroRep):
+            key = ("hetero", rep.arch, rep.mutation_mode, str(dev))
+        else:
+            raise TypeError(
+                "device-resident batched optimizers require a HomogRep or "
+                f"a HeteroRep, got {type(rep)!r} (the 3D reps are ROADMAP "
+                "queue 1 item 12)")
+        if key in cls._STAGE_CACHE:
+            return cls._STAGE_CACHE[key]
+        ops = rep.batch_ops(dev)
+
+        def _child_op(gen, pat, par, pbt, pbr, p_mut):
+            t, r = ops.merge_batch(gen, pat, par, pbt, pbr)
+            mt, mr = ops.mutate_batch(gen, t, r)
+            m = torch.rand(t.shape[0], generator=gen, device=dev) < p_mut
+            m = m.view((-1,) + (1,) * (t.dim() - 1))
+            return torch.where(m, mt, t), torch.where(m, mr, r)
+
+        if isinstance(rep, HomogRep):
+            gb = HomogGraphBatch(rep.arch, rep.R, rep.C, area=rep.area,
+                                 device=dev)
+            _graph = gb.build
+        else:
+            gb = HeteroGraphBatch(rep.arch, device=dev)
+
+            def _graph(o, r):
+                # Host-side stage: corner placement is sequential per
+                # individual; vectorized across the population.
+                on, rn = o.cpu().numpy(), r.cpu().numpy()
+                ppos, area = ops.geometry_batch(on, rn)
+                batch = gb.build(torch.from_numpy(ppos).to(dev),
+                                 torch.from_numpy(area).to(dev))
+                ovf = batch.pop("overflow").cpu().numpy()
+                for b in np.nonzero(ovf)[0]:
+                    # Candidate set exceeded the device working set: take
+                    # the exact host path for the affected rows.
+                    g = rep.score_graph((on[b], rn[b]))
+                    for k in ("W", "edges", "edge_mask", "edge_len"):
+                        batch[k][b] = torch.from_numpy(getattr(g, k))
+                    batch["connected"][b] = bool(g.connected)
+                return batch
+
+        def _gen(gen, n):
+            t, r = ops.random_batch(gen, n)
+            return t, r, _graph(t, r)
+
+        def _mut(gen, t, r):
+            nt, nr = ops.mutate_batch(gen, t, r)
+            return nt, nr, _graph(nt, nr)
+
+        def _child(gen, pat, par, pbt, pbr, p_mut):
+            t, r = _child_op(gen, pat, par, pbt, pbr, p_mut)
+            return t, r, _graph(t, r)
+
+        cls._STAGE_CACHE[key] = (ops, gb, _gen, _mut, _child, _graph)
+        return cls._STAGE_CACHE[key]
+
+    def __init__(self, ev: Evaluator):
+        self.ev = ev
+        self.device = ev.device
+        (self.ops, self.graphs, self._gen, self._mut,
+         self._child, self._rebuild) = self._stages(ev.rep, ev.device)
+
+    def rebuild(self, t, r) -> dict:
+        """Graph batch for existing solutions (no RNG): re-scoring a
+        population under different (e.g. schedule-final) weights."""
+        return dict(self._rebuild(t, r))
+
+    def _key(self, rng: np.random.Generator) -> torch.Generator:
+        """One draw from the host stream seeds the device generator of one
+        call, so the host draws that follow (tournaments, acceptance)
+        consume the stream as the reference's do."""
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(int(rng.integers(2 ** 31 - 1)))
+        return gen
+
+    def _until_connected_steps(self, rng, make, n, max_rounds: int = 500,
+                               weights=None):
+        """Generator: run ``make`` until every slot holds a connected
+        placement, yielding each produced batch as a scoring request and
+        receiving ``(costs, metrics)`` back.
+
+        ``make(gen, idx)`` produces one candidate per entry of ``idx``
+        (slot indices; repeats allowed).  The first round fills every
+        slot; later rounds only produce candidates for the still-invalid
+        slots — padded to a power of two, as the reference pads them to
+        bound its retraces, so ``n_generated`` counts the same sizes — and
+        each slot takes its first connected candidate (per-slot rejection
+        sampling, the same conditional distribution as the host retry
+        loop).
+
+        A graph stage may put its own ``connected`` into the batch dict
+        (the hetero path's Borůvka-component flag, which matches the host
+        union-find rule exactly); :func:`_score_request` then lets it
+        override the scorer's FW-reachability output.
+
+        ``weights`` (a schedule's runtime weight vector) tags every
+        yielded request, so ramped costs apply to resample rounds too.
+
+        Returns ``(t, r, metrics, costs)`` for the filled slots.
+        """
+        t, r, batch = make(self._key(rng), np.arange(n))
+        costs, metrics = yield _tag(batch, weights)
+        costs = np.array(costs)
+        metrics = {k: np.array(v) for k, v in metrics.items()}
+        self.ev.n_generated += n
+        conn = metrics["connected"].astype(bool)
+        for _ in range(max_rounds):
+            bad = np.nonzero(~conn)[0]
+            if not len(bad):
+                return t, r, metrics, costs
+            size = 1 << (len(bad) - 1).bit_length()
+            size = min(max(size, min(8, n)), n)
+            idx = bad[np.arange(size) % len(bad)]
+            t2, r2, batch2 = make(self._key(rng), idx)
+            c2, m2 = yield _tag(batch2, weights)
+            self.ev.n_generated += size
+            conn2 = np.asarray(m2["connected"]).astype(bool)
+            slots, rows = [], []
+            for i in range(size):
+                s = int(idx[i])
+                if conn2[i] and not conn[s]:
+                    conn[s] = True
+                    slots.append(s)
+                    rows.append(i)
+            if slots:
+                sl, rw = np.array(slots), np.array(rows)
+                t, r = t.clone(), r.clone()
+                t[_index(sl, t)] = t2[_index(rw, t2)]
+                r[_index(sl, r)] = r2[_index(rw, r2)]
+                for k, v in metrics.items():
+                    v[sl] = np.asarray(m2[k])[rw]
+                costs[sl] = np.asarray(c2)[rw]
+        raise RuntimeError(  # pragma: no cover - pathological architecture
+            "could not batch-generate connected placements")
+
+    # -- generator forms (used by the *_batched_steps optimizers) -----------
+    def sample_random_steps(self, rng, n: int, weights=None):
+        return self._until_connected_steps(
+            rng, lambda g, idx: self._gen(g, len(idx)), n, weights=weights)
+
+    def sample_mutants_steps(self, rng, t, r, weights=None):
+        def make(g, idx):
+            i = _index(idx, t)
+            return self._mut(g, t[i], r[i])
+        return self._until_connected_steps(rng, make, t.shape[0],
+                                           weights=weights)
+
+    def sample_children_steps(self, rng, pat, par, pbt, pbr,
+                              p_mutation: float, weights=None):
+        def make(g, idx):
+            i = _index(idx, pat)
+            return self._child(g, pat[i], par[i], pbt[i], pbr[i],
+                               p_mutation)
+        return self._until_connected_steps(rng, make, pat.shape[0],
+                                           weights=weights)
+
+    # -- the direct form of sample_random_steps ------------------------------
+    def _run(self, gen):
+        try:
+            req = next(gen)
+            while True:
+                req = gen.send(_score_request(self.ev, req))
+        except StopIteration as e:
+            t, r, metrics, _ = e.value
+            return t, r, metrics
+
+    def sample_random(self, rng, n: int):
+        return self._run(self.sample_random_steps(rng, n))
+
+
+def _index(idx, like: torch.Tensor) -> torch.Tensor:
+    """Host row indices as a long tensor on ``like``'s device."""
+    return torch.as_tensor(np.asarray(idx), dtype=torch.long,
+                           device=like.device)
+
+
+def _sol_at(t, r, i: int):
+    """Device batch row -> host Sol (the host operators' int8 dtypes; a
+    copy, never a view of the batch)."""
+    return t[i].cpu().numpy().copy(), r[i].cpu().numpy().copy()
+
+
+def best_random_batched_steps(ev: Evaluator, rng: np.random.Generator, *,
+                              time_budget_s: float | None = None,
+                              max_evals: int | None = None,
+                              batch: int = 32):
+    """BR over the device pipeline: one batched request per batch.  Under a
+    schedule, batches score with ramped weights and the per-batch winners
+    are re-ranked under the final weights (see ``best_random_steps``)."""
+    pipe = ev.pipeline()
+    res = OptResult(None, np.inf, {})
+    t0 = time.monotonic()
+    pool_t, pool_r = [], []
+    while True:
+        if time_budget_s is not None and time.monotonic() - t0 > time_budget_s:
+            break
+        if max_evals is not None and res.n_evaluated >= max_evals:
+            break
+        w = ev.sched_weights(_sched_progress(res.n_evaluated, max_evals,
+                                             t0, time_budget_s))
+        t, r, metrics, costs = yield from pipe.sample_random_steps(
+            rng, batch, weights=w)
+        res.n_evaluated += batch
+        i = int(np.argmin(costs))
+        if ev.schedule is not None:
+            pool_t.append(t[i])
+            pool_r.append(r[i])
+        if costs[i] < res.best_cost:
+            res.best_cost = float(costs[i])
+            res.best_sol = _sol_at(t, r, i)
+            res.best_metrics = _metrics_row(metrics, i)
+        res.history.append((time.monotonic() - t0, res.n_evaluated,
+                            res.best_cost))
+    if ev.schedule is not None and pool_t:
+        pt, pr = torch.stack(pool_t), torch.stack(pool_r)
+        costs, metrics = yield _tag(pipe.rebuild(pt, pr),
+                                    ev.sched_weights(1.0))
+        i = int(np.argmin(costs))
+        res.best_cost = float(costs[i])
+        res.best_sol = _sol_at(pt, pr, i)
+        res.best_metrics = _metrics_row(metrics, i)
+        res.history.append((time.monotonic() - t0, res.n_evaluated,
+                            res.best_cost))
+    res.n_generated = ev.n_generated
+    res.normalizers = ev.norm
+    return res
+
+
+def best_random_batched(ev: Evaluator, rng: np.random.Generator, *,
+                        time_budget_s: float | None = None,
+                        max_evals: int | None = None,
+                        batch: int = 32) -> OptResult:
+    """BR over the device pipeline: one batched call per batch."""
+    return _drive(best_random_batched_steps(
+        ev, rng, time_budget_s=time_budget_s, max_evals=max_evals,
+        batch=batch), ev)
+
+
+def genetic_algorithm_batched_steps(ev: Evaluator,
+                                    rng: np.random.Generator, *,
+                                    population: int, elitism: int,
+                                    tournament: int,
+                                    p_mutation: float = 0.5,
+                                    time_budget_s: float | None = None,
+                                    max_generations: int | None = None):
+    """Generator form of :func:`genetic_algorithm_batched`.  Under a
+    schedule, children score with the ramped weights at their generation,
+    the retained population is re-scored under the current weights each
+    generation (the host GA re-yields its whole population per
+    generation, so elite costs never go stale against the ramp), and the
+    final population is re-ranked under the final weights."""
+    pipe = ev.pipeline()
+    res = OptResult(None, np.inf, {})
+    t0 = time.monotonic()
+    t, r, metrics, costs = yield from pipe.sample_random_steps(
+        rng, population, weights=ev.sched_weights(0.0))
+    res.n_evaluated += population
+    gen = 0
+    while True:
+        if ev.schedule is not None and gen > 0:
+            # Unify the mixed-progress costs (elites were scored under an
+            # earlier, weaker ramp stage) so selection pressure hardens
+            # for the whole population, not just the fresh children.
+            w_now = ev.sched_weights(_sched_progress(
+                gen, max_generations, t0, time_budget_s))
+            costs, metrics = yield _tag(pipe.rebuild(t, r), w_now)
+        order = np.argsort(costs)
+        if costs[order[0]] < res.best_cost:
+            i = int(order[0])
+            res.best_cost = float(costs[i])
+            res.best_sol = _sol_at(t, r, i)
+            res.best_metrics = _metrics_row(metrics, i)
+        res.history.append((time.monotonic() - t0, res.n_evaluated,
+                            res.best_cost))
+        gen += 1
+        if time_budget_s is not None and time.monotonic() - t0 > time_budget_s:
+            break
+        if max_generations is not None and gen >= max_generations:
+            break
+
+        def tournament_pick() -> int:
+            idx = rng.choice(population, size=min(tournament, population),
+                             replace=False)
+            return int(idx[np.argmin(costs[idx])])
+
+        n_child = population - elitism
+        pa = _index([tournament_pick() for _ in range(n_child)], t)
+        pb = _index([tournament_pick() for _ in range(n_child)], t)
+        w = ev.sched_weights(_sched_progress(gen, max_generations, t0,
+                                             time_budget_s))
+        ct, cr, cm, ccosts = yield from pipe.sample_children_steps(
+            rng, t[pa], r[pa], t[pb], r[pb], p_mutation, weights=w)
+        res.n_evaluated += n_child
+        elite = order[:elitism]
+        t = torch.cat([t[_index(elite, t)], ct])
+        r = torch.cat([r[_index(elite, r)], cr])
+        metrics = {k: np.concatenate([v[elite], cm[k]])
+                   for k, v in metrics.items()}
+        costs = np.concatenate([costs[elite], ccosts])
+    if ev.schedule is not None:
+        costs, metrics = yield _tag(pipe.rebuild(t, r),
+                                    ev.sched_weights(1.0))
+        i = int(np.argmin(costs))
+        res.best_cost = float(costs[i])
+        res.best_sol = _sol_at(t, r, i)
+        res.best_metrics = _metrics_row(metrics, i)
+        res.history.append((time.monotonic() - t0, res.n_evaluated,
+                            res.best_cost))
+    res.n_generated = ev.n_generated
+    res.normalizers = ev.norm
+    return res
+
+
+def genetic_algorithm_batched(ev: Evaluator, rng: np.random.Generator, *,
+                              population: int, elitism: int, tournament: int,
+                              p_mutation: float = 0.5,
+                              time_budget_s: float | None = None,
+                              max_generations: int | None = None
+                              ) -> OptResult:
+    """GA whose whole generation (merge + mutate + graph + score) is one
+    batched device request; selection stays host-side on the cost vector.
+    Individuals are scored once, at creation (the host loop re-scores the
+    full population every generation), so ``n_evaluated`` counts scored
+    placements: ``population + generations * (population - elitism)``."""
+    return _drive(genetic_algorithm_batched_steps(
+        ev, rng, population=population, elitism=elitism,
+        tournament=tournament, p_mutation=p_mutation,
+        time_budget_s=time_budget_s, max_generations=max_generations), ev)
+
+
+def simulated_annealing_batched_steps(ev: Evaluator,
+                                      rng: np.random.Generator, *,
+                                      t0_temp: float, block_len: int,
+                                      alpha: float = 1.0, beta: float = 5.0,
+                                      chains: int = 1,
+                                      time_budget_s: float | None = None,
+                                      max_iters: int | None = None):
+    """Generator form of :func:`simulated_annealing_batched`.  Under a
+    schedule, proposals (and, for exact Metropolis deltas, the re-scored
+    incumbents) use the ramped weights at the current iteration; the final
+    chain states are re-ranked under the final weights."""
+    pipe = ev.pipeline()
+    res = OptResult(None, np.inf, {})
+    tstart = time.monotonic()
+    t, r, metrics, costs = yield from pipe.sample_random_steps(
+        rng, chains, weights=ev.sched_weights(0.0))
+    res.n_evaluated += chains
+    temps = np.full(chains, float(t0_temp))
+    block_costs: list[np.ndarray] = []
+    i = int(np.argmin(costs))
+    res.best_cost = float(costs[i])
+    res.best_sol = _sol_at(t, r, i)
+    res.best_metrics = _metrics_row(metrics, i)
+    it = 0
+    while True:
+        if time_budget_s is not None and \
+                time.monotonic() - tstart > time_budget_s:
+            break
+        if max_iters is not None and it >= max_iters:
+            break
+        w = ev.sched_weights(_sched_progress(it, max_iters, tstart,
+                                             time_budget_s))
+        nt, nr, nm, ncosts = yield from pipe.sample_mutants_steps(
+            rng, t, r, weights=w)
+        if w is not None:
+            # Incumbent costs are stale under ramped weights: re-score the
+            # chain states so the Metropolis delta is exact at progress t.
+            costs, _ = yield _tag(pipe.rebuild(t, r), w)
+        res.n_evaluated += chains
+        accept = _sa_accept(rng, ncosts - costs, temps)
+        acc = torch.as_tensor(accept, device=t.device).view(
+            (-1,) + (1,) * (t.dim() - 1))
+        t = torch.where(acc, nt, t)
+        r = torch.where(acc, nr, r)
+        costs = np.where(accept, ncosts, costs)
+        block_costs.append(ncosts.copy())
+        i = int(np.argmin(ncosts))
+        if ncosts[i] < res.best_cost:
+            res.best_cost = float(ncosts[i])
+            res.best_sol = _sol_at(nt, nr, i)
+            res.best_metrics = _metrics_row(nm, i)
+        it += 1
+        if it % block_len == 0:
+            temps = _sa_cool(temps, block_costs, alpha, beta)
+            block_costs = []
+        res.history.append((time.monotonic() - tstart, res.n_evaluated,
+                            res.best_cost))
+    if ev.schedule is not None:
+        fcosts, fmetrics = yield _tag(pipe.rebuild(t, r),
+                                      ev.sched_weights(1.0))
+        i = int(np.argmin(fcosts))
+        res.best_cost = float(fcosts[i])
+        res.best_sol = _sol_at(t, r, i)
+        res.best_metrics = _metrics_row(fmetrics, i)
+        res.history.append((time.monotonic() - tstart, res.n_evaluated,
+                            res.best_cost))
+    res.n_generated = ev.n_generated
+    res.normalizers = ev.norm
+    return res
+
+
+def simulated_annealing_batched(ev: Evaluator, rng: np.random.Generator, *,
+                                t0_temp: float, block_len: int,
+                                alpha: float = 1.0, beta: float = 5.0,
+                                chains: int = 1,
+                                time_budget_s: float | None = None,
+                                max_iters: int | None = None) -> OptResult:
+    """SA whose chain-step (mutate all chains + graph + score) is one
+    batched device request; Metropolis acceptance and adaptive cooling are
+    host-side (identical to the host loop's rule on identically
+    distributed proposals)."""
+    return _drive(simulated_annealing_batched_steps(
+        ev, rng, t0_temp=t0_temp, block_len=block_len, alpha=alpha,
+        beta=beta, chains=chains, time_budget_s=time_budget_s,
+        max_iters=max_iters), ev)

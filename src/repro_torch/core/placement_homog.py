@@ -15,9 +15,10 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from .chiplets import COMPUTE, IO, MEMORY, ArchSpec
-from .proxies import Layout
+from .proxies import Layout, resolve_device
 from .topology import (DIR_DELTA as _DIR_DELTA, OPP_DIR as _OPP,
                        ROT_DIR as _ROT_DIR, PlacedPhys, ScoreGraph,
                        _UnionFind, build_score_graph)
@@ -341,10 +342,238 @@ class HomogRep:
         return build_score_graph(self.arch, geo, links, self.e_max,
                                  self.is_connected(sol))
 
+    def batch_ops(self, device=None) -> "HomogBatch":
+        """Cached batched operators for this grid on ``device`` (default:
+        the card, see ``proxies.resolve_device``)."""
+        dev = resolve_device(device)
+        cache = self.__dict__.setdefault("_batch_ops", {})
+        if str(dev) not in cache:
+            cache[str(dev)] = HomogBatch(self, dev)
+        return cache[str(dev)]
 
-    def batch_ops(self):
-        """The device-resident batched operators (``HomogBatch``) are not
-        ported yet."""
-        raise NotImplementedError(
-            "HomogBatch (batched device operators) is not ported yet: "
-            "ROADMAP queue 1 item 7")
+
+# ---------------------------------------------------------------------------
+# Device-resident batched operators.
+#
+# The host operators above generate/mutate/merge one placement at a time with
+# a ``np.random.Generator``; at HexaMesh scale the per-individual Python loop
+# (plus the retry-until-connected loop around it) dominates wall time.
+# ``HomogBatch`` mirrors the same decision points as tensor ops over stacked
+# [B, R, C] ``(types, rot)`` int8 tensors, drawing from a
+# ``torch.Generator`` on the tensors' device, so a whole GA generation / SA
+# chain-block is produced in a few batched ops (see
+# ``optimize.DevicePipeline``).  Equivalence with the host operators is
+# *distributional* — every random choice is uniform over the same candidate
+# set — not draw for draw.
+# ---------------------------------------------------------------------------
+
+_KINDS = (COMPUTE, MEMORY, IO)
+_SWAP_TRIES = 128     # host caps at 200 sequential tries; pre-drawn here
+
+
+def first_true(mask: torch.Tensor) -> torch.Tensor:
+    """[B, T] bool -> [B] index of the first True of each row (0 for a row
+    with none, as ``argmax`` gives), by an explicit min-index reduction."""
+    T = mask.shape[1]
+    idx = torch.arange(T, device=mask.device)
+    return torch.where(mask, idx, T).amin(1) % T
+
+
+def uniform_pick(gen: torch.Generator, cand: torch.Tensor) -> torch.Tensor:
+    """[..., K] bool -> [...] index drawn uniformly among the True entries
+    (the argmax of i.i.d. uniforms, as the argmax of Gumbel noise is; any
+    index for a row with none)."""
+    u = torch.rand(cand.shape, generator=gen, device=cand.device)
+    return torch.where(cand, u, -1.0).argmax(-1)
+
+
+def permute_rows(gen: torch.Generator, fill: torch.Tensor,
+                 n: int) -> torch.Tensor:
+    """[n, K] independent uniform permutations of ``fill`` [K] (each row
+    an argsort of float64 uniforms)."""
+    keys = torch.rand((n, fill.shape[0]), generator=gen, device=fill.device,
+                      dtype=torch.float64)
+    return fill[keys.argsort(1)]
+
+
+def onehot(idx: torch.Tensor, flag: torch.Tensor, width: int) -> torch.Tensor:
+    """[B] indices and flags -> [B, width] bool rows with one True at
+    ``idx`` where ``flag`` holds."""
+    cols = torch.arange(width, device=idx.device)
+    return (cols[None, :] == idx[:, None]) & flag[:, None]
+
+
+class HomogBatch:
+    """Vectorized ``random/mutate/merge`` over stacked homogeneous grids."""
+
+    def __init__(self, rep: HomogRep, device):
+        self.rep = rep
+        self.device = dev = torch.device(device)
+        self.R, self.C = rep.R, rep.C
+        self.cells = rep.R * rep.C
+        allowed = (np.ones((self.R, self.C), bool) if rep.allowed is None
+                   else rep.allowed)
+        self._masked = rep.allowed is not None
+        self._allowed_flat = torch.as_tensor(allowed.reshape(-1), device=dev)
+        self._allowed_idx = torch.as_tensor(
+            np.flatnonzero(allowed.reshape(-1)), device=dev)
+        n_allowed = int(allowed.sum())
+        fill = [k for k, ids in rep._kind_instances.items() for _ in ids]
+        fill += [-1] * (n_allowed - len(fill))
+        self._kinds_fill = torch.as_tensor(np.array(fill, dtype=np.int8),
+                                           device=dev)
+        self._counts = [len(rep._kind_instances.get(k, ())) for k in _KINDS]
+        rotatable = np.array([bool(rep._rotatable.get(k, False))
+                              for k in _KINDS])
+        self._rotatable_kind = torch.as_tensor(rotatable, device=dev)
+        self._any_rotatable = bool(rotatable.any())
+        inside = np.zeros((self.R, self.C, 4), bool)
+        for rot_i, d in enumerate(_ROT_DIR):
+            dr, dc = _DIR_DELTA[d]
+            for r in range(self.R):
+                for c in range(self.C):
+                    rr, cc = r + dr, c + dc
+                    inside[r, c, rot_i] = (0 <= rr < self.R
+                                           and 0 <= cc < self.C
+                                           and allowed[rr, cc])
+        self._inside = torch.as_tensor(inside, device=dev)
+        self._dr = torch.tensor([_DIR_DELTA[d][0] for d in _ROT_DIR],
+                                device=dev)
+        self._dc = torch.tensor([_DIR_DELTA[d][1] for d in _ROT_DIR],
+                                device=dev)
+
+    # -- rotation re-roll (vectorized ``_fix_rotations``) -------------------
+    def _neighbor_occ(self, occ: torch.Tensor) -> torch.Tensor:
+        """[B, R, C] occupancy -> [B, R, C, 4] per-rotation neighbor
+        occupancy in ``_ROT_DIR`` order (out-of-grid counts unoccupied)."""
+        R, C = self.R, self.C
+        po = torch.zeros(occ.shape[:-2] + (R + 2, C + 2), dtype=torch.bool,
+                         device=occ.device)
+        po[..., 1:-1, 1:-1] = occ
+        return torch.stack(
+            [po[..., 1 + dr:1 + dr + R, 1 + dc:1 + dc + C]
+             for dr, dc in (_DIR_DELTA[d] for d in _ROT_DIR)], dim=-1)
+
+    def _rotatable_cells(self, types: torch.Tensor) -> torch.Tensor:
+        kind = types.clamp(0, 2).long()
+        return (types >= 0) & self._rotatable_kind[kind]
+
+    def _roll_rot_batch(self, gen, types, rot, update) -> torch.Tensor:
+        """Re-roll rotations under ``update``: rotatable cells get a uniform
+        pick from occupied-facing (else in-grid, else all) directions, all
+        other updated cells get 0; cells outside ``update`` keep ``rot``."""
+        nb = self._neighbor_occ(types >= 0)
+        inside = self._inside.expand_as(nb)
+        cand = torch.where(nb.any(-1, keepdim=True), nb,
+                           torch.where(inside.any(-1, keepdim=True), inside,
+                                       True))
+        new = uniform_pick(gen, cand).to(torch.int8)
+        rotatable = self._rotatable_cells(types)
+        return torch.where(update & rotatable, new,
+                           torch.where(update, 0, rot).to(torch.int8))
+
+    # -- the four representation functions, batched -------------------------
+    def random_batch(self, gen: torch.Generator, n: int
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+        """n independent uniform placements: a random permutation of the
+        chiplet-kind multiset over the allowed cells, rotations re-rolled."""
+        perm = permute_rows(gen, self._kinds_fill, n)
+        if self._masked:
+            flat = torch.full((n, self.cells), -1, dtype=torch.int8,
+                              device=self.device)
+            flat[:, self._allowed_idx] = perm
+        else:
+            flat = perm
+        types = flat.reshape(n, self.R, self.C)
+        rot = self._roll_rot_batch(gen, types, torch.zeros_like(types),
+                                   torch.ones(types.shape, dtype=torch.bool,
+                                              device=self.device))
+        return types, rot
+
+    def mutate_batch(self, gen: torch.Generator, types, rot
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Batched ``mutate``: per placement either a (neighbor-)swap of two
+        differing cells or a re-roll of one rotatable chiplet (or both,
+        per ``mutation_mode``), with the host's first-valid-try semantics."""
+        B, dev = types.shape[0], self.device
+        neighbor = self.rep.mutation_mode.startswith("neighbor")
+        both = self.rep.mutation_mode.endswith("both")
+        if both or not self._any_rotatable:
+            do_swap = torch.ones(B, dtype=torch.bool, device=dev)
+        else:
+            do_swap = torch.rand(B, generator=gen, device=dev) < 0.5
+        if not self._any_rotatable:
+            do_rot = torch.zeros(B, dtype=torch.bool, device=dev)
+        elif both:
+            do_rot = torch.ones(B, dtype=torch.bool, device=dev)
+        else:
+            do_rot = ~do_swap
+        # Pre-drawn swap tries; the first valid one is the host's accepted
+        # draw (identical first-success distribution).
+        shape = (B, _SWAP_TRIES)
+        r1 = torch.randint(0, self.R, shape, generator=gen, device=dev)
+        c1 = torch.randint(0, self.C, shape, generator=gen, device=dev)
+        if neighbor:
+            d = torch.randint(0, 4, shape, generator=gen, device=dev)
+            r2 = r1 + self._dr[d]
+            c2 = c1 + self._dc[d]
+        else:
+            r2 = torch.randint(0, self.R, shape, generator=gen, device=dev)
+            c2 = torch.randint(0, self.C, shape, generator=gen, device=dev)
+        inb = (r2 >= 0) & (r2 < self.R) & (c2 >= 0) & (c2 < self.C)
+        i1 = r1 * self.C + c1
+        i2 = r2.clamp(0, self.R - 1) * self.C + c2.clamp(0, self.C - 1)
+        tflat = types.reshape(B, self.cells).clone()
+        rflat = rot.reshape(B, self.cells).clone()
+        t1 = tflat.gather(1, i1)
+        t2 = tflat.gather(1, i2)
+        valid = inb & (t1 != t2) & ~((t1 < 0) & (t2 < 0))
+        if self._masked:
+            valid &= self._allowed_flat[i1] & self._allowed_flat[i2]
+        first = first_true(valid)[:, None]
+        do_it = do_swap & valid.any(1)
+        s1 = torch.where(do_it, i1.gather(1, first)[:, 0], 0)
+        s2 = torch.where(do_it, i2.gather(1, first)[:, 0], 0)  # no-op swap
+        b = torch.arange(B, device=dev)
+        for flat in (tflat, rflat):
+            v1, v2 = flat[b, s1], flat[b, s2]
+            flat[b, s1] = v2
+            flat[b, s2] = v1
+        update = (onehot(s1, do_it, self.cells)
+                  | onehot(s2, do_it, self.cells))
+        if self._any_rotatable:
+            rc = self._rotatable_cells(tflat)
+            pick = uniform_pick(gen, rc)
+            update |= onehot(pick, do_rot & rc.any(1), self.cells)
+        types2 = tflat.reshape(B, self.R, self.C)
+        rot2 = self._roll_rot_batch(gen, types2,
+                                    rflat.reshape(B, self.R, self.C),
+                                    update.reshape(B, self.R, self.C))
+        return types2, rot2
+
+    def merge_batch(self, gen: torch.Generator, ta, ra, tb, rb
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Batched §V-A merge: keep agreeing cells, distribute the leftover
+        chiplets uniformly over the disagreeing cells (random-rank fill ==
+        host's shuffled fill), carry rotations only where both agree."""
+        B = ta.shape[0]
+        match = ta == tb
+        taf = ta.reshape(B, self.cells)
+        mf = match.reshape(B, self.cells)
+        carried = torch.where(mf, taf, -2)
+        rem = [self._counts[k] - (carried == k).sum(1) for k in range(3)]
+        prio = torch.rand((B, self.cells), generator=gen, device=self.device)
+        prio = torch.where(carried == -2, prio, 2.0)  # resolved cells: last
+        rank = prio.argsort(dim=1, stable=True).argsort(1)
+        c0 = rem[0][:, None]
+        c1 = c0 + rem[1][:, None]
+        c2 = c1 + rem[2][:, None]
+        fill = torch.where(rank < c0, COMPUTE,
+                           torch.where(rank < c1, MEMORY,
+                                       torch.where(rank < c2, IO, -1)))
+        types = torch.where(mf, taf, fill.to(ta.dtype))
+        types = types.reshape(B, self.R, self.C)
+        rot_match = match & (ra == rb)
+        rot0 = torch.where(rot_match, ra, 0).to(ra.dtype)
+        update = ~(rot_match & self._rotatable_cells(types))
+        return types, self._roll_rot_batch(gen, types, rot0, update)

@@ -209,7 +209,8 @@ def make_scorer(layout: Layout, *, fw_impl=fw_impl_tiled, chunk: int = 16,
     ``edge_len``), moves them to the scorer's device, scores them in chunks
     of ``chunk`` placements and returns float32 numpy arrays (``connected``
     as bool), like the reference's jitted scorer.  ``score.tensors(...)``
-    returns the same dict as tensors on the device.
+    returns the same dict as tensors on the device; ``score.device`` is
+    that device.
 
     With an ``objective`` the output gains a per-placement ``cost``; the
     normalizers (``[NORM_DIM]`` or per-row ``[P, NORM_DIM]``) and weights
@@ -259,6 +260,7 @@ def make_scorer(layout: Layout, *, fw_impl=fw_impl_tiled, chunk: int = 16,
         return {k: v.cpu().numpy() for k, v in out.items()}
 
     score.tensors = score_tensors
+    score.device = dev
     return score
 
 

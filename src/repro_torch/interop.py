@@ -3,7 +3,7 @@
 PlaceIT itself has no learned weights; its state is the experiment
 configuration and objective (JSON), the normalizer vector ``[NORM_DIM]``
 and weight vector ``[W_FIXED + n_terms]``, placements (``Sol`` = ``(types,
-rot)`` int arrays) and stacked ``ScoreGraph`` arrays (``W``, ``edges``,
+rot)`` or ``(order, rots)`` int8 arrays) and stacked ``ScoreGraph`` arrays (``W``, ``edges``,
 ``edge_mask``, ``area``, ``edge_len``). The functions here take that state
 as plain numpy arrays, dicts or JSON — the form ``repro`` writes it in —
 and return the port's objects and tensors on a given device. The LM
@@ -73,12 +73,14 @@ def weights_tensor(vec, objective: Objective, device="cpu") -> torch.Tensor:
     return torch.as_tensor(v, device=device)
 
 
-def sol_from_arrays(types, rot) -> tuple[np.ndarray, np.ndarray]:
-    """A homogeneous placement ``(types, rot)`` as the port's int8 Sol."""
-    t = np.array(types, dtype=np.int8)
-    r = np.array(rot, dtype=np.int8)
-    if t.shape != r.shape or t.ndim != 2:
-        raise ValueError(f"Sol needs two equal [R, C] arrays, got "
+def sol_from_arrays(a, b) -> tuple[np.ndarray, np.ndarray]:
+    """A placement as the port's int8 Sol, as the reference's reps write
+    it: homogeneous ``(types, rot)`` [R, C] or heterogeneous ``(order,
+    rots)`` [N]."""
+    t = np.array(a, dtype=np.int8)
+    r = np.array(b, dtype=np.int8)
+    if t.shape != r.shape or t.ndim not in (1, 2):
+        raise ValueError(f"Sol needs two equal [R, C] or [N] arrays, got "
                          f"{t.shape} and {r.shape}")
     return t, r
 

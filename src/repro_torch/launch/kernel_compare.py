@@ -26,9 +26,10 @@ enqueue is not timed), every output held bit for bit (FW, min-plus) or to
   a kernel that takes its mins with ``fminf`` drops NaN);
 * ``selective_scan`` and ``rglru_scan`` at the serve runs' prefill shapes
   (B = 1, S = 2048 and 512);
-* with ``--walls``: the wall seconds of ``run_experiment`` for homog64
-  placeit and homog256 placeit (``kernel_timing.RUNS``, as
-  ``chip_smoke.py`` runs them), after a quickstart run that warms up;
+* with ``--walls``: the wall seconds of ``run_experiment`` for every run
+  of ``kernel_timing.RUNS`` (as ``chip_smoke.py`` runs them; the first,
+  the quickstart, also warms up); a tree that cannot run one (an arch or
+  algorithm it lacks) records why;
 * with ``--clusters``: kernel 1 at every cluster size it takes and the
   blocked kernel at V = 32 .. 512 (B = 16; trees with
   ``fw_counts.launch_at_cluster``), and the blocked kernel at B = 1 from
@@ -364,13 +365,18 @@ def run_one(tree: Path, walls: bool, sass: bool, clusters: bool,
 
     if walls:
         res["walls"] = {}
-        for name in ("quickstart", "homog64 placeit", "homog256 placeit"):
-            cfg = kt.experiment_config(api, name)
-            t1 = time.monotonic()
-            rec = api.run_experiment(cfg, device=dev)[0]
+        for name in kt.RUNS:
+            try:
+                cfg = kt.experiment_config(api, name)
+                t1 = time.monotonic()
+                rec = api.run_experiment(cfg, device=dev)[0]
+            except (KeyError, NotImplementedError) as e:
+                res["walls"][name] = {"skipped": str(e)}
+                continue
             torch.cuda.synchronize()
             res["walls"][name] = {"s": time.monotonic() - t1,
                                   "backend": cfg.backend,
+                                  "n_evaluated": rec.result.n_evaluated,
                                   "best_cost": float(rec.result.best_cost)}
     if prefill:
         res["prefill"] = _prefill(dev)
@@ -439,7 +445,8 @@ def main() -> None:
     if "walls" in results[0]:
         for k in results[0]["walls"]:
             print(f"{'wall s ' + k:44s} " + " ".join(
-                f"{r['walls'][k]['s']:14.3f}" for r in results))
+                f"{r['walls'][k].get('s', float('nan')):14.3f}"
+                for r in results))
     if "prefill" in results[0]:
         for k in results[0]["prefill"]:
             for col, fmt in (("tokens_per_s", "14.1f"),

@@ -302,29 +302,51 @@ def find_function(funcs: dict, *parts: str) -> str:
 
 # -- the timed runs of run_experiment ---------------------------------------
 
-# name -> (arch, config, evaluations, norm samples, GA population /
-# elitism / tournament, backend or None for the tree's default).  The
+# name -> (arch, config, algorithm, evaluations, norm samples, the
+# algorithm's parameters, backend or None for the tree's default).  The
 # quickstart is examples/quickstart.py's; homog64 placeit the paper's GA on
-# its largest arch; the large families on backend "fw-tiled" (named, so
-# that a tree whose default is another backend times the same kernels).
+# its largest homogeneous arch; the large families on backend "fw-tiled"
+# (named, so that a tree whose default is another backend times the same
+# kernels).  Then the heterogeneous archs: hetero32 through the host GA at
+# the paper's 30 / 6 / 6, hetero64 through ga-batched at its 20 / 5 / 5;
+# homog256 through ga-batched at LARGE_DEFAULTS, two generations as the
+# host GA run above has (92 placements scored against its 100); and one
+# short br-batched and sa-batched run.  hetero64's norm samples stay few:
+# each is a host corner placement and MST, one placement at a time, the
+# slowest host step of any arch.
 RUNS = {
-    "quickstart": ("homog32", "baseline", 240, 32, (24, 5, 5), None),
-    "homog64 placeit": ("homog64", "placeit", 300, 100, (50, 8, 8), None),
-    "homog256 placeit": ("homog256", "placeit", 100, 20, (50, 8, 8),
+    "quickstart": ("homog32", "baseline", "ga", 240, 32,
+                   dict(population=24, elitism=5, tournament=5), None),
+    "homog64 placeit": ("homog64", "placeit", "ga", 300, 100,
+                        dict(population=50, elitism=8, tournament=8), None),
+    "homog256 placeit": ("homog256", "placeit", "ga", 100, 20,
+                         dict(population=50, elitism=8, tournament=8),
                          "fw-tiled"),
-    "hex127 baseline": ("hex127", "baseline", 100, 20, (50, 8, 8),
+    "hex127 baseline": ("hex127", "baseline", "ga", 100, 20,
+                        dict(population=50, elitism=8, tournament=8),
                         "fw-tiled"),
+    "hetero32 placeit": ("hetero32", "placeit", "ga", 90, 30,
+                         dict(population=30, elitism=6, tournament=6), None),
+    "hetero64 placeit ga-batched": (
+        "hetero64", "placeit", "ga-batched", 80, 10,
+        dict(population=20, elitism=5, tournament=5), None),
+    "homog256 placeit ga-batched": (
+        "homog256", "placeit", "ga-batched", 134, 20,
+        dict(population=50, elitism=8, tournament=8), "fw-tiled"),
+    "hetero32 placeit br-batched": ("hetero32", "placeit", "br-batched", 64,
+                                    30, dict(batch=32), None),
+    "homog64 placeit sa-batched": ("homog64", "placeit", "sa-batched", 40,
+                                   20, dict(chains=8), None),
 }
 
 
 def experiment_config(api, name: str, **overrides):
     """``RUNS[name]`` as an ``ExperimentConfig`` of ``api`` (a tree's
     ``repro_torch.core.api``)."""
-    arch, config, evals, norm, (pop, elit, tour), backend = RUNS[name]
-    kw = dict(arch=arch, config=config, algorithms=("ga",),
+    arch, config, algo, evals, norm, params, backend = RUNS[name]
+    kw = dict(arch=arch, config=config, algorithms=(algo,),
               budget=api.Budget(evals=evals), norm_samples=norm,
-              params={"ga": api.GAParams(population=pop, elitism=elit,
-                                         tournament=tour)})
+              params={algo: dict(params)})
     if backend is not None:
         kw["backend"] = backend
     kw.update(overrides)

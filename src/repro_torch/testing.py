@@ -95,6 +95,107 @@ def score_graphs(arch_name: str, config: str, n: int,
     return np.stack([rep.score_graph(rep.random(rng)).W for _ in range(n)])
 
 
+GRAPH_KEYS = ("W", "edges", "edge_mask", "edge_len", "area")
+# The archs whose batched score-graph builds ``chip_smoke.py`` holds against
+# the host build on the card: the grid families (a hexagonal mask among
+# them) through ``HomogGraphBatch``, the corner-placement families through
+# ``HeteroBatch.geometry_batch`` and ``HeteroGraphBatch``.
+PIPELINE_ARCHS = (("homog64", "placeit"), ("homog256", "placeit"),
+                  ("hex127", "baseline"), ("hetero32", "placeit"),
+                  ("hetero64", "placeit"))
+
+
+def _edge_sets(edges: np.ndarray, mask: np.ndarray) -> list:
+    return [{(int(u), int(v)) for (u, v), m in zip(e, k) if m}
+            for e, k in zip(edges, mask)]
+
+
+def batched_build_parity(arch_name: str, config: str, n: int, *,
+                         seed: int = 0, device="cpu", score: bool = True,
+                         chunk: int = 16) -> dict:
+    """Hold the batched score-graph build of ``n`` random placements (numpy
+    seed ``seed``) on ``device`` against the host ``score_graph`` of each.
+
+    Raises ``AssertionError`` unless every stacked array (W, edges,
+    edge_mask, edge_len, area) is equal bit for bit, slot for slot, the
+    directed edge sets are equal, and ``connected`` is equal (the hetero
+    build's Borůvka flag, else the scorer's); the hetero build must flag
+    no overflow.  With ``score`` the scorer's metrics and cost (on
+    ``device``, its default FW) from the two builds must be bit-equal.
+    Returns counts, the batched build's wall seconds (``build_s``, device
+    synchronised) and for the hetero archs the host corner placement's
+    before it (``geometry_s``)."""
+    import time
+
+    import torch
+
+    from .core.api import make_rep
+    from .core.chiplets import resolve_arch
+    from .core.objective import Objective
+    from .core.placement_hetero import HeteroRep
+    from .core.proxies import make_scorer
+    from .core.topology import (HeteroGraphBatch, HomogGraphBatch,
+                                stack_graphs)
+    dev = torch.device(device)
+    arch = resolve_arch(arch_name, config)
+    rep = make_rep(arch, arch_name)
+    rng = np.random.default_rng(seed)
+    sols = [rep.random(rng) for _ in range(n)]
+    graphs = [rep.score_graph(s) for s in sols]
+    host = stack_graphs(graphs)
+    host_conn = np.array([g.connected for g in graphs])
+    a = np.stack([s[0] for s in sols])
+    b = np.stack([s[1] for s in sols])
+    hetero = isinstance(rep, HeteroRep)
+    if hetero:
+        ops, gb = rep.batch_ops(dev), HeteroGraphBatch(arch, dev)
+    else:
+        gb = HomogGraphBatch(arch, rep.R, rep.C, area=rep.area, device=dev)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    times = {}
+    if hetero:
+        t0 = time.perf_counter()
+        ppos, area = ops.geometry_batch(a, b)
+        times["geometry_s"] = time.perf_counter() - t0
+        args = (torch.from_numpy(ppos).to(dev), torch.from_numpy(area).to(dev))
+    else:
+        args = (torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev))
+    sync()
+    t0 = time.perf_counter()
+    batch = gb.build(*args)
+    sync()
+    times["build_s"] = time.perf_counter() - t0
+    got = {k: v.cpu().numpy() for k, v in batch.items()}
+    where = f"{arch_name} {config}"
+    if hetero:
+        assert not got.pop("overflow").any(), f"{where}: overflow"
+        conn = got.pop("connected")
+        assert np.array_equal(conn, host_conn), f"{where}: connected"
+    for k in GRAPH_KEYS:
+        assert got[k].dtype == host[k].dtype, f"{where}: {k} dtype"
+        assert np.array_equal(got[k], host[k]), f"{where}: {k} differs"
+    assert _edge_sets(got["edges"], got["edge_mask"]) == _edge_sets(
+        host["edges"], host["edge_mask"]), f"{where}: edge sets"
+    out = {"n": n, "connected": int(host_conn.sum()),
+           "links": float(host["edge_mask"].sum()) / 2 / n, **times}
+    if score:
+        scorer = make_scorer(rep.layout, chunk=chunk,
+                             objective=Objective.from_arch(arch), device=dev)
+        mine = {k: v for k, v in batch.items()
+                if k not in ("connected", "overflow")}
+        m_dev, m_host = scorer(mine), scorer(host)
+        for k, v in m_host.items():
+            assert np.array_equal(m_dev[k], v), f"{where}: metric {k}"
+        if not hetero:
+            assert np.array_equal(m_dev["connected"], host_conn), \
+                f"{where}: scorer connected"
+    return out
+
+
 def kernel_cases() -> dict:
     """Named builders of [B, V, V] inputs (called on demand, so listing the
     cases costs nothing): random graphs for V in {5, 8, 13, 40, 130, 216,

@@ -25,6 +25,7 @@ from repro_torch.core import cost as tcost
 from repro_torch.core import objective as tobjective
 from repro_torch.core import proxies as tproxies
 from repro_torch.core import topology as ttopology
+from repro_torch.core.optimize import DevicePipeline
 from _torch_threads import one_torch_thread  # noqa: F401
 
 PAPER = [(a, c) for a in ("homog32", "homog64", "hetero32", "hetero64")
@@ -213,14 +214,11 @@ def test_interop_normalizers_roundtrip():
 
 
 def test_unported_parts_refuse_by_name():
-    arch = tchiplets.paper_arch("hetero32")
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        tapi.make_rep(arch, "hetero32")
     with pytest.raises(NotImplementedError, match="queue 1 item 12"):
         tapi.make_rep(tchiplets.resolve_arch("stack3d32"), "stack3d32")
+    with pytest.raises(TypeError, match="queue 1 item 12"):
+        DevicePipeline._stages(object(), "cpu")
     rep = tapi.make_rep(tchiplets.paper_arch("homog32"), "homog32")
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        rep.batch_ops()
     with pytest.raises(NotImplementedError, match="queue 1 item 11"):
         tobjective.compile_objective(tobjective.Objective(
             terms=("lat", "trace-lat")))

@@ -87,12 +87,12 @@ def test_find_function_wants_exactly_one_match():
 
 @pytest.mark.parametrize("name", list(kt.RUNS))
 def test_experiment_config_builds_each_timed_run(name):
-    arch, config, evals, norm, ga, backend = kt.RUNS[name]
+    arch, config, algo, evals, norm, params, backend = kt.RUNS[name]
     cfg = kt.experiment_config(api, name)
-    assert (cfg.arch, cfg.config, cfg.budget.evals, cfg.norm_samples) == (
-        arch, config, evals, norm)
-    p = cfg.params["ga"]
-    assert (p.population, p.elitism, p.tournament) == ga
+    assert (cfg.arch, cfg.config, cfg.algorithms, cfg.budget.evals,
+            cfg.norm_samples) == (arch, config, (algo,), evals, norm)
+    p = cfg.params[algo]
+    assert {k: getattr(p, k) for k in params} == params
     assert cfg.backend == (backend or api.ExperimentConfig(
         arch=arch, config=config).backend)
     assert api.ExperimentConfig.from_dict(cfg.to_dict()) == cfg
