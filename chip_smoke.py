@@ -112,6 +112,28 @@ Phases (any failure exits non-zero; nothing is caught):
    - ``ops.apsp`` on the homog256 winner's score graph (min-plus kernel);
    the homog32, homog256 and homog256 ga-batched winners are re-scored
    with the plain FW, and the APSP distances must equal the plain FW's;
+   - slice 10, the multi-run paths (default backend, the blocked FW
+     kernel): ``run_sweep`` over homog64 placeit (seeds 0 and 1 x br, ga
+     at the paper's 50 / 8 / 8, plus a ga-batched and an sa-batched config
+     on the same scorer, so host graph lists and device batches stack in
+     one group), stacked and then unstacked: the records must be equal
+     field for field (``best_sol``, the bits of ``best_cost``,
+     ``n_evaluated``, ``n_generated``, the history's (n, cost) pairs),
+     one stacked group, fewer scorer calls stacked; each mode prints its
+     wall, evaluations/s, scorer calls and blocked-FW launches.  The
+     Pareto sweep of ``examples/pareto_sweep.py`` (hetero32 placeit
+     ga-batched, a 3 x 2 grid of lat / inv-thr weights): one scorer, one
+     group, one evaluator, 6 candidates; the card's dominance mask must
+     equal the host's and its float32 hypervolume the host float64
+     recursion's within rel 1e-6; one grid point's solo
+     ``run_experiment`` must equal its stacked record.  The trace run of
+     ``examples/trace_optimize.py`` (homog32 placeit host GA, a proxy-only
+     and a trace-lat config over one 5000-packet trace region in one
+     ``run_sweep``): prints the host-simulated average packet latency of
+     the 2D mesh and of both winners, and the trace winner's ``trace_*``
+     metrics scored on the card must agree with the same placement scored
+     on the CPU with the plain FW (rtol 1e-5, 1e-4 for ``trace_thr_*``,
+     ``tests/test_torch_netsim.py``'s);
    - slices 3 and 4, the LM serving paths, each model at full width
      (bfloat16, weights from a ``torch.Generator`` seeded 0 on the card)
      through ``ServeEngine`` (8 slots, cache 4096, no EOS; 16 requests of
@@ -161,10 +183,15 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch import testing  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import api  # noqa: E402
+from repro_torch.core import pareto  # noqa: E402
 from repro_torch.core.api import (ExperimentConfig,  # noqa: E402
-                                  baseline_cost, make_rep, run_experiment)
+                                  baseline_cost, make_rep, run_experiment,
+                                  run_sweep)
+from repro_torch.core.baseline import MeshBaseline  # noqa: E402
 from repro_torch.core.chiplets import resolve_arch  # noqa: E402
-from repro_torch.core.objective import norms_vec  # noqa: E402
+from repro_torch.core.objective import (Objective, TermSpec,  # noqa: E402
+                                        norms_vec)
+from repro_torch.core.traces import TraceRegion, generate_trace  # noqa: E402
 from repro_torch.core.proxies import (make_scorer,  # noqa: E402
                                       max_pair_elems, scorer_chunk)
 from repro_torch.core.topology import stack_graphs  # noqa: E402
@@ -183,6 +210,7 @@ from repro_torch.models.model import LM  # noqa: E402
 from repro_torch.models.rglru import RGLRU  # noqa: E402
 from repro_torch.models.transformer import leaf_kinds  # noqa: E402
 from repro_torch.models.tree import tree_map  # noqa: E402
+from repro_torch.netsim import ChipletNet, NetSim, Workload  # noqa: E402
 from repro_torch.serve.engine import (EngineConfig, Request,  # noqa: E402
                                       ServeEngine)
 
@@ -229,6 +257,32 @@ SA_BATCHED = kt.experiment_config(api, "homog64 placeit sa-batched")
 # Random placements of each arch of ``testing.PIPELINE_ARCHS`` whose
 # batched build the parity phase holds against the host build.
 PIPELINE_N = 64
+# Slice 10: the multi-run paths.  The sweep (``kernel_timing.SWEEP_RUNS``,
+# which ``launch/sweep_walls.py`` times in turns): homog64 placeit, the
+# paper's GA 50 / 8 / 8, br and ga at seeds 0 and 1 plus a ga-batched and
+# an sa-batched config on the same scorer.
+SWEEP = kt.sweep_configs(api)
+# The Pareto sweep of examples/pareto_sweep.py: hetero32 placeit
+# ga-batched, 6 scalarizations.
+PARETO_BASE = ExperimentConfig(
+    arch="hetero32", config="placeit", algorithms=("ga-batched",),
+    budget=api.Budget(evals=60), norm_samples=16, chunk=8, seed=0,
+    params={"ga-batched": dict(population=10, elitism=2, tournament=3)})
+PARETO_GRID = pareto.ParetoGridSpec(term_weights={"lat": (0.5, 1.0, 2.0),
+                                                  "inv-thr": (0.5, 2.0)})
+# Relative tolerance of the card's float32 hypervolume against the host
+# float64 recursion (tests/test_torch_pareto.py's).
+HV_RTOL = 1e-6
+# examples/trace_optimize.py: homog32 placeit, GA 400 evals, a proxy-only
+# and a trace-lat config over one 5000-packet trace region.
+TRACE_REGIONS = (TraceRegion(5000, 20000),)
+_TRACE_BASE = dict(arch="homog32", config="placeit", algorithms=("ga",),
+                   budget=api.Budget(evals=400), norm_samples=32, chunk=16,
+                   seed=0)
+# The trace metrics' tolerance on the card against the CPU
+# (tests/test_torch_netsim.py's); trace_thr_* divides a difference of two
+# float32 sums and takes THR_RTOL.
+TRACE_RTOL, THR_RTOL = 1e-5, 1e-4
 
 
 def phase(name: str) -> None:
@@ -1387,6 +1441,204 @@ def main_path_phase(dev) -> dict:
     return total
 
 
+def _records_equal(a, b, generated: bool = True) -> bool:
+    """Two sweep records equal field for field: the placement, the bits of
+    the cost, the counts and the history's (n, cost) pairs.  A
+    run_experiment record's ``n_generated`` also counts its Evaluator's
+    norm samples (a sweep record's counts its own run alone), so
+    ``generated=False`` leaves it out."""
+    ra, rb = a.result, b.result
+    return ((a.algorithm, a.repetition) == (b.algorithm, b.repetition)
+            and all(np.array_equal(x, y)
+                    for x, y in zip(ra.best_sol, rb.best_sol))
+            and np.float32(ra.best_cost).tobytes()
+            == np.float32(rb.best_cost).tobytes()
+            and ra.n_evaluated == rb.n_evaluated
+            and (not generated or ra.n_generated == rb.n_generated)
+            and [(n, c) for _, n, c in ra.history]
+            == [(n, c) for _, n, c in rb.history])
+
+
+def _sweep(configs, dev, **kw) -> tuple:
+    """One run_sweep with the counts reset before and read after; no
+    plain version may run.  Returns the result, the launches and the
+    wall."""
+    reset_counts()
+    t0 = time.monotonic()
+    res = run_sweep(configs, device=dev, **kw)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches, plain_calls = read_counts()
+    if plain_calls != 0:
+        raise SystemExit("a sweep called a plain version")
+    return res, launches, wall
+
+
+def sweep_phase(dev) -> dict:
+    """Slice 10: run_sweep stacked and unstacked on homog64 placeit; the
+    records must be equal field for field."""
+    runs = ", ".join(f"{'+'.join(c.algorithms)} seed {c.seed}"
+                     for c in SWEEP)
+    phase(f"main path, slice 10: run_sweep on {SWEEP[0].arch} "
+          f"{SWEEP[0].config}, {len(SWEEP)} configs ({runs}), stacked, then "
+          f"unstacked")
+    total = dict.fromkeys(KERNELS, 0)
+    out = {}
+    for mode, kw in (("stacked", {}), ("unstacked",
+                                       {"stack_scoring": False})):
+        res, launches, wall = _sweep(SWEEP, dev, **kw)
+        for k, n in launches.items():
+            total[k] += n
+        st = res.stats
+        n = st.n_evaluated
+        print(f"  {mode:9s} wall {wall:7.3f} s, {n} placements scored by "
+              f"the searches, {n / wall:7.1f} evaluations/s, score_calls "
+              f"{st.score_calls}, stacked groups {st.stacked_groups}, "
+              f"fw_counts_tiled launches {launches['fw_counts_tiled']}")
+        if launches["fw_counts_tiled"] <= 0:
+            raise SystemExit(f"the {mode} sweep did not launch the blocked "
+                             f"FW kernel")
+        out[mode] = res
+    s, u = out["stacked"], out["unstacked"]
+    if s.stats.stacked_groups != 1 or u.stats.stacked_groups != 0:
+        raise SystemExit(f"stacked groups {s.stats.stacked_groups} / "
+                         f"{u.stats.stacked_groups}, not 1 / 0")
+    if s.stats.score_calls >= u.stats.score_calls:
+        raise SystemExit("stacking did not cut the scorer calls")
+    if len(s.records) != len(u.records) or not all(
+            _records_equal(a, b) for a, b in zip(s.records, u.records)):
+        raise SystemExit("stacked sweep records differ from unstacked")
+    for r in s.records:
+        if not (np.isfinite(r.result.best_cost)
+                and r.result.best_metrics["connected"]):
+            raise SystemExit(f"sweep {r.algorithm}: bad winner")
+    print(f"  {len(s.records)} records equal field for field (best_sol, "
+          f"best_cost bits, n_evaluated, n_generated, history)")
+    return total
+
+
+def pareto_phase(dev) -> dict:
+    """Slice 10: examples/pareto_sweep.py's sweep on the card."""
+    phase(f"main path, slice 10: run_pareto_sweep, {PARETO_BASE.arch} "
+          f"{PARETO_BASE.config} {PARETO_BASE.algorithms[0]}, "
+          f"{PARETO_GRID.n_points} scalarizations")
+    api.clear_scorer_cache()
+    reset_counts()
+    t0 = time.monotonic()
+    res = pareto.run_pareto_sweep(PARETO_BASE, PARETO_GRID, device=dev)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches, plain_calls = read_counts()
+    (front,) = res.fronts
+    st = res.stats
+    print(f"  wall {wall:.3f} s; scorers built {st.scorers_built}, stacked "
+          f"groups {st.stacked_groups}, evaluators {st.evaluators_built}, "
+          f"score_calls {st.score_calls}; front {len(front.points)} of "
+          f"{front.n_candidates} candidates, hypervolume "
+          f"{front.hypervolume!r}; kernel launches {launches}, plain calls "
+          f"{plain_calls}")
+    if plain_calls != 0 or launches["fw_counts_tiled"] <= 0:
+        raise SystemExit("the Pareto sweep did not go through the blocked "
+                         "FW kernel alone")
+    if (st.scorers_built, st.stacked_groups, st.evaluators_built,
+            front.n_candidates) != (1, 1, 1, PARETO_GRID.n_points):
+        raise SystemExit("the Pareto sweep did not share one scorer, one "
+                         "group and one evaluator over every grid point")
+    Y = np.asarray(front.matrix, np.float32)
+    mask = pareto.nondominated_mask(Y, device=dev)
+    if not np.array_equal(mask, pareto.nondominated_mask_host(Y)):
+        raise SystemExit("the card's dominance mask differs from the host's")
+    ref = np.asarray(front.ref_point)
+    hv_host = pareto._hv_rec(np.minimum(Y[mask].astype(np.float64), ref),
+                             ref)
+    if not math.isclose(front.hypervolume, hv_host, rel_tol=HV_RTOL):
+        raise SystemExit(f"hypervolume {front.hypervolume!r} on the card, "
+                         f"{hv_host!r} on the host")
+    print(f"  dominance mask equals the host's; hypervolume within rel "
+          f"{HV_RTOL:g} of the host float64 recursion ({float(hv_host)!r})")
+    for p in front.points:
+        print(f"    {p.label:24s} terms {np.round(p.terms, 4)} cost(own) "
+              f"{p.cost:.4f}")
+    run = res.runs[2]
+    solo = run_experiment(run.config, device=dev)
+    if not all(_records_equal(a, b, generated=False)
+               for a, b in zip(run.records, solo)):
+        raise SystemExit("a grid point's solo run differs from its stacked "
+                         "record")
+    w = {t.name: t.weight for t in run.config.objective.terms}
+    print(f"  grid point lat={w['lat']:g}|inv-thr={w['inv-thr']:g}: solo "
+          f"run_experiment equals its stacked record bit for bit")
+    return launches
+
+
+def _host_latency(arch, rep, sol, trace) -> float:
+    """The host event-driven oracle's average packet latency of a
+    placement on the trace (pairs it cannot route are dropped)."""
+    links, _ = rep.links_of(sol)
+    net = ChipletNet.from_links(arch, rep.geometry(sol), links)
+    ok = [p for p in trace if net.next_hop[p.src, p.dst] >= 0]
+    return NetSim(net, arch).run(ok, mode="authentic").avg_latency
+
+
+def trace_phase(dev) -> dict:
+    """Slice 10: examples/trace_optimize.py on the card."""
+    arch = resolve_arch(_TRACE_BASE["arch"], _TRACE_BASE["config"])
+    rep = make_rep(arch, _TRACE_BASE["arch"])
+    _, geo, links = MeshBaseline(arch).build()
+    net = ChipletNet.from_links(arch, geo, links)
+    trace = generate_trace(net, TRACE_REGIONS, seed=7)
+    cycles = sum(r.n_cycles for r in TRACE_REGIONS)
+    wl = Workload.from_trace(trace, arch.kinds(), cycles, name="parsec-like")
+    guided = Objective().with_terms(TermSpec("trace-lat", weight=2.0))
+    cfgs = [ExperimentConfig(**_TRACE_BASE),
+            ExperimentConfig(**_TRACE_BASE, objective=guided, workload=wl)]
+    phase(f"main path, slice 10: trace-guided search, {_TRACE_BASE['arch']} "
+          f"{_TRACE_BASE['config']}, {len(trace)} packets over {cycles} "
+          f"cycles, proxy-only and trace-lat GA in one run_sweep")
+    res, launches, wall = _sweep(cfgs, dev)
+    if launches["fw_counts_tiled"] <= 0:
+        raise SystemExit("the trace sweep did not launch the blocked FW "
+                         "kernel")
+    t0 = time.monotonic()
+    lat_mesh = NetSim(net, arch).run(trace).avg_latency
+    recs = [run.records[0] for run in res.runs]
+    lat_proxy, lat_guided = (_host_latency(arch, rep, r.result.best_sol,
+                                           trace) for r in recs)
+    sim_wall = time.monotonic() - t0
+    print(f"  sweep wall {wall:.3f} s (proxy-only {recs[0].seconds:.3f} s, "
+          f"trace-lat {recs[1].seconds:.3f} s), score_calls "
+          f"{res.stats.score_calls}; host simulation {sim_wall:.3f} s; "
+          f"kernel launches {launches}")
+    gain = 100 * (1 - lat_guided / lat_proxy)
+    print(f"  host-simulated average packet latency [cycles]: 2D mesh "
+          f"{lat_mesh:.2f}, proxy-only winner {lat_proxy:.2f}, trace-lat "
+          f"winner {lat_guided:.2f} ({gain:+.1f} % vs proxy)")
+    if not all(np.isfinite(x) for x in (lat_mesh, lat_proxy, lat_guided)):
+        raise SystemExit("non-finite simulated latency")
+    # The trace winner's metrics, scored on the card in the run, against
+    # the same placement scored on the CPU with the plain FW.
+    best = recs[1].result
+    cpu = make_scorer(rep.layout, fw_impl=ops.fw_impl_ref,
+                      chunk=_TRACE_BASE["chunk"], objective=guided,
+                      device="cpu")
+    batch = stack_graphs([rep.score_graph(best.best_sol)])
+    batch["_demand"] = wl.vec()[None]
+    got = cpu(batch, norms_vec(best.normalizers))
+    worst = 0.0
+    for k, v in best.best_metrics.items():
+        if not k.startswith("trace_"):
+            continue
+        want = float(got[k][0])
+        rtol = THR_RTOL if k.startswith("trace_thr_") else TRACE_RTOL
+        if not math.isclose(v, want, rel_tol=rtol, abs_tol=0.0):
+            raise SystemExit(f"{k}: {v!r} on the card, {want!r} on the CPU")
+        if want:
+            worst = max(worst, abs(v - want) / abs(want))
+    print(f"  the trace winner's trace_* metrics on the card agree with the "
+          f"CPU's (plain FW): largest relative difference {worst:.3g}")
+    return launches
+
+
 def _kernel_times(prof) -> tuple[list, float]:
     """(name, device ms, calls) of each CUDA kernel in a profile, largest
     first, and their total in ms."""
@@ -1458,6 +1710,9 @@ def main() -> None:
     timing.update(attention_timing_phase(dev, max_err))
     timing.update(scan_timing_phase(dev, max_err, funcs))
     launches = main_path_phase(dev)
+    for slice10 in (sweep_phase, pareto_phase, trace_phase):
+        for k, n in slice10(dev).items():
+            launches[k] += n
     profile_phase(dev)
     for k, n in serve_all_phase(dev).items():
         launches[k] += n

@@ -19,13 +19,25 @@ The port of the single-experiment part of ``repro.core.api``:
 * :func:`run_experiment` and :func:`baseline_cost`, which run on the card
   unless the caller passes ``device="cpu"``; without a card and without
   ``device`` they raise (see ``proxies.resolve_device``).
+* :func:`run_sweep` — many configs at once, sharing one ``Evaluator``
+  (normalizer draw) per (arch, seed, ...) and one scorer per (layout,
+  chunk, backend, objective structure, device) across the whole sweep,
+  folding SA repetitions into extra chains of one batched call and
+  running every stackable optimizer in lockstep with its scoring requests
+  concatenated into single scorer calls (``optimize.drive_stacked``).  A
+  :class:`SweepConfig` with a ``pareto_grid`` runs a Pareto sweep
+  (``repro_torch.core.pareto``).
+* ``workload:`` — a traffic :class:`repro_torch.netsim.workload.Workload`
+  backing a ``trace-lat`` / ``trace-thr`` objective term; its JSON form is
+  the reference's.
 
 Per-algorithm RNG streams are derived with :func:`algo_seed` from a stable
 CRC32 digest of the algorithm name, as in the reference, so a seed gives
 the same placements in both packages.
 
-Not ported yet: ``run_sweep`` (ROADMAP queue 1 item 7b), Pareto sweeps
-(item 10), the design service (item 13) and the 3D families (item 12).
+Not ported yet: the design service and its request schema, the
+population archive and population sharding (ROADMAP queue 1 item 13), and
+the 3D families (item 12).
 """
 from __future__ import annotations
 
@@ -34,7 +46,7 @@ import json
 import time
 import zlib
 from dataclasses import dataclass, field
-from typing import Callable, Mapping
+from typing import Any, Callable, Mapping
 
 import numpy as np
 
@@ -44,9 +56,14 @@ from .cache import LRUCache
 from .chiplets import ARCH3D, LARGE_HOMOG, ArchSpec, resolve_arch
 from .objective import Objective, Schedule
 from .optimize import (Evaluator, OptResult, best_random,
-                       best_random_batched, genetic_algorithm,
-                       genetic_algorithm_batched, simulated_annealing,
-                       simulated_annealing_batched)
+                       best_random_batched, best_random_batched_steps,
+                       best_random_steps, drive_stacked, genetic_algorithm,
+                       genetic_algorithm_batched,
+                       genetic_algorithm_batched_steps,
+                       genetic_algorithm_steps, simulated_annealing,
+                       simulated_annealing_batched,
+                       simulated_annealing_batched_steps,
+                       simulated_annealing_steps)
 from .placement_hetero import HeteroRep
 from .placement_homog import HomogRep, hex_mask
 from .proxies import make_scorer, resolve_device
@@ -94,6 +111,11 @@ class Budget:
         if self.evals is None and self.seconds is None:
             raise ValueError("Budget needs evals and/or seconds")
 
+    def scaled(self, k: int) -> "Budget":
+        """Budget for ``k`` repetitions folded into one batched call."""
+        return dataclasses.replace(
+            self, evals=None if self.evals is None else self.evals * k)
+
     def to_dict(self) -> dict:
         return {"evals": self.evals, "seconds": self.seconds}
 
@@ -123,7 +145,9 @@ class GAParams:
 class SAParams:
     """Simulated Annealing (§II-B3; Table III/IV + adaptive cooling).
 
-    ``chains`` > 1 runs independent chains scored as one batch per step.
+    ``chains`` > 1 runs independent chains scored as one batch per step;
+    optimizers whose params carry a ``chains`` field are eligible for
+    repetition-folding in :func:`run_sweep`.
     """
 
     t0_temp: float = 35.0
@@ -136,6 +160,10 @@ class SAParams:
 # ---------------------------------------------------------------------------
 # Optimizer registry entries: uniform (evaluator, rng, budget, params).
 # ---------------------------------------------------------------------------
+
+# Budget -> driver-kwargs mappings, shared by the registered entry points
+# and the run_sweep step-generator factories below, so the stacked and
+# unstacked paths can never diverge.
 
 def _br_kwargs(budget: Budget, params: BRParams) -> dict:
     return dict(max_evals=budget.evals, time_budget_s=budget.seconds,
@@ -341,12 +369,15 @@ def make_rep(arch: ArchSpec, arch_name: str,
 
 # ---------------------------------------------------------------------------
 # Scorer cache: one scorer per (layout, chunk, backend, objective
-# *structure*, device) — a bounded LRU with an eviction counter.
+# *structure*, device) — a bounded LRU, so a long-lived process cannot
+# leak scorers.  Hits, misses and evictions are counted and surfaced
+# through scorer_cache_stats() / SweepStats.
 # ---------------------------------------------------------------------------
 
 SCORER_CACHE_CAPACITY = 64
 
 _SCORER_CACHE: LRUCache = LRUCache(SCORER_CACHE_CAPACITY)
+_SCORER_STATS = {"hits": 0, "misses": 0}
 
 
 def get_scorer(layout, *, chunk: int, backend: str,
@@ -360,11 +391,37 @@ def get_scorer(layout, *, chunk: int, backend: str,
     objective = objective if objective is not None else Objective()
     dev = resolve_device(device)
     key = (layout, chunk, backend, objective.structure_key(), str(dev))
-    if key not in _SCORER_CACHE:
+    hit = key in _SCORER_CACHE
+    _SCORER_STATS["hits" if hit else "misses"] += 1
+    if not hit:
         _SCORER_CACHE[key] = make_scorer(
             layout, chunk=chunk, fw_impl=resolve_backend(backend),
             objective=objective, device=dev)
     return _SCORER_CACHE[key]
+
+
+def scorer_cache_stats() -> dict:
+    return dict(_SCORER_STATS, evictions=_SCORER_CACHE.evictions,
+                size=len(_SCORER_CACHE),
+                capacity=_SCORER_CACHE.capacity)
+
+
+def set_scorer_cache_capacity(n: int) -> None:
+    """Bound the scorer LRU (evicting down if needed)."""
+    _SCORER_CACHE.set_capacity(n)
+
+
+def clear_scorer_cache() -> None:
+    _SCORER_CACHE.clear()
+    _SCORER_CACHE.evictions = 0
+    _SCORER_STATS.update(hits=0, misses=0)
+
+
+def clear_pipeline_cache() -> None:
+    """Drop the device pipeline's cached produce→graph stages (per-arch
+    static W matrices included); the scorer cache is separate."""
+    from .optimize import DevicePipeline
+    DevicePipeline.clear_stage_cache()
 
 
 def make_evaluator(rep, arch: ArchSpec, *, rng: np.random.Generator,
@@ -377,8 +434,11 @@ def make_evaluator(rep, arch: ArchSpec, *, rng: np.random.Generator,
     """Evaluator wired to a named backend on ``device`` (default: the
     card); raw ``fw_impl`` callables bypass the cache.  ``objective``
     defaults to the one built from the arch's (deprecated) ``w_*`` weights
-    — the paper formula for paper archs.  ``archive_k`` > 0 and a
-    ``workload`` are not ported yet and raise."""
+    — the paper formula for paper archs.  ``workload`` (a
+    :class:`repro_torch.netsim.workload.Workload`) backs a ``trace-lat`` /
+    ``trace-thr`` objective term — a runtime scorer operand, so it does
+    not enter the scorer cache key.  ``archive_k`` > 0 is not ported yet
+    and raises."""
     dev = resolve_device(device)
     objective = (objective if objective is not None
                  else Objective.from_arch(arch))
@@ -429,7 +489,9 @@ class ExperimentConfig:
     schedule: Schedule | None = None
     # Population archive size (not ported yet: must stay 0).
     archive_k: int = 0
-    # Traffic workload (not ported yet: must stay None).
+    # Traffic workload (repro_torch.netsim.workload.Workload, or its dict
+    # form) backing a `trace-lat` objective term; None for proxy-only
+    # search.
     workload: object | None = None
 
     def __post_init__(self):
@@ -437,10 +499,11 @@ class ExperimentConfig:
         if not isinstance(self.objective, Objective):
             object.__setattr__(self, "objective",
                                Objective.from_dict(self.objective))
-        if self.workload is not None:
-            raise NotImplementedError(
-                "traffic workloads are not ported yet: ROADMAP queue 1 "
-                "item 11")
+        if self.workload is not None and isinstance(self.workload, Mapping):
+            # Lazy import: the netsim package imports core modules.
+            from ..netsim.workload import Workload
+            object.__setattr__(self, "workload",
+                               Workload.from_dict(self.workload))
         if self.schedule is not None and \
                 not isinstance(self.schedule, Schedule):
             object.__setattr__(self, "schedule",
@@ -492,7 +555,8 @@ class ExperimentConfig:
             "schedule": (None if self.schedule is None
                          else self.schedule.to_dict()),
             "archive_k": self.archive_k,
-            "workload": None,
+            "workload": (None if self.workload is None
+                         else self.workload.to_dict()),
         }
 
     @classmethod
@@ -524,8 +588,12 @@ class ExperimentConfig:
 
     def __hash__(self):
         # The generated field-tuple hash would choke on the params dict;
-        # hash the canonical serialized form instead.
-        return hash(json.dumps(self.to_dict(), sort_keys=True))
+        # hash the canonical serialized form instead.  Workloads hash by
+        # content digest instead of their full [K, n, n] rate payload.
+        d = self.to_dict()
+        if d.get("workload") is not None:
+            d["workload"] = self.workload.digest()
+        return hash(json.dumps(d, sort_keys=True))
 
 
 # ---------------------------------------------------------------------------
@@ -566,7 +634,8 @@ def run_experiment(config: ExperimentConfig, *, fw_impl=None, device=None
                             chunk=config.chunk, backend=config.backend,
                             fw_impl=fw_impl, objective=config.objective,
                             schedule=config.schedule,
-                            archive_k=config.archive_k, device=dev)
+                            archive_k=config.archive_k,
+                            workload=config.workload, device=dev)
         for entry in entries:
             t0 = time.monotonic()
             rng_a = np.random.default_rng(
@@ -591,8 +660,343 @@ def baseline_cost(config: ExperimentConfig, *, fw_impl=None, device=None
                         norm_samples=config.norm_samples,
                         chunk=config.chunk, backend=config.backend,
                         fw_impl=fw_impl, objective=config.objective,
-                        device=dev)
+                        workload=config.workload, device=dev)
     g = MeshBaseline(arch).build()[0]
     metrics = ev.score([g])
     cost = float(np.asarray(ev.costs_from(metrics))[0])
     return cost, {k: float(v[0]) for k, v in metrics.items()}
+
+
+# ---------------------------------------------------------------------------
+# run_sweep: batched multi-config execution.
+# ---------------------------------------------------------------------------
+
+@dataclass
+class SweepRun:
+    config: ExperimentConfig
+    records: list[RunRecord]
+
+
+@dataclass
+class SweepStats:
+    scorers_built: int         # scorers built by this sweep (cache misses)
+    evaluators_built: int      # normalizer draws (shared across reps)
+    n_evaluated: int
+    seconds: float
+    score_calls: int = 0       # scorer calls across the whole sweep
+    stacked_groups: int = 0    # lockstep groups with >= 2 runs
+    scorer_evictions: int = 0  # scorers dropped by the LRU
+    shard_devices: int = 1     # devices the population axis was split over
+
+
+@dataclass
+class SweepResult:
+    runs: list[SweepRun]
+    stats: SweepStats
+    # Per base-config Pareto fronts (repro_torch.core.pareto.ParetoFront)
+    # when the sweep was launched from a SweepConfig with a pareto_grid.
+    fronts: list | None = None
+
+    @property
+    def records(self) -> list[RunRecord]:
+        return [r for run in self.runs for r in run.records]
+
+
+@dataclass(frozen=True)
+class SweepConfig:
+    """A whole sweep as one serializable value (the reference's JSON form).
+
+    ``configs`` are the base experiments.  With a ``pareto_grid``
+    (:class:`repro_torch.core.pareto.ParetoGridSpec`), each base config is
+    expanded into one config per grid scalarization (same term structure,
+    different runtime weights — they share one scorer and stack in
+    lockstep), and ``run_sweep`` attaches one
+    :class:`repro_torch.core.pareto.ParetoFront` per base config to
+    ``SweepResult.fronts``.  ``shard`` (population sharding) is not ported
+    yet and raises in :func:`run_sweep`.
+    """
+
+    configs: tuple = ()
+    pareto_grid: object | None = None      # pareto.ParetoGridSpec
+    fold_repetitions: bool = True
+    stack_scoring: bool = True
+    shard: bool = False
+
+    def __post_init__(self):
+        object.__setattr__(self, "configs", tuple(
+            c if isinstance(c, ExperimentConfig)
+            else ExperimentConfig.from_dict(c) for c in self.configs))
+        if self.pareto_grid is not None:
+            from .pareto import ParetoGridSpec
+            if not isinstance(self.pareto_grid, ParetoGridSpec):
+                object.__setattr__(self, "pareto_grid",
+                                   ParetoGridSpec.from_dict(self.pareto_grid))
+
+    def to_dict(self) -> dict:
+        return {"configs": [c.to_dict() for c in self.configs],
+                "pareto_grid": (None if self.pareto_grid is None
+                                else self.pareto_grid.to_dict()),
+                "fold_repetitions": self.fold_repetitions,
+                "stack_scoring": self.stack_scoring,
+                "shard": self.shard}
+
+    @classmethod
+    def from_dict(cls, d: Mapping) -> "SweepConfig":
+        unknown = set(d) - {f.name for f in dataclasses.fields(cls)}
+        if unknown:
+            raise ValueError(f"unknown SweepConfig keys: {sorted(unknown)}")
+        return cls(**dict(d))
+
+    def to_json(self) -> str:
+        return json.dumps(self.to_dict(), indent=1)
+
+    @classmethod
+    def from_json(cls, s: str) -> "SweepConfig":
+        return cls.from_dict(json.loads(s))
+
+
+# Step-generator factories for optimizers that support lockstep stacked
+# scoring in run_sweep: same Budget -> kwargs mapping as the registered
+# entry points (shared helpers above), different executor.
+
+def _br_steps(ev, rng, budget: Budget, params: BRParams):
+    return best_random_steps(ev, rng, **_br_kwargs(budget, params))
+
+
+def _ga_steps(ev, rng, budget: Budget, params: GAParams):
+    return genetic_algorithm_steps(ev, rng, **_ga_kwargs(budget, params))
+
+
+def _sa_steps(ev, rng, budget: Budget, params: SAParams):
+    return simulated_annealing_steps(ev, rng, **_sa_kwargs(budget, params))
+
+
+def _br_batched_steps(ev, rng, budget: Budget, params: BRParams):
+    return best_random_batched_steps(ev, rng, **_br_kwargs(budget, params))
+
+
+def _ga_batched_steps(ev, rng, budget: Budget, params: GAParams):
+    return genetic_algorithm_batched_steps(
+        ev, rng, **_ga_batched_kwargs(budget, params))
+
+
+def _sa_batched_steps(ev, rng, budget: Budget, params: SAParams):
+    return simulated_annealing_batched_steps(
+        ev, rng, **_sa_kwargs(budget, params))
+
+
+# Every optimizer is a step generator, so the whole family stacks —
+# including SA (host chains) and the device-resident *-batched drivers
+# (their requests are pre-stacked device batches).
+_SWEEP_STACKABLE = {
+    "br": _br_steps, "ga": _ga_steps, "sa": _sa_steps,
+    "br-batched": _br_batched_steps, "ga-batched": _ga_batched_steps,
+    "sa-batched": _sa_batched_steps,
+}
+
+
+def stackable_steps(algo: str):
+    """Step-generator factory ``(ev, rng, budget, params) -> generator``
+    for a lockstep-stackable optimizer, or ``None`` if ``algo`` only runs
+    synchronously."""
+    return _SWEEP_STACKABLE.get(algo)
+
+
+@dataclass
+class _SweepUnit:
+    """One (config, algorithm, repetition) run inside a sweep."""
+
+    cfg_i: int
+    cfg: ExperimentConfig
+    algo: str
+    rep_i: int                 # -1 for a folded batch record
+    ev: Evaluator
+    entry: OptimizerEntry
+    params: Any
+    budget: Budget
+    result: OptResult | None = None
+    seconds: float = 0.0
+
+
+def run_sweep(configs, *, fold_repetitions: bool = True,
+              stack_scoring: bool = True, shard: bool = False,
+              device=None) -> SweepResult:
+    """Run many configs on ``device`` (default: the card), amortizing
+    scorer construction and normalization.
+
+    ``configs`` may also be a :class:`SweepConfig`; with a ``pareto_grid``
+    the base configs are expanded per grid scalarization and per-config
+    Pareto fronts are attached to ``SweepResult.fronts``
+    (``repro_torch.core.pareto``).
+
+    Unlike per-config :func:`run_experiment` (which re-draws normalizers
+    per repetition), a sweep shares one Evaluator per (arch, config, seed,
+    norm_samples, chunk, backend, mutation_mode, objective, schedule,
+    workload) — and one normalizer draw across objectives that differ only
+    in terms or weights — and one scorer per (layout, chunk, backend,
+    objective structure, device) across *all* configs.  With
+    ``fold_repetitions`` (default), repetitions of chain-style optimizers
+    (params with a ``chains`` field, e.g. SA) are folded into extra
+    independent chains of a single batched call.  Folding only applies to
+    pure evaluation budgets: a wall-clock budget covers one sequential
+    run, so such configs run repetition by repetition instead.
+
+    With ``stack_scoring`` (default), runs of every registered-stackable
+    optimizer — BR/GA/SA host loops and the device-resident ``*-batched``
+    drivers — from configs that share a scorer execute in lockstep with
+    their per-round scoring requests concatenated into a single scorer
+    call (:func:`repro_torch.core.optimize.drive_stacked`); per-row
+    normalizer, weight and demand rows keep each run's costs exact.
+    Results are bit for bit those of unstacked execution; only the number
+    of scorer calls changes (``stats.score_calls``).  Runs with a
+    wall-clock budget never stack (interleaving would consume their time
+    budget with the group's work).  A stacked record's ``seconds`` is its
+    *attributed* wall time — its own generator resumes plus its
+    proportional share of each stacked scoring call — so
+    :func:`summarize`'s per-record evals/s stays meaningful.
+
+    Because the Evaluator is shared, each record's ``n_generated`` is the
+    number of placements generated *by that run* (a per-call delta).
+
+    ``shard`` (the population axis split across devices) is not ported
+    yet: ROADMAP queue 1 item 13.
+    """
+    if isinstance(configs, SweepConfig):
+        sc = configs
+        if sc.pareto_grid is not None:
+            from .pareto import run_pareto_sweep
+            return run_pareto_sweep(
+                sc.configs, sc.pareto_grid,
+                fold_repetitions=sc.fold_repetitions,
+                stack_scoring=sc.stack_scoring, shard=sc.shard,
+                device=device)
+        return run_sweep(sc.configs, fold_repetitions=sc.fold_repetitions,
+                         stack_scoring=sc.stack_scoring, shard=sc.shard,
+                         device=device)
+    if shard:
+        raise NotImplementedError(
+            "population sharding (shard=True) is not ported yet: ROADMAP "
+            "queue 1 item 13")
+    dev = resolve_device(device)
+    t0 = time.monotonic()
+    miss0 = _SCORER_STATS["misses"]
+    evict0 = _SCORER_CACHE.evictions
+    # Normalizer draws depend only on (arch, config, seed, samples, chunk,
+    # backend, mutation_mode, policy) — never on the objective's terms or
+    # weights — so evaluators for different scalarizations of one base
+    # config (e.g. a Pareto grid) share one draw.
+    norm_cache: dict[tuple, Evaluator] = {}
+    ev_cache: dict[tuple, Evaluator] = {}
+    units: list[_SweepUnit] = []
+    for cfg_i, cfg in enumerate(configs):
+        arch = resolve_arch(cfg.arch, cfg.config)
+        nkey = (cfg.arch, cfg.config, cfg.seed, cfg.norm_samples, cfg.chunk,
+                cfg.backend, cfg.mutation_mode, cfg.objective.normalizer)
+        key = nkey + (cfg.objective, cfg.schedule, cfg.archive_k,
+                      cfg.workload)
+        if key not in ev_cache:
+            rng = np.random.default_rng(cfg.seed)
+            rep = make_rep(arch, cfg.arch, cfg.mutation_mode)
+            base = norm_cache.get(nkey)
+            ev_cache[key] = make_evaluator(
+                rep, arch, rng=rng, norm_samples=cfg.norm_samples,
+                chunk=cfg.chunk, backend=cfg.backend,
+                objective=cfg.objective, schedule=cfg.schedule,
+                norm=None if base is None else base.norm,
+                archive_k=cfg.archive_k, workload=cfg.workload, device=dev)
+            if base is None:
+                norm_cache[nkey] = ev_cache[key]
+        ev = ev_cache[key]
+        for algo in cfg.algorithms:
+            entry = OPTIMIZERS.get(algo)
+            params = cfg.resolved_params(algo)
+            foldable = (fold_repetitions and cfg.repetitions > 1
+                        and hasattr(params, "chains")
+                        and cfg.budget.seconds is None)
+            if foldable:
+                p = dataclasses.replace(
+                    params, chains=params.chains * cfg.repetitions)
+                units.append(_SweepUnit(
+                    cfg_i, cfg, algo, -1, ev, entry, p,
+                    cfg.budget.scaled(cfg.repetitions)))
+            else:
+                for rep_i in range(cfg.repetitions):
+                    units.append(_SweepUnit(cfg_i, cfg, algo, rep_i, ev,
+                                            entry, params, cfg.budget))
+
+    # Lockstep groups: stackable units sharing one scorer.  Wall-clock-
+    # budgeted runs never stack: interleaving would consume each run's
+    # time budget with the whole group's work.
+    groups: dict[int, list[_SweepUnit]] = {}
+    if stack_scoring:
+        for u in units:
+            if u.algo in _SWEEP_STACKABLE and u.budget.seconds is None:
+                groups.setdefault(id(u.ev.scorer), []).append(u)
+        # stacking alone only pays off for > 1 run
+        groups = {k: v for k, v in groups.items() if len(v) > 1}
+    stacked = {id(u) for us in groups.values() for u in us}
+
+    for us in groups.values():
+        items = []
+        for u in us:
+            rng_a = np.random.default_rng(
+                algo_seed(u.cfg.seed, max(u.rep_i, 0), u.algo))
+            items.append((_SWEEP_STACKABLE[u.algo](u.ev, rng_a, u.budget,
+                                                   u.params), u.ev))
+        results, gen_counts, run_secs = drive_stacked(items)
+        for u, res, g, s in zip(us, results, gen_counts, run_secs):
+            res.n_generated = g
+            u.result, u.seconds = res, s
+    for u in units:
+        if id(u) in stacked:
+            continue
+        ta = time.monotonic()
+        g0 = u.ev.n_generated
+        rng_a = np.random.default_rng(
+            algo_seed(u.cfg.seed, max(u.rep_i, 0), u.algo))
+        res = u.entry.fn(u.ev, rng_a, u.budget, u.params)
+        res.n_generated = u.ev.n_generated - g0
+        u.result, u.seconds = res, time.monotonic() - ta
+
+    runs = [SweepRun(cfg, []) for cfg in configs]
+    for u in units:          # units were built in config order
+        runs[u.cfg_i].records.append(
+            RunRecord(u.cfg.arch, u.cfg.config, u.algo, u.rep_i, u.result,
+                      u.seconds, degenerate_norms=u.ev.degenerate_norms))
+    stats = SweepStats(
+        scorers_built=_SCORER_STATS["misses"] - miss0,
+        evaluators_built=len(norm_cache),
+        n_evaluated=sum(r.result.n_evaluated
+                        for run in runs for r in run.records),
+        seconds=time.monotonic() - t0,
+        score_calls=sum(ev.n_score_calls for ev in ev_cache.values()),
+        stacked_groups=len(groups),
+        scorer_evictions=_SCORER_CACHE.evictions - evict0)
+    return SweepResult(runs, stats)
+
+
+# ---------------------------------------------------------------------------
+# Reporting helpers.
+# ---------------------------------------------------------------------------
+
+def summarize(records: list[RunRecord]) -> list[dict]:
+    rows = []
+    for r in records:
+        rows.append(dict(
+            arch=r.arch, config=r.config, algorithm=r.algorithm,
+            repetition=r.repetition, best_cost=r.result.best_cost,
+            n_evaluated=r.result.n_evaluated,
+            n_generated=r.result.n_generated, seconds=round(r.seconds, 2),
+            evals_per_s=round(r.result.n_evaluated / max(r.seconds, 1e-9),
+                              1),
+        ))
+    return rows
+
+
+def best_by_algorithm(records: list[RunRecord]) -> dict[str, RunRecord]:
+    out: dict[str, RunRecord] = {}
+    for r in records:
+        if r.algorithm not in out \
+                or r.result.best_cost < out[r.algorithm].result.best_cost:
+            out[r.algorithm] = r
+    return out

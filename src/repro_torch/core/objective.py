@@ -30,8 +30,9 @@ columns (``lat_*`` / ``inv_thr_*`` / ``area``) *and* the weight columns
 ``w_lat_*`` / ``w_thr_*`` / ``w_area`` to ``[P]`` tensors; terms read mix
 weights from there, never from ``objective.mix``.
 
-The traffic-driven terms ``trace-lat`` / ``trace-thr`` are not ported yet
-(ROADMAP queue 1 item 11): an objective naming them fails to compile.
+The traffic-driven terms ``trace-lat`` / ``trace-thr`` read the netsim rate
+model's per-class metrics (``repro_torch.netsim.model``), which the scorer
+emits when the evaluator carries a workload (``Evaluator(workload=...)``).
 """
 from __future__ import annotations
 
@@ -49,8 +50,11 @@ from .registries import (OBJECTIVE_TERMS, SCHEDULE_RAMPS, ObjectiveTermEntry,
 
 _EPS = 1.0e-6
 
-# Objective terms that read the traffic model's per-class metrics (not
-# ported yet: ROADMAP queue 1 item 11).
+# Objective terms that turn the scorer into a traffic-driven evaluation:
+# they read the netsim rate model's per-class metrics, so the evaluator
+# must carry a workload whose packed demand rides along as the runtime
+# ``_demand`` operand (see repro_torch.netsim.workload /
+# proxies.make_scorer).
 TRACE_TERMS = ("trace-lat", "trace-thr")
 
 # Normalizer vector layout (stable; the scorer takes this as a runtime
@@ -406,6 +410,73 @@ def _node_degree(sample, norms, obj, params):
     return (deg - cap).clamp_min(0.0).sum(-1)
 
 
+def _trace_lat_host(metrics, batch, norms, obj, params):
+    if "trace_lat_c2c" not in metrics:
+        raise KeyError(
+            "trace-lat host evaluation needs trace_lat_* metrics; score "
+            "through an evaluator built with a workload so the scorer "
+            "emits them")
+    acc = None
+    for t in TRAFFIC_TYPES:
+        v = (norms[f"w_lat_{t}"]
+             * np.asarray(metrics[f"trace_lat_{t}"], np.float64)
+             / max(norms[f"lat_{t}"], _EPS))
+        acc = v if acc is None else acc + v
+    return acc
+
+
+@register_objective_term("trace-lat", host_fn=_trace_lat_host)
+def _trace_lat(sample, norms, obj, params):
+    """Normalized traffic-weighted packet latency from the netsim rate
+    model (``repro_torch.netsim.model``): per traffic class, the
+    demand-weighted mean of path latency + per-hop router pipeline +
+    saturating ECMP queueing delay + serialization, under the class's
+    workload demand.  Requires an evaluator-attached workload
+    (``ExperimentConfig(workload=...)``), which enters the scorer as the
+    runtime ``_demand`` operand.  Normalized by the same per-class latency
+    scale as the ``lat`` proxy term (both are cycles), weighted by the
+    runtime traffic-mix weights."""
+    acc = 0.0
+    for t in TRAFFIC_TYPES:
+        acc = acc + (norms[f"w_lat_{t}"] * sample[f"trace_lat_{t}"]
+                     / norms[f"lat_{t}"].clamp_min(_EPS))
+    return acc
+
+
+def _trace_thr_host(metrics, batch, norms, obj, params):
+    if "trace_thr_c2c" not in metrics:
+        raise KeyError(
+            "trace-thr host evaluation needs trace_thr_* metrics; score "
+            "through an evaluator built with a workload so the scorer "
+            "emits them")
+    acc = None
+    for t in TRAFFIC_TYPES:
+        thr = np.asarray(metrics[f"trace_thr_{t}"], np.float64)
+        inv = np.where(thr > 0, 1.0 / np.maximum(thr, _EPS), 0.0)
+        v = norms[f"w_thr_{t}"] * inv / max(norms[f"inv_thr_{t}"], _EPS)
+        acc = v if acc is None else acc + v
+    return acc
+
+
+@register_objective_term("trace-thr", host_fn=_trace_thr_host)
+def _trace_thr(sample, norms, obj, params):
+    """Normalized per-class *throughput* cost from the netsim rate model:
+    per traffic class, the maximum sustainable aggregate flit injection
+    rate before some link saturates (the class's demand scaled up against
+    the other classes' fixed link loads — see
+    ``repro_torch.netsim.model``).  Cost is the inverse (lower is better),
+    normalized by the same per-class inverse-throughput scale as the
+    ``inv-thr`` proxy term and weighted by the runtime traffic-mix
+    throughput weights; classes without demand contribute 0."""
+    acc = 0.0
+    for t in TRAFFIC_TYPES:
+        thr = sample[f"trace_thr_{t}"]
+        inv = torch.where(thr > 0, 1.0 / thr.clamp_min(_EPS), 0.0)
+        acc = acc + (norms[f"w_thr_{t}"] * inv
+                     / norms[f"inv_thr_{t}"].clamp_min(_EPS))
+    return acc
+
+
 # ---------------------------------------------------------------------------
 # Compilation: Objective -> batched device cost function.
 # ---------------------------------------------------------------------------
@@ -445,11 +516,6 @@ class CompiledObjective:
 def compile_objective(objective: Objective) -> CompiledObjective:
     """Resolve ``objective.terms`` against OBJECTIVE_TERMS (fails fast on
     unknown names) into a :class:`CompiledObjective`."""
-    trace = [s.name for s in objective.terms if s.name in TRACE_TERMS]
-    if trace:
-        raise NotImplementedError(
-            f"objective term(s) {trace} are not ported yet: ROADMAP queue 1 "
-            f"item 11 (netsim and trace terms)")
     entries = tuple(OBJECTIVE_TERMS.get(s.name) for s in objective.terms)
     return CompiledObjective(objective, entries)
 

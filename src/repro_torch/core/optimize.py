@@ -26,11 +26,12 @@ Two execution styles coexist, as in the reference:
 
 All six are *step generators* (``*_steps``) that yield scoring requests
 and receive ``(costs, metrics)``; ``_drive`` runs one against one
-Evaluator.
+Evaluator, :func:`drive_stacked` runs several in lockstep with their
+scoring requests concatenated into single scorer calls on the scorer's
+device (the ``run_sweep`` cross-config path, :func:`score_stacked`).
 
 Not ported yet: the population archive (``PopArchive``, ROADMAP queue 1
-item 13) and stacked cross-run scoring (``score_stacked`` /
-``drive_stacked``, queue 1 item 7b).
+item 13); ``OptResult.archive`` stays ``None``.
 """
 from __future__ import annotations
 
@@ -42,11 +43,11 @@ import torch
 
 from .cache import LRUCache
 from .cost import CostNormalizers
-from .objective import (NORM_DIM, Objective, compile_schedule, norms_vec,
-                        objective_cost_host, weights_vec)
+from .objective import (NORM_DIM, TRACE_TERMS, Objective, compile_schedule,
+                        norms_vec, objective_cost_host, weights_vec)
 from .placement_hetero import HeteroRep
 from .placement_homog import HomogRep
-from .proxies import make_scorer, resolve_device
+from .proxies import batch_tensor, make_scorer, resolve_device
 from .topology import (HeteroGraphBatch, HomogGraphBatch, ScoreGraph,
                        stack_graphs)
 
@@ -61,6 +62,9 @@ class OptResult:
     n_generated: int = 0          # placements generated incl. retries
     n_evaluated: int = 0          # placements actually scored
     normalizers: CostNormalizers | None = None
+    # Snapshot of the evaluator's population archive at run end (None
+    # until the archive is ported: ROADMAP queue 1 item 13).
+    archive: dict | None = None
 
 
 class Evaluator:
@@ -80,6 +84,11 @@ class Evaluator:
     it.  ``norm`` re-uses an existing ``CostNormalizers`` draw instead of
     re-drawing ``norm_samples`` placements.
 
+    ``workload`` (a :class:`repro_torch.netsim.workload.Workload`) backs a
+    ``trace-lat`` / ``trace-thr`` objective term: its packed vector rides
+    along with every scoring request as the runtime ``_demand`` operand,
+    on the scorer's device.
+
     ``device`` is the scorer's (``score.device``); the device pipeline
     (:meth:`pipeline`) runs there too.  ``archive`` stays ``None``: the
     population archive is not ported yet.
@@ -94,15 +103,26 @@ class Evaluator:
             raise NotImplementedError(
                 "the population archive (archive_k > 0) is not ported yet: "
                 "ROADMAP queue 1 item 13")
-        if workload is not None:
-            raise NotImplementedError(
-                "traffic workloads are not ported yet: ROADMAP queue 1 "
-                "item 11")
         self.rep = rep
         self.arch = arch
         self.objective = (objective if objective is not None
                           else Objective.from_arch(arch))
         self._weights_vec = weights_vec(self.objective)
+        self.workload = workload
+        needs_demand = any(t.name in TRACE_TERMS
+                           for t in self.objective.terms)
+        if needs_demand and workload is None:
+            raise ValueError(
+                "objective has a trace term (trace-lat/trace-thr) but no "
+                "workload; pass Evaluator(..., "
+                "workload=netsim.Workload(...))")
+        self._demand_vec = None
+        if needs_demand:
+            if workload.n != rep.layout.N:
+                raise ValueError(
+                    f"workload covers {workload.n} chiplets but the arch "
+                    f"has {rep.layout.N}")
+            self._demand_vec = np.asarray(workload.vec(), np.float32)
         self.schedule = (compile_schedule(schedule, self.objective)
                          if schedule is not None else None)
         if scorer is not None:
@@ -117,6 +137,9 @@ class Evaluator:
         self.device = getattr(self.scorer, "device", None)
         if self.device is None:
             self.device = resolve_device(device)
+        self._demand_t = (None if self._demand_vec is None else
+                          torch.as_tensor(self._demand_vec,
+                                          device=self.device))
         self.n_generated = 0
         self.n_score_calls = 0
         self.archive = None
@@ -140,6 +163,26 @@ class Evaluator:
     def norm_vec(self) -> np.ndarray:
         """Normalizers as the scorer's runtime [NORM_DIM] vector."""
         return self._norm_vec
+
+    @property
+    def demand_vec(self) -> np.ndarray | None:
+        """The workload's packed demand operand (``None`` unless the
+        objective carries a trace term — trace-lat / trace-thr)."""
+        return self._demand_vec
+
+    @property
+    def demand_tensor(self) -> torch.Tensor | None:
+        """:attr:`demand_vec` on the scorer's device."""
+        return self._demand_t
+
+    def _with_demand(self, batch: dict) -> dict:
+        """Attach the workload's `_demand` rows to a scoring batch (no-op
+        without a trace-term workload, or when rows — e.g. per-row stacked
+        demand — are already present)."""
+        if self._demand_t is None or "_demand" in batch:
+            return batch
+        P = int(batch["W"].shape[0])
+        return dict(batch, _demand=self._demand_t.expand(P, -1))
 
     @property
     def weights_vec(self) -> np.ndarray:
@@ -180,14 +223,17 @@ class Evaluator:
     def score(self, graphs: list[ScoreGraph]) -> dict:
         return self.score_batch(stack_graphs(graphs))
 
-    def score_batch(self, batch: dict, norms=None, weights=None) -> dict:
+    def score_batch(self, batch: dict, norms=None, weights=None,
+                    fn=None) -> dict:
         """Score pre-stacked ScoreGraph arrays (numpy or tensors) into
         float32 numpy metrics.  ``norms`` / ``weights`` override the
-        evaluator's normalizer / objective weight vectors (e.g. a
-        schedule's ramped weights)."""
+        evaluator's normalizer / objective weight vectors (e.g. per-row
+        vectors in stacked cross-run scoring, or a schedule's ramped
+        weights).  ``fn`` substitutes the scorer call itself while keeping
+        the evaluator's dispatch accounting."""
         self.n_score_calls += 1
-        return self.scorer(
-            batch,
+        return (fn or self.scorer)(
+            self._with_demand(batch),
             self._norm_vec if norms is None else norms,
             self._weights_vec if weights is None else weights)
 
@@ -575,6 +621,13 @@ class DevicePipeline:
     """
 
     _STAGE_CACHE: LRUCache = LRUCache(32)
+
+    @classmethod
+    def clear_stage_cache(cls) -> None:
+        """Drop the cached produce→graph stages and their static W
+        matrices (mirrors ``api.clear_scorer_cache`` for the produce→graph
+        side)."""
+        cls._STAGE_CACHE.clear()
 
     @classmethod
     def _stages(cls, rep, device):
@@ -1003,3 +1056,142 @@ def simulated_annealing_batched(ev: Evaluator, rng: np.random.Generator, *,
         ev, rng, t0_temp=t0_temp, block_len=block_len, alpha=alpha,
         beta=beta, chains=chains, time_budget_s=time_budget_s,
         max_iters=max_iters), ev)
+
+
+# ---------------------------------------------------------------------------
+# Stacked execution of step generators (run_sweep cross-config batching).
+# ---------------------------------------------------------------------------
+
+def score_stacked(entries: list, *, score_fn=None
+                  ) -> tuple[list, float]:
+    """One stacked scoring round: concatenate several runs' pending
+    scoring requests into a single batched scorer call with per-row
+    normalizer and weight vectors, and split the results back.
+
+    ``entries`` is a list of ``(parts, evaluator)`` pairs where ``parts``
+    is the :func:`_request_parts` normalization of one scoring request;
+    all evaluators must share one scorer (same layout / chunk / backend /
+    objective structure / device).  Host requests (numpy graph stacks)
+    and device requests (``-batched`` dicts of tensors) mix freely: each
+    key is concatenated on the scorer's device in the dtype the scorer
+    reads it in.  ``score_fn`` substitutes the scorer call for the whole
+    stacked batch.  Returns ``(per_entry, t_score)`` with ``per_entry[i]
+    = (costs, metrics)`` for entry ``i`` (per-request ``connected``
+    overrides restored, costs via each run's own evaluator).
+    """
+    sizes = [p[2] for p, _ in entries]
+    keys = sorted(entries[0][0][0])
+    for j, (p, _) in enumerate(entries[1:], start=1):
+        if sorted(p[0]) != keys:    # fail loudly on heterogeneous requests
+            raise ValueError(
+                f"stacked scoring requests disagree on batch keys: entry "
+                f"0 has {keys}, entry {j} has {sorted(p[0])}")
+    dev = entries[0][1].device
+    cat = {k: torch.cat([batch_tensor(k, p[0][k], dev) for p, _ in entries])
+           for k in keys}
+    # Per-row workload demand: entries whose evaluator carries a trace
+    # workload contribute their own demand rows, so requests over
+    # *different* workloads stack into one call of the same scorer.
+    # Mixing demand-bearing and demand-free entries would feed one term
+    # structure two different batch layouts — fail loudly.
+    dts = [ev.demand_tensor for _, ev in entries]
+    if any(d is not None for d in dts):
+        if any(d is None for d in dts):
+            raise ValueError(
+                "stacked scoring requests disagree on workloads: some "
+                "evaluators carry a 'trace-lat' workload and some do not")
+        cat["_demand"] = torch.cat(
+            [d.expand(sz, -1) for d, sz in zip(dts, sizes)])
+    norms = np.concatenate(
+        [np.broadcast_to(ev.norm_vec, (sz, NORM_DIM))
+         for (p, ev), sz in zip(entries, sizes)])
+    weights = np.concatenate(
+        [np.broadcast_to(np.asarray(
+            ev.weights_vec if p[3] is None else p[3], np.float32),
+            (sz, ev.weights_vec.shape[0]))
+         for (p, ev), sz in zip(entries, sizes)])
+    ts = time.monotonic()
+    metrics = entries[0][1].score_batch(cat, norms=norms, weights=weights,
+                                        fn=score_fn)
+    t_score = time.monotonic() - ts
+    out = []
+    off = 0
+    for (p, ev), sz in zip(entries, sizes):
+        mi = {k: v[off:off + sz] for k, v in metrics.items()}
+        if p[1] is not None:                   # per-request conn override
+            mi["connected"] = _host(p[1])
+        off += sz
+        out.append((ev.costs_from(mi), mi))
+    return out, t_score
+
+
+def drive_stacked(items: list, *, score_fn=None
+                  ) -> tuple[list, list[int], list[float]]:
+    """Run several step-generators in lockstep, stacking each round's
+    scoring requests into one batched scorer call.
+
+    ``items`` is a list of ``(generator, evaluator)`` pairs whose
+    evaluators share one scorer (same layout/chunk/backend/device and
+    objective *structure* — objectives differing only in weights share).
+    Each round collects the pending scoring requests of every live
+    generator — host graph lists and device batch dicts mix freely —
+    scores their concatenation once with *per-row normalizer and weight
+    vectors* (each row carries its own run's norms and objective weights,
+    so the scorer's ``cost`` is exact for every run), splits the metrics
+    back (restoring per-request ``connected`` overrides), and resumes the
+    generators.  Results are bit for bit those of driving each generator
+    alone (the scorer's per-placement results do not depend on the
+    chunk a placement falls in), with ~k fewer calls.  ``score_fn``
+    routes every stacked call through a substitute scorer (see
+    :func:`score_stacked`).
+
+    Returns ``(results, n_generated, seconds)`` aligned with ``items`` —
+    ``n_generated[i]`` is the number of placements generated by run ``i``
+    (attributed exactly even though evaluators may be shared, because only
+    one generator runs between two of its scoring requests), and
+    ``seconds[i]`` is run ``i``'s attributed wall time: its own generator
+    resumes plus each stacked scoring call split proportionally to its
+    share of that call's batch.
+    """
+    n = len(items)
+    results: list = [None] * n
+    gen_counts = [0] * n
+    secs = [0.0] * n
+    reqs: dict[int, tuple] = {}
+
+    def _resume(i, send=None):
+        gen, ev = items[i]
+        g0 = ev.n_generated
+        ta = time.monotonic()
+        try:
+            req = next(gen) if send is None else gen.send(send)
+            reqs[i] = _request_parts(req)
+        except StopIteration as e:
+            results[i] = e.value
+        secs[i] += time.monotonic() - ta
+        gen_counts[i] += ev.n_generated - g0
+
+    for i in range(n):
+        _resume(i)
+    while reqs:
+        order = sorted(reqs)
+        parts = {i: reqs[i] for i in order}
+        reqs = {}
+        sizes = [parts[i][2] for i in order]
+        per_entry, t_score = score_stacked(
+            [(parts[i], items[i][1]) for i in order], score_fn=score_fn)
+        total = max(sum(sizes), 1)
+        for i, sz, (ci, mi) in zip(order, sizes, per_entry):
+            secs[i] += t_score * (sz / total)
+            _resume(i, (ci, mi))
+    return results, gen_counts, secs
+
+
+ALGORITHMS = {
+    "br": best_random,
+    "ga": genetic_algorithm,
+    "sa": simulated_annealing,
+    "br-batched": best_random_batched,
+    "ga-batched": genetic_algorithm_batched,
+    "sa-batched": simulated_annealing_batched,
+}

@@ -20,6 +20,7 @@ The rest is plain tensor code with the placement dimension written out.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -28,7 +29,8 @@ import torch
 from ..kernels.ops import fw_impl_tiled
 from ..kernels.ref import INF_CUT
 from .chiplets import COMPUTE, IO, MEMORY, ArchSpec
-from .objective import NORM_DIM, compile_objective, weights_vec
+from .objective import (NORM_DIM, TRACE_TERMS, compile_objective,
+                        weights_vec)
 
 # Per-chunk element budget for the scorer's dominant intermediates (the
 # [V, V] FW matrices and the [S, E, T] ECMP tensor, times the chunk).  A
@@ -147,13 +149,18 @@ def _cols(M: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return M.gather(2, idx[:, None, :].expand(-1, M.shape[1], -1))
 
 
-def _metrics_one(W, edges, edge_mask, area, *, pairs, conn, fw_impl):
+def _metrics_one(W, edges, edge_mask, area, *, pairs, conn, fw_impl,
+                 dem_vec=None, trace_fn=None):
     """All nine cost components plus ``connected`` for a batch of
     placements: W [P,V,V], edges [P,E,2] long, edge_mask [P,E], area [P].
 
     The reference's per-placement ``_metrics_one`` with the placement
     dimension written out: the same gathers, the [P, S, E, T]
-    on-shortest-path mask and one contraction for the ECMP link loads."""
+    on-shortest-path mask and one contraction for the ECMP link loads.
+    With packed demand rows ``dem_vec`` [P, demand_dim(N)] and a
+    ``trace_fn`` (the netsim rate model bound to this layout), the output
+    also carries the per-class ``trace_lat_{t}`` / ``trace_thr_{t}``
+    traffic metrics, computed from the same FW solve."""
     D, Ncnt = fw_impl(W)
     eu, ev = edges[..., 0], edges[..., 1]                      # [P, E]
     V = W.shape[-1]
@@ -191,13 +198,27 @@ def _metrics_one(W, edges, edge_mask, area, *, pairs, conn, fw_impl):
         thr = torch.where(max_load > 0, (1.0 / max_load).clamp_max(1.0), 1.0)
         out[f"lat_{t}"] = lat
         out[f"thr_{t}"] = thr
+    if dem_vec is not None and trace_fn is not None:
+        out.update(trace_fn(D, Ncnt, W, edges, edge_mask, dem_vec))
     return out
+
+
+# The dtype each key of a scoring batch takes on the scorer's device.
+BATCH_DTYPES = {"W": torch.float32, "edges": torch.long,
+                "edge_mask": torch.bool, "area": torch.float32,
+                "edge_len": torch.float32, "_demand": torch.float32}
 
 
 def _tensor(x, dtype, device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=dtype)
     return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+
+
+def batch_tensor(key: str, x, device) -> torch.Tensor:
+    """One key of a scoring batch (numpy or a tensor on any device) as a
+    tensor on ``device`` in the dtype the scorer reads it in."""
+    return _tensor(x, BATCH_DTYPES.get(key), device)
 
 
 def make_scorer(layout: Layout, *, fw_impl=fw_impl_tiled, chunk: int = 16,
@@ -216,6 +237,16 @@ def make_scorer(layout: Layout, *, fw_impl=fw_impl_tiled, chunk: int = 16,
     normalizers (``[NORM_DIM]`` or per-row ``[P, NORM_DIM]``) and weights
     (``[W_FIXED + n_terms]`` or ``[P, ...]``, default the objective's own
     :func:`~repro_torch.core.objective.weights_vec`) are runtime arguments.
+
+    When the objective carries a trace term (``trace-lat`` /
+    ``trace-thr``), the batch must also carry a ``_demand`` key (``[P,
+    demand_dim(N)]`` packed workload rows, see
+    :mod:`repro_torch.netsim.workload`); the traffic rate model then runs
+    after the FW call on the same ``D``, ``N`` and the output gains
+    per-class ``trace_lat_{t}`` / ``trace_thr_{t}`` metrics and
+    ``trace_max_load``.  Demand is a runtime operand like norms and
+    weights, and the chunk clamp then counts the rate model's ``[N, E,
+    N]`` tensor too.
     """
     dev = resolve_device(device)
     pairs = _pair_sets(layout, dev)
@@ -225,15 +256,36 @@ def make_scorer(layout: Layout, *, fw_impl=fw_impl_tiled, chunk: int = 16,
     default_w = weights_vec(objective) if objective is not None else None
     Vp = layout.Vp
     pair_elems = max_pair_elems(layout)
+    needs_demand = objective is not None and any(
+        t.name in TRACE_TERMS for t in objective.terms)
+    trace_fn = None
+    if needs_demand:
+        # Lazy import: netsim.model imports this module; proxy-only
+        # scorers keep the traffic model out of their import graph.
+        from ..netsim.model import trace_metrics_one
+        trace_fn = functools.partial(trace_metrics_one, srcs=conn[0],
+                                     dsts=conn[1])
+        # The rate model's [N, E, N] tensor joins the chunk budget.
+        pair_elems = max(pair_elems, layout.N * layout.N)
 
     def score_tensors(batch, norms=None, weights=None) -> dict:
-        W = _tensor(batch["W"], torch.float32, dev)
-        edges = _tensor(batch["edges"], torch.long, dev)
-        edge_mask = _tensor(batch["edge_mask"], torch.bool, dev)
-        area = _tensor(batch["area"], torch.float32, dev)
-        edge_len = (_tensor(batch["edge_len"], torch.float32, dev)
+        W = batch_tensor("W", batch["W"], dev)
+        edges = batch_tensor("edges", batch["edges"], dev)
+        edge_mask = batch_tensor("edge_mask", batch["edge_mask"], dev)
+        area = batch_tensor("area", batch["area"], dev)
+        edge_len = (batch_tensor("edge_len", batch["edge_len"], dev)
                     if "edge_len" in batch else None)
         P = W.shape[0]
+        dem = None
+        if needs_demand:
+            if "_demand" not in batch:
+                raise ValueError(
+                    "objective has a trace term (trace-lat/trace-thr) but "
+                    "the batch carries no '_demand' workload operand; "
+                    "score through an Evaluator built with a workload "
+                    "(see repro_torch.netsim.workload.Workload)")
+            dem = batch_tensor("_demand", batch["_demand"], dev)
+            dem = dem.expand(P, dem.shape[-1])
         eff = scorer_chunk(pair_elems, W.shape[-1], edges.shape[1], chunk)
         if cobj is not None:
             norms = torch.ones(NORM_DIM) if norms is None else norms
@@ -245,7 +297,9 @@ def make_scorer(layout: Layout, *, fw_impl=fw_impl_tiled, chunk: int = 16,
         for s in range(0, P, eff):
             c = slice(s, s + eff)
             out = _metrics_one(W[c], edges[c], edge_mask[c], area[c],
-                               pairs=pairs, conn=conn, fw_impl=fw_impl)
+                               pairs=pairs, conn=conn, fw_impl=fw_impl,
+                               dem_vec=None if dem is None else dem[c],
+                               trace_fn=trace_fn)
             if cobj is not None:
                 sample = dict(out, edges=edges[c], edge_mask=edge_mask[c],
                               area=area[c], Vp=Vp)

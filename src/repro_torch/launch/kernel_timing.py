@@ -14,7 +14,9 @@ time another checkout's kernels (one without this module) the same way.
   (``cuobjdump -sass``), and :func:`issue_rate`, the card's instructions
   a second; their quotient is the issue floor.
 * :data:`RUNS` and :func:`experiment_config`: the ``run_experiment``
-  configurations whose walls both scripts time.
+  configurations whose walls both scripts time; :func:`sweep_configs`, the
+  ``run_sweep`` configurations of the smoke's sweep phase (timed in turns
+  by ``launch/sweep_walls.py``).
 """
 from __future__ import annotations
 
@@ -351,3 +353,21 @@ def experiment_config(api, name: str, **overrides):
         kw["backend"] = backend
     kw.update(overrides)
     return api.ExperimentConfig(**kw)
+
+
+# The sweep: homog64 placeit (V = 480, the largest paper arch), the
+# paper's GA 50 / 8 / 8, seeds 0 and 1 x (br, ga), plus a ga-batched and
+# an sa-batched config on the same scorer, so host graph lists and device
+# batches stack in one group: (algorithms, seed).
+SWEEP_RUNS = ((("br", "ga"), 0), (("br", "ga"), 1), (("ga-batched",), 0),
+              (("sa-batched",), 1))
+
+
+def sweep_configs(api) -> tuple:
+    """The ``ExperimentConfig``s of :data:`SWEEP_RUNS` in ``api``."""
+    ga = dict(population=50, elitism=8, tournament=8)
+    return tuple(api.ExperimentConfig(
+        arch="homog64", config="placeit", algorithms=algos, seed=seed,
+        budget=api.Budget(evals=100), norm_samples=50,
+        params={"ga": ga, "ga-batched": ga, "sa-batched": dict(chains=8)})
+        for algos, seed in SWEEP_RUNS)

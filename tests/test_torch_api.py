@@ -139,7 +139,8 @@ def test_port_imports_neither_jax_nor_repro():
 
 def test_port_import_leaves_jax_and_repro_unloaded():
     code = ("import sys; import repro_torch.core.api, repro_torch.interop, "
-            "repro_torch.testing; "
+            "repro_torch.testing, repro_torch.core.pareto, "
+            "repro_torch.core.traces, repro_torch.netsim; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); "
             "sys.exit(1 if bad else 0)")

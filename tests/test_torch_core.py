@@ -219,14 +219,12 @@ def test_unported_parts_refuse_by_name():
     with pytest.raises(TypeError, match="queue 1 item 12"):
         DevicePipeline._stages(object(), "cpu")
     rep = tapi.make_rep(tchiplets.paper_arch("homog32"), "homog32")
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        tobjective.compile_objective(tobjective.Objective(
-            terms=("lat", "trace-lat")))
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        tapi.ExperimentConfig(arch="homog32", workload={"n": 40})
     with pytest.raises(NotImplementedError, match="queue 1 item 13"):
         tapi.make_evaluator(rep, rep.arch, rng=np.random.default_rng(0),
                             norm_samples=2, archive_k=4, device="cpu")
+    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
+        tapi.run_sweep([tapi.ExperimentConfig(arch="homog32")], shard=True,
+                       device="cpu")
     with pytest.raises(KeyError, match="unknown scorer backend"):
         tapi.get_scorer(rep.layout, chunk=4, backend="fw-pallas",
                         device="cpu")
