@@ -134,6 +134,21 @@ Phases (any failure exits non-zero; nothing is caught):
      metrics scored on the card must agree with the same placement scored
      on the CPU with the plain FW (rtol 1e-5, 1e-4 for ``trace_thr_*``,
      ``tests/test_torch_netsim.py``'s);
+   - slice 11, the design service and the 3D families (default backend,
+     the blocked FW kernel): one ``DesignEngine`` with four tenants at
+     full width (homog64 placeit GA 50 / 8 / 8 over a ``lat`` {0.5, 2}
+     grid with a 16-row population archive; homog64 placeit BR, seed 1,
+     on the same scorer; hetero32 placeit ``ga-batched`` 30 / 6 / 6;
+     stack3d64 placeit ``ga-batched`` 32 / 6 / 6 with a 16-row archive),
+     then a second engine with ``shard=True``; both engines' records must
+     equal the same configs' ``run_sweep(fold_repetitions=False)`` field
+     for field, archives included; each prints its wall,
+     ``score_calls``, ``stacked_rounds``, ``shard_devices`` and blocked-FW
+     launches.  The batched 3D builds (64 random placements of each of
+     the five families, ``testing.PIPELINE_ARCHS_3D``) against the host
+     build bit for bit, then stack3d64 and gw3d64 placeit ``ga-batched``
+     and stack3d64 placeit host GA through ``run_experiment`` (32 / 6 /
+     6), each with its wall, evaluations/s and blocked-FW launches;
    - slices 3 and 4, the LM serving paths, each model at full width
      (bfloat16, weights from a ``torch.Generator`` seeded 0 on the card)
      through ``ServeEngine`` (8 slots, cache 4096, no EOS; 16 requests of
@@ -154,7 +169,8 @@ Phases (any failure exits non-zero; nothing is caught):
 6. profile — ``torch.profiler`` over one blocked FW call at homog256
    (device time by kernel) and one homog256 placeit run through the host
    GA and one through ga-batched (device busy share, the copies' time by
-   direction), and the Evaluator's 20 host norm samples alone; for each
+   direction), the design phase's unsharded engine (device busy share),
+   and the Evaluator's 20 host norm samples alone; for each
    served model, after its run, one prefill of 1024
    tokens and 8 decode ticks of the 8-slot pool (device busy share, time
    by kernel).
@@ -211,6 +227,7 @@ from repro_torch.models.rglru import RGLRU  # noqa: E402
 from repro_torch.models.transformer import leaf_kinds  # noqa: E402
 from repro_torch.models.tree import tree_map  # noqa: E402
 from repro_torch.netsim import ChipletNet, NetSim, Workload  # noqa: E402
+from repro_torch.serve.design import DesignEngine  # noqa: E402
 from repro_torch.serve.engine import (EngineConfig, Request,  # noqa: E402
                                       ServeEngine)
 
@@ -283,6 +300,36 @@ _TRACE_BASE = dict(arch="homog32", config="placeit", algorithms=("ga",),
 # (tests/test_torch_netsim.py's); trace_thr_* divides a difference of two
 # float32 sums and takes THR_RTOL.
 TRACE_RTOL, THR_RTOL = 1e-5, 1e-4
+# Slice 11: the design service.  Four tenants at full width, budgets cut
+# only: homog64 placeit GA at the paper's 50 / 8 / 8 over a lat {0.5, 2}
+# grid with a 16-row archive; homog64 placeit BR, seed 1, on the same
+# scorer (the two stack); hetero32 placeit ga-batched at the paper's
+# 30 / 6 / 6; stack3d64 placeit ga-batched at ARCH3D_DEFAULTS' 32 / 6 / 6
+# with a 16-row archive.
+DESIGN_GRID = pareto.ParetoGridSpec(term_weights={"lat": (0.5, 2.0)})
+DESIGN_TENANTS = (
+    (ExperimentConfig(arch="homog64", config="placeit", algorithms=("ga",),
+                      budget=api.Budget(evals=100), norm_samples=50,
+                      archive_k=16), DESIGN_GRID),
+    (ExperimentConfig(arch="homog64", config="placeit", algorithms=("br",),
+                      budget=api.Budget(evals=96), norm_samples=50, seed=1),
+     None),
+    (ExperimentConfig(arch="hetero32", config="placeit",
+                      algorithms=("ga-batched",), budget=api.Budget(evals=90),
+                      norm_samples=30), None),
+    (ExperimentConfig(arch="stack3d64", config="placeit",
+                      algorithms=("ga-batched",), budget=api.Budget(evals=84),
+                      norm_samples=32, archive_k=16), None))
+# Slice 11: the 3D families.  Random placements of each family of
+# ``testing.PIPELINE_ARCHS_3D`` built both ways, then three runs at
+# ARCH3D_DEFAULTS (32 / 6 / 6, two generations each).
+ARCH3D_N = 64
+ARCH3D_RUNS = tuple(ExperimentConfig(
+    arch=arch, config="placeit", algorithms=(algo,),
+    budget=api.Budget(evals=evals), norm_samples=32)
+    for arch, algo, evals in (("stack3d64", "ga-batched", 84),
+                              ("gw3d64", "ga-batched", 84),
+                              ("stack3d64", "ga", 64)))
 
 
 def phase(name: str) -> None:
@@ -1639,6 +1686,154 @@ def trace_phase(dev) -> dict:
     return launches
 
 
+def _archives_equal(a, b) -> bool:
+    """Two ``OptResult.archive`` snapshots equal row for row, bit for
+    bit (or both absent)."""
+    if a is None or b is None:
+        return a is None and b is None
+    return all(np.array_equal(a[k], b[k]) for k in ("costs", "a", "b"))
+
+
+def _design_requests() -> list:
+    return [api.DesignRequest(config=c, pareto_grid=g, request_id=f"t{i}")
+            for i, (c, g) in enumerate(DESIGN_TENANTS)]
+
+
+def _design_run(reqs, dev, **kw) -> tuple:
+    """One DesignEngine over ``reqs`` with the counts reset before and read
+    after; no plain version may run.  Returns the engine, the responses,
+    the launches and the wall."""
+    reset_counts()
+    t0 = time.monotonic()
+    eng = DesignEngine(device=dev, **kw)
+    rids = [eng.submit(r) for r in reqs]
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches, plain_calls = read_counts()
+    if plain_calls != 0:
+        raise SystemExit("the design engine called a plain version")
+    resps = [eng.result(r) for r in rids]
+    for r in resps:
+        if r.status != "done":
+            raise SystemExit(f"design request {r.request_id}: {r.status} "
+                             f"({r.error})")
+    return eng, resps, launches, wall
+
+
+def design_phase(dev) -> dict:
+    """Slice 11: the design service.  Four tenants through one
+    ``DesignEngine``; every response equals its
+    ``run_sweep(fold_repetitions=False)`` records bit for bit, and a second
+    engine with ``shard=True`` equals the first."""
+    names = "; ".join(f"{c.arch} {c.config} {c.algorithms[0]}"
+                      + (f" x {g.n_points} grid points" if g else "")
+                      + (f", archive {c.archive_k}" if c.archive_k else "")
+                      for c, g in DESIGN_TENANTS)
+    phase(f"main path, slice 11: DesignEngine, {len(DESIGN_TENANTS)} "
+          f"tenants ({names}), unsharded, then shard=True")
+    reqs = _design_requests()
+    total = dict.fromkeys(KERNELS, 0)
+    engines = []
+    for kw in ({}, {"shard": True}):
+        eng, resps, launches, wall = _design_run(reqs, dev, **kw)
+        for k, n in launches.items():
+            total[k] += n
+        st = eng.stats
+        n = st.rows_scored
+        print(f"  {'shard=True' if kw else 'unsharded':10s} wall {wall:7.3f} "
+              f"s, {n} placements scored in rounds, {n / wall:7.1f} "
+              f"evaluations/s, score_calls {st.score_calls}, stacked_rounds "
+              f"{st.stacked_rounds}, ticks {st.ticks}, evaluators "
+              f"{st.evaluators_built}, shard_devices {st.shard_devices}, "
+              f"fw_counts_tiled launches {launches['fw_counts_tiled']}")
+        if launches["fw_counts_tiled"] <= 0:
+            raise SystemExit("the design engine did not launch the blocked "
+                             "FW kernel")
+        if st.stacked_rounds <= 0:
+            raise SystemExit("the design engine stacked no round")
+        runs_s = sum(r.seconds for resp in resps for r in resp.records)
+        print(f"    the runs' attributed seconds (their generators' resumes "
+              f"and their shares of the scorer calls) {runs_s:.3f} s; the "
+              f"rest of the wall, {wall - runs_s:.3f} s: admission (the "
+              f"evaluators' norm samples), the Pareto fronts' re-scores, "
+              f"the engine's bookkeeping")
+        engines.append(resps)
+    for resp in engines[0]:
+        f = resp.front
+        print(f"  {resp.request_id}: best cost {resp.best_cost:.4f}, "
+              f"{len(resp.records)} records, {len(resp.updates)} updates, "
+              f"front {'-' if f is None else len(f.points)} of "
+              f"{'-' if f is None else f.n_candidates} candidates")
+    # The same configs through run_sweep, unfolded: equal record for
+    # record.  (An engine record keeps its evaluator's cumulative
+    # n_generated, as the reference engine's does: that count is not
+    # compared.)
+    expanded = []
+    for c, g in DESIGN_TENANTS:
+        expanded += ([c] if g is None else
+                     [dataclasses.replace(c, objective=o)
+                      for _, o in g.points(c.objective)])
+    sweep, launches, wall = _sweep(expanded, dev, fold_repetitions=False)
+    print(f"  run_sweep(fold_repetitions=False) of the {len(expanded)} "
+          f"expanded configs: wall {wall:.3f} s, score_calls "
+          f"{sweep.stats.score_calls}, fw_counts_tiled launches "
+          f"{launches['fw_counts_tiled']}")
+    for k, n in launches.items():
+        total[k] += n
+    for resps in engines:
+        recs = [r for resp in resps for r in resp.records]
+        if len(recs) != len(sweep.records) or not all(
+                _records_equal(a, b, generated=False)
+                and _archives_equal(a.result.archive, b.result.archive)
+                for a, b in zip(sweep.records, recs)):
+            raise SystemExit("design engine records differ from run_sweep's")
+    a0 = next(r for r in sweep.records if r.result.archive is not None)
+    print(f"  {len(sweep.records)} records equal run_sweep's field for field "
+          f"(best_sol, best_cost bits, n_evaluated, history, archive), "
+          f"sharded and unsharded; archive of {a0.arch}: "
+          f"{len(a0.result.archive['costs'])} rows, head "
+          f"{a0.result.archive['costs'][0]:.4f}")
+    return total
+
+
+def arch3d_phase(dev) -> dict:
+    """Slice 11: the 3D families.  The batched builds against the host
+    build, then three runs through run_experiment on the card."""
+    phase(f"parity: batched 3D score-graph builds on the card vs the host "
+          f"build ({ARCH3D_N} random placements a family, bitwise; metrics "
+          f"and cost from both builds bitwise)")
+    for arch_name, config in testing.PIPELINE_ARCHS_3D:
+        try:
+            out = testing.batched_build_parity(arch_name, config, ARCH3D_N,
+                                               device=dev)
+        except AssertionError as e:
+            raise SystemExit(f"3D build parity failed: {e}") from e
+        print(f"  {arch_name} {config}: equal; {out['connected']} of "
+              f"{out['n']} connected, {out['links']:.1f} links a placement; "
+              f"batched build {1e3 * out['build_s']:.2f} ms")
+    runs = ", ".join(f"{c.arch} {c.algorithms[0]}" for c in ARCH3D_RUNS)
+    phase(f"main path, slice 11: the 3D families through run_experiment + "
+          f"baseline_cost on the card ({runs}; placeit, 32 / 6 / 6)")
+    total = dict.fromkeys(KERNELS, 0)
+    for cfg in ARCH3D_RUNS:
+        rec, launches, wall = _run(cfg, dev)
+        for k, n in launches.items():
+            total[k] += n
+        n = rec.result.n_evaluated + cfg.norm_samples
+        print(f"  {cfg.arch} {cfg.algorithms[0]}: wall {wall:.3f} s, {n} "
+              f"placements scored, {n / wall:.1f} evaluations/s; "
+              f"fw_counts_tiled launches {launches['fw_counts_tiled']}; "
+              f"best placement {rec.result.best_sol[0].shape}")
+        if launches["fw_counts_tiled"] <= 0:
+            raise SystemExit(f"{cfg.arch} {cfg.algorithms[0]} did not launch "
+                             f"the blocked FW kernel")
+        if rec.result.best_sol[0].shape != (4, 4, 4):
+            raise SystemExit(f"{cfg.arch}: placement "
+                             f"{rec.result.best_sol[0].shape}")
+    return total
+
+
 def _kernel_times(prof) -> tuple[list, float]:
     """(name, device ms, calls) of each CUDA kernel in a profile, largest
     first, and their total in ms."""
@@ -1653,10 +1848,11 @@ def _kernel_times(prof) -> tuple[list, float]:
 def profile_phase(dev) -> None:
     """torch.profiler over one blocked FW call at homog256 placeit (time
     by phase kernel), over one homog256 placeit run through the host GA
-    and one through ga-batched (device busy share, every copy), and over
-    the Evaluator's norm-sample draw alone (the host-built graphs both
-    runs still score).  Profiling adds host time, so the runs' walls here
-    are longer than the main path's."""
+    and one through ga-batched (device busy share, every copy), over the
+    design phase's unsharded engine, and over the Evaluator's norm-sample
+    draw alone (the host-built graphs both runs still score).  Profiling
+    adds host time, so the runs' walls here are longer than the main
+    path's."""
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     phase("profile: one fw_counts_tiled call at homog256 placeit")
@@ -1676,6 +1872,9 @@ def profile_phase(dev) -> None:
     runs = [(f"one {cfg.arch} {cfg.config} {cfg.algorithms[0]} "
              f"run_experiment", lambda cfg=cfg: run_experiment(cfg, device=dev))
             for cfg in (HOMOG256, HOMOG256_BATCHED)]
+    runs.append((f"the design engine's {len(DESIGN_TENANTS)} tenants, "
+                 f"unsharded",
+                 lambda: _design_run(_design_requests(), dev)))
     runs.append((f"the Evaluator's {HOMOG256.norm_samples} {HOMOG256.arch} "
                  f"norm samples alone",
                  lambda: api.make_evaluator(
@@ -1710,8 +1909,9 @@ def main() -> None:
     timing.update(attention_timing_phase(dev, max_err))
     timing.update(scan_timing_phase(dev, max_err, funcs))
     launches = main_path_phase(dev)
-    for slice10 in (sweep_phase, pareto_phase, trace_phase):
-        for k, n in slice10(dev).items():
+    for path in (sweep_phase, pareto_phase, trace_phase, design_phase,
+                 arch3d_phase):
+        for k, n in path(dev).items():
             launches[k] += n
     profile_phase(dev)
     for k, n in serve_all_phase(dev).items():

@@ -30,14 +30,19 @@ The port of the single-experiment part of ``repro.core.api``:
 * ``workload:`` — a traffic :class:`repro_torch.netsim.workload.Workload`
   backing a ``trace-lat`` / ``trace-thr`` objective term; its JSON form is
   the reference's.
+* ``archive_k:`` — a top-K population archive per Evaluator
+  (``optimize.PopArchive``) that thickens Pareto fronts; ``shard`` splits
+  every stacked scoring call's population axis across devices
+  (``repro_torch.sharding.population``).
+* :class:`DesignRequest` / :class:`DesignUpdate` / :class:`DesignResponse`
+  — the design service's request schema (engine:
+  ``repro_torch.serve.design``), with the reference's dict form.
+* The 3D / hierarchical families (``ARCH3D``: ``repro_torch.arch3d``)
+  dispatch through :func:`make_rep` like any other arch name.
 
 Per-algorithm RNG streams are derived with :func:`algo_seed` from a stable
 CRC32 digest of the algorithm name, as in the reference, so a seed gives
 the same placements in both packages.
-
-Not ported yet: the design service and its request schema, the
-population archive and population sharding (ROADMAP queue 1 item 13), and
-the 3D families (item 12).
 """
 from __future__ import annotations
 
@@ -313,8 +318,9 @@ LARGE_DEFAULTS = ArchDefaults(
     sa=SAParams(t0_temp=35.0, block_len=50),
     mutation_mode="neighbor-one")
 
-# Defaults for the 3D / hierarchical families (kept for config parity; the
-# families themselves are not ported yet).
+# Defaults for the 3D / hierarchical families (repro_torch.arch3d): the
+# homog64 row's GA/SA shapes with a slightly smaller population — the
+# stacked grids are denser (every cell occupied).
 ARCH3D_DEFAULTS = ArchDefaults(
     ga=GAParams(population=32, elitism=6, tournament=6),
     sa=SAParams(t0_temp=35.0, block_len=50),
@@ -347,15 +353,15 @@ def algo_seed(seed: int, repetition: int, algo: str) -> int:
 
 
 def make_rep(arch: ArchSpec, arch_name: str,
-             mutation_mode: str | None = None) -> HomogRep | HeteroRep:
+             mutation_mode: str | None = None):
     """Placement representation for a named architecture (§V-A / §VI-A,
-    plus the LARGE_GRIDS 100+-chiplet families)."""
+    plus the LARGE_GRIDS 100+-chiplet families and the ARCH3D families)."""
     fam, _ = arch_family(arch_name)
-    if fam == "arch3d":
-        raise NotImplementedError(
-            f"3D / hierarchical arch {arch_name!r} is not ported yet: "
-            f"ROADMAP queue 1 item 12")
     mode = mutation_mode or paper_defaults(arch_name).mutation_mode
+    if fam == "arch3d":
+        # Lazy import: the arch3d package imports core modules.
+        from ..arch3d.families import make_rep3d
+        return make_rep3d(arch, arch_name, mutation_mode=mode)
     if fam == "hetero":
         return HeteroRep(arch, mutation_mode=mode)
     if arch_name in LARGE_GRIDS:
@@ -369,9 +375,9 @@ def make_rep(arch: ArchSpec, arch_name: str,
 
 # ---------------------------------------------------------------------------
 # Scorer cache: one scorer per (layout, chunk, backend, objective
-# *structure*, device) — a bounded LRU, so a long-lived process cannot
-# leak scorers.  Hits, misses and evictions are counted and surfaced
-# through scorer_cache_stats() / SweepStats.
+# *structure*, shape key, device) — a bounded LRU, so a long-lived process
+# cannot leak scorers.  Hits, misses and evictions are counted and
+# surfaced through scorer_cache_stats() / SweepStats.
 # ---------------------------------------------------------------------------
 
 SCORER_CACHE_CAPACITY = 64
@@ -382,15 +388,23 @@ _SCORER_STATS = {"hits": 0, "misses": 0}
 
 def get_scorer(layout, *, chunk: int, backend: str,
                objective: Objective | None = None,
-               device=None) -> Callable:
+               shape_key=None, device=None) -> Callable:
     """Cached batched scorer (with the compiled objective in it).  Two
     Evaluators over the same layout and device share one scorer, with its
     index tensors already on the device; normalizers and objective
     *weights* are runtime arguments, so only the term structure
-    (:meth:`Objective.structure_key`) forces a new scorer."""
+    (:meth:`Objective.structure_key`) forces a new scorer.
+
+    ``shape_key`` splits the cache for representations whose graph-array
+    shapes the layout alone does not fix: 3D families over the same
+    chiplet set (``repro_torch.arch3d``, e.g. stack3d32 vs torus3d32)
+    share a ``Layout`` but emit different edge-slot counts, and
+    ``run_sweep`` and the design engine group stacked runs by scorer
+    identity — a shared scorer would concatenate unlike batches."""
     objective = objective if objective is not None else Objective()
     dev = resolve_device(device)
-    key = (layout, chunk, backend, objective.structure_key(), str(dev))
+    key = (layout, chunk, backend, objective.structure_key(), shape_key,
+           str(dev))
     hit = key in _SCORER_CACHE
     _SCORER_STATS["hits" if hit else "misses"] += 1
     if not hit:
@@ -437,8 +451,9 @@ def make_evaluator(rep, arch: ArchSpec, *, rng: np.random.Generator,
     — the paper formula for paper archs.  ``workload`` (a
     :class:`repro_torch.netsim.workload.Workload`) backs a ``trace-lat`` /
     ``trace-thr`` objective term — a runtime scorer operand, so it does
-    not enter the scorer cache key.  ``archive_k`` > 0 is not ported yet
-    and raises."""
+    not enter the scorer cache key.  ``archive_k`` > 0 attaches a top-K
+    population archive on the device
+    (:class:`repro_torch.core.optimize.PopArchive`)."""
     dev = resolve_device(device)
     objective = (objective if objective is not None
                  else Objective.from_arch(arch))
@@ -448,7 +463,9 @@ def make_evaluator(rep, arch: ArchSpec, *, rng: np.random.Generator,
                          schedule=schedule, norm=norm, archive_k=archive_k,
                          workload=workload, device=dev)
     scorer = get_scorer(rep.layout, chunk=chunk, backend=backend,
-                        objective=objective, device=dev)
+                        objective=objective,
+                        shape_key=getattr(rep, "scorer_shape_key", None),
+                        device=dev)
     return Evaluator(rep, arch, rng=rng, norm_samples=norm_samples,
                      chunk=chunk, scorer=scorer, objective=objective,
                      schedule=schedule, norm=norm, archive_k=archive_k,
@@ -487,7 +504,9 @@ class ExperimentConfig:
     # Constraint-hardening weight ramps over each run's progress; None =
     # static weights.
     schedule: Schedule | None = None
-    # Population archive size (not ported yet: must stay 0).
+    # > 0 keeps a device-resident top-K archive of every evaluated
+    # placement (optimize.PopArchive); Pareto sweeps re-score it as extra
+    # front candidates.
     archive_k: int = 0
     # Traffic workload (repro_torch.netsim.workload.Workload, or its dict
     # form) backing a `trace-lat` objective term; None for proxy-only
@@ -712,8 +731,8 @@ class SweepConfig:
     different runtime weights — they share one scorer and stack in
     lockstep), and ``run_sweep`` attaches one
     :class:`repro_torch.core.pareto.ParetoFront` per base config to
-    ``SweepResult.fronts``.  ``shard`` (population sharding) is not ported
-    yet and raises in :func:`run_sweep`.
+    ``SweepResult.fronts``.  ``shard`` splits the population axis of
+    every stacked scoring call across devices (see :func:`run_sweep`).
     """
 
     configs: tuple = ()
@@ -798,8 +817,111 @@ _SWEEP_STACKABLE = {
 def stackable_steps(algo: str):
     """Step-generator factory ``(ev, rng, budget, params) -> generator``
     for a lockstep-stackable optimizer, or ``None`` if ``algo`` only runs
-    synchronously."""
+    synchronously.  Public seam for the design service (serve.design)."""
     return _SWEEP_STACKABLE.get(algo)
+
+
+# ---------------------------------------------------------------------------
+# Design-service request/response schema (engine: repro_torch.serve.design).
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class DesignRequest:
+    """One tenant's placement-design request.
+
+    ``config`` is a normal :class:`ExperimentConfig`; with a
+    ``pareto_grid`` (:class:`repro_torch.core.pareto.ParetoGridSpec`) it is
+    expanded into one run per grid scalarization and the streamed/final
+    results carry a Pareto front.  ``timeout_s`` is wall time measured
+    from submission; the engine resolves the request as ``"timeout"``
+    when it expires.  Round-trips via to/from_dict in the reference's
+    form.
+    """
+
+    config: ExperimentConfig
+    request_id: str = ""
+    pareto_grid: object | None = None      # pareto.ParetoGridSpec
+    timeout_s: float | None = None
+
+    def __post_init__(self):
+        if not isinstance(self.config, ExperimentConfig):
+            object.__setattr__(self, "config",
+                               ExperimentConfig.from_dict(self.config))
+        if self.pareto_grid is not None:
+            from .pareto import ParetoGridSpec
+            if not isinstance(self.pareto_grid, ParetoGridSpec):
+                object.__setattr__(self, "pareto_grid",
+                                   ParetoGridSpec.from_dict(self.pareto_grid))
+
+    def to_dict(self) -> dict:
+        return {"config": self.config.to_dict(),
+                "request_id": self.request_id,
+                "pareto_grid": (None if self.pareto_grid is None
+                                else self.pareto_grid.to_dict()),
+                "timeout_s": self.timeout_s}
+
+    @classmethod
+    def from_dict(cls, d: Mapping) -> "DesignRequest":
+        unknown = set(d) - {f.name for f in dataclasses.fields(cls)}
+        if unknown:
+            raise ValueError(f"unknown DesignRequest keys: "
+                             f"{sorted(unknown)}")
+        return cls(**dict(d))
+
+
+@dataclass
+class DesignUpdate:
+    """One streamed increment for a request.
+
+    ``kind`` is ``"progress"`` (a scoring round completed; carries the
+    best-so-far cost), ``"front"`` (the request's Pareto front), or a
+    terminal ``"done"`` / ``"cancelled"`` / ``"timeout"`` / ``"error"``.
+    """
+
+    request_id: str
+    kind: str
+    tick: int = 0                 # engine tick the update was emitted on
+    generation: int = 0           # scoring rounds completed for the request
+    best_cost: float | None = None
+    front: object | None = None   # pareto.ParetoFront (kind="front")
+    error: str | None = None
+
+    def to_dict(self) -> dict:
+        return {"request_id": self.request_id, "kind": self.kind,
+                "tick": self.tick, "generation": self.generation,
+                "best_cost": self.best_cost,
+                "front_size": (None if self.front is None
+                               else len(self.front.points)),
+                "error": self.error}
+
+
+@dataclass
+class DesignResponse:
+    """Terminal result for a request: the per-run records (same shape as
+    :func:`run_experiment` output), the final Pareto front when a grid or
+    archive produced one, and the stream of updates that led here."""
+
+    request_id: str
+    status: str                   # done | cancelled | timeout | error
+    records: list = field(default_factory=list)    # list[RunRecord]
+    front: object | None = None   # pareto.ParetoFront
+    updates: list = field(default_factory=list)    # list[DesignUpdate]
+    seconds: float = 0.0
+    error: str | None = None
+
+    @property
+    def best_cost(self) -> float | None:
+        costs = [r.result.best_cost for r in self.records
+                 if r.result is not None]
+        return min(costs) if costs else None
+
+    def to_dict(self) -> dict:
+        return {"request_id": self.request_id, "status": self.status,
+                "records": summarize(self.records),
+                "front_size": (None if self.front is None
+                               else len(self.front.points)),
+                "updates": [u.to_dict() for u in self.updates],
+                "seconds": self.seconds, "error": self.error}
 
 
 @dataclass
@@ -819,7 +941,7 @@ class _SweepUnit:
 
 
 def run_sweep(configs, *, fold_repetitions: bool = True,
-              stack_scoring: bool = True, shard: bool = False,
+              stack_scoring: bool = True, shard=False,
               device=None) -> SweepResult:
     """Run many configs on ``device`` (default: the card), amortizing
     scorer construction and normalization.
@@ -858,8 +980,15 @@ def run_sweep(configs, *, fold_repetitions: bool = True,
     Because the Evaluator is shared, each record's ``n_generated`` is the
     number of placements generated *by that run* (a per-call delta).
 
-    ``shard`` (the population axis split across devices) is not ported
-    yet: ROADMAP queue 1 item 13.
+    With ``shard`` every stackable run (stacked groups *and* singletons)
+    routes its scoring through
+    :func:`repro_torch.sharding.population.shard_scorer`, which splits the
+    population axis into one contiguous slice per device.  ``shard=True``
+    takes every CUDA device when ``device`` is one (the sweep's own device
+    when it is the CPU); a list of devices names them.  The scorer's rows
+    do not depend on the slice they fall in, so the records are bit for
+    bit those of the unsharded path; ``stats.shard_devices`` records the
+    device count.
     """
     if isinstance(configs, SweepConfig):
         sc = configs
@@ -873,10 +1002,6 @@ def run_sweep(configs, *, fold_repetitions: bool = True,
         return run_sweep(sc.configs, fold_repetitions=sc.fold_repetitions,
                          stack_scoring=sc.stack_scoring, shard=sc.shard,
                          device=device)
-    if shard:
-        raise NotImplementedError(
-            "population sharding (shard=True) is not ported yet: ROADMAP "
-            "queue 1 item 13")
     dev = resolve_device(device)
     t0 = time.monotonic()
     miss0 = _SCORER_STATS["misses"]
@@ -928,13 +1053,22 @@ def run_sweep(configs, *, fold_repetitions: bool = True,
     # budgeted runs never stack: interleaving would consume each run's
     # time budget with the whole group's work.
     groups: dict[int, list[_SweepUnit]] = {}
-    if stack_scoring:
+    shard_on = shard is not None and shard is not False
+    if stack_scoring or shard_on:
         for u in units:
             if u.algo in _SWEEP_STACKABLE and u.budget.seconds is None:
                 groups.setdefault(id(u.ev.scorer), []).append(u)
-        # stacking alone only pays off for > 1 run
-        groups = {k: v for k, v in groups.items() if len(v) > 1}
+        if not stack_scoring:       # shard-only: each run on its own
+            groups = {id(u): [u] for us in groups.values() for u in us}
+        elif not shard_on:          # stacking alone only pays off for > 1
+            groups = {k: v for k, v in groups.items() if len(v) > 1}
     stacked = {id(u) for us in groups.values() for u in us}
+    stacked_groups = sum(1 for us in groups.values() if len(us) > 1)
+
+    shard_devs = None
+    if shard_on:
+        from ..sharding.population import population_devices, shard_scorer
+        shard_devs = population_devices(shard_device_list(shard, dev))
 
     for us in groups.values():
         items = []
@@ -943,7 +1077,10 @@ def run_sweep(configs, *, fold_repetitions: bool = True,
                 algo_seed(u.cfg.seed, max(u.rep_i, 0), u.algo))
             items.append((_SWEEP_STACKABLE[u.algo](u.ev, rng_a, u.budget,
                                                    u.params), u.ev))
-        results, gen_counts, run_secs = drive_stacked(items)
+        score_fn = (None if shard_devs is None
+                    else shard_scorer(us[0].ev.scorer, shard_devs))
+        results, gen_counts, run_secs = drive_stacked(items,
+                                                      score_fn=score_fn)
         for u, res, g, s in zip(us, results, gen_counts, run_secs):
             res.n_generated = g
             u.result, u.seconds = res, s
@@ -970,9 +1107,20 @@ def run_sweep(configs, *, fold_repetitions: bool = True,
                         for run in runs for r in run.records),
         seconds=time.monotonic() - t0,
         score_calls=sum(ev.n_score_calls for ev in ev_cache.values()),
-        stacked_groups=len(groups),
-        scorer_evictions=_SCORER_CACHE.evictions - evict0)
+        stacked_groups=stacked_groups,
+        scorer_evictions=_SCORER_CACHE.evictions - evict0,
+        shard_devices=1 if shard_devs is None else len(shard_devs))
     return SweepResult(runs, stats)
+
+
+def shard_device_list(shard, device):
+    """The explicit device list a ``shard`` argument names, or ``None``
+    for every CUDA device: ``True`` on a CUDA ``device`` means all cards,
+    ``True`` on the CPU means that one device, a sequence names them."""
+    if shard is True:
+        dev = resolve_device(device)
+        return None if dev.type == "cuda" else [dev]
+    return list(shard)
 
 
 # ---------------------------------------------------------------------------

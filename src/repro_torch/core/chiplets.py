@@ -262,7 +262,7 @@ def large_arch(which: str, config: str = "baseline") -> ArchSpec:
 
 # 3D / hierarchical families: chiplet counts per family name —
 # (n_compute, n_memory, n_io), homogeneous 3mm chiplets.  Their grids and
-# placement representation are not ported yet (ROADMAP queue 1 item 12).
+# placement representation live in ``repro_torch.arch3d``.
 # Counts fill the grids exactly (32 = 4x4x2, 64 = 4x4x4) while keeping
 # roughly the paper's compute-heavy shape.
 ARCH3D = {

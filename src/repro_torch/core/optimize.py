@@ -30,8 +30,9 @@ Evaluator, :func:`drive_stacked` runs several in lockstep with their
 scoring requests concatenated into single scorer calls on the scorer's
 device (the ``run_sweep`` cross-config path, :func:`score_stacked`).
 
-Not ported yet: the population archive (``PopArchive``, ROADMAP queue 1
-item 13); ``OptResult.archive`` stays ``None``.
+An Evaluator built with ``archive_k`` > 0 keeps a :class:`PopArchive`, the
+top-K of every search batch it scores, on the scorer's device; each
+driver's ``OptResult.archive`` is its snapshot at the run's end.
 """
 from __future__ import annotations
 
@@ -62,9 +63,95 @@ class OptResult:
     n_generated: int = 0          # placements generated incl. retries
     n_evaluated: int = 0          # placements actually scored
     normalizers: CostNormalizers | None = None
-    # Snapshot of the evaluator's population archive at run end (None
-    # until the archive is ported: ROADMAP queue 1 item 13).
+    # Snapshot of the evaluator's population archive at run end (see
+    # PopArchive.snapshot; None when the evaluator has no archive).  The
+    # archive is per-evaluator, so records sharing an evaluator carry
+    # increasingly complete snapshots — the last one is the full archive.
     archive: dict | None = None
+
+
+# ---------------------------------------------------------------------------
+# Device-resident population archive.
+# ---------------------------------------------------------------------------
+
+def _archive_merge(sc, sa, sb, costs, a, b, k: int):
+    """The reference's merge step for step: concatenate, stable sort (NaN
+    last, -0.0 equal to +0.0), equal neighbours to +inf (NaN is unequal
+    to itself, so NaN rows stay), a second stable sort that keeps the
+    first-seen row among equal costs, and the first ``k``."""
+    c = torch.cat([sc, costs])
+    A = torch.cat([sa, a])
+    B = torch.cat([sb, b])
+    cs, order = torch.sort(c, stable=True)
+    dup = torch.cat([torch.zeros(1, dtype=torch.bool, device=c.device),
+                     cs[1:] == cs[:-1]])
+    cs = torch.where(dup, torch.inf, cs)        # equal-cost rows collapse
+    keep = torch.sort(cs, stable=True).indices[:k]
+    sel = order[keep]
+    return cs[keep], A[sel], B[sel]
+
+
+class PopArchive:
+    """Fixed-size top-K archive of evaluated (cost, placement) rows, on a
+    device.
+
+    Every scored batch that passes through :meth:`add` is masked (invalid
+    rows -> +inf) and merged with the current archive in a few tensor ops
+    on the archive's device (concatenate + stable sort + equal-cost dedup
+    + take-K), so the archive rides along with the search at no extra
+    scoring cost and no host synchronisation; :meth:`snapshot` is its only
+    copy to the host.  Pareto fronts built from a sweep re-score these K
+    placements next to the per-run winners (``pareto.run_pareto_sweep``).
+
+    The scalar ``cost`` is only the archive's *selection pressure* — rows
+    are re-scored under the front's base objective before entering a
+    front.  Equal-cost rows are collapsed to the first seen (elites
+    re-scored every generation must not fill the archive with copies);
+    distinct placements with bit-equal costs are deliberately dropped too.
+    """
+
+    def __init__(self, k: int, device="cpu"):
+        if k < 1:
+            raise ValueError(f"archive size must be >= 1, got {k}")
+        self.k = int(k)
+        self.device = torch.device(device)
+        self.n_added = 0
+        self._state = None
+
+    def add(self, costs, a, b, valid=None) -> None:
+        """Fold a scored batch into the archive.  ``a``/``b`` are the
+        stacked placement arrays ([B, ...]; numpy or tensors, the host
+        Sol tuple's two members), ``costs`` the matching [B] cost vector,
+        ``valid`` an optional [B] bool mask (e.g. batched-pipeline
+        connectivity).  Host rows are copied to the device; nothing comes
+        back."""
+        dev = self.device
+        costs = torch.as_tensor(costs, device=dev).to(torch.float32)
+        if valid is not None:
+            costs = torch.where(torch.as_tensor(valid, device=dev).bool(),
+                                costs, torch.inf)
+        a = torch.as_tensor(a, device=dev)
+        b = torch.as_tensor(b, device=dev)
+        if self._state is None:
+            self._state = (
+                torch.full((self.k,), torch.inf, device=dev),
+                torch.zeros((self.k,) + a.shape[1:], dtype=a.dtype,
+                            device=dev),
+                torch.zeros((self.k,) + b.shape[1:], dtype=b.dtype,
+                            device=dev))
+        self._state = _archive_merge(*self._state, costs, a, b, self.k)
+        self.n_added += int(costs.shape[0])
+
+    def snapshot(self) -> dict | None:
+        """Host copy of the filled rows: ``{"costs", "a", "b"}`` numpy
+        arrays (ascending cost), or None when nothing was archived."""
+        if self._state is None:
+            return None
+        c, a, b = (x.cpu().numpy() for x in self._state)
+        m = np.isfinite(c)
+        if not m.any():
+            return None
+        return {"costs": c[m], "a": a[m], "b": b[m]}
 
 
 class Evaluator:
@@ -90,8 +177,10 @@ class Evaluator:
     on the scorer's device.
 
     ``device`` is the scorer's (``score.device``); the device pipeline
-    (:meth:`pipeline`) runs there too.  ``archive`` stays ``None``: the
-    population archive is not ported yet.
+    (:meth:`pipeline`) runs there too.  ``archive_k`` > 0 attaches a
+    :class:`PopArchive` of that size on the same device (``archive``,
+    else ``None``); it collects search batches only, never the norm
+    samples.
     """
 
     def __init__(self, rep, arch, *, rng: np.random.Generator,
@@ -99,10 +188,6 @@ class Evaluator:
                  scorer=None, objective: Objective | None = None,
                  schedule=None, norm: CostNormalizers | None = None,
                  archive_k: int = 0, workload=None, device=None):
-        if archive_k:
-            raise NotImplementedError(
-                "the population archive (archive_k > 0) is not ported yet: "
-                "ROADMAP queue 1 item 13")
         self.rep = rep
         self.arch = arch
         self.objective = (objective if objective is not None
@@ -142,7 +227,9 @@ class Evaluator:
                                           device=self.device))
         self.n_generated = 0
         self.n_score_calls = 0
-        self.archive = None
+        # The archive only collects search batches, never the norm-sample
+        # draw below (those costs are computed against all-ones norms).
+        self.archive: PopArchive | None = None
         self._pipeline: DevicePipeline | None = None
         if norm is not None:
             self.norm = norm
@@ -158,6 +245,8 @@ class Evaluator:
             self.norm = CostNormalizers.from_samples(
                 metrics, policy=self.objective.normalizer)
             self._norm_vec = norms_vec(self.norm)
+        if archive_k:
+            self.archive = PopArchive(archive_k, self.device)
 
     @property
     def norm_vec(self) -> np.ndarray:
@@ -236,6 +325,14 @@ class Evaluator:
             self._with_demand(batch),
             self._norm_vec if norms is None else norms,
             self._weights_vec if weights is None else weights)
+
+    def archive_add(self, sols, costs, valid=None) -> None:
+        """Fold scored host solutions into the population archive (no-op
+        without one); sols are the representation's ``(a, b)`` tuples."""
+        if self.archive is None or not len(sols):
+            return
+        self.archive.add(costs, np.stack([s[0] for s in sols]),
+                         np.stack([s[1] for s in sols]), valid=valid)
 
     def costs_from(self, metrics: dict) -> np.ndarray:
         """Per-placement cost — the scorer's ``cost`` when present (always,
@@ -353,6 +450,7 @@ def best_random_steps(ev: Evaluator, rng: np.random.Generator, *,
         w = ev.sched_weights(_sched_progress(res.n_evaluated, max_evals,
                                              t0, time_budget_s))
         costs, metrics = yield _tag(graphs, w)
+        ev.archive_add(sols, costs)
         res.n_evaluated += len(sols)
         i = int(np.argmin(costs))
         if ev.schedule is not None:
@@ -374,6 +472,8 @@ def best_random_steps(ev: Evaluator, rng: np.random.Generator, *,
                             res.best_cost))
     res.n_generated = ev.n_generated
     res.normalizers = ev.norm
+    if ev.archive is not None:
+        res.archive = ev.archive.snapshot()
     return res
 
 
@@ -409,6 +509,7 @@ def genetic_algorithm_steps(ev: Evaluator, rng: np.random.Generator, *,
         w = ev.sched_weights(_sched_progress(gen, max_generations, t0,
                                              time_budget_s))
         costs, metrics = yield _tag(graphs, w)
+        ev.archive_add(sols, costs)
         res.n_evaluated += len(sols)
         order = np.argsort(costs)
         if costs[order[0]] < res.best_cost:
@@ -454,6 +555,8 @@ def genetic_algorithm_steps(ev: Evaluator, rng: np.random.Generator, *,
                             res.best_cost))
     res.n_generated = ev.n_generated
     res.normalizers = ev.norm
+    if ev.archive is not None:
+        res.archive = ev.archive.snapshot()
     return res
 
 
@@ -509,6 +612,7 @@ def simulated_annealing_steps(ev: Evaluator, rng: np.random.Generator, *,
     tstart = time.monotonic()
     sols, graphs = ev.generate_valid(ev.rep.random, rng, chains)
     costs, metrics = yield _tag(graphs, ev.sched_weights(0.0))
+    ev.archive_add(sols, costs)
     res.n_evaluated += chains
     temps = np.full(chains, float(t0_temp))
     block_costs: list[np.ndarray] = []
@@ -541,6 +645,7 @@ def simulated_annealing_steps(ev: Evaluator, rng: np.random.Generator, *,
             nb_costs = all_costs[:chains]
             costs = all_costs[chains:]
             nb_metrics = {k: v[:chains] for k, v in nb_metrics.items()}
+        ev.archive_add(nb_sols, nb_costs)
         res.n_evaluated += chains
         accept = _sa_accept(rng, nb_costs - costs, temps)
         for c in range(chains):
@@ -569,6 +674,8 @@ def simulated_annealing_steps(ev: Evaluator, rng: np.random.Generator, *,
                             res.best_cost))
     res.n_generated = ev.n_generated
     res.normalizers = ev.norm
+    if ev.archive is not None:
+        res.archive = ev.archive.snapshot()
     return res
 
 
@@ -612,6 +719,10 @@ class DevicePipeline:
     positions come back, two copies a batch.  Connectivity masking uses the
     scorer's FW-derived ``connected`` for grids and the Borůvka-component
     flag (identical to the fixed host union-find rule) for hetero archs.
+    Any other rep that exposes ``device_stage_key()`` / ``graph_batch()``
+    / ``batch_ops()`` (the 3D families, :mod:`repro_torch.arch3d`) plugs
+    in as a grid does, its ``tier_values`` bound as the graph build's
+    trailing runtime operand.
 
     The produce→graph stages only depend on the arch statics (grid dims,
     mask, mutation mode) and the device, so they are cached module-wide and
@@ -642,11 +753,16 @@ class DevicePipeline:
                    mask_key, str(dev))
         elif isinstance(rep, HeteroRep):
             key = ("hetero", rep.arch, rep.mutation_mode, str(dev))
+        elif hasattr(rep, "device_stage_key") and hasattr(rep, "graph_batch"):
+            # Pluggable grid-like reps (repro_torch.arch3d.Homog3DRep): the
+            # rep names its own cache key — tier latency values are
+            # runtime operands and must NOT appear in it.
+            key = rep.device_stage_key() + (str(dev),)
         else:
             raise TypeError(
-                "device-resident batched optimizers require a HomogRep or "
-                f"a HeteroRep, got {type(rep)!r} (the 3D reps are ROADMAP "
-                "queue 1 item 12)")
+                "device-resident batched optimizers require a HomogRep, "
+                "HeteroRep, or a rep exposing device_stage_key()/"
+                f"graph_batch()/batch_ops(), got {type(rep)!r}")
         if key in cls._STAGE_CACHE:
             return cls._STAGE_CACHE[key]
         ops = rep.batch_ops(dev)
@@ -658,6 +774,26 @@ class DevicePipeline:
             m = m.view((-1,) + (1,) * (t.dim() - 1))
             return torch.where(m, mt, t), torch.where(m, mr, r)
 
+        if not isinstance(rep, (HomogRep, HeteroRep)):
+            # The stages take the tier latency vector as a trailing operand
+            # (DevicePipeline.__init__ binds the rep's values), so reps
+            # that differ only in tsv/backbone factors share this entry.
+            gb = rep.graph_batch(dev)
+
+            def _gen(gen, n, tiers):
+                t, r = ops.random_batch(gen, n)
+                return t, r, gb.build(t, r, tiers)
+
+            def _mut(gen, t, r, tiers):
+                nt, nr = ops.mutate_batch(gen, t, r)
+                return nt, nr, gb.build(nt, nr, tiers)
+
+            def _child(gen, pat, par, pbt, pbr, p_mut, tiers):
+                t, r = _child_op(gen, pat, par, pbt, pbr, p_mut)
+                return t, r, gb.build(t, r, tiers)
+
+            cls._STAGE_CACHE[key] = (ops, gb, _gen, _mut, _child, gb.build)
+            return cls._STAGE_CACHE[key]
         if isinstance(rep, HomogRep):
             gb = HomogGraphBatch(rep.arch, rep.R, rep.C, area=rep.area,
                                  device=dev)
@@ -702,6 +838,19 @@ class DevicePipeline:
         self.device = ev.device
         (self.ops, self.graphs, self._gen, self._mut,
          self._child, self._rebuild) = self._stages(ev.rep, ev.device)
+        tiers = getattr(ev.rep, "tier_values", None)
+        if tiers is not None:
+            # Bind this rep's tier latency vector as the stages' trailing
+            # runtime operand (shared stages across tier values).
+            tv = torch.as_tensor(np.asarray(tiers, np.float32),
+                                 device=self.device)
+            _gen, _mut, _child, _reb = (self._gen, self._mut, self._child,
+                                        self._rebuild)
+            self._gen = lambda g, n: _gen(g, n, tv)
+            self._mut = lambda g, t, r: _mut(g, t, r, tv)
+            self._child = lambda g, pat, par, pbt, pbr, p: _child(
+                g, pat, par, pbt, pbr, p, tv)
+            self._rebuild = lambda t, r: _reb(t, r, tv)
 
     def rebuild(self, t, r) -> dict:
         """Graph batch for existing solutions (no RNG): re-scoring a
@@ -747,6 +896,8 @@ class DevicePipeline:
         metrics = {k: np.array(v) for k, v in metrics.items()}
         self.ev.n_generated += n
         conn = metrics["connected"].astype(bool)
+        if self.ev.archive is not None:
+            self.ev.archive.add(costs, t, r, valid=conn)
         for _ in range(max_rounds):
             bad = np.nonzero(~conn)[0]
             if not len(bad):
@@ -758,6 +909,8 @@ class DevicePipeline:
             c2, m2 = yield _tag(batch2, weights)
             self.ev.n_generated += size
             conn2 = np.asarray(m2["connected"]).astype(bool)
+            if self.ev.archive is not None:
+                self.ev.archive.add(np.asarray(c2), t2, r2, valid=conn2)
             slots, rows = [], []
             for i in range(size):
                 s = int(idx[i])
@@ -866,6 +1019,8 @@ def best_random_batched_steps(ev: Evaluator, rng: np.random.Generator, *,
                             res.best_cost))
     res.n_generated = ev.n_generated
     res.normalizers = ev.norm
+    if ev.archive is not None:
+        res.archive = ev.archive.snapshot()
     return res
 
 
@@ -951,6 +1106,8 @@ def genetic_algorithm_batched_steps(ev: Evaluator,
                             res.best_cost))
     res.n_generated = ev.n_generated
     res.normalizers = ev.norm
+    if ev.archive is not None:
+        res.archive = ev.archive.snapshot()
     return res
 
 
@@ -1039,6 +1196,8 @@ def simulated_annealing_batched_steps(ev: Evaluator,
                             res.best_cost))
     res.n_generated = ev.n_generated
     res.normalizers = ev.norm
+    if ev.archive is not None:
+        res.archive = ev.archive.snapshot()
     return res
 
 

@@ -401,9 +401,9 @@ def archive_candidates(label: str, cfg_index: int, objective: Objective,
                        archive: Mapping, *, normalizers=None
                        ) -> list[FrontCandidate]:
     """Candidates from a population-archive snapshot (``{"costs", "a",
-    "b"}``, the reference's ``PopArchive.snapshot``; the port's archive is
-    ROADMAP queue 1 item 13) — every retained top-K row becomes one
-    candidate tagged ``algorithm="archive"``, ``repetition=-1``."""
+    "b"}``, :meth:`repro_torch.core.optimize.PopArchive.snapshot`, or the
+    reference's) — every retained top-K row becomes one candidate tagged
+    ``algorithm="archive"``, ``repetition=-1``."""
     costs = np.asarray(archive["costs"])
     return [FrontCandidate(
         label=f"{label}|archive", cfg_index=cfg_index,
@@ -546,9 +546,9 @@ def run_pareto_sweep(base_configs, grid, *, fold_repetitions: bool = True,
 
     A run whose ``OptResult.archive`` holds a population-archive snapshot
     (top-K of every evaluated placement) feeds extra front candidates
-    (``algorithm="archive"``).  The port's archive (``archive_k`` > 0) and
-    ``shard``, which forwards to :func:`run_sweep`, are ROADMAP queue 1
-    item 13: both raise there.
+    (``algorithm="archive"``): configs with ``archive_k`` > 0 thicken
+    their fronts beyond one point per run.  ``shard`` forwards to
+    :func:`run_sweep` (the population axis split across devices).
     """
     grid = ParetoGridSpec.from_dict(grid) \
         if not isinstance(grid, ParetoGridSpec) else grid

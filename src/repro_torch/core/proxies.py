@@ -231,7 +231,8 @@ def make_scorer(layout: Layout, *, fw_impl=fw_impl_tiled, chunk: int = 16,
     of ``chunk`` placements and returns float32 numpy arrays (``connected``
     as bool), like the reference's jitted scorer.  ``score.tensors(...)``
     returns the same dict as tensors on the device; ``score.device`` is
-    that device.
+    that device, and ``score.on_device(d)`` the same scorer (layout, FW,
+    chunk, objective) on device ``d`` (itself on its own device).
 
     With an ``objective`` the output gains a per-placement ``cost``; the
     normalizers (``[NORM_DIM]`` or per-row ``[P, NORM_DIM]``) and weights
@@ -313,8 +314,16 @@ def make_scorer(layout: Layout, *, fw_impl=fw_impl_tiled, chunk: int = 16,
         out = score_tensors(batch, norms, weights)
         return {k: v.cpu().numpy() for k, v in out.items()}
 
+    def on_device(device):
+        d = resolve_device(device)
+        if d == dev:
+            return score
+        return make_scorer(layout, fw_impl=fw_impl, chunk=chunk,
+                           objective=objective, device=d)
+
     score.tensors = score_tensors
     score.device = dev
+    score.on_device = on_device
     return score
 
 

@@ -22,7 +22,7 @@ The PlaceIT pipeline is pluggable at five seams:
   grid families: extra static candidate adjacencies (wraparound, express
   skip links) with the uniform signature
   ``(R, C, Z, sz_mm, params) -> list[AdjRecord]``
-  (not ported yet: ROADMAP queue 1 item 12).
+  (``repro_torch.arch3d.topology`` registers ``torus`` and ``express``).
 
 Entries are registered with decorators::
 
@@ -149,7 +149,7 @@ def register_augmentation(name: str):
     ``fn(R, C, Z, sz_mm, params) -> list[AdjRecord]`` under ``name`` —
     extra static candidate adjacencies (masked like the base grid's) that
     replace the paper's greedy leftover-PHY augmentation on grid families
-    (not ported yet: ROADMAP queue 1 item 12)."""
+    (the 3D families of ``repro_torch.arch3d``)."""
     def deco(fn):
         AUGMENTATIONS.add(name, fn)
         return fn

@@ -75,13 +75,13 @@ def weights_tensor(vec, objective: Objective, device="cpu") -> torch.Tensor:
 
 def sol_from_arrays(a, b) -> tuple[np.ndarray, np.ndarray]:
     """A placement as the port's int8 Sol, as the reference's reps write
-    it: homogeneous ``(types, rot)`` [R, C] or heterogeneous ``(order,
-    rots)`` [N]."""
+    it: homogeneous ``(types, rot)`` [R, C], 3D ``(types, rot)`` [R, C, Z]
+    or heterogeneous ``(order, rots)`` [N]."""
     t = np.array(a, dtype=np.int8)
     r = np.array(b, dtype=np.int8)
-    if t.shape != r.shape or t.ndim not in (1, 2):
-        raise ValueError(f"Sol needs two equal [R, C] or [N] arrays, got "
-                         f"{t.shape} and {r.shape}")
+    if t.shape != r.shape or t.ndim not in (1, 2, 3):
+        raise ValueError(f"Sol needs two equal [R, C], [R, C, Z] or [N] "
+                         f"arrays, got {t.shape} and {r.shape}")
     return t, r
 
 

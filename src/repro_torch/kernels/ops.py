@@ -35,8 +35,8 @@ fw_impl_ref = ref.fw_counts_ref
 # below about 112 but at V = 57 .. 64, where one 64 tile holds the whole
 # graph (there it is up to 7 % slower; one threshold keeps the rule
 # simple).  No architecture the port runs falls below it (homog32 V =
-# 216 .. 240, homog64 432 .. 480, the 100+-chiplet families 552 .. 1536;
-# the heterogeneous and 3D families are not ported yet), so on every such
+# 216 .. 240, homog64 432 .. 480, the 100+-chiplet families 552 .. 1536,
+# the heterogeneous 220 .. 480, the 3D families 168 .. 384), so on every such
 # workload the default backend takes the blocked kernel; kernel 1 serves
 # smaller graphs and backend "fw-cuda".
 FW_TILED_FROM_V = 112

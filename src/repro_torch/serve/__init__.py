@@ -1,1 +1,2 @@
-"""Serving: the slot-based batching engine (``engine.py``)."""
+"""Serving: the slot-based batching engine (``engine.py``) and the
+placement-design service (``design.py``)."""

@@ -103,6 +103,11 @@ GRAPH_KEYS = ("W", "edges", "edge_mask", "edge_len", "area")
 PIPELINE_ARCHS = (("homog64", "placeit"), ("homog256", "placeit"),
                   ("hex127", "baseline"), ("hetero32", "placeit"),
                   ("hetero64", "placeit"))
+# The 3D / hierarchical families (``repro_torch.arch3d``), each in the
+# config its users run (the gateway family wants "placeit").
+PIPELINE_ARCHS_3D = (("stack3d32", "baseline"), ("stack3d64", "placeit"),
+                     ("gw3d64", "placeit"), ("torus3d32", "baseline"),
+                     ("express3d32", "placeit"))
 
 
 def _edge_sets(edges: np.ndarray, mask: np.ndarray) -> list:
@@ -119,9 +124,13 @@ def batched_build_parity(arch_name: str, config: str, n: int, *,
     Raises ``AssertionError`` unless every stacked array (W, edges,
     edge_mask, edge_len, area) is equal bit for bit, slot for slot, the
     directed edge sets are equal, and ``connected`` is equal (the hetero
-    build's Borůvka flag, else the scorer's); the hetero build must flag
-    no overflow.  With ``score`` the scorer's metrics and cost (on
-    ``device``, its default FW) from the two builds must be bit-equal.
+    build's Borůvka flag, else the scorer's; the 3D families' host flag
+    is a chiplet-level union-find, which the scorer's PHY-level
+    reachability need not match, so it is not held there); the hetero
+    build must flag no overflow.  A 3D family builds through its rep's
+    ``graph_batch`` with the rep's tier vector as the runtime operand.
+    With ``score`` the scorer's metrics and cost (on ``device``, its
+    default FW) from the two builds must be bit-equal.
     Returns counts, the batched build's wall seconds (``build_s``, device
     synchronised) and for the hetero archs the host corner placement's
     before it (``geometry_s``)."""
@@ -147,8 +156,11 @@ def batched_build_parity(arch_name: str, config: str, n: int, *,
     a = np.stack([s[0] for s in sols])
     b = np.stack([s[1] for s in sols])
     hetero = isinstance(rep, HeteroRep)
+    grid3d = hasattr(rep, "graph_batch")
     if hetero:
         ops, gb = rep.batch_ops(dev), HeteroGraphBatch(arch, dev)
+    elif grid3d:
+        gb = rep.graph_batch(dev)
     else:
         gb = HomogGraphBatch(arch, rep.R, rep.C, area=rep.area, device=dev)
 
@@ -164,6 +176,8 @@ def batched_build_parity(arch_name: str, config: str, n: int, *,
         args = (torch.from_numpy(ppos).to(dev), torch.from_numpy(area).to(dev))
     else:
         args = (torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev))
+        if grid3d:
+            args += (torch.as_tensor(rep.tier_values, device=dev),)
     sync()
     t0 = time.perf_counter()
     batch = gb.build(*args)
@@ -190,7 +204,7 @@ def batched_build_parity(arch_name: str, config: str, n: int, *,
         m_dev, m_host = scorer(mine), scorer(host)
         for k, v in m_host.items():
             assert np.array_equal(m_dev[k], v), f"{where}: metric {k}"
-        if not hetero:
+        if not hetero and not grid3d:
             assert np.array_equal(m_dev["connected"], host_conn), \
                 f"{where}: scorer connected"
     return out

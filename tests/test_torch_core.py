@@ -214,17 +214,18 @@ def test_interop_normalizers_roundtrip():
 
 
 def test_unported_parts_refuse_by_name():
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-        tapi.make_rep(tchiplets.resolve_arch("stack3d32"), "stack3d32")
-    with pytest.raises(TypeError, match="queue 1 item 12"):
+    # The 3D families, the archive and sharding are ported (queue 1 items
+    # 12 and 13); what is left refuses by its ROADMAP item.
+    with pytest.raises(NotImplementedError, match="queue 1 item 15e"):
+        interop.lm_params_from_jax({"enc_groups": []})
+    with pytest.raises(TypeError, match="device_stage_key"):
         DevicePipeline._stages(object(), "cpu")
+    rep = tapi.make_rep(tchiplets.resolve_arch("stack3d32"), "stack3d32")
+    assert rep.records and rep.R * rep.C * rep.Z == 32
     rep = tapi.make_rep(tchiplets.paper_arch("homog32"), "homog32")
-    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
-        tapi.make_evaluator(rep, rep.arch, rng=np.random.default_rng(0),
-                            norm_samples=2, archive_k=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
-        tapi.run_sweep([tapi.ExperimentConfig(arch="homog32")], shard=True,
-                       device="cpu")
+    ev = tapi.make_evaluator(rep, rep.arch, rng=np.random.default_rng(0),
+                             norm_samples=2, archive_k=4, device="cpu")
+    assert ev.archive is not None and ev.archive.k == 4
     with pytest.raises(KeyError, match="unknown scorer backend"):
         tapi.get_scorer(rep.layout, chunk=4, backend="fw-pallas",
                         device="cpu")

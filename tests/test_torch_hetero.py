@@ -137,8 +137,13 @@ def test_sol_from_arrays_takes_hetero_sols():
     assert t.dtype == r.dtype == np.int8 and t.shape == (8, 5)
     with pytest.raises(ValueError):
         interop.sol_from_arrays(sol[0], sol[1][:-1])
+    # [R, C, Z] is the 3D families' Sol since they were ported; four axes
+    # are no Sol.
+    t, r = interop.sol_from_arrays(np.zeros((2, 2, 2)), np.zeros((2, 2, 2)))
+    assert t.shape == (2, 2, 2)
     with pytest.raises(ValueError):
-        interop.sol_from_arrays(np.zeros((2, 2, 2)), np.zeros((2, 2, 2)))
+        interop.sol_from_arrays(np.zeros((2, 2, 2, 2)),
+                                np.zeros((2, 2, 2, 2)))
 
 
 def _configs(algo, seed=1):

@@ -11,7 +11,9 @@
   gives the reference's front: the same labels and placements, the same
   ``n_candidates``, and the cost matrix (``term_matrix``) bit for bit, as
   exact as the costs (the same float32 term functions on the same
-  metrics); the hypervolume to rel 1e-6;
+  metrics); the hypervolume to rel 1e-6.  A GA-winner front holds the
+  matrix bit for bit against the reference's term functions evaluated op
+  by op, and within one ulp of XLA's compiled forms;
 * **serde** — a front's JSON from either package loads in the other's
   ``ParetoFront.from_dict``; ``ParetoGridSpec`` and ``SweepConfig``
   round-trip and cross-load.
@@ -172,6 +174,80 @@ def test_front_matches_reference(arch_name):
     rep = tapi.make_rep(paper_arch(arch_name), arch_name)
     for p in ft.points:
         assert rep.score_graph(p.sol()).connected
+
+
+def test_front_of_ga_winners_matches_reference_term_values():
+    """A GA-winner front (homog32, ``br`` and ``ga`` at 8 evaluations, a
+    ``lat`` {0.5, 2} grid).  On the same metrics, the port's cost matrix
+    equals, bit for bit, the reference's ``CompiledObjective.term_values``
+    with the norm and weight rows as runtime operands, evaluated op by op
+    (the formula as written).  It is held within one float32 ulp of the
+    reference's ``term_matrix``, because that function closes over the
+    norms and weights as constants in its jitted vmap
+    (``src/repro/core/pareto.py:260-280``) and XLA folds each
+    ``w * x / n`` into one multiply by a folded constant; and within one
+    ulp of the same term functions jitted with runtime rows, because XLA
+    also rewrites ``a / b / c`` into ``a / (b * c)`` (this case's ``br``
+    row's ``inv-thr`` rounds one ulp apart that way)."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.core import objective as jobjective
+
+    grid = {"term_weights": {"lat": (0.5, 2.0)}}
+    kw = dict(algorithms=["br", "ga"], budget={"evals": 8},
+              params={"br": {"batch": 4},
+                      "ga": {"population": 4, "elitism": 1,
+                             "tournament": 2}})
+    cj, ct = tiny_pair("homog32", **kw)
+    rj = jpareto.run_pareto_sweep(cj, jpareto.ParetoGridSpec(**grid))
+    rt = tpareto.run_pareto_sweep(ct, grid, device=CPU)
+    (fj,), (ft,) = rj.fronts, rt.fronts
+    assert ft.n_candidates == fj.n_candidates == 4
+    assert [p.label for p in ft.points] == [p.label for p in fj.points]
+    for a, b in zip(fj.points, ft.points):
+        assert b.placement == a.placement
+    Yt = np.asarray(ft.matrix, np.float32)
+    np.testing.assert_array_max_ulp(Yt, np.asarray(fj.matrix, np.float32),
+                                    maxulp=1)
+    # The same candidates' metrics through both packages' term functions
+    # with runtime rows.
+    arch = paper_arch("homog32")
+    rep = tapi.make_rep(arch, "homog32")
+    entries = [("x", i, run.config.objective, rec)
+               for i, run in enumerate(rt.runs) for rec in run.records]
+    cands = tpareto.candidates_from_records(entries)
+    assert [c.algorithm for c in cands] == ["br", "ga", "br", "ga"]
+    ev = tapi.make_evaluator(rep, arch, rng=np.random.default_rng(0),
+                             norm_samples=3, chunk=4, objective=ct.objective,
+                             norm=cands[0].normalizers, device=CPU)
+    batch = stack_graphs([rep.score_graph(c.sol) for c in cands])
+    metrics = ev.score_batch(batch)
+    got = tpareto.term_matrix(metrics, batch, ct.objective, ev.norm,
+                              rep.layout.Vp, device=CPU)
+    np.testing.assert_array_equal(got, Yt)
+    jobj = jobjective.Objective.from_dict(ct.objective.to_dict())
+    cobj = jobjective.compile_objective(jobj)
+    n = len(cands)
+    rows = jnp.asarray(np.broadcast_to(
+        jobjective.norms_vec(ev.norm), (n, jobjective.NORM_DIM)))
+    wrows = jnp.asarray(np.broadcast_to(jobjective.weights_vec(jobj),
+                                        (n, len(weights_vec(ct.objective)))))
+    sample = {k: jnp.asarray(np.asarray(v)) for k, v in metrics.items()
+              if k not in ("cost", "connected")}
+    for k in ("edges", "edge_mask", "edge_len"):
+        sample[k] = jnp.asarray(batch[k])
+    vp = rep.layout.Vp
+
+    def mat(s, r, w):
+        return jax.vmap(lambda si, ri, wi: jnp.stack(
+            cobj.term_values(dict(si, Vp=vp), ri, wi)))(s, r, w)
+
+    np.testing.assert_array_equal(
+        got, np.asarray(mat(sample, rows, wrows), np.float32))
+    np.testing.assert_array_max_ulp(
+        got, np.asarray(jax.jit(mat)(sample, rows, wrows), np.float32),
+        maxulp=1)
 
 
 def test_term_matrix_columns_sum_to_cost():

@@ -16,8 +16,8 @@ stacked cross-run scoring (``optimize.score_stacked`` /
   all six optimizers on homog32 and hetero32, in one lockstep group that
   mixes host graph lists and ``-batched`` device dicts.
 * **plumbing** — the scorer-cache counters, eviction and clearing,
-  ``shard=True`` refusing by name, wall-clock budgets never folding or
-  stacking, mismatched requests failing loudly, ``summarize`` /
+  ``shard=True`` equal to the unsharded sweep, wall-clock budgets never
+  folding or stacking, mismatched requests failing loudly, ``summarize`` /
   ``best_by_algorithm`` as the reference's.
 """
 import dataclasses
@@ -222,12 +222,16 @@ def test_scorer_cache_counts_evicts_and_clears():
 
 
 def test_shard_refuses_by_name():
+    # Population sharding is ported (queue 1 item 13): shard=True runs,
+    # bit for bit the unsharded sweep; an empty device list refuses.
     _, ct = _pair(algorithms=("br",))
-    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
-        tapi.run_sweep([ct], shard=True, device=CPU)
-    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
-        tapi.run_sweep(tapi.SweepConfig(configs=(ct,), shard=True),
-                       device=CPU)
+    plain = tapi.run_sweep([ct], device=CPU)
+    res = tapi.run_sweep(tapi.SweepConfig(configs=(ct,), shard=True),
+                         device=CPU)
+    assert res.stats.shard_devices == 1
+    _assert_same_record(plain.records[0], res.records[0])
+    with pytest.raises(ValueError, match="at least one device"):
+        tapi.run_sweep([ct], shard=[], device=CPU)
 
 
 def test_summaries_match_reference():
