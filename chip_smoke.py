@@ -33,6 +33,12 @@ Phases (any failure exits non-zero; nothing is caught):
    ``decode_split_cases``) in both dtypes, and at the serve shapes in
    bfloat16 to a limit scaled to the outputs (two bfloat16 ulps of each
    entry plus 1e-5, ``FULL_LIMIT``).
+   The flash-attention backward kernel against ``ref.attention_bwd_ref``
+   on ``testing.attention_cases`` (every option of the forward) in both
+   dtypes (2e-5 in float32, 2e-2 in bfloat16), two calls bit for bit,
+   from the forward kernel's output and log-sum-exp (the lse within 1e-5
+   of the plain version's, -inf in the same rows, and the output the
+   same bits as the serving launch's without it).
    The scan kernels (selective scan, RG-LRU) on ``testing.scan_cases`` in
    both dtypes (3e-5 in float32, 2e-2 in bfloat16, final states 3e-5), and
    a sequence split across two calls bit for bit equal to one call.
@@ -88,7 +94,12 @@ Phases (any failure exits non-zero; nothing is caught):
    build phase's instructions an item over 128 lanes an SM at the top SM
    clock; RG-LRU's walker, one warp a block, S steps at one instruction a
    clock; no PyTorch call computes a scan), outputs held to
-   ``FULL_LIMIT`` and final states to 3e-5;
+   ``FULL_LIMIT`` and final states to 3e-5.  The flash-attention
+   backward at the training shapes (bfloat16, causal, S = 2048:
+   smollm-360m at B = 8, qwen3-1.7b at B = 1) beside its bound (10 B Hq d
+   operations a seen (query, key) pair at the bf16 peak), the plain
+   backward and the backward of ``scaled_dot_product_attention``
+   (``is_causal=True``), outputs held to ``BWD_LIMIT``;
 5. main path — each path driven through its entry points on the card,
    with every kernel's launch count and every plain version's call count
    set to 0 just before each run and read just after:
@@ -149,6 +160,23 @@ Phases (any failure exits non-zero; nothing is caught):
      build bit for bit, then stack3d64 and gw3d64 placeit ``ga-batched``
      and stack3d64 placeit host GA through ``run_experiment`` (32 / 6 /
      6), each with its wall, evaluations/s and blocked-FW launches;
+   - slice 12, training and the co-design bridge: ``launch.train`` on
+     smollm-360m at full width (32 layers, d_model 960, 15 / 5 heads of
+     64, d_ff 2560, vocab 49 152, bf16, remat; weights from seed 0), B =
+     8, S = 2048, 20 steps of AdamW, a checkpoint every 10; SIGTERM at
+     step 10 stops the first run (the loop checkpoints), a second run
+     resumes from it to step 20.  The loss must fall; it prints the loss
+     at the first and last step, the median step, tokens/s, the share of
+     the bf16 peak that 6 N tokens a step gives and the peak memory; the
+     flash kernel and its backward must launch, and no plain version
+     (``attention_ref``, ``attention_bwd_ref``) be called.  Then one step
+     at full width and depth 2 through the kernels against the same step
+     through the plain versions (loss within 1e-3 relative, each gradient
+     within 3e-2 of its norm).  ``bridge.codesign`` from
+     ``examples/design_accelerator.py``'s synthetic decode signature (GA,
+     120 evaluations) on the default backend: it prints the package, the
+     weights, both costs and the FW kernel the package's V takes, which
+     must launch;
    - slices 3 and 4, the LM serving paths, each model at full width
      (bfloat16, weights from a ``torch.Generator`` seeded 0 on the card)
      through ``ServeEngine`` (8 slots, cache 4096, no EOS; 16 requests of
@@ -170,7 +198,10 @@ Phases (any failure exits non-zero; nothing is caught):
    (device time by kernel) and one homog256 placeit run through the host
    GA and one through ga-batched (device busy share, the copies' time by
    direction), the design phase's unsharded engine (device busy share),
-   and the Evaluator's 20 host norm samples alone; for each
+   and the Evaluator's 20 host norm samples alone; one train step of the
+   full-width smollm-360m run (device busy share, device time by kernel
+   group: the attention backward, the attention forward, cuBLAS
+   products, the rest); for each
    served model, after its run, one prefill of 1024
    tokens and 8 decode ticks of the 8-slot pool (device busy share, time
    by kernel).
@@ -184,7 +215,10 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import re
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -199,12 +233,14 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch import testing  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import api  # noqa: E402
+from repro_torch.core import bridge  # noqa: E402
 from repro_torch.core import pareto  # noqa: E402
 from repro_torch.core.api import (ExperimentConfig,  # noqa: E402
                                   baseline_cost, make_rep, run_experiment,
                                   run_sweep)
 from repro_torch.core.baseline import MeshBaseline  # noqa: E402
 from repro_torch.core.chiplets import resolve_arch  # noqa: E402
+from repro_torch.core.placement_hetero import HeteroRep  # noqa: E402
 from repro_torch.core.objective import (Objective, TermSpec,  # noqa: E402
                                         norms_vec)
 from repro_torch.core.traces import TraceRegion, generate_trace  # noqa: E402
@@ -213,7 +249,9 @@ from repro_torch.core.proxies import (make_scorer,  # noqa: E402
 from repro_torch.core.topology import stack_graphs  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import decode_attention as tda  # noqa: E402
+from repro_torch.data.pipeline import DataConfig, TokenStream  # noqa: E402
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
+from repro_torch.kernels import flash_attention_bwd as tfb  # noqa: E402
 from repro_torch.kernels import fw_counts as fwc  # noqa: E402
 from repro_torch.kernels import fw_counts_tiled as fwt  # noqa: E402
 from repro_torch.kernels import minplus as mp  # noqa: E402
@@ -222,12 +260,15 @@ from repro_torch.kernels import ref as plain  # noqa: E402
 from repro_torch.kernels import rglru_scan as trg  # noqa: E402
 from repro_torch.kernels import selective_scan as tss  # noqa: E402
 from repro_torch.launch import kernel_timing as kt  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models.model import LM  # noqa: E402
 from repro_torch.models.rglru import RGLRU  # noqa: E402
 from repro_torch.models.transformer import leaf_kinds  # noqa: E402
 from repro_torch.models.tree import tree_map  # noqa: E402
 from repro_torch.netsim import ChipletNet, NetSim, Workload  # noqa: E402
 from repro_torch.serve.design import DesignEngine  # noqa: E402
+from repro_torch.train.optimizer import OptConfig  # noqa: E402
+from repro_torch.train.step import build_train_step, init_state  # noqa: E402
 from repro_torch.serve.engine import (EngineConfig, Request,  # noqa: E402
                                       ServeEngine)
 
@@ -245,7 +286,8 @@ TIMED = ((16, "homog32", "baseline"), (16, "homog64", "placeit"))
 TIMED_SMALL_V = (40, 64, 96, 112, 130, 160, 192, 300, 384, 552, 702)
 KERNELS = {"fw_counts": fwc, "fw_counts_tiled": fwt, "minplus": mp,
            "flash_attention": tfa, "decode_attention": tda,
-           "selective_scan": tss, "rglru_scan": trg}
+           "selective_scan": tss, "rglru_scan": trg,
+           "flash_attention_bwd": tfb}
 # Attention tolerances (the JAX kernel tests'), by kernel and dtype.
 ATTN_TOL = {"flash_attention": {"float32": 2e-5, "bfloat16": 2e-2},
             "decode_attention": {"float32": 3e-5, "bfloat16": 2e-2}}
@@ -1897,22 +1939,426 @@ def profile_phase(dev) -> None:
                 print(f"  copies: {ms:10.3f} ms {n:6d} x  {name}")
 
 
+# -- training (slice 12) ------------------------------------------------------
+
+# The backward kernel's tolerances on ``testing.attention_cases`` (every
+# option of the forward): float32 2e-5 (kernel and plain version sum in
+# float32 in other orders; seen on the H100: under 1e-5 of the largest
+# gradient), bfloat16 2e-2 as the forward's cases (one bfloat16 rounding of
+# each gradient).  At the training shapes (bfloat16) the limit is scaled to
+# the gradients: two bfloat16 ulps of an entry, plus 2^-8 of the largest
+# gradient of the tensor for entries that a cancellation in dS = P (dP - D)
+# leaves small (both sum dP - D in float32, in other orders).
+BWD_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+BWD_RTOL, BWD_ATOL_SHARE = 2.0 ** -6, 2.0 ** -8
+BWD_LIMIT = (f"|kernel - plain| <= {BWD_ATOL_SHARE:g} max|plain| + "
+             f"{BWD_RTOL:g} |plain|")
+# The forward's log-sum-exp against the plain version's (float32 sums of
+# exps in other orders; the kernel's ex2.approx in bfloat16).
+LSE_TOL = 1e-5
+# The attention shapes of the training runs (bfloat16, causal, S = 2048):
+# smollm-360m at the smoke's B = 8 (15 query heads on 5 KV heads of 64),
+# qwen3-1.7b at B = 1 (16 on 8 of 128).
+BWD_TIMED = (("smollm-360m", 8), ("qwen3-1.7b", 1))
+TRAIN_S = 2048
+# The full-width training run: smollm-360m (the reference launcher's
+# default arch) at its published widths and depth, bfloat16, weights from
+# seed 0, B = 8, S = 2048, remat, AdamW at lr 1e-3 (5 warm-up steps, then
+# cosine), 20 steps, a checkpoint every 10; a SIGTERM at step 10 stops the
+# first run (the loop checkpoints and exits), and a second run resumes
+# from that checkpoint to step 20.
+TRAIN_ARCH = "smollm-360m"
+TRAIN_B = 8
+TRAIN_STEPS = 20
+TRAIN_CKPT_EVERY = 10
+TRAIN_LR = 1e-3
+TRAIN_CKPT_DIR = Path(__file__).resolve().parent / "build" / "smoke_ckpt"
+# The kernel-against-plain step: the same model at depth 2, one batch.
+# Loss within 1e-3 relative; each gradient within 3e-2 of its norm (L2):
+# the attention outputs of kernel and plain version differ by one
+# bfloat16 ulp in some entries, and the two steps' bfloat16 products then
+# round apart.
+COMPARE_LAYERS = 2
+COMPARE_LOSS_RTOL = 1e-3
+COMPARE_GRAD_RTOL = 3e-2
+# The bridge: examples/design_accelerator.py's synthetic decode signature.
+BRIDGE_SIG = dict(arch="demo", shape="decode_32k", kind="decode", t_comp=0.2,
+                  t_mem=2.0, t_coll=0.6, io_share=0.15)
+BRIDGE_EVALS = 120
+BRIDGE_NORM_SAMPLES = 24
+
+
+def _bwd_check(name: str, got, want, tol: float | None) -> float:
+    """Max abs error of (dq, dk, dv) against the plain version's; ``tol``
+    the cases' allclose, None the training shapes' ``BWD_LIMIT``."""
+    err = 0.0
+    for a, b, what in zip(got, want, ("dq", "dk", "dv")):
+        if tol is None:
+            atol = BWD_ATOL_SHARE * float(b.float().abs().max())
+            e, _ = _require_close(f"flash_attention_bwd {what} vs plain",
+                                  name, a, b, BWD_RTOL, atol)
+        else:
+            e, _ = _require_close(f"flash_attention_bwd {what} vs plain",
+                                  name, a, b, tol)
+        err = max(err, e)
+    return err
+
+
+def _bwd_inputs(q, k, v, kw: dict, seed: int):
+    """The kernel forward's output and lse (checked against the plain
+    version's, and its output against the serving launch's bits) and a
+    seeded output gradient."""
+    out, lse = tfa._launch(q, k, v, kw.get("causal", True), kw.get("window"),
+                           None, kw.get("softcap"), kw.get("pos_offset"),
+                           with_lse=True)
+    if not torch.equal(out, tfa._launch(q, k, v, kw.get("causal", True),
+                                        kw.get("window"), None,
+                                        kw.get("softcap"),
+                                        kw.get("pos_offset"))):
+        raise SystemExit("flash_attention's output moved with the lse")
+    _, lse_p = plain.attention_ref(q, k, v, return_lse=True, **kw)
+    fin = torch.isfinite(lse_p)
+    if not torch.equal(fin, torch.isfinite(lse)):
+        raise SystemExit("flash_attention lse: -inf rows differ")
+    if fin.any():
+        _require_close("flash_attention lse vs plain", str(kw), lse[fin],
+                       lse_p[fin], LSE_TOL)
+    rng = np.random.default_rng(seed)
+    g = torch.from_numpy(rng.standard_normal(tuple(out.shape),
+                                             dtype=np.float32))
+    return out, lse, g.to(q.device).to(q.dtype)
+
+
+def attention_bwd_parity_phase(dev, worst: dict) -> None:
+    phase(f"parity: flash_attention_bwd kernel vs plain version "
+          f"(attention_bwd_ref; allclose {BWD_TOL['float32']:g} in float32, "
+          f"{BWD_TOL['bfloat16']:g} in bfloat16), every option of the "
+          f"forward; two calls bit for bit; the forward's lse within "
+          f"{LSE_TOL:g} and its output unchanged by it")
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        for i, (name, make) in enumerate(testing.attention_cases().items()):
+            *qkv, kw = make()
+            q, k, v = _on_card(qkv, dev, dt)
+            out, lse, g = _bwd_inputs(q, k, v, kw, seed=i)
+            got = tfb.flash_attention_bwd(q, k, v, out, g, lse, **kw)
+            again = tfb.flash_attention_bwd(q, k, v, out, g, lse, **kw)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise SystemExit(f"flash_attention_bwd is not repeatable "
+                                 f"on {name}")
+            want = plain.attention_bwd_ref(q, k, v, out, g, lse, **kw)
+            worst["flash_attention_bwd"] = max(
+                worst["flash_attention_bwd"],
+                _bwd_check(name, got, want, BWD_TOL[dtype]))
+        print(f"  {dtype}: {len(testing.attention_cases())} cases within "
+              f"tolerance, repeatable (worst so far "
+              f"{worst['flash_attention_bwd']:.3g})")
+
+
+def flash_bwd_bound_ms(B, S, Hq, Hkv, d, itemsize=2):
+    """Causal, Sq = Sk = S: 10 B Hq d operations a seen (query, key) pair
+    (the logits, dP, dv, dk, dq products) against reading q, k, v, o, dO
+    and lse and writing dq, dk and dv once."""
+    pairs = S * (S + 1) // 2
+    return _bound(10 * B * Hq * d * pairs,
+                  itemsize * d * (4 * B * S * Hq + 4 * B * S * Hkv)
+                  + 4 * B * Hq * S, PEAK_BF16_OPS)
+
+
+def attention_bwd_timing_phase(dev, worst: dict) -> dict:
+    """The backward kernel at the training shapes, beside its bound, the
+    plain backward and the backward of ``scaled_dot_product_attention``
+    (``is_causal=True``, timed for comparison only); every timed output
+    held to ``BWD_LIMIT`` and to one more call's, bit for bit."""
+    F = torch.nn.functional
+    rows = {}
+    for arch, B in BWD_TIMED:
+        cfg = get_config(arch)
+        shape = dict(B=B, Sq=TRAIN_S, Sk=TRAIN_S, Hq=cfg.n_heads,
+                     Hkv=cfg.n_kv_heads, d=cfg.hd)
+        phase(f"timing: flash_attention_bwd at {arch}'s training shape "
+              f"(bf16, causal, {shape}; outputs {BWD_LIMIT})")
+        q, k, v = _on_card(testing.attention_operands(**shape, seed=B), dev)
+        out, lse, g = _bwd_inputs(q, k, v, {}, seed=B)
+        q_s, k_s, v_s = (x.transpose(1, 2).detach().requires_grad_()
+                         for x in (q, k, v))
+        o_s = F.scaled_dot_product_attention(q_s, k_s, v_s, is_causal=True,
+                                             enable_gqa=True)
+        g_s = g.transpose(1, 2)
+        fns = {
+            "kernel": lambda: tfb.flash_attention_bwd(q, k, v, out, g, lse),
+            "plain": lambda: plain.attention_bwd_ref(q, k, v, out, g, lse),
+            "library": lambda: torch.autograd.grad(
+                o_s, (q_s, k_s, v_s), g_s, retain_graph=True)}
+        t, outs = kt.batched_ms(fns, launches=5, rounds=3)
+        err = _bwd_check(f"{arch} training shape", outs["kernel"],
+                         outs["plain"], None)
+        again = tfb.flash_attention_bwd(q, k, v, out, g, lse)
+        if not all(torch.equal(a, b) for a, b in zip(again, outs["kernel"])):
+            raise SystemExit(f"flash_attention_bwd is not repeatable at "
+                             f"{arch}'s training shape")
+        worst["flash_attention_bwd"] = max(worst["flash_attention_bwd"], err)
+        t["bound"], t["bound_by"] = flash_bwd_bound_ms(**{
+            k_: shape[k_] for k_ in ("B", "Hq", "Hkv", "d")}, S=TRAIN_S)
+        t["max_abs_err"] = err
+        rows[f"flash_bwd {arch}"] = t
+        print(f"  kernel {t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, "
+              f"sdpa backward {t['library']:.4f} ms, bound {t['bound']:.4f} "
+              f"ms ({t['bound_by']}), {t['bound'] / t['kernel']:.4f} of "
+              f"bound; max abs err vs plain {err:.3g}; repeatable")
+        del q_s, k_s, v_s, o_s, outs
+    return rows
+
+
+def _smoke_log(lines: list, sigterm_at: int | None):
+    """A log callback for ``launch.train.main``: prints and keeps each
+    line; at ``[loop] step <sigterm_at>`` it sends this process SIGTERM
+    (the loop then checkpoints and stops at the step's end)."""
+    def log(line: str) -> None:
+        print(f"  {line}", flush=True)
+        lines.append(line)
+        if sigterm_at is not None and line.startswith(
+                f"[loop] step {sigterm_at} "):
+            os.kill(os.getpid(), signal.SIGTERM)
+    return log
+
+
+def train_phase(dev) -> dict:
+    """Slice 12's main path: ``launch.train`` on smollm-360m at full width
+    (``TRAIN_*``), stopped by SIGTERM at step 10 and resumed to step 20.
+    The loss must fall; both attention kernels must launch and no plain
+    version be called."""
+    cfg = get_config(TRAIN_ARCH)
+    argv = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch",
+            str(TRAIN_B), "--seq", str(TRAIN_S), "--lr", str(TRAIN_LR),
+            "--ckpt-dir", str(TRAIN_CKPT_DIR), "--ckpt-every",
+            str(TRAIN_CKPT_EVERY), "--log-every", "1"]
+    phase(f"main path, slice 12: launch.train on {TRAIN_ARCH} at full width "
+          f"({cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} / "
+          f"{cfg.n_kv_heads} heads of {cfg.hd}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab}, bf16, remat), B = {TRAIN_B}, S = {TRAIN_S}, "
+          f"{TRAIN_STEPS} steps; SIGTERM at step {TRAIN_CKPT_EVERY}, then a "
+          f"resume from its checkpoint")
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    lines: list = []
+    t0 = time.monotonic()
+    state, ls1 = launch_train.main(argv, log=_smoke_log(
+        lines, TRAIN_CKPT_EVERY))
+    n_params = sum(p.numel() for p in state["params"].values())
+    del state
+    gc.collect()
+    t1 = time.monotonic()
+    state, ls2 = launch_train.main(argv, log=_smoke_log(lines, None))
+    t2 = time.monotonic()
+    launches, _ = read_counts()
+    calls = dict(plain.calls)
+    peak = torch.cuda.max_memory_allocated(dev)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    hist = ls1.history + ls2.history
+    if not (ls1.preempted and ls1.step == TRAIN_CKPT_EVERY):
+        raise SystemExit(f"the first run did not stop at step "
+                         f"{TRAIN_CKPT_EVERY} on SIGTERM ({ls1.step})")
+    if f"[loop] resumed from step {TRAIN_CKPT_EVERY}" not in lines \
+            or ls2.history[0][0] != TRAIN_CKPT_EVERY + 1:
+        raise SystemExit("the second run did not resume from the "
+                         "checkpoint")
+    if [s for s, _, _ in hist] != list(range(1, TRAIN_STEPS + 1)):
+        raise SystemExit(f"steps run: {[s for s, _, _ in hist]}")
+    losses = [loss for _, loss, _ in hist]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise SystemExit(f"the training loss did not fall: {losses}")
+    step_s = statistics.median(dt for _, _, dt in hist)
+    tokens = TRAIN_B * TRAIN_S
+    print(f"  {n_params} parameters; loss {losses[0]:.4f} (step 1) -> "
+          f"{losses[-1]:.4f} (step {TRAIN_STEPS}); median step "
+          f"{1e3 * step_s:.1f} ms, {tokens / step_s:.1f} tokens/s, "
+          f"6 N tokens at {6 * n_params * tokens / step_s / 1e12:.2f} "
+          f"TFLOP/s = {6 * n_params * tokens / step_s / PEAK_BF16_OPS:.4f} "
+          f"of the bf16 peak; runs {t1 - t0:.1f} s and {t2 - t1:.1f} s "
+          f"wall (checkpoints included); max_memory_allocated "
+          f"{peak / 2**30:.2f} GiB")
+    print(f"  kernel launches {launches}; plain calls {calls}")
+    if launches["flash_attention"] <= 0 or \
+            launches["flash_attention_bwd"] <= 0:
+        raise SystemExit("training did not launch both attention kernels")
+    if calls.get("attention_ref", 0) or calls.get("attention_bwd_ref", 0) \
+            or sum(calls.values()):
+        raise SystemExit(f"training called a plain version: {calls}")
+    return launches
+
+
+def _loss_and_grads(model: LM, batch: dict) -> tuple:
+    loss, _ = model.loss_fn(batch)
+    params = dict(model.named_parameters())
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return loss.detach(), dict(zip(params, grads))
+
+
+def train_compare_phase(dev) -> None:
+    """One training step's loss and gradients through the kernels against
+    the same step through the plain versions (``testing.plain_attention``
+    in ``ops.flash_attention``'s place), smollm-360m at full width and
+    depth 2."""
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                              n_layers=COMPARE_LAYERS)
+    phase(f"check: one training step of {TRAIN_ARCH} at full width, depth "
+          f"{COMPARE_LAYERS}, B = {TRAIN_B}, S = {TRAIN_S}, through the "
+          f"kernels vs through the plain versions (loss within "
+          f"{COMPARE_LOSS_RTOL:g} relative, each gradient within "
+          f"{COMPARE_GRAD_RTOL:g} of its norm)")
+    model = LM(cfg, dev, torch.Generator(dev).manual_seed(0))
+    model.requires_grad_(True)
+    batch = TokenStream(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S,
+                                   global_batch=TRAIN_B), device=dev
+                        ).batch_at(0)
+    reset_counts()
+    loss_k, grads_k = _loss_and_grads(model, batch)
+    launches, plain_calls = read_counts()
+    flash = ops.flash_attention
+    ops.flash_attention = testing.plain_attention
+    try:
+        loss_p, grads_p = _loss_and_grads(model, batch)
+    finally:
+        ops.flash_attention = flash
+    torch.cuda.synchronize()
+    if plain_calls or launches["flash_attention_bwd"] != COMPARE_LAYERS:
+        raise SystemExit(f"the kernel step: launches {launches}, plain "
+                         f"calls {plain_calls}")
+    rel_loss = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    worst, worst_name = 0.0, ""
+    for name, gp in grads_p.items():
+        gk = grads_k[name].float()
+        gp = gp.float()
+        rel = float((gk - gp).norm() / gp.norm().clamp(min=1e-30))
+        if rel > worst:
+            worst, worst_name = rel, name
+    print(f"  loss {float(loss_k):.6f} (kernels) vs {float(loss_p):.6f} "
+          f"(plain): {rel_loss:.3g} relative; worst gradient {worst_name}: "
+          f"{worst:.3g} of its norm; {len(grads_p)} gradients")
+    if not rel_loss <= COMPARE_LOSS_RTOL or not worst <= COMPARE_GRAD_RTOL:
+        raise SystemExit("the kernel step disagrees with the plain step")
+    del model, grads_k, grads_p
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# Device-kernel groups of the training profile, by name.
+TRAIN_GROUPS = (("attention backward (flash_attention_bwd.cu)",
+                 ("flash_bwd",)),
+                ("attention forward (flash_attention.cu)",
+                 ("flash_attention",)),
+                ("products (cuBLAS)", ("gemm", "nvjet", "cutlass", "xmma")))
+
+
+def train_profile_phase(dev) -> None:
+    """torch.profiler over one train step of the full-width run's model
+    (after one warm step): device busy share and device time by kernel
+    group (``TRAIN_GROUPS``) and by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg = get_config(TRAIN_ARCH)
+    phase(f"profile: one train step of {TRAIN_ARCH} at full width (B = "
+          f"{TRAIN_B}, S = {TRAIN_S}, remat; after one warm step)")
+    model = LM(cfg, dev, torch.Generator(dev).manual_seed(0))
+    ocfg = OptConfig(lr=TRAIN_LR, total_steps=TRAIN_STEPS, warmup_steps=5)
+    state = init_state(model, ocfg)
+    step = build_train_step(model, ocfg)
+    stream = TokenStream(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S,
+                                    global_batch=TRAIN_B), device=dev)
+    state, _ = step(state, stream.batch_at(0))
+    torch.cuda.synchronize()
+    batch = stream.batch_at(1)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        state, met = step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    rows, total = _kernel_times(prof)
+    print(f"  wall {1e3 * wall:.3f} ms under the profiler, device kernel "
+          f"time {total:.3f} ms ({100 * total / 1e3 / wall:.2f} % busy); "
+          f"loss {float(met['loss']):.4f}")
+    groups = dict.fromkeys([g for g, _ in TRAIN_GROUPS] + ["other"], 0.0)
+    for name, ms, _ in rows:
+        g = next((g for g, keys in TRAIN_GROUPS
+                  if any(k in name for k in keys)), "other")
+        groups[g] += ms
+    for g, ms in groups.items():
+        print(f"  {ms:10.3f} ms ({100 * ms / total:5.1f} %)  {g}")
+    for name, ms, n in rows[:10]:
+        print(f"  {ms:10.3f} ms {n:6d} x  {name[:90]}")
+    del model, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def bridge_phase(dev) -> dict:
+    """Slice 12: the co-design bridge on the card
+    (``examples/design_accelerator.py``'s synthetic decode signature)."""
+    sig = bridge.TrafficSignature(**BRIDGE_SIG)
+    arch = bridge.tpu_like_package(sig)
+    V = HeteroRep(arch).layout.Vp
+    want = "fw_counts_tiled" if ops.fw_takes_tiled(V) else "fw_counts"
+    phase(f"main path, slice 12: bridge.codesign on the card ({BRIDGE_SIG}; "
+          f"GA, {BRIDGE_EVALS} evaluations, {BRIDGE_NORM_SAMPLES} norm "
+          f"samples, the default backend; V = {V}, so {want})")
+    rates = bridge.device_rates(dev)
+    art = {"arch": "demo", "shape": "decode_32k", "flops_total": 1e12,
+           "bytes_accessed_total": 1e10,
+           "collectives": {"wire_bytes_per_chip": 1e8}}
+    art_sig = bridge.signature_from_artifact(art)
+    print(f"  this card's rates {rates}; a 1 TFLOP / 10 GB / 100 MB "
+          f"artifact reads t_comp {art_sig.t_comp:.4g} s, t_mem "
+          f"{art_sig.t_mem:.4g} s, t_coll {art_sig.t_coll:.4g} s")
+    reset_counts()
+    t0 = time.monotonic()
+    out = bridge.codesign(sig, max_evals=BRIDGE_EVALS,
+                          norm_samples=BRIDGE_NORM_SAMPLES, device=dev)
+    wall = time.monotonic() - t0
+    launches, plain_calls = read_counts()
+    print(f"  package {out['package']}; weights {out['weights']}")
+    print(f"  PlaceIT cost {out['placeit_cost']:.4f}, 2D-mesh cost "
+          f"{out['baseline_cost']:.4f}, improvement "
+          f"{100 * out['improvement']:.1f} %; {out['n_evaluated']} "
+          f"evaluated in {wall:.2f} s; FW kernel {want} ({launches[want]} "
+          f"launches; kernel launches {launches}, plain calls "
+          f"{plain_calls})")
+    if launches[want] <= 0 or plain_calls:
+        raise SystemExit(f"codesign did not score through {want}")
+    if out["n_evaluated"] != BRIDGE_EVALS or not (
+            np.isfinite(out["placeit_cost"])
+            and np.isfinite(out["baseline_cost"])):
+        raise SystemExit(f"codesign: {out['n_evaluated']} evaluated, costs "
+                         f"{out['placeit_cost']}, {out['baseline_cost']}")
+    return launches
+
+
 def main() -> None:
     name = device_phase()
     dev = torch.device("cuda", 0)
     funcs = build_phase()
     max_err = parity_phase(dev)
     attention_parity_phase(dev, max_err)
+    attention_bwd_parity_phase(dev, max_err)
     scan_parity_phase(dev, max_err)
     pipeline_parity_phase(dev)
     timing = timing_phase(dev, max_err, funcs)
     timing.update(attention_timing_phase(dev, max_err))
     timing.update(scan_timing_phase(dev, max_err, funcs))
+    timing.update(attention_bwd_timing_phase(dev, max_err))
     launches = main_path_phase(dev)
     for path in (sweep_phase, pareto_phase, trace_phase, design_phase,
-                 arch3d_phase):
+                 arch3d_phase, train_phase, bridge_phase):
         for k, n in path(dev).items():
             launches[k] += n
+    train_compare_phase(dev)
+    train_profile_phase(dev)
     profile_phase(dev)
     for k, n in serve_all_phase(dev).items():
         launches[k] += n
@@ -1923,6 +2369,9 @@ def main() -> None:
     t5 = timing["decode qwen3-1.7b lengths from the seed"]
     t6 = timing["selective_scan S=2048"]   # the longest falcon-mamba prompt
     t7 = timing["rglru_scan S=2048"]
+    t4b = timing[f"flash_bwd {BWD_TIMED[0][0]}"]   # the training run's
+    bwd_err = max(t["max_abs_err"] for k, t in timing.items()
+                  if k.startswith("flash_bwd "))
     full = {k: [t for key, t in timing.items() if key.startswith(pre)]
             for k, pre in (("flash_attention", "flash "),
                            ("decode_attention", "decode "),
@@ -1950,7 +2399,11 @@ def main() -> None:
          t6["kernel"], t6, close("selective_scan", "3e-5",
                                  "falcon-mamba-7b prefill")),
         ("rglru_scan", "rglru_scan.cu", "rglru_scan.py:38", t7["kernel"], t7,
-         close("rglru_scan", "3e-5", "recurrentgemma-9b prefill"))]
+         close("rglru_scan", "3e-5", "recurrentgemma-9b prefill")),
+        ("flash_attention_bwd", "flash_attention_bwd.cu",
+         "flash_attention.py:92", t4b["kernel"], t4b,
+         f"cases allclose rtol=atol=2e-5 (f32), 2e-2 (bf16); training "
+         f"shapes {BWD_LIMIT}: max abs err {bwd_err:.3g}")]
     print(kt.card_line())
     print(json.dumps({"kernels": [{
         "name": k, "route": "cuda",

@@ -8,7 +8,9 @@ rot)`` or ``(order, rots)`` int8 arrays) and stacked ``ScoreGraph`` arrays (``W`
 as plain numpy arrays, dicts or JSON — the form ``repro`` writes it in —
 and return the port's objects and tensors on a given device. The LM
 substrate's parameters (``repro.models.model.init_params``, a nested dict
-of arrays) become the port's state dict with :func:`lm_params_from_jax`.
+of arrays) become the port's state dict with :func:`lm_params_from_jax`,
+and its AdamW state the port's with :func:`adamw_state_from_jax`, so that
+both packages can start a train step from one state.
 Nothing here imports ``repro``: the caller converts its arrays with
 ``np.asarray``.
 """
@@ -96,23 +98,61 @@ def graph_batch(batch: Mapping, device="cpu") -> dict:
 
 
 def _lm_tensor(a) -> torch.Tensor:
-    """float32 as it is; bfloat16 arrives viewed as uint16 (numpy has no
-    bfloat16 of its own) and is viewed back, bit for bit."""
+    """float32 and int8 as they are; bfloat16 arrives viewed as uint16
+    (numpy has no bfloat16 of its own) and is viewed back, bit for bit."""
     a = np.array(a)
     if a.dtype == np.uint16:
-        return torch.from_numpy(a).view(torch.bfloat16)
-    if a.dtype == np.float32:
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    if a.dtype in (np.float32, np.int8):
         return torch.from_numpy(a)
     raise TypeError(f"LM parameters come as float32, or bfloat16 viewed as "
-                    f"uint16; got {a.dtype}")
+                    f"uint16 (8-bit optimizer states as int8); got "
+                    f"{a.dtype}")
+
+
+def _is_q8(t) -> bool:
+    """An 8-bit optimizer state: ``{"q": int8 codes, "s": scales}``."""
+    return isinstance(t, Mapping) and set(t) == {"q", "s"}
 
 
 def _flatten(tree: Mapping, prefix: str = ""):
     for key, val in tree.items():
-        if isinstance(val, Mapping):
+        if isinstance(val, Mapping) and not _is_q8(val):
             yield from _flatten(val, f"{prefix}{key}.")
         else:
             yield f"{prefix}{key}", val
+
+
+def _leaf(val, i: int | None = None):
+    """A leaf (or an 8-bit state's pair) as tensors, its layer ``i`` of a
+    stacked group where ``i`` is given."""
+    if _is_q8(val):
+        return {k: _leaf(v, i) for k, v in val.items()}
+    t = _lm_tensor(val)
+    return t if i is None else t[i]
+
+
+def _unstack(tree: Mapping) -> dict:
+    """A tree shaped as ``init_params``' output (its leaves arrays, or
+    8-bit states) as the port's flat dict keyed by parameter name: each
+    group of ``tree["groups"]``, whose arrays stack the group's layers on
+    a leading axis, becomes ``groups.<g>.<i>.<path>`` entries."""
+    out = {}
+    for key, val in tree.items():
+        if key == "groups":
+            for g, group in enumerate(val):
+                for path, arr in _flatten(group):
+                    n = np.shape(arr["q"] if _is_q8(arr) else arr)[0]
+                    for i in range(n):
+                        out[f"groups.{g}.{i}.{path}"] = _leaf(arr, i)
+        elif (isinstance(val, Mapping) and not _is_q8(val)) \
+                or key == "enc_groups":
+            raise NotImplementedError(
+                f"LM parameters {key!r}: the encoder-decoder family waits "
+                f"for the enc-dec slice (ROADMAP queue 1 item 15e)")
+        else:
+            out[key] = _leaf(val)
+    return out
 
 
 def lm_params_from_jax(params: Mapping) -> dict:
@@ -125,18 +165,27 @@ def lm_params_from_jax(params: Mapping) -> dict:
     leading axis, is unstacked into ``groups.<g>.<i>.<path>`` entries; the
     rest keeps its key.  The tensors lie on the CPU; ``load_state_dict``
     copies them to the model's device and dtype."""
-    out = {}
-    for key, val in params.items():
-        if key == "groups":
-            for g, group in enumerate(val):
-                for path, arr in _flatten(group):
-                    t = _lm_tensor(arr)
-                    for i in range(t.shape[0]):
-                        out[f"groups.{g}.{i}.{path}"] = t[i]
-        elif isinstance(val, Mapping) or key == "enc_groups":
-            raise NotImplementedError(
-                f"LM parameters {key!r}: the encoder-decoder family waits "
-                f"for the enc-dec slice (ROADMAP queue 1 item 15e)")
-        else:
-            out[key] = _lm_tensor(val)
+    return _unstack(params)
+
+
+def adamw_state_from_jax(opt: Mapping, device="cpu") -> dict:
+    """The reference's AdamW state (``repro.train.optimizer.adamw_init`` /
+    ``adamw_update``: ``step``, ``m``, ``v`` and, with ``compress_int8``,
+    ``err``) as the port's (``repro_torch.train.optimizer``), on
+    ``device``.  The moment trees are unstacked exactly as
+    :func:`lm_params_from_jax` unstacks the parameters, so that each entry
+    is keyed by the parameter's name; 8-bit states (``{"q": int8, "s":
+    float32}``) keep their codes and scales, a stacked state's row i
+    being layer i's.  Leaves come as numpy arrays (float32, int8, the
+    step int32)."""
+    def on(t):
+        if isinstance(t, dict):
+            return {k: on(v) for k, v in t.items()}
+        return t.to(device)
+
+    out = {"step": torch.tensor(int(np.asarray(opt["step"])),
+                                dtype=torch.int32, device=device)}
+    for key in ("m", "v", "err"):
+        if key in opt:
+            out[key] = {n: on(t) for n, t in _unstack(opt[key]).items()}
     return out

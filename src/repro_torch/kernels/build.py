@@ -18,11 +18,13 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (_CSRC / "fw_counts.cu", _CSRC / "fw_counts_tiled.cu",
            _CSRC / "minplus.cu", _CSRC / "flash_attention.cu",
            _CSRC / "decode_attention.cu", _CSRC / "selective_scan.cu",
-           _CSRC / "rglru_scan.cu")
+           _CSRC / "rglru_scan.cu", _CSRC / "flash_attention_bwd.cu")
 # Headers the sources include (a change rebuilds the library).
 HEADERS = (_CSRC / "mma_bf16.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -58,10 +60,15 @@ SIGNATURES = {
                                    _I, _I, _I, _I, _P],
     # A, B, C (or null: no fused min), out, M, N, K, device, stream
     "minplus_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # q, k, v, out, element strides (batch, seq, head) of q, k and v,
-    # B, Sq, Sk, Hq, Hkv, d, dtype code, scale, softcap, causal, window,
-    # pos_offset, device, stream
-    "flash_attention_fwd": [_P, _P, _P, _P, *[_L] * 9, _I, _I, _I, _I, _I,
+    # q, k, v, out, lse (or null), element strides (batch, seq, head) of
+    # q, k and v, B, Sq, Sk, Hq, Hkv, d, dtype code, scale, softcap,
+    # causal, window, pos_offset, device, stream
+    "flash_attention_fwd": [*[_P] * 5, *[_L] * 9, _I, _I, _I, _I, _I,
+                            _I, _I, _F, _F, _I, _I, _I, _I, _P],
+    # q, k, v, o, dO, lse, D scratch, dq, dk, dv, element strides (batch,
+    # seq, head) of q, k, v, o and dO, B, Sq, Sk, Hq, Hkv, d, dtype code,
+    # scale, softcap, causal, window, pos_offset, device, stream
+    "flash_attention_bwd": [*[_P] * 10, *[_L] * 15, _I, _I, _I, _I, _I,
                             _I, _I, _F, _F, _I, _I, _I, _I, _P],
     # q, k cache, v cache, lengths, out, split scratch, tickets, B, S, Hq,
     # Hkv, d, dtype code, scale, softcap, window, n_split, chunk, device,
@@ -157,6 +164,25 @@ def load() -> ctypes.CDLL:
             lib.reprotorch_error_string.restype = ctypes.c_char_p
             _lib = lib
     return _lib
+
+
+def needs_grad(*tensors) -> bool:
+    """Whether autograd would record a call on these operands: grad mode
+    is on and one of them requires a gradient."""
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise where a kernel without a backward would be launched on
+    operands that autograd tracks: its raw-pointer launch returns tensors
+    with no ``grad_fn``, so the gradients upstream of it would silently be
+    zero.  Call under ``torch.no_grad()``, or detach the operands."""
+    if needs_grad(*tensors):
+        raise RuntimeError(
+            f"{what} has no backward kernel: it does not run on operands "
+            f"that require a gradient while grad mode is on (use "
+            f"torch.no_grad(), or detach them)")
 
 
 def check_rc(lib: ctypes.CDLL, rc: int, what: str) -> None:

@@ -11,7 +11,11 @@
 //   - causal: key j is seen where j <= pos; window w >= 0: where
 //     j > pos - w; softcap c > 0: logits become c * tanh(s / c);
 //   - a row that sees no key gives zeros;
-//   - sums in float32, the output in q's dtype, contiguous [B, Sq, Hq, d].
+//   - sums in float32, the output in q's dtype, contiguous [B, Sq, Hq, d];
+//   - where the caller passes an lse buffer (training: the backward,
+//     csrc/flash_attention_bwd.cu, recomputes P from it), each row's
+//     log-sum-exp of its seen logits in float32, [B, Hq, Sq], -inf for a
+//     row that sees no key; the output is the same with or without it.
 // Head dims 16, 32, 64, 128 and 256 are template instances.
 //
 // Bound on an H100 SXM: 4 * B * Hq * d * (pairs seen) operations (two
@@ -75,12 +79,14 @@ using namespace mma_bf16;
 
 constexpr float kNegInf = -1.0e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct Args {
   const void* q;
   const void* k;
   const void* v;
   void* o;
+  float* lse;                  // [B, Hq, Sq], or null: not written
   long long q_sb, q_ss, q_sh;  // element strides (batch, sequence, head)
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
@@ -255,6 +261,9 @@ flash_attention_kernel(const Args a) {
     const int s = q0 + ty + kT * r;
     if (s >= a.Sq) continue;
     const float inv = 1.0f / (l[r] == 0.0f ? 1.0f : l[r]);
+    if (a.lse != nullptr && tx == 0)
+      a.lse[(static_cast<long long>(b) * a.Hq + h) * a.Sq + s] =
+          l[r] > 0.0f ? m[r] + logf(l[r]) : -INFINITY;
     T* row = o + ((static_cast<long long>(b) * a.Sq + s) * a.Hq + h) * D;
 #pragma unroll
     for (int c = 0; c < kC; ++c) row[tx + kT * c] = acc[r][c] * inv;
@@ -483,6 +492,17 @@ flash_attention_mma_kernel(const Args a) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     inv[r] = l[r] > 0.0f ? 1.0f / l[r] : 0.0f;
   }
+  // The log-sum-exp in natural units: m is the row max in log2 units of
+  // the (capped) logits, l the sum of 2^(x - m).
+  if (a.lse != nullptr && t4 == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int s = q0 + warp * 16 + g + 8 * r;
+      if (s < a.Sq)
+        a.lse[(static_cast<long long>(b) * a.Hq + h) * a.Sq + s] =
+            l[r] > 0.0f ? (m[r] + log2f(l[r])) * kLn2 : -INFINITY;
+    }
+  }
   bf16* stage = Qs + warp * 16 * LD;
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
@@ -554,13 +574,15 @@ extern "C" {
 
 // Launches the kernel on `stream` (a cudaStream_t) of `device` and returns
 // cudaGetLastError() as an int (0 on success; cudaErrorInvalidValue for a
-// head dim or dtype code it has no instance for).  dtype: 0 float32 (the
-// CUDA-core kernel), 1 bfloat16 (the tensor-core kernel: the base pointers
-// and the strides in bytes must be multiples of 16), the same for q, k, v
-// and out.  Strides are in elements; out is a contiguous [B, Sq, Hq, d]
-// buffer, written in full.
+// head dim or dtype code it has no instance for).  lse: a float32
+// [B, Hq, Sq] buffer for each row's log-sum-exp, or null.  dtype: 0
+// float32 (the CUDA-core kernel), 1 bfloat16 (the tensor-core kernel: the
+// base pointers and the strides in bytes must be multiples of 16), the
+// same for q, k, v and out.  Strides are in elements; out is a contiguous
+// [B, Sq, Hq, d] buffer, written in full.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* out,
-                        long long q_sb, long long q_ss, long long q_sh,
+                        float* lse, long long q_sb, long long q_ss,
+                        long long q_sh,
                         long long k_sb, long long k_ss, long long k_sh,
                         long long v_sb, long long v_ss, long long v_sh,
                         int B, int Sq, int Sk, int Hq, int Hkv, int d,
@@ -570,8 +592,8 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* out,
   if (B <= 0 || Sq <= 0 || Hq <= 0) return 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const Args a{q, k, v, out, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss,
-               v_sh, Sq, Sk, Hq, Hkv, scale, softcap, causal, window,
+  const Args a{q, k, v, out, lse, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,
+               v_ss, v_sh, Sq, Sk, Hq, Hkv, scale, softcap, causal, window,
                pos_offset};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {

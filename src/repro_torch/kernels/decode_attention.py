@@ -100,6 +100,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         return ref.decode_attention_ref(q, k_cache, v_cache, lengths,
                                         scale=scale, window=window,
                                         softcap=softcap)
+    build.refuse_grad("decode_attention", *ops_.values())
     for key, x in ops_.items():
         if not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError(f"decode_attention takes contiguous, 16-byte "

@@ -8,12 +8,23 @@ strides (only the head dim must be contiguous; in bfloat16 every row must
 start on 16 bytes), so the model's ``[B, S, H, d]`` activations go in
 without a transpose or a copy.  bfloat16 runs on the tensor cores (P V
 with P split into bf16 hi + lo parts), float32 on the CUDA cores.
+
+Training goes through :class:`FlashAttention`, a
+``torch.autograd.Function``: :func:`flash_attention` takes it whenever
+grad mode is on and an operand requires a gradient.  Its forward keeps
+each row's log-sum-exp (the kernel writes it beside the output, which
+stays the same bits), and its backward is the backward kernel
+(``flash_attention_bwd.py``, ``csrc/flash_attention_bwd.cu``) on CUDA
+tensors, ``ref.attention_bwd_ref`` on CPU tensors.  There is no autograd
+through the plain version on the card, and no fallback: the backward
+raises if its kernel cannot build or launch.
 """
 from __future__ import annotations
 
 import torch
 
 from . import build, ref
+from . import flash_attention_bwd as bwd
 
 # The head dims the kernel has template instances for.
 HEAD_DIMS = (16, 32, 64, 128, 256)
@@ -72,14 +83,44 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{softcap}")
     ops_ = {"q": q, "k": k, "v": v}
     check_attention_inputs("flash_attention", ops_, d)
+    if q.device.type == "cuda" and q.dtype == torch.bfloat16:
+        for key, x in ops_.items():
+            check_16_byte_rows("flash_attention", key, x)
+    if build.needs_grad(q, k, v):
+        return FlashAttention.apply(q, k, v, causal, window, scale, softcap,
+                                    pos_offset)
     if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, causal=causal, window=window,
                                  scale=scale, softcap=softcap,
                                  pos_offset=pos_offset)
-    if q.dtype == torch.bfloat16:
-        for key, x in ops_.items():
-            check_16_byte_rows("flash_attention", key, x)
     return _launch(q, k, v, causal, window, scale, softcap, pos_offset)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with its gradient: on CUDA tensors the forward
+    kernel (with its log-sum-exp) and the backward kernel, on CPU tensors
+    ``ref.attention_ref`` and ``ref.attention_bwd_ref``.  The forward
+    saves q, k, v, the output and the log-sum-exp [B, Hq, Sq] (float32)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale, softcap, pos_offset):
+        kw = dict(causal=causal, window=window, scale=scale, softcap=softcap,
+                  pos_offset=pos_offset)
+        if q.device.type == "cpu":
+            out, lse = ref.attention_ref(q, k, v, return_lse=True, **kw)
+        else:
+            out, lse = _launch(q, k, v, causal, window, scale, softcap,
+                               pos_offset, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = kw
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = bwd.flash_attention_bwd(q, k, v, out, dout, lse,
+                                             **ctx.kw)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def check_16_byte_rows(name: str, key: str, x: torch.Tensor) -> None:
@@ -95,16 +136,22 @@ def check_16_byte_rows(name: str, key: str, x: torch.Tensor) -> None:
                          f"on the card ({key}: strides {x.stride()})")
 
 
-def _launch(q, k, v, causal, window, scale, softcap, pos_offset):
+def _launch(q, k, v, causal, window, scale, softcap, pos_offset,
+            with_lse: bool = False):
+    """The output, and with ``with_lse`` also the log-sum-exp
+    [B, Hq, Sq] (float32) that the kernel writes beside it."""
     global launches
     B, Sq, Hq, d = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     out = torch.empty(B, Sq, Hq, d, dtype=q.dtype, device=q.device)
+    lse = (torch.empty(B, Hq, Sq, dtype=torch.float32, device=q.device)
+           if with_lse else None)
     if out.numel():
         lib = build.load()
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             B, Sq, Sk, Hq, Hkv, d, build.DTYPE_CODES[str(q.dtype)[6:]],
             d ** -0.5 if scale is None else scale,
@@ -114,4 +161,4 @@ def _launch(q, k, v, causal, window, scale, softcap, pos_offset):
             q.device.index, stream)
         build.check_rc(lib, rc, "flash_attention")
         launches += 1
-    return out
+    return (out, lse) if with_lse else out

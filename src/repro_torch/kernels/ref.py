@@ -365,17 +365,33 @@ def _softmax_masked(logits: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return torch.nan_to_num(p, nan=0.0)
 
 
+def _attention_mask(Sq: int, Sk: int, causal: bool, window: int | None,
+                    pos_offset: int, device) -> torch.Tensor:
+    """[Sq, Sk]: query i (at ``pos_offset + i``) sees key j."""
+    qpos = torch.arange(Sq, device=device) + pos_offset
+    kpos = torch.arange(Sk, device=device)
+    mask = torch.ones(Sq, Sk, dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos[None, :] <= qpos[:, None]
+    if window is not None:
+        mask &= kpos[None, :] > qpos[:, None] - window
+    return mask
+
+
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: int | None = None,
                   scale: float | None = None, softcap: float | None = None,
-                  pos_offset: int | None = None) -> torch.Tensor:
+                  pos_offset: int | None = None, return_lse: bool = False):
     """GQA attention, as ``repro.kernels.ref.attention_ref`` computes it.
 
     q: [B, Sq, Hq, d]; k, v: [B, Sk, Hkv, d] with Hq % Hkv == 0 (query head
     h reads KV head h // (Hq / Hkv)).  Query i sits at position
     ``pos_offset + i`` (end-aligned, ``Sk - Sq``, by default); key j is
     seen where ``j <= pos`` (causal) and ``j > pos - window`` (window).
-    Float32 math; the output has q's dtype.
+    Float32 math; the output has q's dtype.  With ``return_lse`` it
+    returns (out, lse): lse [B, Hq, Sq] float32, each row's log-sum-exp
+    of its seen (capped) logits, -inf for a row that sees no key (what
+    the flash kernel leaves for the backward).
     """
     calls["attention_ref"] += 1
     B, Sq, Hq, d = q.shape
@@ -388,16 +404,67 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         logits = softcap * torch.tanh(logits / softcap)
     if pos_offset is None:
         pos_offset = Sk - Sq
-    qpos = torch.arange(Sq, device=q.device) + pos_offset
-    kpos = torch.arange(Sk, device=q.device)
-    mask = torch.ones(Sq, Sk, dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= kpos[None, :] <= qpos[:, None]
-    if window is not None:
-        mask &= kpos[None, :] > qpos[:, None] - window
+    mask = _attention_mask(Sq, Sk, causal, window, pos_offset, q.device)
     p = _softmax_masked(logits, mask)
     out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
-    return out.reshape(B, Sq, Hq, d).to(q.dtype)
+    out = out.reshape(B, Sq, Hq, d).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.logsumexp(logits.masked_fill(~mask, -math.inf), dim=-1)
+    return out, lse.reshape(B, Hq, Sq)
+
+
+def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      o: torch.Tensor, dout: torch.Tensor, lse: torch.Tensor,
+                      *, causal: bool = True, window: int | None = None,
+                      scale: float | None = None,
+                      softcap: float | None = None,
+                      pos_offset: int | None = None) -> tuple:
+    """The gradient of :func:`attention_ref` (dq, dk, dv), in the order of
+    operations of the backward kernel (``csrc/flash_attention_bwd.cu``):
+    from the forward's output ``o`` [B, Sq, Hq, d] and its log-sum-exp
+    ``lse`` [B, Hq, Sq], and the output's gradient ``dout``,
+
+    - s = scale q.k, z = s or ``softcap`` tanh(s / softcap);
+    - P = exp(z - lse) where the mask sees the key and lse is finite, else
+      0 (a row that sees no key has lse = -inf and zero gradients, as the
+      reference's ``where(isnan(p), 0, p)``);
+    - D = rowsum(dout o o), dP = dout.v, dZ = P (dP - D), dS = dZ (times
+      1 - tanh^2(s / softcap) with a cap);
+    - dv = P^T dout, dk = scale dS^T q, dq = scale dS k; a KV head's dk
+      and dv sum over its query heads.
+
+    Float32 math; each gradient in its operand's dtype.
+    """
+    calls["attention_bwd_ref"] += 1
+    B, Sq, Hq, d = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    g = Hq // Hkv
+    scale = d ** -0.5 if scale is None else scale
+    if pos_offset is None:
+        pos_offset = Sk - Sq
+    qh = q.reshape(B, Sq, Hkv, g, d).float()
+    gh = dout.reshape(B, Sq, Hkv, g, d).float()
+    kf, vf = k.float(), v.float()
+    z = torch.einsum("bqhgd,bkhd->bhgqk", qh, kf) * scale
+    if softcap is not None:
+        t = torch.tanh(z / softcap)
+        z = softcap * t
+    lse_h = lse.reshape(B, Hkv, g, Sq, 1)
+    mask = _attention_mask(Sq, Sk, causal, window, pos_offset, q.device)
+    seen = mask & torch.isfinite(lse_h)
+    p = torch.where(seen, torch.exp(z - lse_h), 0.0)
+    dsum = (dout.float() * o.float()).sum(-1)               # [B, Sq, Hq]
+    dsum = dsum.reshape(B, Sq, Hkv, g).permute(0, 2, 3, 1)[..., None]
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", gh, vf)
+    ds = p * (dp - dsum)
+    if softcap is not None:
+        ds = ds * (1.0 - t * t)
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, gh)
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qh) * scale
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf) * scale
+    return (dq.reshape(B, Sq, Hq, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,

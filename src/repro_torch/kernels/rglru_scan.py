@@ -41,6 +41,7 @@ def rglru_scan(x: torch.Tensor, a: torch.Tensor,
                         f"{x.dtype} and {a.dtype}")
     if x.device.type == "cpu":
         return ref.rglru_ref(x, a, h0)
+    build.refuse_grad("rglru_scan", x, a, h0)
     if h0 is None:
         h0 = torch.zeros(B, D, dtype=torch.float32, device=x.device)
     return _launch(x.contiguous(), a.contiguous(), h0.contiguous())

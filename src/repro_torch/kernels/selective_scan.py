@@ -78,6 +78,7 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     check_scan_inputs("selective_scan", ops_, shapes, ("x", "dt"))
     if x.device.type == "cpu":
         return ref.selective_scan_ref(x, dt, A, B, C, D, h0)
+    build.refuse_grad("selective_scan", *ops_.values())
     if h0 is None:
         h0 = torch.zeros(Bt, Di, N, dtype=torch.float32, device=x.device)
     return _launch(*(t.contiguous() for t in (x, dt, A, B, C, D, h0)))

@@ -30,7 +30,10 @@ def dtype_of(cfg: LMConfig) -> torch.dtype:
 
 
 def param(t: torch.Tensor) -> nn.Parameter:
-    """A parameter of an inference model (no gradient)."""
+    """A parameter, created frozen as serving wants it; training unfreezes
+    the model's parameters (``model.requires_grad_()``, which
+    ``train.step.init_state`` calls) and ``LM.loss_fn`` differentiates
+    them."""
     return nn.Parameter(t, requires_grad=False)
 
 

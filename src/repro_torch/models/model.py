@@ -3,29 +3,35 @@
 ``LM(cfg, device, generator)`` is the reference's
 ``build_model(cfg).init(key)``: the parameters, on the card unless the
 caller names another device, drawn from a ``torch.Generator``.  Its
-methods are the reference's callables: ``prefill(batch, cache_len)`` ->
-(logits, caches), ``decode_step(batch, caches)`` -> logits,
-``init_cache(B, cache_len)`` and ``param_count()``.  Batches use the
-reference's keys: prefill ``{"tokens": [B, S]}`` (+ ``"patch_embeds"``
-[B, P, D] for the VLM stub), decode ``{"tokens": [B, 1], "lengths": [B]}``
-with int32 lengths.  ``decode_step`` writes the new cache entries (K/V,
-conv windows, recurrent states) into ``caches`` in place (the reference
-returns new caches).  A group's cache is a dict of stacked tensors, nested
+methods are the reference's callables: ``loss_fn(batch)`` -> (loss,
+metrics), ``prefill(batch, cache_len)`` -> (logits, caches),
+``decode_step(batch, caches)`` -> logits, ``init_cache(B, cache_len)``
+and ``param_count()``.  Batches use the reference's keys: train
+``{"tokens": [B, S], "labels": [B, S]}``, prefill ``{"tokens": [B, S]}``
+(each + ``"patch_embeds"`` [B, P, D] for the VLM stub), decode
+``{"tokens": [B, 1], "lengths": [B]}`` with int32 lengths.  The
+parameters are created frozen (serving, under ``torch.no_grad``);
+training unfreezes them (``model.requires_grad_()``).  ``decode_step``
+writes the new cache entries (K/V, conv windows, recurrent states) into
+``caches`` in place (the reference returns new caches).  A group's cache is a dict of stacked tensors, nested
 for a griffin super-block (``models.tree``).
 
 The dense, VLM-stub, SSM (falcon-mamba) and hybrid (recurrentgemma)
-decoders are ported; the encoder-decoder family (ROADMAP queue 1 item 15e)
-and the training loss ``loss_fn`` (item 15d) wait for later slices.
+decoders are ported for serving, the dense and VLM-stub decoders for
+training; training the models with ``mamba`` or ``rec`` layers (their
+scans have no backward kernel yet) waits for ROADMAP queue 1 item 15d-2,
+the encoder-decoder family for item 15e.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core.proxies import resolve_device
 from .config import LMConfig
 from .layers import dense_init, dtype_of, param, rms_norm, rms_norm_init
-from .transformer import Layer
+from .transformer import Layer, leaf_kinds
 from .tree import tree_index, tree_map, tree_stack
 
 
@@ -82,12 +88,55 @@ class LM(nn.Module):
         return (x @ head).float()
 
     def _prep_inputs(self, batch):
-        """Token embeddings (+ stub-frontend prefix) and positions."""
+        """Token embeddings (+ stub-frontend prefix), positions and the
+        prefix's length."""
         x = self._embed(batch["tokens"])
+        n_front = 0
         if self.cfg.frontend == "patch" and "patch_embeds" in batch:
+            n_front = batch["patch_embeds"].shape[1]
             x = torch.cat([batch["patch_embeds"].to(x.dtype), x], dim=1)
         B, S = x.shape[:2]
-        return x, torch.arange(S, device=x.device)[None].expand(B, -1)
+        return (x, torch.arange(S, device=x.device)[None].expand(B, -1),
+                n_front)
+
+    def loss_fn(self, batch):
+        """(loss, metrics) as the reference's ``loss_fn``: token-level
+        cross-entropy of a float32 log-softmax over the padded vocabulary
+        (the padded columns included), labels of -1 masked, the VLM
+        stub's patch prefix cut before the logits, plus
+        ``router_aux_weight`` times the MoE aux loss (0: no MoE layer is
+        ported).  Metrics: ``ce``, ``aux`` and ``ntok``.  With
+        ``cfg.remat`` each layer runs under
+        ``torch.utils.checkpoint.checkpoint`` (its activations recomputed
+        in the backward, as the reference's ``jax.checkpoint`` with
+        ``nothing_saveable``)."""
+        cfg = self.cfg
+        kinds = leaf_kinds(cfg)
+        if kinds["mamba"] or kinds["rec"]:
+            raise NotImplementedError(
+                f"training {cfg.name}: its selective-scan / RG-LRU layers "
+                f"have no backward kernel yet (ROADMAP queue 1 item 15d-2)")
+        x, pos, n_front = self._prep_inputs(batch)
+        for group in self.groups:
+            for layer in group:
+                if cfg.remat:
+                    x = checkpoint(layer, x, pos, use_reentrant=False)
+                else:
+                    x = layer(x, pos)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        x = rms_norm(x, self.final_norm, cfg.norm_eps)
+        if n_front:
+            x = x[:, n_front:]
+        logits = self._logits(x)
+        labels = batch["labels"]
+        mask = (labels >= 0).float()
+        lab = labels.clamp(min=0).long()
+        logp = torch.log_softmax(logits, dim=-1)
+        ll = logp.gather(-1, lab[..., None])[..., 0]
+        ntok = mask.sum().clamp(min=1.0)
+        ce = -(ll * mask).sum() / ntok
+        loss = ce + cfg.router_aux_weight * aux
+        return loss, {"ce": ce, "aux": aux, "ntok": ntok}
 
     @torch.no_grad()
     def prefill(self, batch, cache_len: int):
@@ -95,7 +144,7 @@ class LM(nn.Module):
         one (nested) dict per group, each leaf the group's layers' caches
         stacked on a leading axis (``[n, B, cache_len, Hkv, hd]`` for
         attention)."""
-        x, pos = self._prep_inputs(batch)
+        x, pos, _ = self._prep_inputs(batch)
         caches = []
         for group in self.groups:
             per = []

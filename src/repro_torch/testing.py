@@ -12,6 +12,9 @@ kernels' tiles and splits).
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from .kernels import ref
 
 NO_EDGE = np.float32(1e9)
 
@@ -570,3 +573,34 @@ def scan_cases() -> dict:
         cases[name] = (lambda make=make, kw=kw, i=i:
                        make(**kw, seed=200 + i))
     return cases
+
+
+class PlainAttention(torch.autograd.Function):
+    """Flash attention's plain versions with their gradient, on any
+    device: ``ref.attention_ref`` (with its log-sum-exp) forward and
+    ``ref.attention_bwd_ref`` backward.  Not on any path of the port: a
+    check substitutes it for ``ops.flash_attention`` to hold a training
+    step through the kernels against the same step through the plain
+    versions on the card."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale, softcap, pos_offset):
+        kw = dict(causal=causal, window=window, scale=scale, softcap=softcap,
+                  pos_offset=pos_offset)
+        out, lse = ref.attention_ref(q, k, v, return_lse=True, **kw)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = kw
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        grads = ref.attention_bwd_ref(q, k, v, out, dout, lse, **ctx.kw)
+        return (*grads, None, None, None, None, None)
+
+
+def plain_attention(q, k, v, *, causal=True, window=None, scale=None,
+                    softcap=None, pos_offset=None):
+    """``ops.flash_attention``'s signature over :class:`PlainAttention`."""
+    return PlainAttention.apply(q, k, v, causal, window, scale, softcap,
+                                pos_offset)

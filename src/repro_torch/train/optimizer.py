@@ -1,0 +1,227 @@
+"""AdamW with float32 states, global-norm clipping, LR schedules, and
+optional int8 gradient compression with error feedback.
+
+The port of ``repro.train.optimizer``.  Parameters, gradients and states
+are dicts keyed by the model's parameter names (``LM.named_parameters``);
+a state entry is a float32 tensor, or ``{"q": int8, "s": float32}`` with
+8-bit states.  :func:`adamw_update` is functional, as the reference's: it
+returns new parameters and a new state (``train.step`` copies the
+parameters back into the model).  Not ``torch.optim.AdamW``: the update
+follows the reference's order of operations, which that class does not
+(it decays the weights before the step and updates bfloat16 parameters in
+their own dtype):
+
+- the gradients are clipped by their global norm, then (``compress_int8``)
+  quantized with error feedback, in blocks laid over the reference's
+  leaves (a group's layers stacked);
+- bias correction with a float32 step count;
+- the weight decay is added to the Adam direction, ``delta = m^ /
+  (sqrt(v^) + eps) + wd p``;
+- a parameter is updated in float32 and cast to its dtype once.
+
+The reference stacks each group's layers on a leading axis, so a group
+parameter (a ``groups.`` name) has one axis more there: the 8-bit state
+rule, which keeps leaves of fewer than two axes in float32, counts that
+axis, so that a state carried across (``interop.adamw_state_from_jax``)
+keeps its form.  ``compressed_psum`` (the all-reduce over a mesh axis)
+needs a process group and waits for the sharding rules (ROADMAP queue 1
+item 15e).
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+
+
+@dataclass(frozen=True)
+class OptConfig:
+    lr: float = 3e-4
+    betas: tuple[float, float] = (0.9, 0.95)
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    schedule: str = "cosine"          # cosine | linear | const
+    compress_int8: bool = False       # int8 grad quantization + err feedback
+    compress_block: int = 256
+    state_int8: bool = False          # 8-bit Adam m/v (row-wise scales)
+
+
+def lr_at(cfg: OptConfig, step) -> torch.Tensor:
+    """The learning rate at ``step`` (float32): linear warm-up, then the
+    schedule's decay over the remaining steps."""
+    step = torch.as_tensor(step).float()
+    warm = torch.clamp(step / max(cfg.warmup_steps, 1), max=1.0)
+    t = torch.clamp((step - cfg.warmup_steps)
+                    / max(cfg.total_steps - cfg.warmup_steps, 1), 0, 1)
+    if cfg.schedule == "cosine":
+        decay = 0.5 * (1 + torch.cos(math.pi * t))
+    elif cfg.schedule == "linear":
+        decay = 1.0 - t
+    else:
+        decay = 1.0
+    return cfg.lr * warm * decay
+
+
+# ---------------------------------------------------------------------------
+# int8 block quantization + error feedback
+# ---------------------------------------------------------------------------
+
+def quantize_int8(x: torch.Tensor, block: int = 256):
+    """Block-wise symmetric int8 quantization: returns (q, scales)."""
+    flat = x.reshape(-1)
+    n = flat.shape[0]
+    nb = -(-n // block)
+    pad = nb * block - n
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    blk = flat.reshape(nb, block).float()
+    scale = blk.abs().amax(dim=1, keepdim=True) / 127.0
+    q = torch.round(blk / torch.where(scale == 0, 1.0, scale)).to(torch.int8)
+    return q, scale
+
+
+def dequantize_int8(q, scale, shape, block: int = 256):
+    blk = q.float() * scale
+    n = math.prod(shape)
+    return blk.reshape(-1)[:n].reshape(shape)
+
+
+def stacks(names) -> list[list[str]]:
+    """The parameter names as the reference's leaves: the layers of a
+    group that share a path (``groups.<g>.<i>.<path>``, i = 0, 1, ...)
+    form one stacked leaf, every other name a leaf of its own."""
+    out, at = [], {}
+    for name in names:
+        parts = name.split(".", 3)
+        if parts[0] == "groups" and len(parts) == 4:
+            key = (parts[1], parts[3])
+            if key not in at:
+                at[key] = len(out)
+                out.append([])
+            out[at[key]].append(name)
+        else:
+            out.append([name])
+    return out
+
+
+def compress_grads(grads: dict, err: dict, block: int = 256):
+    """Quantize grads + err to int8 and return (dequantized, new_err).
+    The blocks run over each reference leaf, a group's layers stacked
+    (:func:`stacks`), so that they fall where the reference's do."""
+    deq, new_err = {}, {}
+    for names in stacks(grads):
+        tot = torch.cat([(grads[n].float() + err[n]).reshape(-1)
+                         for n in names])
+        q, s = quantize_int8(tot, block)
+        d = dequantize_int8(q, s, tot.shape, block)
+        at = 0
+        for n in names:
+            g, e = grads[n], err[n]
+            dn = d[at:at + g.numel()].reshape(g.shape).to(g.dtype)
+            deq[n] = dn
+            new_err[n] = (tot[at:at + g.numel()].reshape(g.shape)
+                          - dn.float()).to(e.dtype)
+            at += g.numel()
+    return deq, new_err
+
+
+# ---------------------------------------------------------------------------
+# 8-bit Adam state (row-wise int8 + a float32 scale a row)
+# ---------------------------------------------------------------------------
+
+def _q8(x: torch.Tensor) -> dict:
+    """Quadratic-map int8: code c -> sign(c) * (|c|/127)^2 * rowmax.
+
+    Quantizing in sqrt-space concentrates resolution near zero (linear
+    int8 zeroes small second moments and Adam's 1/sqrt(v) explodes)."""
+    s = x.abs().amax(dim=-1, keepdim=True)
+    xn = x / torch.where(s == 0, 1.0, s)
+    q = (torch.round(torch.sqrt(xn.abs()) * 127.0) * torch.sign(xn)
+         ).to(torch.int8)
+    return {"q": q, "s": s[..., 0]}
+
+
+def _dq8(t) -> torch.Tensor:
+    if isinstance(t, dict):
+        c = t["q"].float() / 127.0
+        return torch.sign(c) * c * c * t["s"][..., None]
+    return t
+
+
+def stacked_ndim(name: str, x: torch.Tensor) -> int:
+    """The number of axes the leaf has in the reference, whose groups
+    stack their layers on a leading axis."""
+    return x.dim() + (1 if name.startswith("groups.") else 0)
+
+
+def _maybe_q8(name: str, x: torch.Tensor, use: bool):
+    # tiny leaves (norms, biases outside the groups) stay float32
+    return _q8(x) if use and stacked_ndim(name, x) >= 2 else x
+
+
+# ---------------------------------------------------------------------------
+# AdamW
+# ---------------------------------------------------------------------------
+
+def adamw_init(cfg: OptConfig, params: dict) -> dict:
+    """Zero moments (and error feedback with ``compress_int8``) on each
+    parameter's device, a step count of 0 (int32)."""
+    def zeros(p):
+        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+    first = next(iter(params.values()))
+    state = {
+        "step": torch.zeros((), dtype=torch.int32, device=first.device),
+        "m": {n: _maybe_q8(n, zeros(p), cfg.state_int8)
+              for n, p in params.items()},
+        "v": {n: _maybe_q8(n, zeros(p), cfg.state_int8)
+              for n, p in params.items()},
+    }
+    if cfg.compress_int8:
+        state["err"] = {n: zeros(p) for n, p in params.items()}
+    return state
+
+
+def global_norm(tree: dict) -> torch.Tensor:
+    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                          for x in tree.values()))
+
+
+@torch.no_grad()
+def adamw_update(cfg: OptConfig, grads: dict, state: dict, params: dict):
+    """Returns (new_params, new_state, metrics): new tensors, the inputs
+    untouched.  Metrics: ``grad_norm`` (before clipping) and ``lr``."""
+    step = state["step"] + 1
+    gnorm = global_norm(grads)
+    scale = (torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
+                         max=1.0)
+             if cfg.clip_norm else 1.0)
+    grads = {n: g.float() * scale for n, g in grads.items()}
+    if cfg.compress_int8:
+        grads, new_err = compress_grads(grads, state["err"],
+                                        cfg.compress_block)
+    b1, b2 = cfg.betas
+    lr = lr_at(cfg, step)
+    stepf = step.float()
+    bc1 = 1 - b1 ** stepf
+    bc2 = 1 - b2 ** stepf
+    new_params, new_m, new_v = {}, {}, {}
+    for name, p in params.items():
+        g = grads[name].float()
+        m = b1 * _dq8(state["m"][name]) + (1 - b1) * g
+        v = b2 * _dq8(state["v"][name]) + (1 - b2) * g * g
+        mh, vh = m / bc1, v / bc2
+        delta = mh / (torch.sqrt(vh) + cfg.eps)
+        if cfg.weight_decay:
+            delta = delta + cfg.weight_decay * p.float()
+        new_params[name] = (p.float() - lr * delta).to(p.dtype)
+        new_m[name] = _maybe_q8(name, m, cfg.state_int8)
+        new_v[name] = _maybe_q8(name, v, cfg.state_int8)
+    new_state = {"step": step, "m": new_m, "v": new_v}
+    if cfg.compress_int8:
+        new_state["err"] = new_err
+    return new_params, new_state, {"grad_norm": gnorm, "lr": lr}

@@ -194,7 +194,8 @@ def test_build_command_lists_every_source():
     names = [s.name for s in build.SOURCES]
     assert names == ["fw_counts.cu", "fw_counts_tiled.cu", "minplus.cu",
                      "flash_attention.cu", "decode_attention.cu",
-                     "selective_scan.cu", "rglru_scan.cu"]
+                     "selective_scan.cu", "rglru_scan.cu",
+                     "flash_attention_bwd.cu"]
     assert [c[-1] for c in compiles] == [str(s) for s in build.SOURCES]
     assert set(build.SIGNATURES) == {"fw_counts_f32", "fw_counts_tiled_f32",
                                      "fw_counts_cluster_f32",
@@ -203,6 +204,7 @@ def test_build_command_lists_every_source():
                                      "fw_counts_tiled_threads",
                                      "fw_counts_tiled_traced_f32",
                                      "minplus_f32", "flash_attention_fwd",
+                                     "flash_attention_bwd",
                                      "decode_attention_fwd",
                                      "selective_scan_fwd", "rglru_scan_fwd"}
     for name in build.SIGNATURES:

@@ -1,0 +1,170 @@
+"""The flash-attention backward kernel and LM training on the card.
+
+- The backward kernel (``kernels/flash_attention_bwd.py``) against
+  ``ref.attention_bwd_ref`` on every case of
+  ``repro_torch.testing.attention_cases`` and ``attention_tile_cases``,
+  in float32 (2e-5) and bfloat16 (2e-2), from the forward kernel's output
+  and log-sum-exp; one launch counted per call; two calls bit for bit.
+- The forward kernel's log-sum-exp within 1e-5 of the plain version's,
+  -inf in the same rows, and its output the serving launch's bits.
+- The autograd Function on the card: kernel forward and kernel backward,
+  no plain call.
+- A training step of a reduced smollm-360m (float32) on the card through
+  the kernels against the same step through the plain versions
+  (``testing.plain_attention`` in ``ops.flash_attention``'s place): loss
+  to 1e-5 relative, each gradient to 1e-4 of its largest entry.
+- The kernels without a backward (decode attention, the two scans) raise
+  on operands that require a gradient under grad mode, and run under
+  ``torch.no_grad``.
+
+Skips without a card; run it on the H100 with
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_train_gpu.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import testing
+from repro_torch.configs import get_config
+from repro_torch.data.pipeline import DataConfig, TokenStream
+from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import flash_attention_bwd as tfb
+from repro_torch.kernels import ops
+from repro_torch.kernels import ref as tref
+from repro_torch.models.model import LM
+
+pytestmark = pytest.mark.gpu
+
+CASES = {**testing.attention_cases(), **testing.attention_tile_cases()}
+DTYPES = ("float32", "bfloat16")
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+LSE_TOL = 1e-5
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _case(name, dtype, dev):
+    q, k, v, kw = CASES[name]()
+    q, k, v = (torch.from_numpy(x).to(dev).to(getattr(torch, dtype))
+               for x in (q, k, v))
+    g = np.random.default_rng(5).standard_normal(q.shape, dtype=np.float32)
+    return q, k, v, torch.from_numpy(g).to(dev).to(q.dtype), kw
+
+
+def _forward(q, k, v, kw):
+    return tfa._launch(q, k, v, kw.get("causal", True), kw.get("window"),
+                       None, kw.get("softcap"), kw.get("pos_offset"),
+                       with_lse=True)
+
+
+def _close(a, b, tol, what):
+    a, b = a.float().cpu().numpy(), b.float().cpu().numpy()
+    np.testing.assert_allclose(a, b, rtol=tol, atol=tol, err_msg=what)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("name", list(CASES))
+def test_backward_kernel_matches_plain(cuda, name, dtype):
+    q, k, v, g, kw = _case(name, dtype, cuda)
+    out, lse = _forward(q, k, v, kw)
+    before = tfb.launches
+    got = tfb.flash_attention_bwd(q, k, v, out, g, lse, **kw)
+    torch.cuda.synchronize()
+    assert tfb.launches == before + 1
+    again = tfb.flash_attention_bwd(q, k, v, out, g, lse, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = tref.attention_bwd_ref(q, k, v, out, g, lse, **kw)
+    for a, b, what in zip(got, want, ("dq", "dk", "dv")):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        _close(a, b, TOL[dtype], what)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("name", list(testing.attention_cases()))
+def test_forward_lse_matches_plain(cuda, name, dtype):
+    q, k, v, _, kw = _case(name, dtype, cuda)
+    out, lse = _forward(q, k, v, kw)
+    assert torch.equal(out, tfa._launch(q, k, v, kw.get("causal", True),
+                                        kw.get("window"), None,
+                                        kw.get("softcap"),
+                                        kw.get("pos_offset")))
+    _, want = tref.attention_ref(q, k, v, return_lse=True, **kw)
+    fin = torch.isfinite(want)
+    assert torch.equal(fin, torch.isfinite(lse))
+    _close(lse[fin], want[fin], LSE_TOL, "lse")
+
+
+def test_autograd_function_launches_both_kernels(cuda):
+    q, k, v, g, kw = _case(next(iter(CASES)), "bfloat16", cuda)
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    tref.calls.clear()
+    fwd, bwd = tfa.launches, tfb.launches
+    out = ops.flash_attention(q, k, v, **kw)
+    got = torch.autograd.grad(out, (q, k, v), g)
+    torch.cuda.synchronize()
+    assert (tfa.launches, tfb.launches) == (fwd + 1, bwd + 1)
+    assert sum(tref.calls.values()) == 0
+    assert all(x.dtype == torch.bfloat16 for x in got)
+
+
+def _loss_and_grads(model, batch):
+    loss, _ = model.loss_fn(batch)
+    params = dict(model.named_parameters())
+    return loss.detach(), dict(zip(params, torch.autograd.grad(
+        loss, list(params.values()))))
+
+
+def test_train_step_kernels_match_plain(cuda):
+    cfg = get_config("smollm-360m").reduced(n_layers=2)
+    model = LM(cfg, cuda, torch.Generator(cuda).manual_seed(0))
+    model.requires_grad_(True)
+    batch = TokenStream(DataConfig(vocab=cfg.vocab, seq_len=200,
+                                   global_batch=2), device=cuda).batch_at(0)
+    tref.calls.clear()
+    loss_k, grads_k = _loss_and_grads(model, batch)
+    assert sum(tref.calls.values()) == 0
+    flash = ops.flash_attention
+    ops.flash_attention = testing.plain_attention
+    try:
+        loss_p, grads_p = _loss_and_grads(model, batch)
+    finally:
+        ops.flash_attention = flash
+    assert abs(float(loss_k) - float(loss_p)) <= 1e-5 * abs(float(loss_p))
+    for name, gp in grads_p.items():
+        gk = grads_k[name]
+        atol = 1e-4 * float(gp.abs().max())
+        assert float((gk - gp).abs().max()) <= atol, name
+
+
+def test_kernels_without_backward_refuse_grad(cuda):
+    *arrays, lens, kw = next(iter(testing.decode_cases().values()))()
+    q, kc, vc = (torch.from_numpy(a).to(cuda) for a in arrays)
+    lens = torch.from_numpy(lens).to(cuda)
+    with pytest.raises(RuntimeError, match="no backward kernel"):
+        ops.decode_attention(q.requires_grad_(), kc, vc, lens, **kw)
+    with torch.no_grad():
+        ops.decode_attention(q, kc, vc, lens, **kw)
+    name = next(n for n in testing.scan_cases() if n.startswith("selective"))
+    args = [None if a is None else torch.from_numpy(a).to(cuda)
+            for a in testing.scan_cases()[name]()]
+    args[0].requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward kernel"):
+        ops.selective_scan(*args)
+    with torch.no_grad():
+        ops.selective_scan(*args)
+    name = next(n for n in testing.scan_cases() if n.startswith("rglru"))
+    args = [None if a is None else torch.from_numpy(a).to(cuda)
+            for a in testing.scan_cases()[name]()]
+    args[1].requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward kernel"):
+        ops.rglru_scan(*args)
+    with torch.no_grad():
+        ops.rglru_scan(*args)
