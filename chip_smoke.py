@@ -34,7 +34,8 @@ Phases (any failure exits non-zero; nothing is caught):
    bfloat16 to a limit scaled to the outputs (two bfloat16 ulps of each
    entry plus 1e-5, ``FULL_LIMIT``).
    The flash-attention backward kernel against ``ref.attention_bwd_ref``
-   on ``testing.attention_cases`` (every option of the forward) in both
+   on ``testing.attention_cases`` (every option of the forward) and
+   ``attention_tile_cases`` (the edges of its tiles) in both
    dtypes (2e-5 in float32, 2e-2 in bfloat16), two calls bit for bit,
    from the forward kernel's output and log-sum-exp (the lse within 1e-5
    of the plain version's, -inf in the same rows, and the output the
@@ -99,7 +100,8 @@ Phases (any failure exits non-zero; nothing is caught):
    smollm-360m at B = 8, qwen3-1.7b at B = 1) beside its bound (10 B Hq d
    operations a seen (query, key) pair at the bf16 peak), the plain
    backward and the backward of ``scaled_dot_product_attention``
-   (``is_causal=True``), outputs held to ``BWD_LIMIT``;
+   (``is_causal=True``), outputs held to ``BWD_LIMIT`` (the largest
+   share of it used printed) and to a second call's bits;
 5. main path — each path driven through its entry points on the card,
    with every kernel's launch count and every plain version's call count
    set to 0 just before each run and read just after:
@@ -1988,20 +1990,22 @@ BRIDGE_EVALS = 120
 BRIDGE_NORM_SAMPLES = 24
 
 
-def _bwd_check(name: str, got, want, tol: float | None) -> float:
-    """Max abs error of (dq, dk, dv) against the plain version's; ``tol``
-    the cases' allclose, None the training shapes' ``BWD_LIMIT``."""
-    err = 0.0
+def _bwd_check(name: str, got, want, tol: float | None
+               ) -> tuple[float, float]:
+    """Max abs error of (dq, dk, dv) against the plain version's and the
+    largest share of the limit an entry uses; ``tol`` the cases' allclose,
+    None the training shapes' ``BWD_LIMIT``."""
+    err = share = 0.0
     for a, b, what in zip(got, want, ("dq", "dk", "dv")):
         if tol is None:
             atol = BWD_ATOL_SHARE * float(b.float().abs().max())
-            e, _ = _require_close(f"flash_attention_bwd {what} vs plain",
-                                  name, a, b, BWD_RTOL, atol)
+            e, sh = _require_close(f"flash_attention_bwd {what} vs plain",
+                                   name, a, b, BWD_RTOL, atol)
         else:
-            e, _ = _require_close(f"flash_attention_bwd {what} vs plain",
-                                  name, a, b, tol)
-        err = max(err, e)
-    return err
+            e, sh = _require_close(f"flash_attention_bwd {what} vs plain",
+                                   name, a, b, tol)
+        err, share = max(err, e), max(share, sh)
+    return err, share
 
 
 def _bwd_inputs(q, k, v, kw: dict, seed: int):
@@ -2033,11 +2037,13 @@ def attention_bwd_parity_phase(dev, worst: dict) -> None:
     phase(f"parity: flash_attention_bwd kernel vs plain version "
           f"(attention_bwd_ref; allclose {BWD_TOL['float32']:g} in float32, "
           f"{BWD_TOL['bfloat16']:g} in bfloat16), every option of the "
-          f"forward; two calls bit for bit; the forward's lse within "
-          f"{LSE_TOL:g} and its output unchanged by it")
+          f"forward and the edges of the kernels' tiles; two calls bit for "
+          f"bit; the forward's lse within {LSE_TOL:g} and its output "
+          f"unchanged by it")
+    cases = {**testing.attention_cases(), **testing.attention_tile_cases()}
     for dtype in ("float32", "bfloat16"):
         dt = getattr(torch, dtype)
-        for i, (name, make) in enumerate(testing.attention_cases().items()):
+        for i, (name, make) in enumerate(cases.items()):
             *qkv, kw = make()
             q, k, v = _on_card(qkv, dev, dt)
             out, lse, g = _bwd_inputs(q, k, v, kw, seed=i)
@@ -2049,8 +2055,8 @@ def attention_bwd_parity_phase(dev, worst: dict) -> None:
             want = plain.attention_bwd_ref(q, k, v, out, g, lse, **kw)
             worst["flash_attention_bwd"] = max(
                 worst["flash_attention_bwd"],
-                _bwd_check(name, got, want, BWD_TOL[dtype]))
-        print(f"  {dtype}: {len(testing.attention_cases())} cases within "
+                _bwd_check(name, got, want, BWD_TOL[dtype])[0])
+        print(f"  {dtype}: {len(cases)} cases within "
               f"tolerance, repeatable (worst so far "
               f"{worst['flash_attention_bwd']:.3g})")
 
@@ -2091,8 +2097,8 @@ def attention_bwd_timing_phase(dev, worst: dict) -> dict:
             "library": lambda: torch.autograd.grad(
                 o_s, (q_s, k_s, v_s), g_s, retain_graph=True)}
         t, outs = kt.batched_ms(fns, launches=5, rounds=3)
-        err = _bwd_check(f"{arch} training shape", outs["kernel"],
-                         outs["plain"], None)
+        err, share = _bwd_check(f"{arch} training shape", outs["kernel"],
+                                outs["plain"], None)
         again = tfb.flash_attention_bwd(q, k, v, out, g, lse)
         if not all(torch.equal(a, b) for a, b in zip(again, outs["kernel"])):
             raise SystemExit(f"flash_attention_bwd is not repeatable at "
@@ -2100,12 +2106,13 @@ def attention_bwd_timing_phase(dev, worst: dict) -> dict:
         worst["flash_attention_bwd"] = max(worst["flash_attention_bwd"], err)
         t["bound"], t["bound_by"] = flash_bwd_bound_ms(**{
             k_: shape[k_] for k_ in ("B", "Hq", "Hkv", "d")}, S=TRAIN_S)
-        t["max_abs_err"] = err
+        t["max_abs_err"], t["limit_share"] = err, share
         rows[f"flash_bwd {arch}"] = t
         print(f"  kernel {t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, "
               f"sdpa backward {t['library']:.4f} ms, bound {t['bound']:.4f} "
               f"ms ({t['bound_by']}), {t['bound'] / t['kernel']:.4f} of "
-              f"bound; max abs err vs plain {err:.3g}; repeatable")
+              f"bound; max abs err vs plain {err:.3g} ({share:.3f} of the "
+              f"limit); repeatable")
         del q_s, k_s, v_s, o_s, outs
     return rows
 

@@ -123,15 +123,21 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None, None
 
 
-def check_16_byte_rows(name: str, key: str, x: torch.Tensor) -> None:
-    """The bfloat16 kernels copy 16-byte pieces of each row (the
-    contiguous last axis) with cp.async: the base pointer and the stride
-    in bytes of every other axis longer than 1 (a stride that is never
-    stepped does not matter) must be multiples of 16."""
+def rows_16_byte_aligned(x: torch.Tensor) -> bool:
+    """Whether every row of ``x`` (its contiguous last axis) starts on 16
+    bytes: the base pointer and the stride in bytes of every other axis
+    longer than 1 (a stride that is never stepped does not matter) are
+    multiples of 16."""
     item = x.element_size()
-    if x.data_ptr() % 16 or any(
-            n > 1 and st * item % 16
-            for n, st in zip(x.shape[:-1], x.stride()[:-1])):
+    return x.data_ptr() % 16 == 0 and not any(
+        n > 1 and st * item % 16
+        for n, st in zip(x.shape[:-1], x.stride()[:-1]))
+
+
+def check_16_byte_rows(name: str, key: str, x: torch.Tensor) -> None:
+    """The bfloat16 kernels copy 16-byte pieces of each row with
+    cp.async: raise unless :func:`rows_16_byte_aligned`."""
+    if not rows_16_byte_aligned(x):
         raise ValueError(f"{name} takes 16-byte aligned rows in bfloat16 "
                          f"on the card ({key}: strides {x.stride()})")
 

@@ -9,7 +9,11 @@ the kernels on the current stream (raising if the build or the launch
 fails; there is no fallback), on CPU tensors it calls the plain version
 ``ref.attention_bwd_ref``.  The kernels read every operand through its
 strides (the last axis contiguous) and write contiguous gradients; they
-use no atomics, so repeated calls give the same bits.
+use no atomics, so repeated calls give the same bits.  bfloat16 runs on
+the tensor cores and copies 16-byte pieces of each row with cp.async, so
+on the card q, k, v and o must have 16-byte aligned rows (as the
+forward's operands and output do), and autograd's dO, the one operand the
+port does not make itself, is copied when its rows are not.
 """
 from __future__ import annotations
 
@@ -33,7 +37,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(dq, dk, dv) of flash attention: q, o and dout [B, Sq, Hq, d], k
     and v [B, Sk, Hkv, d], lse [B, Hq, Sq] float32 (the forward's), the
     forward's options; see ``ref.attention_bwd_ref``."""
-    from .flash_attention import check_attention_inputs
+    from .flash_attention import (check_16_byte_rows, check_attention_inputs,
+                                  rows_16_byte_aligned)
 
     B, Sq, Hq, d = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
@@ -47,10 +52,14 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention_bwd takes a float32 lse "
                          f"[{B}, {Hq}, {Sq}], got {lse.dtype} "
                          f"{tuple(lse.shape)}")
-    if dout.stride(-1) != 1:
-        dout = dout.contiguous()
-    check_attention_inputs("flash_attention_bwd",
-                           {"q": q, "k": k, "v": v, "o": o, "dout": dout}, d)
+    ops_ = {"q": q, "k": k, "v": v, "o": o}
+    rows16 = q.device.type == "cuda" and q.dtype == torch.bfloat16
+    if dout.stride(-1) != 1 or (rows16 and not rows_16_byte_aligned(dout)):
+        dout = dout.clone(memory_format=torch.contiguous_format)
+    check_attention_inputs("flash_attention_bwd", {**ops_, "dout": dout}, d)
+    if rows16:
+        for key, x in ops_.items():
+            check_16_byte_rows("flash_attention_bwd", key, x)
     kw = dict(causal=causal, window=window, scale=scale, softcap=softcap,
               pos_offset=pos_offset)
     if q.device.type == "cpu":

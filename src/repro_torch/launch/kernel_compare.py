@@ -3,7 +3,7 @@ in turns, with the same method.
 
     python3 src/repro_torch/launch/kernel_compare.py \\
         --trees PARENT . . PARENT [--walls] [--sass] [--clusters] \\
-        [--trace] [--prefill] [--out FILE]
+        [--trace] [--prefill] [--bwd] [--out FILE]
 
 Each tree (a directory holding ``src/repro_torch``; ``.`` is this
 checkout) runs in a process of its own, in the order given, importing
@@ -26,6 +26,13 @@ enqueue is not timed), every output held bit for bit (FW, min-plus) or to
   a kernel that takes its mins with ``fminf`` drops NaN);
 * ``selective_scan`` and ``rglru_scan`` at the serve runs' prefill shapes
   (B = 1, S = 2048 and 512);
+* with ``--bwd``: the flash-attention backward (``flash_attention_bwd``)
+  at ``chip_smoke.py``'s ``BWD_TIMED`` training shapes (bfloat16, causal,
+  S = 2048: smollm-360m's heads at B = 8, qwen3-1.7b's at B = 1), each
+  output held to ``BWD_LIMIT`` against the plain version's (the largest
+  share of the limit used is recorded); with ``--sass`` also the
+  registers and spills ptxas reports for each of the backward's kernel
+  instances;
 * with ``--walls``: the wall seconds of ``run_experiment`` for every run
   of ``kernel_timing.RUNS`` (as ``chip_smoke.py`` runs them; the first,
   the quickstart, also warms up); a tree that cannot run one (an arch or
@@ -218,6 +225,50 @@ def _prefill(dev) -> dict:
     return res
 
 
+def bwd_operands(arch: str, B: int, dev) -> tuple:
+    """(q, k, v, out, dout, lse) at ``arch``'s attention heads, B x
+    ``kt.BWD_S`` tokens, bfloat16, causal: q, k, v from
+    ``testing.attention_operands`` (seed B), out and lse from the forward
+    kernel, dout standard normals (numpy seed B), as ``chip_smoke.py``'s
+    timing phase draws them."""
+    import numpy as np
+
+    from repro_torch import testing
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as tfa
+    cfg = get_config(arch)
+    q, k, v = (torch.from_numpy(x).to(dev).to(torch.bfloat16)
+               for x in testing.attention_operands(
+                   B, kt.BWD_S, kt.BWD_S, cfg.n_heads, cfg.n_kv_heads,
+                   cfg.hd, seed=B))
+    out, lse = tfa._launch(q, k, v, True, None, None, None, None,
+                           with_lse=True)
+    g = torch.from_numpy(np.random.default_rng(B).standard_normal(
+        tuple(out.shape), dtype=np.float32)).to(dev).to(torch.bfloat16)
+    return q, k, v, out, g, lse
+
+
+def _bwd(dev, res: dict) -> None:
+    """``--bwd``: the backward's ms at each ``kt.BWD_TIMED`` shape into
+    ``res["ms"]``, and the largest share of ``BWD_LIMIT`` its outputs
+    use into ``res["bwd_limit_share"]``; exits if one is beyond it."""
+    from repro_torch.kernels import flash_attention_bwd as tfb
+    from repro_torch.kernels import ref as plain
+    res["bwd_limit_share"] = {}
+    for arch, B in kt.BWD_TIMED:
+        ops_ = bwd_operands(arch, B, dev)
+        t, o = kt.batched_ms(
+            {"k": lambda: tfb.flash_attention_bwd(*ops_)}, 5, 3)
+        name = f"flash_bwd {arch} B={B} S={kt.BWD_S}"
+        share = kt.bwd_limit_share(o["k"], plain.attention_bwd_ref(*ops_))
+        if share > 1:
+            raise SystemExit(f"{name}: beyond BWD_LIMIT ({share:.3f})")
+        res["ms"][name] = t["k"]
+        res["bwd_limit_share"][name] = share
+        del ops_, o
+        torch.cuda.empty_cache()
+
+
 def _trace_stats(tr, nb: int) -> dict:
     """Per-kind wait and run times (us) of a traced call, the blocks' busy
     share, and per pivot block [A dequeued, first A start, last A start,
@@ -254,7 +305,8 @@ def _trace_stats(tr, nb: int) -> dict:
 
 
 def run_one(tree: Path, walls: bool, sass: bool, clusters: bool,
-            trace: bool, prefill: bool, out: Path | None) -> dict:
+            trace: bool, prefill: bool, bwd: bool, out: Path | None
+            ) -> dict:
     sys.path.insert(0, str(tree / "src"))
     from repro_torch import testing
     from repro_torch.core import api
@@ -273,6 +325,8 @@ def run_one(tree: Path, walls: bool, sass: bool, clusters: bool,
         res["ptxas"] = [ln.strip() for ln in log.splitlines()
                         if "Compiling entry" in ln or "Used" in ln
                         or "spill" in ln]
+        if bwd:
+            res["bwd_ptxas"] = kt.ptxas_usage(log, "flash_bwd")
 
     def fw_row(name, fn, W, launches, rounds):
         t, o = kt.batched_ms({"k": lambda: fn(W)}, launches, rounds)
@@ -378,6 +432,8 @@ def run_one(tree: Path, walls: bool, sass: bool, clusters: bool,
                                   "backend": cfg.backend,
                                   "n_evaluated": rec.result.n_evaluated,
                                   "best_cost": float(rec.result.best_cost)}
+    if bwd:
+        _bwd(dev, res)
     if prefill:
         res["prefill"] = _prefill(dev)
     if sass:
@@ -402,15 +458,17 @@ def main() -> None:
     ap.add_argument("--clusters", action="store_true")
     ap.add_argument("--trace", action="store_true")
     ap.add_argument("--prefill", action="store_true")
+    ap.add_argument("--bwd", action="store_true")
     ap.add_argument("--out", type=Path)
     args = ap.parse_args()
     flags = [f for f in ("--walls", "--sass", "--clusters", "--trace",
-                         "--prefill") if getattr(args, f[2:])]
+                         "--prefill", "--bwd") if getattr(args, f[2:])]
     if args.out:
         args.out = args.out.resolve()
     if args.one:
         res = run_one(Path(args.one).resolve(), args.walls, args.sass,
-                      args.clusters, args.trace, args.prefill, args.out)
+                      args.clusters, args.trace, args.prefill, args.bwd,
+                      args.out)
         print("RESULT " + json.dumps(res))
         return
     print(kt.card_line(), flush=True)

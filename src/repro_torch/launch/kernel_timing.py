@@ -13,6 +13,10 @@ time another checkout's kernels (one without this module) the same way.
   a kernel's inner loop, counted from the SASS of the library just built
   (``cuobjdump -sass``), and :func:`issue_rate`, the card's instructions
   a second; their quotient is the issue floor.
+* :data:`BWD_TIMED` and :func:`bwd_limit_share`: the flash-attention
+  backward's timed training shapes and its ``BWD_LIMIT``, and
+  :func:`ptxas_usage`, registers and spills per kernel from ptxas's log
+  (``kernel_compare.py --bwd``, ``kernel_variants.py --set bwd``).
 * :data:`RUNS` and :func:`experiment_config`: the ``run_experiment``
   configurations whose walls both scripts time; :func:`sweep_configs`, the
   ``run_sweep`` configurations of the smoke's sweep phase (timed in turns
@@ -234,6 +238,50 @@ def scan_floors_ms(issues: dict, B: int, S: int, width: int, kernel: str,
     nw, kw = issues["rglru_scan walker"]
     return {"producers": 1e3 * B * S * width * n / k / rate,
             "walker": 1e3 * S * nw / kw / max_sm_clock_hz()}
+
+
+# The flash-attention backward's timed shapes, as chip_smoke.py's
+# BWD_TIMED and TRAIN_S (bfloat16, causal, S = 2048: smollm-360m's heads at
+# B = 8, qwen3-1.7b's at B = 1), and its BWD_LIMIT: |kernel - plain| <=
+# 2^-8 max|plain| + 2^-6 |plain|, each of dq, dk, dv.
+BWD_TIMED = (("smollm-360m", 8), ("qwen3-1.7b", 1))
+BWD_S = 2048
+BWD_RTOL, BWD_ATOL_SHARE = 2.0 ** -6, 2.0 ** -8
+
+
+def bwd_limit_share(got, want) -> float:
+    """The largest share of ``BWD_LIMIT`` an entry of ``got`` (dq, dk,
+    dv) uses against ``want``, the plain version's."""
+    share = 0.0
+    for a, b in zip(got, want):
+        a, b = a.float(), b.float()
+        limit = BWD_ATOL_SHARE * b.abs().max() + BWD_RTOL * b.abs()
+        share = max(share, float(((a - b).abs() / limit).max()))
+    return share
+
+
+def ptxas_usage(log: str, part: str) -> dict:
+    """Registers and spill bytes that ptxas (``-Xptxas=-v``) reports for
+    each kernel whose mangled name holds ``part``, keyed by that name."""
+    out, cur = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            cur = m.group(1) if part in m.group(1) else None
+            if cur:
+                out[cur] = {}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            out[cur]["spill_stores"] = int(m.group(1))
+            out[cur]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[cur]["registers"] = int(m.group(1))
+    return out
 
 
 def scan_serve_operands(kernel: str, S: int, dev, seed: int | None = None,

@@ -1,8 +1,8 @@
-"""Build variants of the scan and min-plus kernels and time them against
-each other on one card, in one process.
+"""Build variants of the scan, min-plus and flash-attention backward
+kernels and time them against each other on one card, in one process.
 
     python3 src/repro_torch/launch/kernel_variants.py --set geometry \\
-        [--set diagnostics] [--set minplus] [--out FILE]
+        [--set diagnostics] [--set minplus] [--set bwd] [--out FILE]
 
 A variant is a copy of a kernel source from ``src/repro_torch/kernels/csrc``
 with some ``constexpr`` constants set to other values and, for the
@@ -22,6 +22,11 @@ kernel and are expected to fail it.  Min-plus variants are timed at
 1536^3 (a homog256 placeit score graph, APSP's shape) and at 702^3 (hex127
 baseline, ragged against every tile, so every slab takes the guarded
 copies), and held bit for bit (NaN-aware) against ``ref.minplus_ref``.
+Backward variants are timed at ``kernel_timing.BWD_TIMED`` (bfloat16,
+causal, S = 2048: smollm-360m's heads at B = 8, qwen3-1.7b's at B = 1,
+operands from ``kernel_compare.bwd_operands``) and held to ``BWD_LIMIT``
+against ``ref.attention_bwd_ref``; ptxas's registers and spills of each
+variant's tensor-core instances are kept in the output.
 
 Sets:
 
@@ -36,7 +41,12 @@ Sets:
   ``min`` for ``min.NaN``, the min replaced by an add (two FADD an update,
   the FMA pipe) or the add by a min (two FMNMX an update: FMNMX's own
   rate), the full slabs' 16-byte copies, the guarded 4-byte copies (every
-  slab at 702^3) or the steady-state loop's barrier taken out.
+  slab at 702^3) or the steady-state loop's barrier taken out;
+* ``bwd``: the flash-attention backward as built, a two-stage ring, other
+  register caps (blocks an SM), other tiles (the dk/dv kernel's query
+  tiles, the dq kernel's key tiles), the dq kernel's fragments re-read
+  instead of held, blocks of 8 warps; and diagnostics: the D pass and one
+  of the two gradient kernels alone (what each costs).
 
 Needs a card and nvcc; prints a table and the card's name and power
 limit.
@@ -64,6 +74,7 @@ FULL_RTOL, FULL_ATOL, STATE_TOL = 2.0 ** -6, 1e-5, 3e-5
 TIMED_S = (2048, 512)
 
 SS, RG, MP = "selective_scan.cu", "rglru_scan.cu", "minplus.cu"
+BW = "flash_attention_bwd.cu"
 # Code of the kernels as built, and what a diagnostic puts in its place.
 _B_LOAD = "load4(bu[j], &sm.bT[q + kLanesPerCh * j][r]);"
 _C_LOAD = "load4(cc[j], &sm.cT[q + kLanesPerCh * j][r]);"
@@ -98,6 +109,11 @@ _MP_GUARDED_B = "      cp_async<1>(dst, B + static_cast<size_t>(k) * N + j);"
 _MP_BARRIER = ("      cp_async_wait<G::STAGES - 2>();\n"
                "      __syncthreads();\n"
                "      load_full<G>(wr")
+
+_BW_DKDV = "    dkdv<<<grid_kv, dkdv_threads, dkdv_smem, stream>>>(a);"
+_BW_DQ = "  dq<<<grid_q, dq_threads, dq_smem, stream>>>(a);"
+_BW_2_BLOCKS = "D >= 256 ? 1 : 2"
+_BW_3_BLOCKS = "D >= 256 ? 1 : 3"
 
 # name -> (source, constants, replacements)
 SETS = {
@@ -189,9 +205,27 @@ SETS = {
             _MP_BARRIER, _MP_BARRIER.replace("      __syncthreads();\n",
                                              ""))]),
     },
+    "bwd": {
+        "bwd as built": (BW, {}, []),
+        "2 stages": (BW, {"kStages": 2}, []),
+        "2 blocks an SM at d <= 64": (BW, {"kMinBlocks": _BW_2_BLOCKS}, []),
+        "2 stages, 2 blocks an SM at d <= 64": (BW, {
+            "kStages": 2, "kMinBlocks": _BW_2_BLOCKS}, []),
+        "3 blocks an SM at d <= 128": (BW, {"kMinBlocks": _BW_3_BLOCKS}, []),
+        "dk/dv query tiles of 32": (BW, {"kBQs": 32}, []),
+        "dk/dv query tiles of 64": (BW, {"kBQs": 64}, []),
+        "dq key tiles of 32": (BW, {"kBK": 32}, []),
+        "dq key tiles of 64": (BW, {"kBK": 64}, []),
+        "dq fragments re-read": (BW, {"kHoldQ": "false"}, []),
+        "8 warps a block, 1 block an SM": (BW, {
+            "kWarps": 8, "kMinBlocks": 1}, []),
+        "D and dk/dv only": (BW, {}, [(_BW_DQ, "  (void)dq;")]),
+        "D and dq only": (BW, {}, [(_BW_DKDV, "    (void)dkdv;")]),
+    },
 }
 # The entry point each source binds.
-ENTRY = {SS: "selective_scan_fwd", RG: "rglru_scan_fwd", MP: "minplus_f32"}
+ENTRY = {SS: "selective_scan_fwd", RG: "rglru_scan_fwd", MP: "minplus_f32",
+         BW: "flash_attention_bwd"}
 # Min-plus timed shapes: (label, arch, config).
 MINPLUS_TIMED = (("1536^3", "homog256", "placeit"),
                  ("702^3", "hex127", "baseline"))
@@ -217,10 +251,11 @@ def _slug(name: str) -> str:
     return re.sub(r"[^a-z0-9]+", "_", name.lower()).strip("_")
 
 
-def build_variants(variants: dict) -> dict:
-    """Compiles every variant side by side; returns name -> ctypes library
-    (with the scan entry point's signature set) and prints ptxas's
-    registers and spills of each."""
+def build_variants(variants: dict) -> tuple[dict, dict]:
+    """Compiles every variant side by side and prints ptxas's registers
+    and spills of each; returns name -> ctypes library (with the entry
+    point's signature set), and name -> each backward variant's registers
+    and spills per tensor-core kernel."""
     nvcc = build.find_nvcc()
     procs = {}
     for name, (src, consts, replace) in variants.items():
@@ -233,7 +268,7 @@ def build_variants(variants: dict) -> dict:
             [nvcc, *build.NVCC_FLAGS, "-shared", "-o", str(d / "lib.so"),
              str(d / src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)
-    libs = {}
+    libs, usage = {}, {}
     for name, p in procs.items():
         log = p.communicate()[0]
         if p.returncode != 0:
@@ -242,12 +277,14 @@ def build_variants(variants: dict) -> dict:
                        if "Used" in ln or ("spill" in ln
                                            and " 0 bytes spill" not in ln)})
         print(f"  {name:40s} {'; '.join(regs)[:150]}")
+        if variants[name][0] == BW:
+            usage[name] = kt.ptxas_usage(log, "mma_kernel")
         lib = ctypes.CDLL(str(OUT_DIR / _slug(name) / "lib.so"))
         fn = ENTRY[variants[name][0]]
         getattr(lib, fn).argtypes = build.SIGNATURES[fn]
         getattr(lib, fn).restype = ctypes.c_int
         libs[name] = lib
-    return libs
+    return libs, usage
 
 
 def _call(lib, kernel: str, args: list, dev):
@@ -302,6 +339,43 @@ def time_minplus_variants(names: list, libs: dict, dev) -> dict:
     return res
 
 
+def _bwd_call(lib, q, k, v, o, g, lse, dev):
+    """One call of a backward variant's entry point (causal, the default
+    scale), on the current stream: (dq, dk, dv)."""
+    B, Sq, Hq, d = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    dsum = torch.empty(B, Hq, Sq, dtype=torch.float32, device=dev)
+    rc = lib.flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        g.data_ptr(), lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), *q.stride()[:3], *k.stride()[:3],
+        *v.stride()[:3], *o.stride()[:3], *g.stride()[:3], B, Sq, Sk, Hq,
+        Hkv, d, build.DTYPE_CODES["bfloat16"], d ** -0.5, 0.0, 1, -1,
+        Sk - Sq, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"variant launch failed (cudaError {rc})")
+    return dq, dk, dv
+
+
+def time_bwd_variants(names: list, libs: dict, dev) -> dict:
+    """name -> {shape label: {"ms", "ok"}} at ``kt.BWD_TIMED``."""
+    from repro_torch.launch.kernel_compare import bwd_operands
+    res = {n: {} for n in names}
+    for arch, B in kt.BWD_TIMED:
+        ops_ = bwd_operands(arch, B, dev)
+        want = ref.attention_bwd_ref(*ops_)
+        fns = {n: (lambda n=n: _bwd_call(libs[n], *ops_, dev))
+               for n in names}
+        t, outs = kt.batched_ms(fns, 5, 3)
+        for n in names:
+            res[n][f"{arch} B={B}"] = {
+                "ms": t[n], "ok": kt.bwd_limit_share(outs[n], want) <= 1}
+        del ops_, want, outs
+        torch.cuda.empty_cache()
+    return res
+
+
 def time_variants(variants: dict, libs: dict, dev) -> dict:
     """name -> {"S=...": {"ms", "ok"}}; each kernel's variants take turns
     in every round of ``batched_ms``."""
@@ -309,6 +383,9 @@ def time_variants(variants: dict, libs: dict, dev) -> dict:
     mp_names = [n for n in variants if variants[n][0] == MP]
     if mp_names:
         res.update(time_minplus_variants(mp_names, libs, dev))
+    bw_names = [n for n in variants if variants[n][0] == BW]
+    if bw_names:
+        res.update(time_bwd_variants(bw_names, libs, dev))
     for kernel in (SS, RG):
         names = [n for n in variants if variants[n][0] == kernel]
         if not names:
@@ -346,12 +423,16 @@ def main() -> None:
     for name in args.set:
         variants = SETS[name]
         print(f"== {name}: building {len(variants)} variants", flush=True)
-        libs = build_variants(variants)
+        libs, usage = build_variants(variants)
         res = time_variants(variants, libs, dev)
+        for v, u in usage.items():
+            res[v]["ptxas"] = u
         for v, r in res.items():
             print(f"  {v:40s} " + "  ".join(
                 f"{s} {x['ms']:.4f} ms{'' if x['ok'] else ' (fails)'}"
-                for s, x in r.items()), flush=True)
+                for s, x in r.items() if s != "ptxas"), flush=True)
+            for kernel, u in r.get("ptxas", {}).items():
+                print(f"    {kernel[-40:]}: {u}")
         results[name] = res
     print(kt.card_line())
     if args.out:

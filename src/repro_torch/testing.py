@@ -391,12 +391,17 @@ def attention_cases() -> dict:
 
 def attention_tile_cases() -> dict:
     """Named factories of (q, k, v, kwargs) at the edges of the bfloat16
-    flash kernel's tiles (64 query rows a block, 16 a warp; 64 keys a tile,
-    32 at head dim 256): Sq and Sk in {1, 63, 65, 127, 129, 300, 1000},
-    query chunks of a long prompt at several offsets (``pos_offset``),
-    windows whose edges fall on and next to tile boundaries, soft-caps,
-    bidirectional calls, more queries than keys, query heads per KV head
-    g in {1, 2, 8, 16} and head dims 16 to 256."""
+    flash kernel's tiles (64 query rows a block, 16 a warp; 32 keys a
+    tile): Sq and Sk in {1, 63, 65, 127, 129, 300, 1000}, query chunks of
+    a long prompt at several offsets (``pos_offset``), windows whose edges
+    fall on and next to tile boundaries, soft-caps, bidirectional calls,
+    more queries than keys, query heads per KV head g in {1, 2, 8, 16} and
+    head dims 16 to 256.  Then the edges of the bfloat16 backward's tiles
+    (``csrc/flash_attention_bwd.cu``: dk/dv 64 keys a block, 32 at
+    d = 256, query tiles of 64 rows, 32 at d >= 128; dq 64 query rows a
+    block, key tiles of 64, 32 at d >= 128): Sq and Sk one below and one
+    above multiples of 32 and 64 (31, 33, 95, 97, 191, 193), windows of
+    32 and 64 keys, and g = 3 (smollm-360m's 15 query heads on 5)."""
     specs = [
         (dict(B=1, Sq=1, Sk=1, Hq=2, Hkv=1, d=128), dict(causal=True)),
         (dict(B=1, Sq=63, Sk=63, Hq=2, Hkv=2, d=64), dict(causal=True)),
@@ -427,6 +432,16 @@ def attention_tile_cases() -> dict:
         (dict(B=1, Sq=1, Sk=1000, Hq=16, Hkv=1, d=256), dict(causal=True)),
         (dict(B=1, Sq=1000, Sk=63, Hq=1, Hkv=1, d=16), dict(causal=True)),
         (dict(B=1, Sq=63, Sk=127, Hq=2, Hkv=1, d=16), dict(causal=True)),
+        (dict(B=2, Sq=191, Sk=191, Hq=15, Hkv=5, d=64), dict(causal=True)),
+        (dict(B=1, Sq=97, Sk=97, Hq=6, Hkv=2, d=64), dict(causal=True)),
+        (dict(B=1, Sq=95, Sk=95, Hq=3, Hkv=1, d=128), dict(causal=True)),
+        (dict(B=1, Sq=193, Sk=193, Hq=8, Hkv=1, d=128),
+         dict(causal=True, window=32)),
+        (dict(B=1, Sq=193, Sk=193, Hq=3, Hkv=1, d=64),
+         dict(causal=True, window=64, softcap=30.0)),
+        (dict(B=1, Sq=33, Sk=97, Hq=3, Hkv=1, d=256), dict(causal=True)),
+        (dict(B=1, Sq=31, Sk=33, Hq=2, Hkv=2, d=256), dict(causal=False)),
+        (dict(B=1, Sq=97, Sk=31, Hq=3, Hkv=1, d=32), dict(causal=False)),
     ]
     cases = {}
     for i, (shape, kw) in enumerate(specs):
@@ -604,3 +619,40 @@ def plain_attention(q, k, v, *, causal=True, window=None, scale=None,
     """``ops.flash_attention``'s signature over :class:`PlainAttention`."""
     return PlainAttention.apply(q, k, v, causal, window, scale, softcap,
                                 pos_offset)
+
+
+def attention_bwd_rounded(q, k, v, o, dout, lse, *, causal=True,
+                          window=None, scale=None, softcap=None,
+                          pos_offset=None) -> tuple:
+    """A plain model of the bfloat16 backward kernel's rounding
+    (``csrc/flash_attention_bwd.cu``): ``ref.attention_bwd_ref``'s
+    arithmetic, float32 sums, with P rounded to bfloat16 before dv = P^T
+    dO and dS rounded to bfloat16 before dk = scale dS^T q and dq = scale
+    dS k, as the kernel feeds them to the tensor cores.  Test helper, on
+    no path of the port."""
+    B, Sq, Hq, d = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    g = Hq // Hkv
+    scale = d ** -0.5 if scale is None else scale
+    pos_offset = Sk - Sq if pos_offset is None else pos_offset
+    qh = q.reshape(B, Sq, Hkv, g, d).float()
+    gh = dout.reshape(B, Sq, Hkv, g, d).float()
+    kf, vf = k.float(), v.float()
+    z = torch.einsum("bqhgd,bkhd->bhgqk", qh, kf) * scale
+    if softcap is not None:
+        t = torch.tanh(z / softcap)
+        z = softcap * t
+    lse_h = lse.reshape(B, Hkv, g, Sq, 1)
+    mask = ref._attention_mask(Sq, Sk, causal, window, pos_offset, q.device)
+    p = torch.where(mask & torch.isfinite(lse_h), torch.exp(z - lse_h), 0.0)
+    dsum = (dout.float() * o.float()).sum(-1)
+    dsum = dsum.reshape(B, Sq, Hkv, g).permute(0, 2, 3, 1)[..., None]
+    ds = p * (torch.einsum("bqhgd,bkhd->bhgqk", gh, vf) - dsum)
+    if softcap is not None:
+        ds = ds * (1.0 - t * t)
+    p, ds = (x.to(torch.bfloat16).float() for x in (p, ds))
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, gh)
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qh) * scale
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf) * scale
+    return (dq.reshape(B, Sq, Hq, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))

@@ -17,6 +17,15 @@ more queries than keys so that some rows see no key), in float32:
   the output without the lse;
 - a row that sees no key gets a zero gradient.
 
+The rounding of the bfloat16 backward kernel: its plain model
+``testing.attention_bwd_rounded`` (P and dS rounded once to bfloat16
+before their products, float32 sums) on bfloat16 operands against
+``ref.attention_bwd_ref``, within ``chip_smoke.py``'s ``BWD_LIMIT`` at
+reduced shapes of the training runs' heads (smollm-360m's 3 query heads
+a KV head of 64, qwen3-1.7b's 2 of 128; causal, one with a soft-cap), and
+within the bfloat16 cases' 2e-2 on every case above.  So the kernel
+needs no bf16 hi + lo split of P or dS (the forward's device for P V).
+
 Also the guard of the kernels without a backward: ``build.needs_grad``
 is the condition under which their wrappers refuse CUDA operands (here on
 CPU tensors, whose plain versions autograd differentiates).  The
@@ -44,6 +53,19 @@ from _torch_threads import one_torch_thread  # noqa: F401
 CASES = testing.attention_cases()
 TOL = 2e-5
 LSE_TOL = 2e-6
+# chip_smoke.py's BWD_LIMIT: |kernel - plain| <= 2^-8 max|plain| +
+# 2^-6 |plain| (the training shapes), and its bfloat16 BWD_TOL (the cases).
+BWD_RTOL, BWD_ATOL_SHARE = 2.0 ** -6, 2.0 ** -8
+BF16_TOL = 2e-2
+# Reduced heads of the training runs (bfloat16, causal).
+ROUNDING_CASES = {
+    "smollm-360m heads B=1 S=256 Hq=3 Hkv=1 d=64":
+        (dict(B=1, Sq=256, Sk=256, Hq=3, Hkv=1, d=64), {}),
+    "smollm-360m heads B=1 S=256 Hq=3 Hkv=1 d=64 softcap=30.0":
+        (dict(B=1, Sq=256, Sk=256, Hq=3, Hkv=1, d=64), dict(softcap=30.0)),
+    "qwen3-1.7b heads B=1 S=256 Hq=2 Hkv=1 d=128":
+        (dict(B=1, Sq=256, Sk=256, Hq=2, Hkv=1, d=128), {}),
+}
 
 
 def _kw(kw):
@@ -172,6 +194,45 @@ def test_bwd_wrapper_checks_its_operands():
     a = tfb.flash_attention_bwd(tq, tk, tv, o, gt, lse, **kw)
     b = tfb.flash_attention_bwd(tq, tk, tv, o, tg, lse, **kw)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _bf16_inputs(q, k, v, kw, seed):
+    """bfloat16 operands, the plain forward's output and lse, and a
+    seeded bfloat16 output gradient (as chip_smoke.py's parity phase)."""
+    q, k, v = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v))
+    o, lse = tref.attention_ref(q, k, v, return_lse=True, **kw)
+    g = np.random.default_rng(seed).standard_normal(q.shape,
+                                                    dtype=np.float32)
+    return q, k, v, o, torch.from_numpy(g).to(torch.bfloat16), lse
+
+
+@pytest.mark.parametrize("name", list(ROUNDING_CASES))
+def test_bf16_rounding_model_within_bwd_limit(name):
+    shape, kw = ROUNDING_CASES[name]
+    args = _bf16_inputs(*testing.attention_operands(**shape, seed=11), kw,
+                        seed=12)
+    got = testing.attention_bwd_rounded(*args, **kw)
+    want = tref.attention_bwd_ref(*args, **kw)
+    moved = False
+    for a, b, what in zip(got, want, ("dq", "dk", "dv")):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape
+        a, b = a.float(), b.float()
+        limit = BWD_ATOL_SHARE * b.abs().max() + BWD_RTOL * b.abs()
+        share = float(((a - b).abs() / limit).max())
+        assert share <= 1.0, f"{what}: {share:.3f} of BWD_LIMIT"
+        moved |= not torch.equal(a, b)
+    assert moved       # the model rounds where the plain version does not
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_bf16_rounding_model_within_case_tolerance(name):
+    q, k, v, _, kw = _case(name)
+    args = _bf16_inputs(q, k, v, kw, seed=7)
+    got = testing.attention_bwd_rounded(*args, **kw)
+    want = tref.attention_bwd_ref(*args, **kw)
+    for a, b, what in zip(got, want, ("dq", "dk", "dv")):
+        assert_allclose(a.float().numpy(), b.float().numpy(), rtol=BF16_TOL,
+                        atol=BF16_TOL, err_msg=what)
 
 
 def test_grad_guard_condition():

@@ -264,3 +264,31 @@ def test_minplus_bound_is_the_instruction_bound():
         0.020684, abs=1e-5)
     # The APSP of the smoke: 11 squarings at V = 1536.
     assert 11 * ms == pytest.approx(2.384, abs=1e-3)
+
+
+PTXAS_LOG = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_123flash_bwd_dq_mma_kernelILi64EEEvNS_7BwdArgsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_123flash_bwd_dq_mma_kernelILi64EEEvNS_7BwdArgsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 640 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_126flash_attention_mma_kernelILi64E13__nv_bfloat16EEvNS_4ArgsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_126flash_attention_mma_kernelILi64E13__nv_bfloat16EEvNS_4ArgsE
+    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 160 registers, used 1 barriers, 600 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_125flash_bwd_dkdv_mma_kernelILi256EEEvNS_7BwdArgsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_125flash_bwd_dkdv_mma_kernelILi256EEEvNS_7BwdArgsE
+    24 bytes stack frame, 24 bytes spill stores, 32 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 640 bytes cmem[0]
+"""
+
+
+def test_ptxas_usage_reads_the_backward_instances():
+    """``kernel_compare.py --bwd --sass``'s registers and spills per
+    backward instance, from a written ptxas log."""
+    got = kt.ptxas_usage(PTXAS_LOG, "flash_bwd")
+    dq = "_ZN12_GLOBAL__N_123flash_bwd_dq_mma_kernelILi64EEEvNS_7BwdArgsE"
+    dkdv = ("_ZN12_GLOBAL__N_125flash_bwd_dkdv_mma_kernelILi256EEEvNS_"
+            "7BwdArgsE")
+    assert got == {
+        dq: {"registers": 168, "spill_stores": 0, "spill_loads": 0},
+        dkdv: {"registers": 255, "spill_stores": 24, "spill_loads": 32}}

@@ -5,6 +5,13 @@
   ``repro_torch.testing.attention_cases`` and ``attention_tile_cases``,
   in float32 (2e-5) and bfloat16 (2e-2), from the forward kernel's output
   and log-sum-exp; one launch counted per call; two calls bit for bit.
+- The backward kernel at each of ``chip_smoke.py``'s ``BWD_TIMED``
+  training shapes (smollm-360m's and qwen3-1.7b's heads, bf16, causal,
+  S = 2048) cut to B = 1: within ``BWD_LIMIT`` of the plain version and
+  bit for bit equal to a second call.
+- The bf16 backward's 16-byte row rule: a ``dout`` whose rows are not
+  16-byte aligned (an odd base pointer, a padded row stride) is copied and
+  gives the same bits as an aligned one; such a q, k, v or o raises.
 - The forward kernel's log-sum-exp within 1e-5 of the plain version's,
   -inf in the same rows, and its output the serving launch's bits.
 - The autograd Function on the card: kernel forward and kernel backward,
@@ -40,6 +47,10 @@ CASES = {**testing.attention_cases(), **testing.attention_tile_cases()}
 DTYPES = ("float32", "bfloat16")
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 LSE_TOL = 1e-5
+# chip_smoke.py's BWD_TIMED (cut to B = 1), TRAIN_S and BWD_LIMIT.
+BWD_ARCHS = ("smollm-360m", "qwen3-1.7b")
+TRAIN_S = 2048
+BWD_RTOL, BWD_ATOL_SHARE = 2.0 ** -6, 2.0 ** -8
 
 
 @pytest.fixture
@@ -85,6 +96,58 @@ def test_backward_kernel_matches_plain(cuda, name, dtype):
     for a, b, what in zip(got, want, ("dq", "dk", "dv")):
         assert a.dtype == b.dtype and a.shape == b.shape
         _close(a, b, TOL[dtype], what)
+
+
+@pytest.mark.parametrize("arch", BWD_ARCHS)
+def test_backward_kernel_at_training_shape(cuda, arch):
+    cfg = get_config(arch)
+    q, k, v = (torch.from_numpy(x).to(cuda).to(torch.bfloat16)
+               for x in testing.attention_operands(
+                   1, TRAIN_S, TRAIN_S, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                   seed=1))
+    out, lse = _forward(q, k, v, {})
+    g = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        q.shape, dtype=np.float32)).to(cuda).to(torch.bfloat16)
+    got = tfb.flash_attention_bwd(q, k, v, out, g, lse)
+    again = tfb.flash_attention_bwd(q, k, v, out, g, lse)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = tref.attention_bwd_ref(q, k, v, out, g, lse)
+    for a, b, what in zip(got, want, ("dq", "dk", "dv")):
+        a, b = a.float(), b.float()
+        limit = BWD_ATOL_SHARE * b.abs().max() + BWD_RTOL * b.abs()
+        share = float(((a - b).abs() / limit).max())
+        assert share <= 1.0, f"{what}: {share:.3f} of BWD_LIMIT"
+
+
+def _misaligned(x, how):
+    """A copy of ``x`` whose rows do not start on 16 bytes: "offset", its
+    base pointer 2 bytes past an allocation; "stride", rows of d + 1."""
+    if how == "offset":
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+        y = buf[1:].view(x.shape)
+    else:
+        y = torch.empty(*x.shape[:-1], x.shape[-1] + 1, dtype=x.dtype,
+                        device=x.device)[..., :x.shape[-1]]
+    y.copy_(x)
+    assert not tfa.rows_16_byte_aligned(y)
+    return y
+
+
+@pytest.mark.parametrize("how", ("offset", "stride"))
+def test_backward_16_byte_rows(cuda, how):
+    name = next(n for n in CASES if n.startswith("B=2 Sq=191"))
+    q, k, v, g, kw = _case(name, "bfloat16", cuda)
+    out, lse = _forward(q, k, v, kw)
+    want = tfb.flash_attention_bwd(q, k, v, out, g, lse, **kw)
+    got = tfb.flash_attention_bwd(q, k, v, out, _misaligned(g, how), lse,
+                                  **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    ops_ = {"q": q, "k": k, "v": v, "o": out}
+    for key in ops_:
+        bad = {**ops_, key: _misaligned(ops_[key], how)}
+        with pytest.raises(ValueError, match="16-byte"):
+            tfb.flash_attention_bwd(bad["q"], bad["k"], bad["v"], bad["o"],
+                                    g, lse, **kw)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
