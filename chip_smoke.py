@@ -42,7 +42,12 @@ Phases (any failure exits non-zero; nothing is caught):
    same bits as the serving launch's without it).
    The scan kernels (selective scan, RG-LRU) on ``testing.scan_cases`` in
    both dtypes (3e-5 in float32, 2e-2 in bfloat16, final states 3e-5), and
-   a sequence split across two calls bit for bit equal to one call.
+   a sequence split across two calls bit for bit equal to one call.  The
+   scans' backward kernels (``selective_scan_bwd``, ``rglru_scan_bwd``)
+   against ``ref.selective_scan_bwd_ref`` / ``ref.rglru_bwd_ref`` on the
+   same cases in both dtypes with a seeded dh_final (and without one where
+   the case has h0), within ``testing.SCAN_BWD_LIMITS["cases"]``, two
+   calls bit for bit.
    The batched score-graph builds of the device pipeline on the card
    (``testing.batched_build_parity``, 64 random placements each of homog64
    placeit, homog256 placeit and hex127 baseline through
@@ -97,11 +102,21 @@ Phases (any failure exits non-zero; nothing is caught):
    clock; no PyTorch call computes a scan), outputs held to
    ``FULL_LIMIT`` and final states to 3e-5.  The flash-attention
    backward at the training shapes (bfloat16, causal, S = 2048:
-   smollm-360m at B = 8, qwen3-1.7b at B = 1) beside its bound (10 B Hq d
-   operations a seen (query, key) pair at the bf16 peak), the plain
+   smollm-360m at B = 8, qwen3-1.7b at B = 1; recurrentgemma-9b at B = 1,
+   S = 4096 with its 2048-token window, head dim 256) beside its bound (10
+   B Hq d operations a seen (query, key) pair at the bf16 peak), the plain
    backward and the backward of ``scaled_dot_product_attention``
-   (``is_causal=True``), outputs held to ``BWD_LIMIT`` (the largest
-   share of it used printed) and to a second call's bits;
+   (``is_causal=True``, a boolean mask where there is a window), outputs
+   held to ``BWD_LIMIT`` (the largest share of it used printed) and to a
+   second call's bits.  The scans' backward kernels at the training
+   shapes (``kernel_timing.SCAN_TRAIN``: falcon-mamba-7b B = 2, S = 4096,
+   Di = 8192, N = 16, x in bf16 and dt in float32; recurrentgemma-9b
+   B = 1, S = 4096, D = 4096 in bf16), from the states the forward writes
+   for them, beside their bounds (``kernel_timing.sscan_bwd_work`` /
+   ``rglru_bwd_work``: operations and exps or square roots against bytes),
+   the plain versions and no library call, held to
+   ``SCAN_BWD_LIMITS["training"]`` (share printed) and repeatable; the
+   forward with and without those states timed beside;
 5. main path — each path driven through its entry points on the card,
    with every kernel's launch count and every plain version's call count
    set to 0 just before each run and read just after:
@@ -179,6 +194,20 @@ Phases (any failure exits non-zero; nothing is caught):
      120 evaluations) on the default backend: it prints the package, the
      weights, both costs and the FW kernel the package's V takes, which
      must launch;
+   - slice 14, training the recurrent families at full width and cut
+     depth through ``train.step`` and ``train.loop`` (bf16, remat,
+     S = 4096, weights from seed 0, 12 steps of AdamW, a checkpoint at the
+     last): falcon-mamba-7b at 8 of 64 layers, B = 2, and
+     recurrentgemma-9b at 6 of 38 (two rec, rec, attention blocks), B = 1.
+     The loss must fall; each prints its step time, tokens/s, 6 N tokens'
+     share of the bf16 peak and peak memory; the scans' forward and
+     backward kernels (and recurrentgemma's attention kernels) must
+     launch, and no plain version be called.  Then one step of each at full
+     width (falcon-mamba-7b depth 2, B = 2; recurrentgemma-9b depth 3,
+     B = 1; S = 1024) through the kernels against the same step through
+     the plain versions (``testing.plain_selective_scan``,
+     ``plain_rglru_scan``, ``plain_attention``), to the limits of the
+     smollm-360m step;
    - slices 3 and 4, the LM serving paths, each model at full width
      (bfloat16, weights from a ``torch.Generator`` seeded 0 on the card)
      through ``ServeEngine`` (8 slots, cache 4096, no EOS; 16 requests of
@@ -260,7 +289,9 @@ from repro_torch.kernels import minplus as mp  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref as plain  # noqa: E402
 from repro_torch.kernels import rglru_scan as trg  # noqa: E402
+from repro_torch.kernels import rglru_scan_bwd as trb  # noqa: E402
 from repro_torch.kernels import selective_scan as tss  # noqa: E402
+from repro_torch.kernels import selective_scan_bwd as tsb  # noqa: E402
 from repro_torch.launch import kernel_timing as kt  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models.model import LM  # noqa: E402
@@ -269,6 +300,8 @@ from repro_torch.models.transformer import leaf_kinds  # noqa: E402
 from repro_torch.models.tree import tree_map  # noqa: E402
 from repro_torch.netsim import ChipletNet, NetSim, Workload  # noqa: E402
 from repro_torch.serve.design import DesignEngine  # noqa: E402
+from repro_torch.train.loop import LoopConfig  # noqa: E402
+from repro_torch.train.loop import run as train_loop_run  # noqa: E402
 from repro_torch.train.optimizer import OptConfig  # noqa: E402
 from repro_torch.train.step import build_train_step, init_state  # noqa: E402
 from repro_torch.serve.engine import (EngineConfig, Request,  # noqa: E402
@@ -289,7 +322,8 @@ TIMED_SMALL_V = (40, 64, 96, 112, 130, 160, 192, 300, 384, 552, 702)
 KERNELS = {"fw_counts": fwc, "fw_counts_tiled": fwt, "minplus": mp,
            "flash_attention": tfa, "decode_attention": tda,
            "selective_scan": tss, "rglru_scan": trg,
-           "flash_attention_bwd": tfb}
+           "flash_attention_bwd": tfb, "selective_scan_bwd": tsb,
+           "rglru_scan_bwd": trb}
 # Attention tolerances (the JAX kernel tests'), by kernel and dtype.
 ATTN_TOL = {"flash_attention": {"float32": 2e-5, "bfloat16": 2e-2},
             "decode_attention": {"float32": 3e-5, "bfloat16": 2e-2}}
@@ -1104,6 +1138,137 @@ def scan_timing_phase(dev, worst: dict, funcs: dict) -> dict:
                   f"{floor_text}; max abs err vs "
                   f"plain {err:.3g} (max |out| {t['max_abs_out']:.3g}; "
                   f"{share:.3f} of the limit), final state {err_h:.3g}")
+    return rows
+
+
+# -- the scans' backward (slice 14) ------------------------------------------
+
+# Each backward's wrapper, plain version, forward module and the names of
+# its gradients.
+SCAN_BWD = {
+    "selective_scan_bwd": (tsb.selective_scan_bwd,
+                           plain.selective_scan_bwd_ref, tss,
+                           ("dx", "ddt", "dA", "dB", "dC", "dD", "dh0")),
+    "rglru_scan_bwd": (trb.rglru_scan_bwd, plain.rglru_bwd_ref, trg,
+                       ("dx", "da", "dh0"))}
+
+
+def _scan_bwd_check(kernel: str, name: str, got, want, which: str
+                    ) -> tuple[float, float]:
+    """Max abs error and largest share of ``testing.SCAN_BWD_LIMITS``
+    [which] over a backward's gradients; raises past the limit."""
+    err = share = 0.0
+    for g, w, what in zip(got, want, SCAN_BWD[kernel][3]):
+        e, sh = testing.scan_bwd_share(g, w, which)
+        if not sh <= 1.0:
+            raise SystemExit(f"{kernel} {what} vs plain on {name}: max abs "
+                             f"err {e:.3g}, {sh:.3f} of "
+                             f"{testing.scan_bwd_limit(which, g.dtype)}")
+        err, share = max(err, e), max(share, sh)
+    return err, share
+
+
+def scan_bwd_parity_phase(dev, worst: dict) -> None:
+    phase(f"parity: selective_scan_bwd and rglru_scan_bwd kernels vs plain "
+          f"versions (selective_scan_bwd_ref, rglru_bwd_ref) on every scan "
+          f"case in both dtypes, with a seeded dh_final (and without one "
+          f"where the case has h0): "
+          f"{testing.scan_bwd_limit('cases', torch.float32)}, bfloat16 "
+          f"gradients {testing.scan_bwd_limit('cases', torch.bfloat16)}; "
+          f"two calls bit for bit")
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        share = 0.0
+        for i, (name, make) in enumerate(testing.scan_cases().items()):
+            kernel = ("selective_scan_bwd" if name.startswith("selective")
+                      else "rglru_scan_bwd")
+            fn, ref_fn, fwd, _ = SCAN_BWD[kernel]
+            args = [None if a is None else torch.from_numpy(a).to(dev)
+                    for a in make()]
+            args[0], args[1] = args[0].to(dt), args[1].to(dt)
+            rng = np.random.default_rng(i)
+            dy = torch.from_numpy(rng.standard_normal(
+                tuple(args[0].shape), dtype=np.float32)).to(dev).to(dt)
+            state = tuple(args[0].shape[::2]) + (
+                tuple(args[2].shape[1:]) if kernel == "selective_scan_bwd"
+                else ())
+            dhf = torch.from_numpy(rng.standard_normal(
+                state, dtype=np.float32)).to(dev)
+            states = fwd._launch(*fwd._on_card(*args), states=True)[2]
+            for dh in (dhf, None) if args[-1] is not None else (dhf,):
+                got = fn(*args, dy, dh, states=states)
+                again = fn(*args, dy, dh, states=states)
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    raise SystemExit(f"{kernel} is not repeatable on {name}")
+                want = ref_fn(*args, dy, dh)
+                e, sh = _scan_bwd_check(kernel, name, got, want, "cases")
+                worst[kernel] = max(worst[kernel], e)
+                share = max(share, sh)
+        print(f"  {dtype}: {len(testing.scan_cases())} cases within the "
+              f"limit ({share:.3f} of it at most), repeatable (worst so "
+              f"far: selective_scan_bwd {worst['selective_scan_bwd']:.3g}, "
+              f"rglru_scan_bwd {worst['rglru_scan_bwd']:.3g})")
+
+
+def scan_bwd_timing_phase(dev, worst: dict) -> dict:
+    """Times the scans' backward kernels at the training shapes
+    (``kernel_timing.SCAN_TRAIN``: falcon-mamba-7b's B = 2, recurrentgemma-
+    9b's B = 1, S = 4096), from the states the forward kernel writes for
+    them, beside their bounds and the plain versions; every timed output
+    held to ``testing.SCAN_BWD_LIMITS["training"]`` and to one more call's,
+    bit for bit.  The forward with and without those states is timed in
+    the same call."""
+    sfu = sfu_rate(dev)
+    rows = {}
+    for kernel, fwd_name in (("selective_scan_bwd", "selective_scan"),
+                             ("rglru_scan_bwd", "rglru_scan")):
+        fn, ref_fn, fwd, _ = SCAN_BWD[kernel]
+        shape = kt.SCAN_TRAIN[fwd_name]
+        phase(f"timing: {kernel} at its training shape ({shape}, x in "
+              f"bf16; {testing.scan_bwd_limit('training', torch.float32)}, "
+              f"bfloat16 gradients "
+              f"{testing.scan_bwd_limit('training', torch.bfloat16)})")
+        args, dy, dhf = kt.scan_train_operands(fwd_name, dev)
+        on_card = fwd._on_card(*args)
+        t, out = kt.batched_ms({
+            "forward": lambda: fwd._launch(*on_card),
+            "forward with states": lambda: fwd._launch(*on_card,
+                                                       states=True)},
+            launches=5, rounds=3)
+        states = out["forward with states"][2]
+        tk, outk = kt.batched_ms({"kernel": lambda: fn(
+            *args, dy, dhf, states=states)}, launches=5, rounds=3)
+        t.update(tk)
+        p, want = kt.median_ms({"plain": lambda: ref_fn(*args, dy, dhf)},
+                               reps=1, warmup=0)
+        t["plain"] = p["plain"]
+        got = outk["kernel"]
+        err, share = _scan_bwd_check(kernel, "its training shape", got,
+                                     want["plain"], "training")
+        again = fn(*args, dy, dhf, states=states)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise SystemExit(f"{kernel} is not repeatable at its training "
+                             f"shape")
+        worst[kernel] = max(worst[kernel], err)
+        if kernel == "selective_scan_bwd":
+            work = kt.sscan_bwd_work(**shape, x_item=2, dt_item=4)
+        else:
+            work = kt.rglru_bwd_work(**shape, item=2)
+        t["bound"], t["bound_by"] = scan_bound_ms(*work, sfu)
+        t["library"] = None
+        t["max_abs_err"], t["limit_share"] = err, share
+        rows[kernel] = t
+        print(f"  kernel {t['kernel']:.4f} ms, plain {t['plain']:.3f} ms, "
+              f"library call: none, bound {t['bound']:.4f} ms "
+              f"({t['bound_by']}: {work[0]:.4g} float operations, "
+              f"{work[1]:.4g} special-function results, {work[2]:.4g} "
+              f"bytes), {t['bound'] / t['kernel']:.4f} of bound; the "
+              f"forward {t['forward']:.4f} ms, with the states "
+              f"{t['forward with states']:.4f} ms; max abs err vs plain "
+              f"{err:.3g} ({share:.3f} of the limit); repeatable")
+        del got, again, want, out, outk, states
+        gc.collect()
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -1958,11 +2123,14 @@ BWD_LIMIT = (f"|kernel - plain| <= {BWD_ATOL_SHARE:g} max|plain| + "
 # The forward's log-sum-exp against the plain version's (float32 sums of
 # exps in other orders; the kernel's ex2.approx in bfloat16).
 LSE_TOL = 1e-5
-# The attention shapes of the training runs (bfloat16, causal, S = 2048):
-# smollm-360m at the smoke's B = 8 (15 query heads on 5 KV heads of 64),
-# qwen3-1.7b at B = 1 (16 on 8 of 128).
-BWD_TIMED = (("smollm-360m", 8), ("qwen3-1.7b", 1))
+# The attention shapes of the training runs (bfloat16, causal): smollm-360m
+# at the smoke's B = 8 (15 query heads on 5 KV heads of 64) and qwen3-1.7b
+# at B = 1 (16 on 8 of 128), S = 2048; recurrentgemma-9b at its training
+# run's B = 1, S = 4096 (16 on 1 of 256, its 2048-token window in force).
 TRAIN_S = 2048
+RTRAIN_S = 4096
+BWD_TIMED = (("smollm-360m", 8, TRAIN_S), ("qwen3-1.7b", 1, TRAIN_S),
+             ("recurrentgemma-9b", 1, RTRAIN_S))
 # The full-width training run: smollm-360m (the reference launcher's
 # default arch) at its published widths and depth, bfloat16, weights from
 # seed 0, B = 8, S = 2048, remat, AdamW at lr 1e-3 (5 warm-up steps, then
@@ -1983,6 +2151,36 @@ TRAIN_CKPT_DIR = Path(__file__).resolve().parent / "build" / "smoke_ckpt"
 COMPARE_LAYERS = 2
 COMPARE_LOSS_RTOL = 1e-3
 COMPARE_GRAD_RTOL = 3e-2
+# The recurrent families' training runs (slice 14), at full width and cut
+# depth: falcon-mamba-7b at 8 of its 64 layers, B = 2, and recurrentgemma-9b
+# at 6 of its 38 (two rec, rec, attention blocks), B = 1; bfloat16, remat,
+# S = RTRAIN_S (the reference's train_4k length), weights from seed 0,
+# AdamW (5 warm-up steps, then cosine), RTRAIN_STEPS steps through
+# train.step and train.loop (which writes a checkpoint at the last step).
+# Depth is cut because AdamW's 12 bytes a parameter at full depth (84-108
+# GB) exceed the card's 80 GB.  (arch, layers, B, learning rate):
+# recurrentgemma-9b at 1e-4, because at 1e-3 its loss turns NaN from step
+# 5: a gate saturates, a = exp(-c softplus(Lambda) r) rounds to 1 in
+# bfloat16 (the model rounds it before the scan), and there the gradient
+# of sqrt(1 - a^2) is NaN in the reference as in the port.  The run counts
+# the a >= 1 that reach rglru_scan (``_saturation_probe``) and fails on
+# any, so a learning rate that saturates shows as that, not as a NaN.
+RTRAIN = (("falcon-mamba-7b", 8, 2, TRAIN_LR),
+          ("recurrentgemma-9b", 6, 1, 1e-4))
+RTRAIN_STEPS = 12
+RTRAIN_CKPT_DIR = Path(__file__).resolve().parent / "build" / "smoke_rckpt"
+# The kernels each run must launch: its scan's forward and backward, and
+# recurrentgemma-9b's attention kernels.
+RTRAIN_KERNELS = {
+    "falcon-mamba-7b": ("selective_scan", "selective_scan_bwd"),
+    "recurrentgemma-9b": ("rglru_scan", "rglru_scan_bwd", "flash_attention",
+                          "flash_attention_bwd")}
+# Their kernel-against-plain steps: falcon-mamba-7b at depth 2, B = 2, and
+# recurrentgemma-9b at depth 3 (one rec, rec, attention block), B = 1, at
+# full width with S cut to RCOMPARE_S to bound the plain loops' time; the
+# limits of COMPARE_*.
+RCOMPARE = (("falcon-mamba-7b", 2, 2), ("recurrentgemma-9b", 3, 1))
+RCOMPARE_S = 1024
 # The bridge: examples/design_accelerator.py's synthetic decode signature.
 BRIDGE_SIG = dict(arch="demo", shape="decode_32k", kind="decode", t_comp=0.2,
                   t_mem=2.0, t_coll=0.6, io_share=0.15)
@@ -2061,11 +2259,12 @@ def attention_bwd_parity_phase(dev, worst: dict) -> None:
               f"{worst['flash_attention_bwd']:.3g})")
 
 
-def flash_bwd_bound_ms(B, S, Hq, Hkv, d, itemsize=2):
+def flash_bwd_bound_ms(B, S, Hq, Hkv, d, window=None, itemsize=2):
     """Causal, Sq = Sk = S: 10 B Hq d operations a seen (query, key) pair
-    (the logits, dP, dv, dk, dq products) against reading q, k, v, o, dO
-    and lse and writing dq, dk and dv once."""
-    pairs = S * (S + 1) // 2
+    (the logits, dP, dv, dk, dq products; query i sees min(i + 1, window)
+    keys) against reading q, k, v, o, dO and lse and writing dq, dk and dv
+    once."""
+    pairs = int(np.minimum(np.arange(1, S + 1), window or S).sum())
     return _bound(10 * B * Hq * d * pairs,
                   itemsize * d * (4 * B * S * Hq + 4 * B * S * Hkv)
                   + 4 * B * Hq * S, PEAK_BF16_OPS)
@@ -2074,42 +2273,57 @@ def flash_bwd_bound_ms(B, S, Hq, Hkv, d, itemsize=2):
 def attention_bwd_timing_phase(dev, worst: dict) -> dict:
     """The backward kernel at the training shapes, beside its bound, the
     plain backward and the backward of ``scaled_dot_product_attention``
-    (``is_causal=True``, timed for comparison only); every timed output
-    held to ``BWD_LIMIT`` and to one more call's, bit for bit."""
+    (``is_causal=True``, or a boolean causal-window mask where the model
+    has a window; timed for comparison only); every timed output held to
+    ``BWD_LIMIT`` and to one more call's, bit for bit."""
     F = torch.nn.functional
     rows = {}
-    for arch, B in BWD_TIMED:
+    for arch, B, S in BWD_TIMED:
         cfg = get_config(arch)
-        shape = dict(B=B, Sq=TRAIN_S, Sk=TRAIN_S, Hq=cfg.n_heads,
-                     Hkv=cfg.n_kv_heads, d=cfg.hd)
+        window = cfg.window or None
+        kw = {} if window is None else {"window": window}
+        shape = dict(B=B, Sq=S, Sk=S, Hq=cfg.n_heads, Hkv=cfg.n_kv_heads,
+                     d=cfg.hd)
         phase(f"timing: flash_attention_bwd at {arch}'s training shape "
-              f"(bf16, causal, {shape}; outputs {BWD_LIMIT})")
+              f"(bf16, causal, window {window}, {shape}; outputs "
+              f"{BWD_LIMIT})")
         q, k, v = _on_card(testing.attention_operands(**shape, seed=B), dev)
-        out, lse, g = _bwd_inputs(q, k, v, {}, seed=B)
+        out, lse, g = _bwd_inputs(q, k, v, kw, seed=B)
         q_s, k_s, v_s = (x.transpose(1, 2).detach().requires_grad_()
                          for x in (q, k, v))
-        o_s = F.scaled_dot_product_attention(q_s, k_s, v_s, is_causal=True,
-                                             enable_gqa=True)
+        if window is None:
+            o_s = F.scaled_dot_product_attention(
+                q_s, k_s, v_s, is_causal=True, enable_gqa=True)
+        else:
+            pos = torch.arange(S, device=dev)
+            mask = (pos[None] <= pos[:, None]) & (
+                pos[None] > pos[:, None] - window)
+            o_s = F.scaled_dot_product_attention(
+                q_s, k_s, v_s, attn_mask=mask, enable_gqa=True)
         g_s = g.transpose(1, 2)
         fns = {
-            "kernel": lambda: tfb.flash_attention_bwd(q, k, v, out, g, lse),
-            "plain": lambda: plain.attention_bwd_ref(q, k, v, out, g, lse),
+            "kernel": lambda: tfb.flash_attention_bwd(q, k, v, out, g, lse,
+                                                      **kw),
+            "plain": lambda: plain.attention_bwd_ref(q, k, v, out, g, lse,
+                                                     **kw),
             "library": lambda: torch.autograd.grad(
                 o_s, (q_s, k_s, v_s), g_s, retain_graph=True)}
         t, outs = kt.batched_ms(fns, launches=5, rounds=3)
         err, share = _bwd_check(f"{arch} training shape", outs["kernel"],
                                 outs["plain"], None)
-        again = tfb.flash_attention_bwd(q, k, v, out, g, lse)
+        again = tfb.flash_attention_bwd(q, k, v, out, g, lse, **kw)
         if not all(torch.equal(a, b) for a, b in zip(again, outs["kernel"])):
             raise SystemExit(f"flash_attention_bwd is not repeatable at "
                              f"{arch}'s training shape")
         worst["flash_attention_bwd"] = max(worst["flash_attention_bwd"], err)
         t["bound"], t["bound_by"] = flash_bwd_bound_ms(**{
-            k_: shape[k_] for k_ in ("B", "Hq", "Hkv", "d")}, S=TRAIN_S)
+            k_: shape[k_] for k_ in ("B", "Hq", "Hkv", "d")}, S=S,
+            window=window)
         t["max_abs_err"], t["limit_share"] = err, share
         rows[f"flash_bwd {arch}"] = t
         print(f"  kernel {t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, "
-              f"sdpa backward {t['library']:.4f} ms, bound {t['bound']:.4f} "
+              f"sdpa backward{' (mask)' if window else ''} "
+              f"{t['library']:.4f} ms, bound {t['bound']:.4f} "
               f"ms ({t['bound_by']}), {t['bound'] / t['kernel']:.4f} of "
               f"bound; max abs err vs plain {err:.3g} ({share:.3f} of the "
               f"limit); repeatable")
@@ -2208,6 +2422,22 @@ def _loss_and_grads(model: LM, batch: dict) -> tuple:
     return loss.detach(), dict(zip(params, grads))
 
 
+def _step_disagreement(loss_k, loss_p, grads_k: dict, grads_p: dict
+                       ) -> tuple[float, float, str]:
+    """(relative loss difference, the worst gradient's difference over its
+    norm, that gradient's name) of a step through the kernels against the
+    same step through the plain versions."""
+    rel_loss = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    worst, worst_name = 0.0, ""
+    for name, gp in grads_p.items():
+        gk = grads_k[name].float()
+        gp = gp.float()
+        rel = float((gk - gp).norm() / gp.norm().clamp(min=1e-30))
+        if rel > worst:
+            worst, worst_name = rel, name
+    return rel_loss, worst, worst_name
+
+
 def train_compare_phase(dev) -> None:
     """One training step's loss and gradients through the kernels against
     the same step through the plain versions (``testing.plain_attention``
@@ -2238,14 +2468,8 @@ def train_compare_phase(dev) -> None:
     if plain_calls or launches["flash_attention_bwd"] != COMPARE_LAYERS:
         raise SystemExit(f"the kernel step: launches {launches}, plain "
                          f"calls {plain_calls}")
-    rel_loss = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
-    worst, worst_name = 0.0, ""
-    for name, gp in grads_p.items():
-        gk = grads_k[name].float()
-        gp = gp.float()
-        rel = float((gk - gp).norm() / gp.norm().clamp(min=1e-30))
-        if rel > worst:
-            worst, worst_name = rel, name
+    rel_loss, worst, worst_name = _step_disagreement(loss_k, loss_p,
+                                                     grads_k, grads_p)
     print(f"  loss {float(loss_k):.6f} (kernels) vs {float(loss_p):.6f} "
           f"(plain): {rel_loss:.3g} relative; worst gradient {worst_name}: "
           f"{worst:.3g} of its norm; {len(grads_p)} gradients")
@@ -2256,11 +2480,153 @@ def train_compare_phase(dev) -> None:
     torch.cuda.empty_cache()
 
 
+def _saturation_probe(scan, count: torch.Tensor):
+    """``scan`` (``ops.rglru_scan``) adding to ``count``, on the card, the
+    entries of a at 1 or above that reach it (remat's recomputes too)."""
+    def probe(x, a, h0=None):
+        count.add_((a >= 1).sum())
+        return scan(x, a, h0)
+    return probe
+
+
+def recurrent_train_phase(dev, arch: str, layers: int, B: int,
+                          lr: float) -> dict:
+    """Slice 14's main path: ``train.step`` and ``train.loop`` on ``arch``
+    at full width and ``layers`` deep (``RTRAIN``).  The loss must fall;
+    the run must launch ``RTRAIN_KERNELS[arch]``, call no plain version
+    and give rglru_scan no saturated gate (a >= 1)."""
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=layers)
+    phase(f"main path, slice 14: train.step and train.loop on {arch} at "
+          f"full width, {layers} of its {full.n_layers} layers "
+          f"({cfg.layer_plan()}, d_model {cfg.d_model}, vocab {cfg.vocab}, "
+          f"{cfg.dtype}, remat {cfg.remat}), B = {B}, S = {RTRAIN_S}, "
+          f"{RTRAIN_STEPS} steps of AdamW at lr {lr:g}")
+    shutil.rmtree(RTRAIN_CKPT_DIR, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = LM(cfg, dev, torch.Generator(dev).manual_seed(0))
+    n_params = model.param_count()
+    ocfg = OptConfig(lr=lr, total_steps=RTRAIN_STEPS, warmup_steps=5)
+    step = build_train_step(model, ocfg)
+    stream = TokenStream(DataConfig(vocab=cfg.vocab, seq_len=RTRAIN_S,
+                                    global_batch=B), device=dev)
+    loop_cfg = LoopConfig(total_steps=RTRAIN_STEPS,
+                          ckpt_dir=str(RTRAIN_CKPT_DIR),
+                          ckpt_every=RTRAIN_STEPS, log_every=1)
+    saturated = torch.zeros((), dtype=torch.int64, device=dev)
+    keep = ops.rglru_scan
+    ops.rglru_scan = _saturation_probe(keep, saturated)
+    reset_counts()
+    lines: list = []
+    t0 = time.monotonic()
+    try:
+        # The fresh state goes straight to the loop (as launch.train passes
+        # it): held here, its moments would stay alive beside every step's.
+        state, ls = train_loop_run(loop_cfg, state=init_state(model, ocfg),
+                                   train_step=step, stream=stream,
+                                   log=_smoke_log(lines, None))
+    finally:
+        ops.rglru_scan = keep
+    wall = time.monotonic() - t0
+    launches, _ = read_counts()
+    calls = dict(plain.calls)
+    peak = torch.cuda.max_memory_allocated(dev)
+    if [s_ for s_, _, _ in ls.history] != list(range(1, RTRAIN_STEPS + 1)):
+        raise SystemExit(f"steps run: {[s_ for s_, _, _ in ls.history]}")
+    losses = [loss for _, loss, _ in ls.history]
+    step_s = statistics.median(dt for _, _, dt in ls.history)
+    tokens = B * RTRAIN_S
+    flops = 6 * n_params * tokens / step_s
+    print(f"  {n_params} parameters; loss {losses[0]:.4f} (step 1) -> "
+          f"{losses[-1]:.4f} (step {RTRAIN_STEPS}); median step "
+          f"{1e3 * step_s:.1f} ms, {tokens / step_s:.1f} tokens/s, 6 N "
+          f"tokens at {flops / 1e12:.2f} TFLOP/s = "
+          f"{flops / PEAK_BF16_OPS:.4f} of the bf16 peak; run {wall:.1f} s "
+          f"wall (its last-step checkpoint included); max_memory_allocated "
+          f"{peak / 2**30:.2f} GiB")
+    print(f"  kernel launches {launches}; plain calls {calls}; a >= 1 "
+          f"reaching rglru_scan: {int(saturated)}")
+    if int(saturated):
+        raise SystemExit(f"training {arch}: {int(saturated)} saturated "
+                         f"gates (a >= 1, a NaN gradient) reached rglru_scan")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise SystemExit(f"the {arch} training loss did not fall: {losses}")
+    if not all(launches[k] > 0 for k in RTRAIN_KERNELS[arch]):
+        raise SystemExit(f"training {arch} did not launch "
+                         f"{RTRAIN_KERNELS[arch]}")
+    if sum(calls.values()):
+        raise SystemExit(f"training {arch} called a plain version: {calls}")
+    print(f"  profile: one more train step (step {RTRAIN_STEPS + 1})")
+    state = _profiled_step(step, state, stream.batch_at(RTRAIN_STEPS))
+    del state, step, model, stream
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(RTRAIN_CKPT_DIR, ignore_errors=True)
+    return launches
+
+
+def recurrent_compare_phase(dev) -> None:
+    """One training step of each recurrent model (``RCOMPARE``) through
+    the kernels against the same step through the plain versions
+    (``testing.plain_selective_scan``, ``plain_rglru_scan`` and
+    ``plain_attention`` in the wrappers' places)."""
+    for arch, layers, B in RCOMPARE:
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+        phase(f"check: one training step of {arch} at full width, depth "
+              f"{layers} ({cfg.layer_plan()}), B = {B}, S = {RCOMPARE_S}, "
+              f"through the kernels vs through the plain versions (loss "
+              f"within {COMPARE_LOSS_RTOL:g} relative, each gradient within "
+              f"{COMPARE_GRAD_RTOL:g} of its norm)")
+        model = LM(cfg, dev, torch.Generator(dev).manual_seed(0))
+        model.requires_grad_(True)
+        batch = TokenStream(DataConfig(vocab=cfg.vocab, seq_len=RCOMPARE_S,
+                                       global_batch=B), device=dev
+                            ).batch_at(0)
+        reset_counts()
+        loss_k, grads_k = _loss_and_grads(model, batch)
+        launches, plain_calls = read_counts()
+        keep = (ops.flash_attention, ops.selective_scan, ops.rglru_scan)
+        ops.flash_attention = testing.plain_attention
+        ops.selective_scan = testing.plain_selective_scan
+        ops.rglru_scan = testing.plain_rglru_scan
+        try:
+            loss_p, grads_p = _loss_and_grads(model, batch)
+        finally:
+            ops.flash_attention, ops.selective_scan, ops.rglru_scan = keep
+        torch.cuda.synchronize()
+        if plain_calls or not all(launches[k] > 0
+                                  for k in RTRAIN_KERNELS[arch]):
+            raise SystemExit(f"the kernel step: launches {launches}, plain "
+                             f"calls {plain_calls}")
+        rel_loss, worst, worst_name = _step_disagreement(loss_k, loss_p,
+                                                         grads_k, grads_p)
+        print(f"  loss {float(loss_k):.6f} (kernels) vs {float(loss_p):.6f} "
+              f"(plain): {rel_loss:.3g} relative; worst gradient "
+              f"{worst_name}: {worst:.3g} of its norm; {len(grads_p)} "
+              f"gradients; kernel launches "
+              f"{ {k: launches[k] for k in RTRAIN_KERNELS[arch]} }")
+        if not rel_loss <= COMPARE_LOSS_RTOL or \
+                not worst <= COMPARE_GRAD_RTOL:
+            raise SystemExit(f"the {arch} kernel step disagrees with the "
+                             f"plain step")
+        del model, grads_k, grads_p
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 # Device-kernel groups of the training profile, by name.
 TRAIN_GROUPS = (("attention backward (flash_attention_bwd.cu)",
                  ("flash_bwd",)),
                 ("attention forward (flash_attention.cu)",
                  ("flash_attention",)),
+                ("selective-scan backward (selective_scan_bwd.cu)",
+                 ("sscan_bwd",)),
+                ("selective-scan forward (selective_scan.cu)",
+                 ("selective_scan_kernel",)),
+                ("RG-LRU backward (rglru_scan_bwd.cu)", ("rglru_bwd",)),
+                ("RG-LRU forward (rglru_scan.cu)", ("rglru_scan_kernel",)),
                 ("products (cuBLAS)", ("gemm", "nvjet", "cutlass", "xmma")))
 
 
@@ -2268,7 +2634,6 @@ def train_profile_phase(dev) -> None:
     """torch.profiler over one train step of the full-width run's model
     (after one warm step): device busy share and device time by kernel
     group (``TRAIN_GROUPS``) and by kernel."""
-    from torch.profiler import ProfilerActivity, profile
     cfg = get_config(TRAIN_ARCH)
     phase(f"profile: one train step of {TRAIN_ARCH} at full width (B = "
           f"{TRAIN_B}, S = {TRAIN_S}, remat; after one warm step)")
@@ -2280,7 +2645,17 @@ def train_profile_phase(dev) -> None:
                                     global_batch=TRAIN_B), device=dev)
     state, _ = step(state, stream.batch_at(0))
     torch.cuda.synchronize()
-    batch = stream.batch_at(1)
+    state = _profiled_step(step, state, stream.batch_at(1))
+    del model, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _profiled_step(step, state, batch):
+    """One train step under torch.profiler: prints the device busy share
+    and device time by kernel group (``TRAIN_GROUPS``) and by kernel;
+    returns the new state."""
+    from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
@@ -2300,9 +2675,7 @@ def train_profile_phase(dev) -> None:
         print(f"  {ms:10.3f} ms ({100 * ms / total:5.1f} %)  {g}")
     for name, ms, n in rows[:10]:
         print(f"  {ms:10.3f} ms {n:6d} x  {name[:90]}")
-    del model, state, step
-    gc.collect()
-    torch.cuda.empty_cache()
+    return state
 
 
 def bridge_phase(dev) -> dict:
@@ -2354,17 +2727,22 @@ def main() -> None:
     attention_parity_phase(dev, max_err)
     attention_bwd_parity_phase(dev, max_err)
     scan_parity_phase(dev, max_err)
+    scan_bwd_parity_phase(dev, max_err)
     pipeline_parity_phase(dev)
     timing = timing_phase(dev, max_err, funcs)
     timing.update(attention_timing_phase(dev, max_err))
     timing.update(scan_timing_phase(dev, max_err, funcs))
     timing.update(attention_bwd_timing_phase(dev, max_err))
+    timing.update(scan_bwd_timing_phase(dev, max_err))
     launches = main_path_phase(dev)
-    for path in (sweep_phase, pareto_phase, trace_phase, design_phase,
-                 arch3d_phase, train_phase, bridge_phase):
+    paths = [sweep_phase, pareto_phase, trace_phase, design_phase,
+             arch3d_phase, train_phase]
+    paths += [lambda d, r=r: recurrent_train_phase(d, *r) for r in RTRAIN]
+    for path in paths + [bridge_phase]:
         for k, n in path(dev).items():
             launches[k] += n
     train_compare_phase(dev)
+    recurrent_compare_phase(dev)
     train_profile_phase(dev)
     profile_phase(dev)
     for k, n in serve_all_phase(dev).items():
@@ -2377,6 +2755,8 @@ def main() -> None:
     t6 = timing["selective_scan S=2048"]   # the longest falcon-mamba prompt
     t7 = timing["rglru_scan S=2048"]
     t4b = timing[f"flash_bwd {BWD_TIMED[0][0]}"]   # the training run's
+    t6b = timing["selective_scan_bwd"]     # falcon-mamba-7b's training shape
+    t7b = timing["rglru_scan_bwd"]         # recurrentgemma-9b's
     bwd_err = max(t["max_abs_err"] for k, t in timing.items()
                   if k.startswith("flash_bwd "))
     full = {k: [t for key, t in timing.items() if key.startswith(pre)]
@@ -2384,6 +2764,13 @@ def main() -> None:
                            ("decode_attention", "decode "),
                            ("selective_scan", "selective_scan S="),
                            ("rglru_scan", "rglru_scan S="))}
+
+    def scan_bwd_parity(t: dict) -> str:
+        return (f"cases {testing.scan_bwd_limit('cases', torch.float32)} "
+                f"(bf16 gradients 2^-7 |plain|); training shape "
+                f"{testing.scan_bwd_limit('training', torch.float32)}: max "
+                f"abs err {t['max_abs_err']:.3g}, {t['limit_share']:.3f} of "
+                f"the limit; bit for bit repeatable")
 
     def close(k: str, f32_tol: str, where: str) -> str:
         err = max(t["max_abs_err"] for t in full[k])
@@ -2410,7 +2797,11 @@ def main() -> None:
         ("flash_attention_bwd", "flash_attention_bwd.cu",
          "flash_attention.py:92", t4b["kernel"], t4b,
          f"cases allclose rtol=atol=2e-5 (f32), 2e-2 (bf16); training "
-         f"shapes {BWD_LIMIT}: max abs err {bwd_err:.3g}")]
+         f"shapes {BWD_LIMIT}: max abs err {bwd_err:.3g}"),
+        ("selective_scan_bwd", "selective_scan_bwd.cu",
+         "selective_scan.py:50", t6b["kernel"], t6b, scan_bwd_parity(t6b)),
+        ("rglru_scan_bwd", "rglru_scan_bwd.cu", "rglru_scan.py:38",
+         t7b["kernel"], t7b, scan_bwd_parity(t7b))]
     print(kt.card_line())
     print(json.dumps({"kernels": [{
         "name": k, "route": "cuda",

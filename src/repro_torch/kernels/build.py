@@ -24,7 +24,8 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (_CSRC / "fw_counts.cu", _CSRC / "fw_counts_tiled.cu",
            _CSRC / "minplus.cu", _CSRC / "flash_attention.cu",
            _CSRC / "decode_attention.cu", _CSRC / "selective_scan.cu",
-           _CSRC / "rglru_scan.cu", _CSRC / "flash_attention_bwd.cu")
+           _CSRC / "rglru_scan.cu", _CSRC / "flash_attention_bwd.cu",
+           _CSRC / "selective_scan_bwd.cu", _CSRC / "rglru_scan_bwd.cu")
 # Headers the sources include (a change rebuilds the library).
 HEADERS = (_CSRC / "mma_bf16.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -75,11 +76,21 @@ SIGNATURES = {
     # stream
     "decode_attention_fwd": [*[_P] * 7, _I, _I, _I, _I, _I, _I,
                              _F, _F, _I, _I, _I, _I, _P],
-    # x, dt, A, B, C, D, h0, y, h_final, Bt, S, Di, N, x dtype code,
-    # dt dtype code, device, stream
-    "selective_scan_fwd": [*[_P] * 9, _I, _I, _I, _I, _I, _I, _I, _P],
-    # x, a, h0, y, h_final, B, S, D, dtype code, device, stream
-    "rglru_scan_fwd": [*[_P] * 5, _I, _I, _I, _I, _I, _P],
+    # x, dt, A, B, C, D, h0, y, h_final, chunk-boundary states (or null),
+    # Bt, S, Di, N, x dtype code, dt dtype code, device, stream
+    "selective_scan_fwd": [*[_P] * 10, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, dt, A, B, C, D, boundary states, dy, dh_final (or null), dx, ddt,
+    # dA, dB, dC, dD, dh0, three scratch buffers, Bt, S, Di, N, x dtype
+    # code, dt dtype code, device, stream
+    "selective_scan_bwd": [*[_P] * 19, _I, _I, _I, _I, _I, _I, _I, _P],
+    # -> the backward kernel's channels a block
+    "selective_scan_bwd_block_channels": [],
+    # x, a, h0, y, h_final, every h in float32 (or null), B, S, D, dtype
+    # code, device, stream
+    "rglru_scan_fwd": [*[_P] * 6, _I, _I, _I, _I, _I, _P],
+    # x, a, dy, every h in float32, h0, dh_final (or null), dx, da, dh0, B,
+    # S, D, dtype code, device, stream
+    "rglru_scan_bwd": [*[_P] * 9, _I, _I, _I, _I, _I, _P],
 }
 
 # The dtype codes the attention and scan entry points take.

@@ -133,7 +133,8 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
 rglru_scan_kernel(const T* __restrict__ x, const T* __restrict__ a,
                   const float* __restrict__ h0, T* __restrict__ y,
-                  float* __restrict__ hf, int S, int D, bool vec) {
+                  float* __restrict__ hf, float* __restrict__ h32, int S,
+                  int D, bool vec) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem<T>& sm = *reinterpret_cast<Smem<T>*>(smem_raw);
 
@@ -242,6 +243,16 @@ rglru_scan_kernel(const T* __restrict__ x, const T* __restrict__ a,
         for (int v = 0; v < kVec; ++v)
           if (c0 + col + v < D) store(dst + v, hv[v]);
       }
+      if (h32 != nullptr) {           // every h in float32 as well
+        float* d32 = h32 + (b * S + t) * D + c0 + col;
+        if (vec) {
+          if (c0 + col < D) from_floats(d32, hv);
+        } else {
+#pragma unroll
+          for (int v = 0; v < kVec; ++v)
+            if (c0 + col + v < D) d32[v] = hv[v];
+        }
+      }
     }
   };
 
@@ -271,11 +282,13 @@ rglru_scan_kernel(const T* __restrict__ x, const T* __restrict__ a,
 
 template <typename T>
 cudaError_t launch(const void* x, const void* a, const float* h0, void* y,
-                   float* hf, int B, int S, int D, cudaStream_t stream) {
+                   float* hf, float* h32, int B, int S, int D,
+                   cudaStream_t stream) {
   const auto aligned = [](const void* p) {
     return reinterpret_cast<uintptr_t>(p) % 16 == 0;
   };
-  const bool vec = D % 8 == 0 && aligned(x) && aligned(a) && aligned(y);
+  const bool vec = D % 8 == 0 && aligned(x) && aligned(a) && aligned(y) &&
+                   (h32 == nullptr || aligned(h32));
   constexpr int bytes = sizeof(Smem<T>);
   static bool sized = false;        // per instance, on the first launch
   if (!sized) {
@@ -288,7 +301,7 @@ cudaError_t launch(const void* x, const void* a, const float* h0, void* y,
   const dim3 grid((D + kCh - 1) / kCh, B);
   rglru_scan_kernel<T><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(a), h0,
-      static_cast<T*>(y), hf, S, D, vec);
+      static_cast<T*>(y), hf, h32, S, D, vec);
   return cudaGetLastError();
 }
 
@@ -300,17 +313,21 @@ extern "C" {
 // cudaGetLastError() as an int (0 on success; cudaErrorInvalidValue for a
 // dtype code it has no instance for).  dtype: 0 float32, 1 bfloat16, the
 // same for x, a and y.  Every buffer is contiguous; y and hf are written in
-// full.
+// full, and so is h32 [B, S, D] unless it is null: every h in float32,
+// which the backward (rglru_scan_bwd.cu) takes h_{t-1} from.  The writes
+// leave y and hf as they are without them.
 int rglru_scan_fwd(const void* x, const void* a, const float* h0, void* y,
-                   float* hf, int B, int S, int D, int dtype, int device,
-                   void* stream) {
+                   float* hf, float* h32, int B, int S, int D, int dtype,
+                   int device, void* stream) {
   if (B <= 0 || D <= 0) return 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: err = launch<float>(x, a, h0, y, hf, B, S, D, s); break;
-    case 1: err = launch<__nv_bfloat16>(x, a, h0, y, hf, B, S, D, s); break;
+    case 0: err = launch<float>(x, a, h0, y, hf, h32, B, S, D, s); break;
+    case 1:
+      err = launch<__nv_bfloat16>(x, a, h0, y, hf, h32, B, S, D, s);
+      break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

@@ -193,8 +193,8 @@ selective_scan_kernel(const TX* __restrict__ x, const TD* __restrict__ dt,
                       const float* __restrict__ Cm,
                       const float* __restrict__ Dskip,
                       const float* __restrict__ h0, TX* __restrict__ y,
-                      float* __restrict__ hf, int S, int Di, int N,
-                      bool vec_x, bool vec_bc) {
+                      float* __restrict__ hf, float* __restrict__ hb, int S,
+                      int Di, int N, bool vec_x, bool vec_bc) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem<TX, TD>& sm = *reinterpret_cast<Smem<TX, TD>*>(smem_raw);
 
@@ -264,6 +264,13 @@ selective_scan_kernel(const TX* __restrict__ x, const TD* __restrict__ dt,
   }
   for (int k = 0; k < K; ++k) {
     const int st = k % kStages;
+    if (hb != nullptr && on) {                  // the state entering chunk k
+#pragma unroll
+      for (int j = 0; j < kPerLane; ++j) {
+        const int n = q + kLanesPerCh * j;
+        if (n < N) hb[((b * K + k) * Di + c) * N + n] = h[j];
+      }
+    }
     cp_async_wait<kStages - 2>();               // chunk k has landed
     __syncthreads();   // ...for every thread; the walk of k - 1 is over
     if (k > 0) write_y(k - 1);
@@ -339,8 +346,8 @@ selective_scan_kernel(const TX* __restrict__ x, const TD* __restrict__ dt,
 template <typename TX, typename TD>
 cudaError_t launch(const void* x, const void* dt, const float* A,
                    const float* B, const float* C, const float* D,
-                   const float* h0, void* y, float* hf, int Bt, int S,
-                   int Di, int N, cudaStream_t stream) {
+                   const float* h0, void* y, float* hf, float* hb, int Bt,
+                   int S, int Di, int N, cudaStream_t stream) {
   const auto aligned = [](const void* p) {
     return reinterpret_cast<uintptr_t>(p) % 16 == 0;
   };
@@ -358,7 +365,7 @@ cudaError_t launch(const void* x, const void* dt, const float* A,
   const dim3 grid((Di + kCh - 1) / kCh, Bt);
   selective_scan_kernel<TX, TD><<<grid, kThreads, bytes, stream>>>(
       static_cast<const TX*>(x), static_cast<const TD*>(dt), A, B, C, D, h0,
-      static_cast<TX*>(y), hf, S, Di, N, vec_x, vec_bc);
+      static_cast<TX*>(y), hf, hb, S, Di, N, vec_x, vec_bc);
   return cudaGetLastError();
 }
 
@@ -366,12 +373,13 @@ template <typename TX>
 cudaError_t launch_dt(int dt_dtype, const void* x, const void* dt,
                       const float* A, const float* B, const float* C,
                       const float* D, const float* h0, void* y, float* hf,
-                      int Bt, int S, int Di, int N, cudaStream_t stream) {
+                      float* hb, int Bt, int S, int Di, int N,
+                      cudaStream_t stream) {
   switch (dt_dtype) {
-    case 0: return launch<TX, float>(x, dt, A, B, C, D, h0, y, hf, Bt, S,
-                                     Di, N, stream);
+    case 0: return launch<TX, float>(x, dt, A, B, C, D, h0, y, hf, hb, Bt,
+                                     S, Di, N, stream);
     case 1: return launch<TX, __nv_bfloat16>(x, dt, A, B, C, D, h0, y, hf,
-                                             Bt, S, Di, N, stream);
+                                             hb, Bt, S, Di, N, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -384,12 +392,16 @@ extern "C" {
 // cudaGetLastError() as an int (0 on success; cudaErrorInvalidValue for a
 // dtype code it has no instance for or N outside 1..16).  Dtype codes:
 // 0 float32, 1 bfloat16, for x (and y) and for dt.  Every buffer is
-// contiguous; y and hf are written in full.
+// contiguous; y and hf are written in full, and so is hb [Bt, K, Di, N]
+// (K = ceil(S / 32)) unless it is null: the state entering each chunk of
+// kSteps steps (hb[:, 0] = h0), which the backward (selective_scan_bwd.cu)
+// recomputes each chunk's states from.  The writes leave y and hf as they
+// are without them.
 int selective_scan_fwd(const void* x, const void* dt, const float* A,
                        const float* B, const float* C, const float* D,
-                       const float* h0, void* y, float* hf, int Bt, int S,
-                       int Di, int N, int x_dtype, int dt_dtype, int device,
-                       void* stream) {
+                       const float* h0, void* y, float* hf, float* hb,
+                       int Bt, int S, int Di, int N, int x_dtype,
+                       int dt_dtype, int device, void* stream) {
   if (N < 1 || N > kMaxN) return cudaErrorInvalidValue;
   if (Bt <= 0 || Di <= 0) return 0;
   cudaError_t err = cudaSetDevice(device);
@@ -397,12 +409,12 @@ int selective_scan_fwd(const void* x, const void* dt, const float* A,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (x_dtype) {
     case 0:
-      err = launch_dt<float>(dt_dtype, x, dt, A, B, C, D, h0, y, hf, Bt, S,
-                             Di, N, s);
+      err = launch_dt<float>(dt_dtype, x, dt, A, B, C, D, h0, y, hf, hb,
+                             Bt, S, Di, N, s);
       break;
     case 1:
       err = launch_dt<__nv_bfloat16>(dt_dtype, x, dt, A, B, C, D, h0, y, hf,
-                                     Bt, S, Di, N, s);
+                                     hb, Bt, S, Di, N, s);
       break;
     default: err = cudaErrorInvalidValue;
   }

@@ -613,6 +613,105 @@ def rglru_ref(x: torch.Tensor, a: torch.Tensor,
     return out.to(x.dtype), h
 
 
+def selective_scan_bwd_ref(x: torch.Tensor, dt: torch.Tensor,
+                           A: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+                           D: torch.Tensor, h0: torch.Tensor | None,
+                           dy: torch.Tensor,
+                           dh_final: torch.Tensor | None = None) -> tuple:
+    """The gradient of :func:`selective_scan_ref` from the output's
+    gradient ``dy`` (x's shape) and the final state's ``dh_final``
+    ([Bt, Di, N]; zeros when None), in float32.  With e_t = exp(dt_t A),
+    the states h_t of the forward loop, and, walking t from S down to 1,
+    G_t = dy_t C_t + e_{t+1} G_{t+1} (G_{S+1} e_{S+1} = dh_final):
+
+        dC_t = sum_d h_t dy_t            dB_t = sum_d G_t dt_t x_t
+        dx_t = D dy_t + dt_t sum_n G_t B_t
+        ddt_t = sum_n G_t (A e_t h_{t-1} + x_t B_t)
+        dA = sum_{b,t} G_t dt_t e_t h_{t-1}   dD = sum_{b,t} dy_t x_t
+        dh0 = e_1 G_1
+
+    Returns (dx in x's dtype, ddt, dA, dB, dC, dD, dh0), all but dx in
+    float32."""
+    calls["selective_scan_bwd_ref"] += 1
+    Bt, S, Di = x.shape
+    N = A.shape[-1]
+    f32, dev = torch.float32, x.device
+    A, D = A.float(), D.float()
+    xf, dtf, Bf, Cf = x.float(), dt.float(), B.float(), C.float()
+    dyf = dy.float()
+    h = (torch.zeros(Bt, Di, N, dtype=f32, device=dev) if h0 is None
+         else h0.float())
+    hs = [h]
+    for t in range(S):
+        e = torch.exp(dtf[:, t, :, None] * A[None])
+        h = e * h + (dtf[:, t] * xf[:, t])[..., None] * Bf[:, t, None, :]
+        hs.append(h)
+    g = (torch.zeros(Bt, Di, N, dtype=f32, device=dev) if dh_final is None
+         else dh_final.float())
+    dx = torch.zeros(Bt, S, Di, dtype=f32, device=dev)
+    ddt = torch.zeros_like(dx)
+    dB = torch.zeros(Bt, S, N, dtype=f32, device=dev)
+    dC = torch.zeros_like(dB)
+    dA = torch.zeros(Di, N, dtype=f32, device=dev)
+    for t in reversed(range(S)):
+        e = torch.exp(dtf[:, t, :, None] * A[None])
+        G = dyf[:, t, :, None] * Cf[:, t, None, :] + g
+        eh = e * hs[t]
+        dC[:, t] = torch.einsum("bdn,bd->bn", hs[t + 1], dyf[:, t])
+        dB[:, t] = torch.einsum("bdn,bd->bn", G, dtf[:, t] * xf[:, t])
+        dx[:, t] = (D[None] * dyf[:, t]
+                    + dtf[:, t] * (G * Bf[:, t, None, :]).sum(-1))
+        ddt[:, t] = (G * (A[None] * eh + xf[:, t, :, None]
+                          * Bf[:, t, None, :])).sum(-1)
+        dA += (G * dtf[:, t, :, None] * eh).sum(0)
+        g = e * G
+    dD = (dyf * xf).sum((0, 1))
+    return dx.to(x.dtype), ddt, dA, dB, dC, dD, g
+
+
+def rglru_bwd_ref(x: torch.Tensor, a: torch.Tensor, h0: torch.Tensor | None,
+                  dy: torch.Tensor, dh_final: torch.Tensor | None = None
+                  ) -> tuple:
+    """The gradient of :func:`rglru_ref` from the gradient ``dy`` of every
+    h (x's shape) and ``dh_final`` ([B, D]; zeros when None), in float32.
+    With s_t = sqrt(max(1 - a_t^2, 0)), the states h_t of the forward loop
+    and, walking t from S down to 1, G_t = dy_t + a_{t+1} G_{t+1}
+    (a_{S+1} G_{S+1} = dh_final):
+
+        dx_t = G_t s_t      da_t = G_t (h_{t-1} + x_t s'_t)
+        dh0 = a_1 G_1
+
+    s' is what ``jax.grad`` of ``repro.kernels.ref.rglru_ref`` takes: -a/s
+    where 1 - a^2 > 0; at 1 - a^2 = 0 the same -a/s = -a/0 (da = -inf
+    sign(x G a), NaN where x G = 0, as sqrt's 0.5 / 0 there); NaN where
+    1 - a^2 < 0 (sqrt's infinite slope at 0 times max's zero slope).
+    Returns (dx, da in their operands' dtype, dh0 float32)."""
+    calls["rglru_bwd_ref"] += 1
+    Bt, S, Dd = x.shape
+    f32, dev = torch.float32, x.device
+    af, xf, dyf = a.float(), x.float(), dy.float()
+    u = 1.0 - af * af
+    s = torch.sqrt(torch.clamp(u, min=0.0))
+    sp = torch.where(u >= 0, -af / s, math.nan)
+    b = s * xf
+    h = (torch.zeros(Bt, Dd, dtype=f32, device=dev) if h0 is None
+         else h0.float())
+    hs = [h]
+    for t in range(S):
+        h = af[:, t] * h + b[:, t]
+        hs.append(h)
+    g = (torch.zeros(Bt, Dd, dtype=f32, device=dev) if dh_final is None
+         else dh_final.float())
+    dx = torch.zeros(Bt, S, Dd, dtype=f32, device=dev)
+    da = torch.zeros_like(dx)
+    for t in reversed(range(S)):
+        G = dyf[:, t] + g
+        dx[:, t] = G * s[:, t]
+        da[:, t] = G * (hs[t] + xf[:, t] * sp[:, t])
+        g = af[:, t] * G
+    return dx.to(x.dtype), da.to(a.dtype), g
+
+
 # -- the scan kernels' orders of operations (for the tests) ----------------
 
 # Lanes of a channel in csrc/selective_scan.cu; lane q holds states q and

@@ -5,13 +5,17 @@ tensors launches the kernel on the current stream (raising if the build or
 the launch fails; there is no fallback), and on CPU tensors calls the plain
 version ``ref.selective_scan_ref``.  The kernel walks the whole sequence in
 one launch; ``h0`` and the returned final state let a caller split a
-sequence across calls.
+sequence across calls.  Where autograd records the call (grad mode on and
+an operand requiring a gradient) the wrapper goes through
+:class:`SelectiveScan`, whose backward is ``selective_scan_bwd``'s kernel
+(the plain ``ref.selective_scan_bwd_ref`` on CPU tensors).
 """
 from __future__ import annotations
 
 import torch
 
 from . import build, ref
+from . import selective_scan_bwd as bwd
 
 # The largest state size N the kernel holds in registers (8 lanes a
 # channel, 2 states each); every published Mamba-1 model has N = 16.
@@ -76,29 +80,70 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if h0 is not None:
         ops_["h0"] = h0
     check_scan_inputs("selective_scan", ops_, shapes, ("x", "dt"))
+    if build.needs_grad(x, dt, A, B, C, D, h0):
+        return SelectiveScan.apply(x, dt, A, B, C, D, h0)
     if x.device.type == "cpu":
         return ref.selective_scan_ref(x, dt, A, B, C, D, h0)
-    build.refuse_grad("selective_scan", *ops_.values())
+    return _launch(*_on_card(x, dt, A, B, C, D, h0))[:2]
+
+
+def _on_card(x, dt, A, B, C, D, h0):
+    """The operands contiguous, h0 zeros when None."""
     if h0 is None:
-        h0 = torch.zeros(Bt, Di, N, dtype=torch.float32, device=x.device)
-    return _launch(*(t.contiguous() for t in (x, dt, A, B, C, D, h0)))
+        h0 = torch.zeros(x.shape[0], x.shape[2], A.shape[1],
+                         dtype=torch.float32, device=x.device)
+    return [t.contiguous() for t in (x, dt, A, B, C, D, h0)]
 
 
-def _launch(x, dt, A, B, C, D, h0):
+def _launch(x, dt, A, B, C, D, h0, states: bool = False):
+    """(y, h_final, the state entering each ``CHUNK``-step chunk
+    [Bt, ceil(S / CHUNK), Di, N] float32 with ``states``, else None)."""
     global launches
     Bt, S, Di = x.shape
     N = A.shape[1]
     y = torch.empty_like(x)
     hf = torch.empty_like(h0)
+    hb = (torch.empty(Bt, -(-S // CHUNK), Di, N, dtype=torch.float32,
+                      device=x.device) if states else None)
     if Bt and Di:
         lib = build.load()
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.selective_scan_fwd(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
             C.data_ptr(), D.data_ptr(), h0.data_ptr(), y.data_ptr(),
-            hf.data_ptr(), Bt, S, Di, N,
-            build.DTYPE_CODES[str(x.dtype)[6:]],
+            hf.data_ptr(), None if hb is None else hb.data_ptr(), Bt, S,
+            Di, N, build.DTYPE_CODES[str(x.dtype)[6:]],
             build.DTYPE_CODES[str(dt.dtype)[6:]], x.device.index, stream)
         build.check_rc(lib, rc, "selective_scan")
         launches += 1
-    return y, hf
+    return y, hf, hb
+
+
+class SelectiveScan(torch.autograd.Function):
+    """The selective scan with its gradient: on CUDA tensors the forward
+    kernel (writing the state entering each chunk) and the backward kernel
+    (``selective_scan_bwd``), on CPU tensors ``ref.selective_scan_ref``
+    and ``ref.selective_scan_bwd_ref``.  Either output's gradient may be
+    absent (zeros); dh0 is returned when h0 was given."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, D, h0):
+        ctx.set_materialize_grads(False)
+        ctx.has_h0 = h0 is not None
+        if x.device.type == "cpu":
+            y, hf = ref.selective_scan_ref(x, dt, A, B, C, D, h0)
+            ctx.save_for_backward(x, dt, A, B, C, D, h0, None)
+        else:
+            ops_ = _on_card(x, dt, A, B, C, D, h0)
+            y, hf, hb = _launch(*ops_, states=True)
+            ctx.save_for_backward(*ops_[:6], None, hb)
+        return y, hf
+
+    @staticmethod
+    def backward(ctx, dy, dhf):
+        x, dt, A, B, C, D, h0, hb = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        grads = bwd.selective_scan_bwd(x, dt, A, B, C, D, h0, dy, dhf,
+                                       states=hb)
+        return (*grads[:6], grads[6] if ctx.has_h0 else None)

@@ -315,6 +315,80 @@ def scan_serve_operands(kernel: str, S: int, dev, seed: int | None = None,
     return args
 
 
+# The scans' training shapes (S = 4096, the reference's train_4k length):
+# falcon-mamba-7b's selective scan at the smoke's B = 2, recurrentgemma-9b's
+# RG-LRU at B = 1.
+SCAN_TRAIN = {"selective_scan": dict(B=2, S=4096, Di=8192, N=16),
+              "rglru_scan": dict(B=1, S=4096, D=4096)}
+
+
+def scan_train_operands(kernel: str, dev, seed: int = 0) -> tuple:
+    """A scan's operands at its training shape (``SCAN_TRAIN``), drawn on
+    the card from ``seed`` as :func:`scan_serve_operands` draws them but
+    for RG-LRU's a in [0.5, 0.99] (a bfloat16 a of 1 has an infinite
+    gradient), and a standard normal output gradient in x's dtype and
+    float32 dh_final: (operands, dy, dh_final)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    f32, bf16 = torch.float32, torch.bfloat16
+    shape = SCAN_TRAIN[kernel]
+    B, S = shape["B"], shape["S"]
+    if kernel == "selective_scan":
+        Di, N = shape["Di"], shape["N"]
+        args = [torch.randn(B, S, Di, generator=g, device=dev).to(bf16),
+                1e-3 + 0.099 * torch.rand(B, S, Di, generator=g, device=dev),
+                -torch.arange(1, N + 1, dtype=f32, device=dev).expand(
+                    Di, N).contiguous(),
+                torch.randn(B, S, N, generator=g, device=dev),
+                torch.randn(B, S, N, generator=g, device=dev),
+                torch.ones(Di, device=dev)]
+        state = (B, Di, N)
+    else:
+        D = shape["D"]
+        args = [torch.randn(B, S, D, generator=g, device=dev).to(bf16),
+                (0.5 + 0.49 * torch.rand(B, S, D, generator=g,
+                                         device=dev)).to(bf16)]
+        state = (B, D)
+    args.append(torch.zeros(*state, device=dev))
+    dy = torch.randn(B, S, args[0].shape[2], generator=g,
+                     device=dev).to(bf16)
+    return args, dy, torch.randn(*state, generator=g, device=dev)
+
+
+def sscan_bwd_work(B: int, S: int, Di: int, N: int, x_item: int,
+                   dt_item: int) -> tuple[float, float, float]:
+    """(float operations, special-function operations, bytes) that the
+    selective scan's gradient needs, whatever the kernel's design
+    (``csrc/selective_scan_bwd.cu`` stores states a chunk and computes
+    e_t twice).  Per (step, channel, state): the states from h0 (dt A,
+    u B and the multiply-add: 4, and one exp, e_t, which the walk back
+    uses again), the walk back (G's multiply-add, e h, the sums for dx
+    and ddt and the products inside them, dA's, dB's and dC's products,
+    e G: 16) and the sums over channels of dB and dC (2); per (step,
+    channel) dt x twice, dD's and dx's multiply-adds and a product (7).
+    Bytes: x, dt and dy read and dx (x's dtype) and ddt (float32) written
+    once a (step, channel); B and C read and dB and dC written once a
+    (step, state); A, D, h0 and dh_final in and dA, dD, dh0 out."""
+    tdn, td = B * S * Di * N, B * S * Di
+    return (22 * tdn + 7 * td, tdn,
+            td * (2 * x_item + dt_item + x_item + 4) + 4 * B * S * N * 4
+            + 4 * (2 * Di * N + 2 * Di + 3 * B * Di * N))
+
+
+def rglru_bwd_work(B: int, S: int, D: int, item: int
+                   ) -> tuple[float, float, float]:
+    """(float operations, special-function operations, bytes) that the
+    RG-LRU scan's gradient needs, whatever the kernel's design
+    (``csrc/rglru_scan_bwd.cu`` reads float32 states the forward wrote).
+    Per (step, channel): h_{t-1} from h0 (a h and the multiply-add with
+    s x: 2), a a and 1 - a a, the max, x s' and h + x s', G's
+    multiply-add, G s and G q (9 float operations), the square root and
+    the division (2 special-function operations).  Bytes: a, x, dy read
+    and dx, da written (x's dtype) once a (step, channel); h0, dh_final
+    in and dh0 out."""
+    n = B * S * D
+    return 11 * n, 2 * n, n * 5 * item + 3 * 4 * B * D
+
+
 # Min-plus: its steady-state loop is the one that stages by 16-byte
 # cp.async (LDGSTS) every trip; the loop of edge tiles stages only in
 # guarded code.  A kernel without it (the first port's) has one loop.

@@ -297,14 +297,14 @@ def _call(lib, kernel: str, args: list, dev):
         rc = lib.selective_scan_fwd(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
             C.data_ptr(), D.data_ptr(), h0.data_ptr(), y.data_ptr(),
-            hf.data_ptr(), 1, x.shape[1], x.shape[2], A.shape[1],
+            hf.data_ptr(), None, 1, x.shape[1], x.shape[2], A.shape[1],
             build.DTYPE_CODES["bfloat16"], build.DTYPE_CODES["float32"],
             dev.index, stream)
     else:
         x, a, h0 = args
         rc = lib.rglru_scan_fwd(
             x.data_ptr(), a.data_ptr(), h0.data_ptr(), y.data_ptr(),
-            hf.data_ptr(), 1, x.shape[1], x.shape[2],
+            hf.data_ptr(), None, 1, x.shape[1], x.shape[2],
             build.DTYPE_CODES["bfloat16"], dev.index, stream)
     if rc != 0:
         raise RuntimeError(f"variant launch failed (cudaError {rc})")

@@ -67,7 +67,6 @@ def main(argv=None, log=print):
     opt_cfg = OptConfig(lr=args.lr, total_steps=args.steps,
                         warmup_steps=max(args.steps // 20, 5),
                         compress_int8=args.compress_int8)
-    state = init_state(model, opt_cfg)
     step = build_train_step(model, opt_cfg, microbatches=args.microbatches)
     stream = TokenStream(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
                                     global_batch=args.batch),
@@ -75,8 +74,11 @@ def main(argv=None, log=print):
     loop_cfg = LoopConfig(total_steps=args.steps, ckpt_dir=args.ckpt_dir,
                           ckpt_every=args.ckpt_every,
                           log_every=max(1, min(args.log_every, args.steps)))
-    state, ls = run(loop_cfg, state=state, train_step=step, stream=stream,
-                    log=log)
+    # The fresh state goes straight to the loop: a name bound to it here
+    # would keep its optimizer moments (8 bytes a parameter) alive beside
+    # every later step's for the whole run.
+    state, ls = run(loop_cfg, state=init_state(model, opt_cfg),
+                    train_step=step, stream=stream, log=log)
     if ls.history:
         log(f"[train] done: step {ls.step}, "
             f"loss {ls.history[0][1]:.3f} -> {ls.history[-1][1]:.3f}, "

@@ -17,10 +17,10 @@ writes the new cache entries (K/V, conv windows, recurrent states) into
 for a griffin super-block (``models.tree``).
 
 The dense, VLM-stub, SSM (falcon-mamba) and hybrid (recurrentgemma)
-decoders are ported for serving, the dense and VLM-stub decoders for
-training; training the models with ``mamba`` or ``rec`` layers (their
-scans have no backward kernel yet) waits for ROADMAP queue 1 item 15d-2,
-the encoder-decoder family for item 15e.
+decoders are ported for serving and for training (the scans' gradients
+through their autograd Functions: ``kernels.selective_scan.SelectiveScan``
+and ``kernels.rglru_scan.RGLRUScan``); the encoder-decoder family waits
+for ROADMAP queue 1 item 15e.
 """
 from __future__ import annotations
 
@@ -31,7 +31,7 @@ from torch.utils.checkpoint import checkpoint
 from ..core.proxies import resolve_device
 from .config import LMConfig
 from .layers import dense_init, dtype_of, param, rms_norm, rms_norm_init
-from .transformer import Layer, leaf_kinds
+from .transformer import Layer
 from .tree import tree_index, tree_map, tree_stack
 
 
@@ -111,11 +111,6 @@ class LM(nn.Module):
         in the backward, as the reference's ``jax.checkpoint`` with
         ``nothing_saveable``)."""
         cfg = self.cfg
-        kinds = leaf_kinds(cfg)
-        if kinds["mamba"] or kinds["rec"]:
-            raise NotImplementedError(
-                f"training {cfg.name}: its selective-scan / RG-LRU layers "
-                f"have no backward kernel yet (ROADMAP queue 1 item 15d-2)")
         x, pos, n_front = self._prep_inputs(batch)
         for group in self.groups:
             for layer in group:

@@ -11,6 +11,8 @@ kernels' tiles and splits).
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -619,6 +621,126 @@ def plain_attention(q, k, v, *, causal=True, window=None, scale=None,
     """``ops.flash_attention``'s signature over :class:`PlainAttention`."""
     return PlainAttention.apply(q, k, v, causal, window, scale, softcap,
                                 pos_offset)
+
+
+def rglru_edge_operands(seed: int = 3, above: float = 2.0 ** -8) -> tuple:
+    """RG-LRU operands where its gradient is not finite, as numpy float32
+    (x, a, h0, dy, dh_final): B = 2, S = 12, D = 16, a from {0, 0.5, 1,
+    1 + ``above``}, x 0 in a third of the places, and channel 0 of each
+    row with no gradient at all (dy = dh_final = 0 there, so G = 0).  In
+    bfloat16, 1 + 2^-8 rounds to 1: ``above`` 2^-7 keeps an a above 1."""
+    rng = np.random.default_rng(seed)
+    shape = (2, 12, 16)
+    a = rng.choice(np.array([0.0, 0.5, 1.0, 1.0 + above], np.float32),
+                   shape)
+    x = rng.standard_normal(shape, dtype=np.float32)
+    x[rng.random(shape) < 1 / 3] = 0.0
+    h0 = rng.standard_normal((2, 16), dtype=np.float32)
+    dy = rng.standard_normal(shape, dtype=np.float32)
+    dhf = rng.standard_normal((2, 16), dtype=np.float32)
+    dy[:, :, 0] = 0.0
+    dhf[:, 0] = 0.0
+    return x, a, h0, dy, dhf
+
+
+# The scans' backward kernels against their plain versions on the card:
+# |kernel - plain| <= share max|plain| + rtol |plain|, each gradient.  On
+# ``scan_cases`` (S <= 130) share 3e-5 and, for float32 gradients, rtol
+# 3e-5 (ex2.approx against exp, fused multiply-adds, other orders over
+# states, channels and steps); at the training shapes (S = 4096) 1e-4 and
+# 1e-4, as G carries each step's rounding over thousands of steps.  A
+# gradient in bfloat16 (dx, RG-LRU's da) gets rtol 2^-7: both round a
+# float32 value once, and two close values may round an ulp apart.
+SCAN_BWD_LIMITS = {"cases": (3e-5, 3e-5), "training": (1e-4, 1e-4)}
+SCAN_BWD_BF16_RTOL = 2.0 ** -7
+
+
+def scan_bwd_limit(which: str, dtype) -> str:
+    """``SCAN_BWD_LIMITS[which]`` for a gradient of ``dtype``, as text."""
+    share, rtol = SCAN_BWD_LIMITS[which]
+    if dtype == torch.bfloat16:
+        rtol = SCAN_BWD_BF16_RTOL
+    return f"|kernel - plain| <= {share:g} max|plain| + {rtol:g} |plain|"
+
+
+def scan_bwd_share(got: torch.Tensor, want: torch.Tensor, which: str
+                   ) -> tuple[float, float]:
+    """(max abs error, the largest share of the limit an entry uses) of a
+    scan gradient against its plain version, under ``SCAN_BWD_LIMITS``,
+    over their finite entries; both of one dtype and shape, with NaN and
+    +-inf in the same places (RG-LRU's da where a = 1), else inf."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise ValueError(f"{got.dtype} {tuple(got.shape)} against "
+                         f"{want.dtype} {tuple(want.shape)}")
+    share, rtol = SCAN_BWD_LIMITS[which]
+    if got.dtype == torch.bfloat16:
+        rtol = SCAN_BWD_BF16_RTOL
+    a, b = got.float(), want.float()
+    fin = torch.isfinite(b)
+    if not (torch.equal(fin, torch.isfinite(a))
+            and torch.equal(a.isnan(), b.isnan())
+            and torch.equal(a[b.isinf()], b[b.isinf()])):
+        return math.inf, math.inf
+    a, b = a[fin], b[fin]
+    if not b.numel():
+        return 0.0, 0.0
+    err = (a - b).abs()
+    limit = share * b.abs().max() + rtol * b.abs()
+    used = torch.where(err == 0, 0.0, err / limit)
+    return float(err.max()), float(used.max())
+
+
+class PlainSelectiveScan(torch.autograd.Function):
+    """The selective scan's plain versions with their gradient, on any
+    device: ``ref.selective_scan_ref`` forward and
+    ``ref.selective_scan_bwd_ref`` backward.  Not on any path of the port:
+    a check substitutes it for ``ops.selective_scan`` to hold a training
+    step through the kernels against the same step through the plain
+    versions on the card."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, D, h0):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, A, B, C, D, h0)
+        return ref.selective_scan_ref(x, dt, A, B, C, D, h0)
+
+    @staticmethod
+    def backward(ctx, dy, dhf):
+        x, dt, A, B, C, D, h0 = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        grads = ref.selective_scan_bwd_ref(x, dt, A, B, C, D, h0, dy, dhf)
+        return (*grads[:6], None if h0 is None else grads[6])
+
+
+def plain_selective_scan(x, dt, A, B, C, D, h0=None):
+    """``ops.selective_scan``'s signature over :class:`PlainSelectiveScan`."""
+    return PlainSelectiveScan.apply(x, dt, A, B, C, D, h0)
+
+
+class PlainRGLRUScan(torch.autograd.Function):
+    """The RG-LRU scan's plain versions with their gradient, on any device:
+    ``ref.rglru_ref`` forward and ``ref.rglru_bwd_ref`` backward; on no
+    path of the port (as :class:`PlainSelectiveScan`)."""
+
+    @staticmethod
+    def forward(ctx, x, a, h0):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, a, h0)
+        return ref.rglru_ref(x, a, h0)
+
+    @staticmethod
+    def backward(ctx, dy, dhf):
+        x, a, h0 = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        dx, da, dh0 = ref.rglru_bwd_ref(x, a, h0, dy, dhf)
+        return dx, da, None if h0 is None else dh0
+
+
+def plain_rglru_scan(x, a, h0=None):
+    """``ops.rglru_scan``'s signature over :class:`PlainRGLRUScan`."""
+    return PlainRGLRUScan.apply(x, a, h0)
 
 
 def attention_bwd_rounded(q, k, v, o, dout, lse, *, causal=True,

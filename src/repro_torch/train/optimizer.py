@@ -194,16 +194,25 @@ def global_norm(tree: dict) -> torch.Tensor:
 @torch.no_grad()
 def adamw_update(cfg: OptConfig, grads: dict, state: dict, params: dict):
     """Returns (new_params, new_state, metrics): new tensors, the inputs
-    untouched.  Metrics: ``grad_norm`` (before clipping) and ``lr``."""
+    untouched.  Metrics: ``grad_norm`` (before clipping) and ``lr``.
+
+    Each leaf's float32 gradient is made when its update runs, and the
+    update's intermediates are computed in place on tensors the update
+    made itself (each operation rounds as its out-of-place form does), so
+    at most a few float32 copies of the largest leaf live at once: with
+    recurrentgemma-9b's 1.05 B-entry embedding the out-of-place update held
+    about seven (29 GB) beside a float32 copy of every gradient."""
     step = state["step"] + 1
     gnorm = global_norm(grads)
     scale = (torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                          max=1.0)
              if cfg.clip_norm else 1.0)
-    grads = {n: g.float() * scale for n, g in grads.items()}
+    new_err = None
     if cfg.compress_int8:
-        grads, new_err = compress_grads(grads, state["err"],
-                                        cfg.compress_block)
+        grads, new_err = compress_grads(
+            {n: g.float() * scale for n, g in grads.items()}, state["err"],
+            cfg.compress_block)
+        scale = None
     b1, b2 = cfg.betas
     lr = lr_at(cfg, step)
     stepf = step.float()
@@ -212,16 +221,23 @@ def adamw_update(cfg: OptConfig, grads: dict, state: dict, params: dict):
     new_params, new_m, new_v = {}, {}, {}
     for name, p in params.items():
         g = grads[name].float()
+        if scale is not None:
+            g = g * scale
         m = b1 * _dq8(state["m"][name]) + (1 - b1) * g
         v = b2 * _dq8(state["v"][name]) + (1 - b2) * g * g
-        mh, vh = m / bc1, v / bc2
-        delta = mh / (torch.sqrt(vh) + cfg.eps)
+        del g
+        delta = m / bc1                                    # mh
+        den = v / bc2                                      # vh
+        delta.div_(den.sqrt_().add_(cfg.eps))
+        del den
         if cfg.weight_decay:
-            delta = delta + cfg.weight_decay * p.float()
-        new_params[name] = (p.float() - lr * delta).to(p.dtype)
+            delta.add_(cfg.weight_decay * p.float())
+        new_p = p.to(torch.float32, copy=True)
+        new_params[name] = new_p.sub_(delta.mul_(lr)).to(p.dtype)
+        del delta, new_p
         new_m[name] = _maybe_q8(name, m, cfg.state_int8)
         new_v[name] = _maybe_q8(name, v, cfg.state_int8)
     new_state = {"step": step, "m": new_m, "v": new_v}
-    if cfg.compress_int8:
+    if new_err is not None:
         new_state["err"] = new_err
     return new_params, new_state, {"grad_norm": gnorm, "lr": lr}

@@ -11,6 +11,7 @@ from pathlib import Path
 import pytest
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.core import api
 from repro_torch.launch import kernel_timing as kt
 from repro_torch.launch import kernel_variants as kv
@@ -211,6 +212,34 @@ def test_scan_serve_operands_shapes_and_ranges(kernel):
     assert not h0.any()
     assert kt.scan_serve_operands(kernel, 8, "cpu", seed=1,
                                   h0=True)[-1].any()
+
+
+@pytest.mark.parametrize("kernel", ["selective_scan", "rglru_scan"])
+def test_scan_train_operands_shapes_and_ranges(kernel, monkeypatch):
+    """The training-shape operands of the backward timing, at the models'
+    widths, drawn here on the CPU at a short S and few channels."""
+    cfg = get_config("falcon-mamba-7b" if kernel == "selective_scan"
+                     else "recurrentgemma-9b")
+    full = kt.SCAN_TRAIN[kernel]
+    assert full["S"] == 4096
+    if kernel == "selective_scan":
+        assert (full["Di"], full["N"]) == (cfg.d_inner, cfg.ssm_state)
+    else:
+        assert full["D"] == cfg.d_rnn_
+    monkeypatch.setattr(kt, "SCAN_TRAIN", {
+        "selective_scan": dict(B=2, S=8, Di=16, N=16),
+        "rglru_scan": dict(B=1, S=8, D=16)})
+    args, dy, dhf = kt.scan_train_operands(kernel, "cpu")
+    again = kt.scan_train_operands(kernel, "cpu")
+    assert all(torch.equal(a, b) for a, b in zip(
+        [*args, dy, dhf], [*again[0], *again[1:]]))
+    assert args[0].dtype == dy.dtype == torch.bfloat16
+    assert dy.shape == args[0].shape and dhf.dtype == torch.float32
+    assert dhf.shape == args[-1].shape and not args[-1].any()
+    if kernel == "rglru_scan":
+        a = args[1]
+        assert a.dtype == torch.bfloat16 and 0.5 <= a.float().min()
+        assert a.float().max() < 1.0
 
 
 MINPLUS_SASS = """

@@ -195,7 +195,8 @@ def test_build_command_lists_every_source():
     assert names == ["fw_counts.cu", "fw_counts_tiled.cu", "minplus.cu",
                      "flash_attention.cu", "decode_attention.cu",
                      "selective_scan.cu", "rglru_scan.cu",
-                     "flash_attention_bwd.cu"]
+                     "flash_attention_bwd.cu", "selective_scan_bwd.cu",
+                     "rglru_scan_bwd.cu"]
     assert [c[-1] for c in compiles] == [str(s) for s in build.SOURCES]
     assert set(build.SIGNATURES) == {"fw_counts_f32", "fw_counts_tiled_f32",
                                      "fw_counts_cluster_f32",
@@ -206,6 +207,9 @@ def test_build_command_lists_every_source():
                                      "minplus_f32", "flash_attention_fwd",
                                      "flash_attention_bwd",
                                      "decode_attention_fwd",
-                                     "selective_scan_fwd", "rglru_scan_fwd"}
+                                     "selective_scan_fwd", "rglru_scan_fwd",
+                                     "selective_scan_bwd",
+                                     "selective_scan_bwd_block_channels",
+                                     "rglru_scan_bwd"}
     for name in build.SIGNATURES:
         assert any(f"int {name}(" in s.read_text() for s in build.SOURCES)

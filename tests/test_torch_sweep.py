@@ -2,16 +2,8 @@
 stacked cross-run scoring (``optimize.score_stacked`` /
 ``drive_stacked``) and ``api.run_sweep``.
 
-* **reference** — homog32 host configs (``br`` / ``ga`` / ``sa``, two
-  seeds, SA repetitions folded and unfolded, stacked and unstacked) give
-  the reference's records: the same ``best_sol``, bit-equal ``best_cost``,
-  equal ``n_evaluated``, ``n_generated`` and history counts, and the
-  reference's ``SweepStats`` (scorers built, evaluators built, stacked
-  groups, score calls, evaluations).  The reference runs on ``"fw-ref"``,
-  the port on its default backend (the plain FW on the CPU); their
-  float32 link loads sum in another order, but at these sizes every cost
-  the searches compare comes out bit-equal, and the test holds it so.
-  homog100 ``br`` through ``run_sweep`` reaches the reference's placement.
+* **reference** — in ``test_torch_sweep_reference.py``; here the
+  summaries and the stackable set as the reference's.
 * **stacking** — in the port, stacked equals unstacked bit for bit for
   all six optimizers on homog32 and hetero32, in one lockstep group that
   mixes host graph lists and ``-batched`` device dicts.
@@ -27,86 +19,12 @@ import pytest
 import torch
 
 from repro.core import api as japi
-from repro_torch import interop
 from repro_torch.core import api as tapi
 from repro_torch.core import optimize as topt
 from repro_torch.core.chiplets import paper_arch
 from repro_torch.core.topology import stack_graphs
+from _torch_sweep import CPU, PARAMS, _assert_same_record, _pair
 from _torch_threads import one_torch_thread  # noqa: F401
-
-CPU = torch.device("cpu")
-PARAMS = {"ga": {"population": 8, "elitism": 2, "tournament": 3},
-          "br": {"batch": 8}, "sa": {"chains": 2},
-          "ga-batched": {"population": 6, "elitism": 2, "tournament": 3},
-          "br-batched": {"batch": 6}, "sa-batched": {"chains": 3}}
-STATS = ("scorers_built", "evaluators_built", "stacked_groups",
-         "score_calls", "n_evaluated")
-
-
-def _pair(**kw):
-    """The same config in both packages (reference on "fw-ref")."""
-    d = dict(arch="homog32", budget={"evals": 16}, norm_samples=8, chunk=4,
-             params={a: p for a, p in PARAMS.items()
-                     if a in kw.get("algorithms", ())})
-    d.update(kw)
-    cj = japi.ExperimentConfig.from_dict(dict(d, backend="fw-ref"))
-    ct = tapi.ExperimentConfig.from_dict(dict(d, params=cj.to_dict()[
-        "params"]))
-    return cj, ct
-
-
-def _history(res):
-    return [(n, c) for _, n, c in res.history]
-
-
-def _assert_same_record(a, b, bitwise_history=True):
-    """``a`` the reference's (or unstacked) record, ``b`` the port's."""
-    assert (b.algorithm, b.repetition) == (a.algorithm, a.repetition)
-    ra, rb = a.result, b.result
-    for x, y in zip(interop.sol_from_arrays(*ra.best_sol), rb.best_sol):
-        np.testing.assert_array_equal(y, x)
-    assert np.float32(rb.best_cost).tobytes() \
-        == np.float32(ra.best_cost).tobytes()
-    assert rb.n_evaluated == ra.n_evaluated
-    assert rb.n_generated == ra.n_generated
-    assert [h[1] for h in rb.history] == [h[1] for h in ra.history]
-    if bitwise_history:
-        assert _history(rb) == _history(ra)
-
-
-SWEEP_MODES = [dict(), dict(fold_repetitions=False),
-               dict(stack_scoring=False)]
-
-
-@pytest.mark.parametrize("mode", SWEEP_MODES,
-                         ids=["folded-stacked", "unfolded", "unstacked"])
-def test_run_sweep_matches_reference(mode):
-    pairs = [_pair(algorithms=("br", "ga", "sa"), seed=s) for s in (0, 1)]
-    pairs.append(_pair(algorithms=("sa",), seed=2, repetitions=2))
-    japi.clear_scorer_cache()
-    tapi.clear_scorer_cache()
-    rj = japi.run_sweep([cj for cj, _ in pairs], **mode)
-    rt = tapi.run_sweep([ct for _, ct in pairs], device=CPU, **mode)
-    assert len(rt.runs) == len(rj.runs)
-    assert len(rt.records) == len(rj.records)
-    for a, b in zip(rj.records, rt.records):
-        _assert_same_record(a, b)
-    for f in STATS:
-        assert getattr(rt.stats, f) == getattr(rj.stats, f), f
-    folded = [r for r in rt.records if r.repetition == -1]
-    assert len(folded) == (0 if mode.get("fold_repetitions") is False
-                           else 1)
-
-
-def test_homog100_br_sweep_reaches_reference_placement():
-    cj, ct = _pair(arch="homog100", algorithms=("br",),
-                   budget={"evals": 4}, norm_samples=2,
-                   params={"br": {"batch": 4}})
-    (rj,) = japi.run_sweep([cj]).records
-    (rt,) = tapi.run_sweep([ct], device=CPU).records
-    _assert_same_record(rj, rt)
-    assert (rt.result.best_sol[0] >= 0).sum() == 100
-
 
 def _stack_cfgs(arch_name):
     algos = ("br", "ga", "sa", "br-batched", "ga-batched", "sa-batched")

@@ -8,9 +8,12 @@ inputs are numpy arrays from a seed.
 - ``loss_fn`` and the gradient of every parameter against
   ``jax.value_and_grad`` of the reference's ``loss_fn``, float32, for
   reduced (2-layer) smollm-360m, qwen3-1.7b (qk_norm), qwen2.5-3b
-  (qkv_bias) and llava-next-34b (the patch prefix), with labels of -1
-  masked: loss and metrics to rtol 2e-6, each gradient to 2e-5 of its
-  largest entry (seen: about 1e-6; both sum in float32 in other orders).
+  (qkv_bias), llava-next-34b (the patch prefix) and falcon-mamba-7b (the
+  selective scan's gradient), and 3-layer recurrentgemma-9b (one rec, rec,
+  attention block: the RG-LRU scan's gradient, and S = 40 past its
+  32-token window), with labels of -1 masked: loss and metrics to rtol
+  2e-6, each gradient to 2e-5 of its largest entry (seen: about 1e-6;
+  both sum in float32 in other orders).
 - ``adamw_update``: two updates from the same state on the same gradients,
   plain, with ``compress_int8`` and with ``state_int8``, float32 and
   bfloat16 parameters, against the reference's update run op by op (under
@@ -32,7 +35,6 @@ inputs are numpy arrays from a seed.
 - Three train steps from one state: the losses match the reference's to
   rtol 2e-6.
 - About 30 steps of the port alone: the loss falls.
-- Models with mamba or rec layers raise naming ROADMAP item 15d-2.
 
 The reference's calls run under ``jax.jit``; each model pair is built
 once for the module.
@@ -65,6 +67,9 @@ LOSS_TOL = 2e-6
 GRAD_TOL = 2e-5
 OPT_TOL = 2e-6
 ARCHS = ("smollm-360m", "qwen3-1.7b", "qwen2.5-3b", "llava-next-34b")
+# The recurrent families: (overrides of the reduced config, S).
+RECURRENT = {"falcon-mamba-7b": ((), 24),
+             "recurrentgemma-9b": ((("n_layers", 3),), 40)}
 
 
 def _np(a):
@@ -77,8 +82,9 @@ def _pair(arch, over=()):
     """The reference's model (``loss_fn`` under ``value_and_grad`` and
     ``jit``) and parameters from key 0, and the port's model with the same
     parameters, unfrozen."""
-    jcfg = jreg.get_config(arch).reduced(n_layers=2, **dict(over))
-    cfg = treg.get_config(arch).reduced(n_layers=2, **dict(over))
+    over = {"n_layers": 2, **dict(over)}
+    jcfg = jreg.get_config(arch).reduced(**over)
+    cfg = treg.get_config(arch).reduced(**over)
     jm = jmodel.build_model(jcfg)
     jp = jax.jit(jm.init)(jax.random.PRNGKey(0))
     vg = jax.jit(jax.value_and_grad(jm.loss_fn, has_aux=True))
@@ -112,10 +118,12 @@ def _grads(model, batch):
     return loss, metrics, dict(zip(params, grads))
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + tuple(RECURRENT))
 def test_loss_and_grads_match_reference(arch):
-    jm, jp, vg, tm = _pair(arch)
-    batch = _batch(tm.cfg)
+    over, S = RECURRENT.get(arch, ((), 24))
+    jm, jp, vg, tm = _pair(arch, over)
+    assert tm.cfg.window == 0 or S > tm.cfg.window
+    batch = _batch(tm.cfg, S=S)
     (jloss, jmet), jgrads = vg(jp, batch)
     loss, metrics, grads = _grads(tm, batch)
     assert_allclose(float(loss.detach()), float(jloss), rtol=LOSS_TOL)
@@ -156,14 +164,6 @@ def test_remat_is_bitwise_neutral():
         tm.cfg = dataclasses.replace(tm.cfg, remat=True)
     assert torch.equal(loss_r, loss_p)
     assert all(torch.equal(g_r[n], g_p[n]) for n in g_r)
-
-
-@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "recurrentgemma-9b"])
-def test_recurrent_training_waits_for_15d_2(arch):
-    cfg = treg.get_config(arch).reduced(n_layers=2)
-    model = LM(cfg, "cpu")
-    with pytest.raises(NotImplementedError, match="15d-2"):
-        model.loss_fn(_torch_batch(_batch(cfg)))
 
 
 # ---------------------------------------------------------------------------

@@ -19,10 +19,13 @@
 - A training step of a reduced smollm-360m (float32) on the card through
   the kernels against the same step through the plain versions
   (``testing.plain_attention`` in ``ops.flash_attention``'s place): loss
-  to 1e-5 relative, each gradient to 1e-4 of its largest entry.
-- The kernels without a backward (decode attention, the two scans) raise
-  on operands that require a gradient under grad mode, and run under
-  ``torch.no_grad``.
+  to 1e-5 relative, each gradient to 1e-4 of its largest entry; the same
+  for reduced falcon-mamba-7b (2 layers) and recurrentgemma-9b (3 layers,
+  S past its window), with ``testing.plain_selective_scan`` and
+  ``plain_rglru_scan`` in the scans' places as well.
+- Decode attention, which has no backward, raises on operands that
+  require a gradient under grad mode and runs under ``torch.no_grad``;
+  the two scans launch their forward and backward kernels under grad.
 
 Skips without a card; run it on the H100 with
 
@@ -39,6 +42,10 @@ from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import flash_attention_bwd as tfb
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import rglru_scan as trg
+from repro_torch.kernels import rglru_scan_bwd as trb
+from repro_torch.kernels import selective_scan as tss
+from repro_torch.kernels import selective_scan_bwd as tsb
 from repro_torch.models.model import LM
 
 pytestmark = pytest.mark.gpu
@@ -207,6 +214,43 @@ def test_train_step_kernels_match_plain(cuda):
         assert float((gk - gp).abs().max()) <= atol, name
 
 
+# The recurrent models' steps: reduced (float32) at the depth and length
+# of tests/test_torch_train.py's reference check.
+RECURRENT = {"falcon-mamba-7b": (2, 200), "recurrentgemma-9b": (3, 200)}
+
+
+@pytest.mark.parametrize("arch", list(RECURRENT))
+def test_recurrent_train_step_kernels_match_plain(cuda, arch):
+    layers, S = RECURRENT[arch]
+    cfg = get_config(arch).reduced(n_layers=layers)
+    assert cfg.window == 0 or S > cfg.window
+    model = LM(cfg, cuda, torch.Generator(cuda).manual_seed(0))
+    model.requires_grad_(True)
+    batch = TokenStream(DataConfig(vocab=cfg.vocab, seq_len=S,
+                                   global_batch=2), device=cuda).batch_at(0)
+    tref.calls.clear()
+    launches = (tss.launches, tsb.launches, trg.launches, trb.launches)
+    loss_k, grads_k = _loss_and_grads(model, batch)
+    torch.cuda.synchronize()
+    assert sum(tref.calls.values()) == 0
+    moved = [n - m for n, m in zip(
+        (tss.launches, tsb.launches, trg.launches, trb.launches), launches)]
+    assert all(moved[:2]) if arch == "falcon-mamba-7b" else all(moved[2:])
+    keep = (ops.flash_attention, ops.selective_scan, ops.rglru_scan)
+    ops.flash_attention = testing.plain_attention
+    ops.selective_scan = testing.plain_selective_scan
+    ops.rglru_scan = testing.plain_rglru_scan
+    try:
+        loss_p, grads_p = _loss_and_grads(model, batch)
+    finally:
+        ops.flash_attention, ops.selective_scan, ops.rglru_scan = keep
+    assert abs(float(loss_k) - float(loss_p)) <= 1e-5 * abs(float(loss_p))
+    for name, gp in grads_p.items():
+        gk = grads_k[name]
+        atol = 1e-4 * float(gp.abs().max())
+        assert float((gk - gp).abs().max()) <= atol, name
+
+
 def test_kernels_without_backward_refuse_grad(cuda):
     *arrays, lens, kw = next(iter(testing.decode_cases().values()))()
     q, kc, vc = (torch.from_numpy(a).to(cuda) for a in arrays)
@@ -215,19 +259,17 @@ def test_kernels_without_backward_refuse_grad(cuda):
         ops.decode_attention(q.requires_grad_(), kc, vc, lens, **kw)
     with torch.no_grad():
         ops.decode_attention(q, kc, vc, lens, **kw)
-    name = next(n for n in testing.scan_cases() if n.startswith("selective"))
-    args = [None if a is None else torch.from_numpy(a).to(cuda)
-            for a in testing.scan_cases()[name]()]
-    args[0].requires_grad_()
-    with pytest.raises(RuntimeError, match="no backward kernel"):
-        ops.selective_scan(*args)
-    with torch.no_grad():
-        ops.selective_scan(*args)
-    name = next(n for n in testing.scan_cases() if n.startswith("rglru"))
-    args = [None if a is None else torch.from_numpy(a).to(cuda)
-            for a in testing.scan_cases()[name]()]
-    args[1].requires_grad_()
-    with pytest.raises(RuntimeError, match="no backward kernel"):
-        ops.rglru_scan(*args)
-    with torch.no_grad():
-        ops.rglru_scan(*args)
+    # The scans have their backward kernels: under grad both launch.
+    for prefix, fn, fwd, bwd in (("selective", ops.selective_scan, tss, tsb),
+                                 ("rglru", ops.rglru_scan, trg, trb)):
+        name = next(n for n in testing.scan_cases() if n.startswith(prefix))
+        args = [None if a is None else torch.from_numpy(a).to(cuda)
+                for a in testing.scan_cases()[name]()]
+        args[1].requires_grad_()
+        n_fwd, n_bwd = fwd.launches, bwd.launches
+        y, _ = fn(*args)
+        y.sum().backward()
+        torch.cuda.synchronize()
+        assert (fwd.launches, bwd.launches) == (n_fwd + 1, n_bwd + 1)
+        with torch.no_grad():
+            fn(*args)
