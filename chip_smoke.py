@@ -1154,10 +1154,12 @@ SCAN_BWD = {
 
 
 def _scan_bwd_check(kernel: str, name: str, got, want, which: str
-                    ) -> tuple[float, float]:
+                    ) -> tuple[float, float, dict]:
     """Max abs error and largest share of ``testing.SCAN_BWD_LIMITS``
-    [which] over a backward's gradients; raises past the limit."""
+    [which] over a backward's gradients, and each gradient's share; raises
+    past the limit."""
     err = share = 0.0
+    shares = {}
     for g, w, what in zip(got, want, SCAN_BWD[kernel][3]):
         e, sh = testing.scan_bwd_share(g, w, which)
         if not sh <= 1.0:
@@ -1165,7 +1167,8 @@ def _scan_bwd_check(kernel: str, name: str, got, want, which: str
                              f"err {e:.3g}, {sh:.3f} of "
                              f"{testing.scan_bwd_limit(which, g.dtype)}")
         err, share = max(err, e), max(share, sh)
-    return err, share
+        shares[what] = sh
+    return err, share, shares
 
 
 def scan_bwd_parity_phase(dev, worst: dict) -> None:
@@ -1201,7 +1204,8 @@ def scan_bwd_parity_phase(dev, worst: dict) -> None:
                 if not all(torch.equal(a, b) for a, b in zip(got, again)):
                     raise SystemExit(f"{kernel} is not repeatable on {name}")
                 want = ref_fn(*args, dy, dh)
-                e, sh = _scan_bwd_check(kernel, name, got, want, "cases")
+                e, sh, _ = _scan_bwd_check(kernel, name, got, want,
+                                           "cases")
                 worst[kernel] = max(worst[kernel], e)
                 share = max(share, sh)
         print(f"  {dtype}: {len(testing.scan_cases())} cases within the "
@@ -1216,8 +1220,9 @@ def scan_bwd_timing_phase(dev, worst: dict) -> dict:
     9b's B = 1, S = 4096), from the states the forward kernel writes for
     them, beside their bounds and the plain versions; every timed output
     held to ``testing.SCAN_BWD_LIMITS["training"]`` and to one more call's,
-    bit for bit.  The forward with and without those states is timed in
-    the same call."""
+    bit for bit, and the share of the limit each gradient uses printed.
+    The forward with and without those states is timed in the same
+    call."""
     sfu = sfu_rate(dev)
     rows = {}
     for kernel, fwd_name in (("selective_scan_bwd", "selective_scan"),
@@ -1243,8 +1248,8 @@ def scan_bwd_timing_phase(dev, worst: dict) -> dict:
                                reps=1, warmup=0)
         t["plain"] = p["plain"]
         got = outk["kernel"]
-        err, share = _scan_bwd_check(kernel, "its training shape", got,
-                                     want["plain"], "training")
+        err, share, shares = _scan_bwd_check(
+            kernel, "its training shape", got, want["plain"], "training")
         again = fn(*args, dy, dhf, states=states)
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
             raise SystemExit(f"{kernel} is not repeatable at its training "
@@ -1257,6 +1262,7 @@ def scan_bwd_timing_phase(dev, worst: dict) -> dict:
         t["bound"], t["bound_by"] = scan_bound_ms(*work, sfu)
         t["library"] = None
         t["max_abs_err"], t["limit_share"] = err, share
+        t["limit_shares"] = shares
         rows[kernel] = t
         print(f"  kernel {t['kernel']:.4f} ms, plain {t['plain']:.3f} ms, "
               f"library call: none, bound {t['bound']:.4f} ms "
@@ -1266,6 +1272,8 @@ def scan_bwd_timing_phase(dev, worst: dict) -> dict:
               f"forward {t['forward']:.4f} ms, with the states "
               f"{t['forward with states']:.4f} ms; max abs err vs plain "
               f"{err:.3g} ({share:.3f} of the limit); repeatable")
+        print("  share of the limit by gradient: " + ", ".join(
+            f"{g} {v:.3f}" for g, v in shares.items()))
         del got, again, want, out, outk, states
         gc.collect()
         torch.cuda.empty_cache()

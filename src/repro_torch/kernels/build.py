@@ -85,6 +85,8 @@ SIGNATURES = {
     "selective_scan_bwd": [*[_P] * 19, _I, _I, _I, _I, _I, _I, _I, _P],
     # -> the backward kernel's channels a block
     "selective_scan_bwd_block_channels": [],
+    # -> 1 if the backward's last launch staged by tensor maps, 0 if not
+    "selective_scan_bwd_tensor_maps": [],
     # x, a, h0, y, h_final, every h in float32 (or null), B, S, D, dtype
     # code, device, stream
     "rglru_scan_fwd": [*[_P] * 6, _I, _I, _I, _I, _I, _P],

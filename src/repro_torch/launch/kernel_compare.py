@@ -3,7 +3,7 @@ in turns, with the same method.
 
     python3 src/repro_torch/launch/kernel_compare.py \\
         --trees PARENT . . PARENT [--walls] [--sass] [--clusters] \\
-        [--trace] [--prefill] [--bwd] [--out FILE]
+        [--trace] [--prefill] [--bwd] [--scan-bwd] [--out FILE]
 
 Each tree (a directory holding ``src/repro_torch``; ``.`` is this
 checkout) runs in a process of its own, in the order given, importing
@@ -33,6 +33,15 @@ enqueue is not timed), every output held bit for bit (FW, min-plus) or to
   share of the limit used is recorded); with ``--sass`` also the
   registers and spills ptxas reports for each of the backward's kernel
   instances;
+* with ``--scan-bwd``: the selective scan's backward
+  (``selective_scan_bwd``) at falcon-mamba-7b's training shape
+  (``kernel_timing.SCAN_TRAIN``, operands from ``scan_train_operands``),
+  from the states the tree's forward kernel writes, every gradient held
+  to ``testing.SCAN_BWD_LIMITS["training"]`` against the plain version
+  (the largest share of the limit each gradient uses is recorded) and to
+  a second call bit for bit; and the forward at that shape with and
+  without those states; with ``--sass`` also the registers, spills and
+  stack ptxas reports for each of the backward's kernel instances;
 * with ``--walls``: the wall seconds of ``run_experiment`` for every run
   of ``kernel_timing.RUNS`` (as ``chip_smoke.py`` runs them; the first,
   the quickstart, also warms up); a tree that cannot run one (an arch or
@@ -44,9 +53,11 @@ enqueue is not timed), every output held bit for bit (FW, min-plus) or to
 * with ``--sass``: the library rebuilt, ptxas's registers and spills per
   kernel, a histogram of SASS mnemonics per FW, min-plus or scan kernel
   function and its hot loop (``kernel_timing.loop_issues``; the scans'
-  loops as ``kernel_timing.SCAN_LOOPS`` names them, and from them the
-  scans' issue floors at the timed shapes; the dump of ``cuobjdump
-  -sass`` written beside ``--out``);
+  loops as ``kernel_timing.SCAN_LOOPS`` names them, the selective scan
+  backward's loop over chunks, ``kernel_timing.sscan_bwd_issues``, and
+  from them the scans' issue floors at the timed shapes and the
+  backward's at its training shape; the dump of ``cuobjdump -sass``
+  written beside ``--out``);
 * with ``--prefill``: one falcon-mamba-7b and one recurrentgemma-9b at
   full width in bfloat16 (weights from ``torch.Generator`` seed 0 on the
   card, one model at a time), each prefilling one prompt of 1024 and of
@@ -124,14 +135,17 @@ def _sass(lib_path: Path, out: Path) -> dict:
     res = {}
     for f, instrs in kt.sass_functions(text).items():
         if not any(p in f for p in ("fw_", "minplus", "diag", "panel",
-                                    "outer", "scan_kernel")):
+                                    "outer", "scan_kernel",
+                                    "sscan_bwd_kernel")):
             continue
         hist = collections.Counter(mn for _, mn, _ in instrs)
         res[f] = {"mnemonics": dict(hist.most_common())}
         if "minplus" in f:
             res[f]["hot_loop"] = kt.minplus_issues(instrs)
             continue
-        if "scan_kernel" in f:
+        if "sscan_bwd_kernel" in f:
+            loops = {"chunk_loop": (None, "MUFU", ())}
+        elif "scan_kernel" in f:
             loops = {k: v for k, v in kt.SCAN_LOOPS.items() if v[0] in f}
         else:
             loops = {"hot_loop": (None, "FMUL", ())}
@@ -144,15 +158,25 @@ def _sass(lib_path: Path, out: Path) -> dict:
 
 
 def _scan_floors(lib_path: Path, dev) -> dict:
-    """The scans' issue floors (ms) at the timed shapes, from this
-    build's SASS."""
-    issues = kt.scan_issues(kt.sass_functions(kt.sass(lib_path)))
+    """The scans' issue floors (ms) at the timed shapes, and the
+    selective scan's backward's at its training shape, from this build's
+    SASS."""
+    funcs = kt.sass_functions(kt.sass(lib_path))
+    issues = kt.scan_issues(funcs)
     out = {}
     for S in (2048, 512):
         out[f"selective_scan S={S}"] = kt.scan_floors_ms(
             issues, 1, S, 8192, "selective_scan", dev)
         out[f"rglru_scan S={S}"] = kt.scan_floors_ms(
             issues, 1, S, 4096, "rglru_scan", dev)
+    try:
+        n, k = issues["selective_scan_bwd"] = kt.sscan_bwd_issues(funcs)
+    except ValueError:              # a tree without the backward
+        return {"issues": issues, "floors_ms": out}
+    shape = kt.SCAN_TRAIN["selective_scan"]
+    out["selective_scan_bwd " + " ".join(
+        f"{a}={b}" for a, b in shape.items())] = kt.sscan_bwd_floor_ms(
+            n, shape["B"], shape["S"], shape["Di"], dev)
     return {"issues": issues, "floors_ms": out}
 
 
@@ -269,6 +293,45 @@ def _bwd(dev, res: dict) -> None:
         torch.cuda.empty_cache()
 
 
+def _scan_bwd(dev, res: dict) -> None:
+    """``--scan-bwd``: the selective scan's backward and its forward
+    (with and without the states the backward reads) at its training
+    shape into ``res["ms"]``, and the largest share of the training limit
+    each gradient uses into ``res["scan_bwd_share"]``; exits if one is
+    beyond it or a second call differs."""
+    from repro_torch import testing
+    from repro_torch.kernels import ref as plain
+    from repro_torch.kernels import selective_scan as tss
+    from repro_torch.kernels import selective_scan_bwd as tsb
+    shape = kt.SCAN_TRAIN["selective_scan"]
+    args, dy, dhf = kt.scan_train_operands("selective_scan", dev)
+    ops_ = tss._on_card(*args)
+    t, out = kt.batched_ms({
+        "forward": lambda: tss._launch(*ops_),
+        "forward with states": lambda: tss._launch(*ops_, states=True)},
+        5, 3)
+    states = out["forward with states"][2]
+    tk, outk = kt.batched_ms({"k": lambda: tsb.selective_scan_bwd(
+        *args, dy, dhf, states=states)}, 5, 3)
+    name = "selective_scan_bwd " + " ".join(f"{k}={v}"
+                                            for k, v in shape.items())
+    want = plain.selective_scan_bwd_ref(*args, dy, dhf)
+    share = {g: testing.scan_bwd_share(a, b, "training")[1]
+             for g, a, b in zip(kt.SSCAN_GRADS, outk["k"], want)}
+    if not max(share.values()) <= 1:
+        raise SystemExit(f"{name}: beyond the training limit ({share})")
+    again = tsb.selective_scan_bwd(*args, dy, dhf, states=states)
+    if not all(torch.equal(a, b) for a, b in zip(outk["k"], again)):
+        raise SystemExit(f"{name}: two calls differ")
+    res["ms"][name] = tk["k"]
+    res["ms"]["selective_scan forward at that shape"] = t["forward"]
+    res["ms"]["selective_scan forward with states"] = t[
+        "forward with states"]
+    res["scan_bwd_share"] = share
+    del out, outk, states, want, again
+    torch.cuda.empty_cache()
+
+
 def _trace_stats(tr, nb: int) -> dict:
     """Per-kind wait and run times (us) of a traced call, the blocks' busy
     share, and per pivot block [A dequeued, first A start, last A start,
@@ -305,8 +368,8 @@ def _trace_stats(tr, nb: int) -> dict:
 
 
 def run_one(tree: Path, walls: bool, sass: bool, clusters: bool,
-            trace: bool, prefill: bool, bwd: bool, out: Path | None
-            ) -> dict:
+            trace: bool, prefill: bool, bwd: bool, scan_bwd: bool,
+            out: Path | None) -> dict:
     sys.path.insert(0, str(tree / "src"))
     from repro_torch import testing
     from repro_torch.core import api
@@ -327,6 +390,8 @@ def run_one(tree: Path, walls: bool, sass: bool, clusters: bool,
                         or "spill" in ln]
         if bwd:
             res["bwd_ptxas"] = kt.ptxas_usage(log, "flash_bwd")
+        if scan_bwd:
+            res["scan_bwd_ptxas"] = kt.ptxas_usage(log, "sscan_bwd")
 
     def fw_row(name, fn, W, launches, rounds):
         t, o = kt.batched_ms({"k": lambda: fn(W)}, launches, rounds)
@@ -434,6 +499,8 @@ def run_one(tree: Path, walls: bool, sass: bool, clusters: bool,
                                   "best_cost": float(rec.result.best_cost)}
     if bwd:
         _bwd(dev, res)
+    if scan_bwd:
+        _scan_bwd(dev, res)
     if prefill:
         res["prefill"] = _prefill(dev)
     if sass:
@@ -459,16 +526,18 @@ def main() -> None:
     ap.add_argument("--trace", action="store_true")
     ap.add_argument("--prefill", action="store_true")
     ap.add_argument("--bwd", action="store_true")
+    ap.add_argument("--scan-bwd", action="store_true")
     ap.add_argument("--out", type=Path)
     args = ap.parse_args()
     flags = [f for f in ("--walls", "--sass", "--clusters", "--trace",
-                         "--prefill", "--bwd") if getattr(args, f[2:])]
+                         "--prefill", "--bwd", "--scan-bwd")
+             if getattr(args, f[2:].replace("-", "_"))]
     if args.out:
         args.out = args.out.resolve()
     if args.one:
         res = run_one(Path(args.one).resolve(), args.walls, args.sass,
                       args.clusters, args.trace, args.prefill, args.bwd,
-                      args.out)
+                      args.scan_bwd, args.out)
         print("RESULT " + json.dumps(res))
         return
     print(kt.card_line(), flush=True)
@@ -500,6 +569,11 @@ def main() -> None:
             f"{x['kernel_nan']:>5d}/{x['plain_nan']:<5d} "
             f"{'yes' if x['nan_equal'] else 'no':>3s}"
             for x in (r["minplus_nan"][k] for r in results)))
+    if "scan_bwd_share" in results[0]:
+        for g in results[0]["scan_bwd_share"]:
+            print(f"{'selective_scan_bwd share of limit ' + g:44s} " +
+                  " ".join(f"{r['scan_bwd_share'][g]:14.4f}"
+                           for r in results))
     if "walls" in results[0]:
         for k in results[0]["walls"]:
             print(f"{'wall s ' + k:44s} " + " ".join(

@@ -221,6 +221,29 @@ def scan_issues(funcs: dict) -> dict:
     return out
 
 
+# The selective scan's backward: one trip of its loop over chunks walks,
+# in every lane, 32 steps of 2 states (recompute, walk, the rewrite into
+# float32 and the epilogue all in the trip).
+SSCAN_BWD_TRIP = 32 * 2
+
+
+def sscan_bwd_issues(funcs: dict) -> tuple[int, int]:
+    """(instructions, MUFU) of one trip of the selective-scan backward's
+    loop over chunks, in its training instance (x bfloat16, dt float32):
+    its loop with the most MUFU (``loop_issues``)."""
+    name = find_function(funcs, "sscan_bwd_kernel"
+                         + SCAN_SERVE_INSTANCE["selective_scan"])
+    return loop_issues(funcs[name], "MUFU")
+
+
+def sscan_bwd_floor_ms(n: int, B: int, S: int, Di: int, dev) -> float:
+    """Issue floor (ms) of one selective-scan backward call from the
+    instructions ``n`` of one trip (``sscan_bwd_issues``): B * S * Di * 16
+    (step, channel, state) lanes at n / SSCAN_BWD_TRIP instructions each,
+    at the card's issue rate."""
+    return 1e3 * B * S * Di * 16 * n / SSCAN_BWD_TRIP / issue_rate(dev)
+
+
 def scan_floors_ms(issues: dict, B: int, S: int, width: int, kernel: str,
                    dev) -> dict:
     """Issue floors (ms) of one scan call from ``scan_issues``: the
@@ -261,8 +284,9 @@ def bwd_limit_share(got, want) -> float:
 
 
 def ptxas_usage(log: str, part: str) -> dict:
-    """Registers and spill bytes that ptxas (``-Xptxas=-v``) reports for
-    each kernel whose mangled name holds ``part``, keyed by that name."""
+    """Registers, stack frame and spill bytes that ptxas (``-Xptxas=-v``)
+    reports for each kernel whose mangled name holds ``part``, keyed by
+    that name."""
     out, cur = {}, None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
@@ -273,6 +297,9 @@ def ptxas_usage(log: str, part: str) -> dict:
             continue
         if cur is None:
             continue
+        m = re.search(r"(\d+) bytes stack frame", ln)
+        if m:
+            out[cur]["stack"] = int(m.group(1))
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       ln)
         if m:
@@ -314,6 +341,9 @@ def scan_serve_operands(kernel: str, S: int, dev, seed: int | None = None,
                 else torch.zeros(*state, device=dev))
     return args
 
+
+# The selective scan's gradients, in the order its backward returns them.
+SSCAN_GRADS = ("dx", "ddt", "dA", "dB", "dC", "dD", "dh0")
 
 # The scans' training shapes (S = 4096, the reference's train_4k length):
 # falcon-mamba-7b's selective scan at the smoke's B = 2, recurrentgemma-9b's

@@ -568,7 +568,9 @@ def scan_cases() -> dict:
     ``tests/test_kernels.py`` (Di = 130 and D = 130 ragged), then a single
     step (S = 1), several batch rows, sequences that end inside a 32-step
     chunk with channels that end inside a 32-channel block, state sizes 5
-    and 16, and a starting state h0."""
+    and 16, and a starting state h0; last, a selective scan ragged against
+    the backward kernel's 64-channel blocks that spans 18 of them, its
+    sequence ending inside a 32-step chunk."""
     specs = [
         ("selective_scan", dict(Bt=1, S=8, Di=16, N=4)),
         ("selective_scan", dict(Bt=2, S=12, Di=20, N=8)),
@@ -582,6 +584,7 @@ def scan_cases() -> dict:
         ("rglru", dict(B=3, S=1, D=64)),
         ("rglru", dict(B=2, S=77, D=45, h0=True)),
         ("rglru", dict(B=1, S=130, D=300, h0=True)),
+        ("selective_scan", dict(Bt=2, S=100, Di=1100, N=16, h0=True)),
     ]
     cases = {}
     for i, (kernel, kw) in enumerate(specs):

@@ -175,6 +175,35 @@ def test_scan_floors_ms_from_the_issue_counts(monkeypatch):
                    "walker": pytest.approx(1e3 * 512 * 68 / 16 / 2e9)}
 
 
+SSCAN_BWD_SASS = """
+\t\tFunction : _ZN12_GLOBAL__N_116sscan_bwd_kernelI13__nv_bfloat16fEEvPKT_
+        /*0000*/                   LDS R1, [R2] ;                         /* 0x0000000002017984 */
+        /*0010*/               @P1 BRA 0x30 ;                             /* 0x0000000000041947 */
+        /*0020*/                   SYNCS.ARRIVE R3, [R4] ;                /* 0x0000000304007308 */
+        /*0030*/                   MUFU.EX2 R3, R3 ;                      /* 0x0000000300037308 */
+        /*0040*/                   FFMA R5, R3, R5, R6 ;                  /* 0x0000000503057223 */
+        /*0050*/                   MUFU.EX2 R7, R7 ;                      /* 0x0000000700077308 */
+        /*0060*/                   SHFL.BFLY R8, R7, 0x10, 0x1f ;         /* 0x0000000807087f89 */
+        /*0070*/               @P0 BRA 0x0 ;                              /* 0xfffffffc00e80947 */
+        /*0080*/                   EXIT ;                                 /* 0x000000000000794d */
+\t\tFunction : _ZN12_GLOBAL__N_116sscan_bwd_kernelIffEEvPKT_
+        /*0000*/                   MUFU.EX2 R3, R3 ;                      /* 0x0000000300037308 */
+        /*0010*/               @P0 BRA 0x0 ;                              /* 0xfffffffc00e80947 */
+        /*0020*/                   EXIT ;                                 /* 0x000000000000794d */
+"""
+
+
+def test_sscan_bwd_issues_and_floor_from_its_loop_over_chunks(monkeypatch):
+    """The selective-scan backward's training instance (x bfloat16, dt
+    float32): its loop over chunks without the guarded staging issue; the
+    floor B * S * Di * 16 lanes at that count over SSCAN_BWD_TRIP each."""
+    funcs = kt.sass_functions(SSCAN_BWD_SASS)
+    assert kt.sscan_bwd_issues(funcs) == (7, 2)
+    monkeypatch.setattr(kt, "issue_rate", lambda dev: 1e12)
+    assert kt.sscan_bwd_floor_ms(2400, 2, 4096, 8192, None) == (
+        pytest.approx(1e3 * 2 * 4096 * 8192 * 16 * 2400 / 64 / 1e12))
+
+
 @pytest.mark.parametrize("set_name", sorted(kv.SETS))
 def test_kernel_variants_apply_to_the_sources(set_name):
     """Every variant's constants and replaced lines occur once in the
@@ -319,5 +348,7 @@ def test_ptxas_usage_reads_the_backward_instances():
     dkdv = ("_ZN12_GLOBAL__N_125flash_bwd_dkdv_mma_kernelILi256EEEvNS_"
             "7BwdArgsE")
     assert got == {
-        dq: {"registers": 168, "spill_stores": 0, "spill_loads": 0},
-        dkdv: {"registers": 255, "spill_stores": 24, "spill_loads": 32}}
+        dq: {"registers": 168, "stack": 0, "spill_stores": 0,
+             "spill_loads": 0},
+        dkdv: {"registers": 255, "stack": 24, "spill_stores": 24,
+               "spill_loads": 32}}

@@ -210,6 +210,7 @@ def test_build_command_lists_every_source():
                                      "selective_scan_fwd", "rglru_scan_fwd",
                                      "selective_scan_bwd",
                                      "selective_scan_bwd_block_channels",
+                                     "selective_scan_bwd_tensor_maps",
                                      "rglru_scan_bwd"}
     for name in build.SIGNATURES:
         assert any(f"int {name}(" in s.read_text() for s in build.SOURCES)

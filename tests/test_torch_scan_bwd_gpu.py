@@ -6,6 +6,9 @@
   every ``testing.scan_cases()`` case in float32 and bfloat16, with a
   random dh_final, within ``testing.SCAN_BWD_LIMITS["cases"]``; without a
   dh_final as well; one launch counted a call; two calls bit for bit.
+- The selective scan's backward where its tensor-map boxes run past the
+  channels (Di = 8, 56, 72, 200) and the steps (S = 37), staged by tensor
+  maps (the library says so), and at Di = 45 by plain loads.
 - RG-LRU's backward where a is 0, 1 and above 1 (``testing.
   rglru_edge_operands``) in both dtypes: da's NaN and +-inf in the plain
   version's places, the finite entries within the same limit.
@@ -88,6 +91,37 @@ def test_backward_kernel_matches_plain(cuda, name, dtype, dhf):
     torch.cuda.synchronize()
     assert mod.launches == before + 1
     again = _bwd(name, args, dy, dhf_)[1]
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    for a, b in zip(got, want):
+        _, share = testing.scan_bwd_share(a, b, "cases")
+        assert share <= 1.0, f"{share:.3f} of the limit"
+
+
+@pytest.mark.parametrize("Di", [8, 56, 72, 200, 45])
+def test_selective_backward_tensor_map_edges(cuda, Di):
+    """The kernel's tensor-map staging where its boxes run past the
+    operands: channel counts (multiples of 8, so the rows stay 16-byte
+    aligned and the boxes must be used) short of one block
+    (``selective_scan_bwd_block_channels()``), one box short of it, one box
+    past it and ragged over several, S = 37 (inside a chunk), bfloat16 x
+    and dt: within the cases' limit, bit for bit twice, staged by tensor
+    maps; Di = 45 (rows of 90 bytes) staged by plain loads."""
+    from repro_torch.kernels import build
+    lib = build.load()
+    span = lib.selective_scan_bwd_block_channels()
+    assert Di % span
+    args = [None if a is None else torch.from_numpy(a).to(cuda)
+            for a in testing.sscan_operands(2, 37, Di, 16, seed=Di,
+                                            h0=True)]
+    args[0], args[1] = (a.to(torch.bfloat16) for a in args[:2])
+    rng = np.random.default_rng(Di)
+    dy = torch.from_numpy(rng.standard_normal(
+        (2, 37, Di), dtype=np.float32)).to(cuda).to(torch.bfloat16)
+    dhf = torch.from_numpy(rng.standard_normal(
+        (2, Di, 16), dtype=np.float32)).to(cuda)
+    _, got, want = _bwd("selective", args, dy, dhf)
+    assert lib.selective_scan_bwd_tensor_maps() == (Di % 8 == 0)
+    again = _bwd("selective", args, dy, dhf)[1]
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     for a, b in zip(got, want):
         _, share = testing.scan_bwd_share(a, b, "cases")
