@@ -2,7 +2,9 @@
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero; nothing is caught):
+Phases (any failure exits non-zero; nothing is caught; each header shows
+the seconds since the start, so a phase's wall is the difference between
+two headers):
 
 1. device — the card's name, the device count and its power limit;
 2. build  — every CUDA kernel from the sources in ``src/repro_torch`` (one
@@ -208,6 +210,18 @@ Phases (any failure exits non-zero; nothing is caught):
      the plain versions (``testing.plain_selective_scan``,
      ``plain_rglru_scan``, ``plain_attention``), to the limits of the
      smollm-360m step;
+   - slice 16, the MoE and encoder-decoder families: seamless-m4t-medium
+     at full width and depth through ``LM.prefill`` (8 requests in one
+     prefill, 48-token prompts, 1024 frames of ``src_embeds`` from the
+     seed) and greedy ``LM.decode_step`` with ``mem_len`` (64 tokens each:
+     exactly 36 flash launches and 24 decode launches a tick, no plain
+     call, the consistency check, a profile); ``train.step`` on
+     moonshot-v1-16b-a3b (4 of 48 layers, B = 2) and seamless (full
+     depth, B = 2, 4096 frames) at full width, S = 4096, 12 steps (the
+     loss must fall, an MoE model's aux stay finite, both attention
+     kernels launch, no plain call; a profiled step with the MoE block's
+     pieces attributed); the kernel-against-plain steps of moonshot and
+     seamless at depth 2 and grok-1-314b at full width and depth 1;
    - slices 3 and 4, the LM serving paths, each model at full width
      (bfloat16, weights from a ``torch.Generator`` seeded 0 on the card)
      through ``ServeEngine`` (8 slots, cache 4096, no EOS; 16 requests of
@@ -216,7 +230,11 @@ Phases (any failure exits non-zero; nothing is caught):
      28 decode launches per tick), falcon-mamba-7b (256-2048; 64
      selective-scan launches per prefill) and recurrentgemma-9b (256-3072,
      past its 2048-token window; 26 RG-LRU and 12 flash launches per
-     prefill, 12 decode launches per tick); no plain call.  Each prints
+     prefill, 12 decode launches per tick), and from slice 16
+     moonshot-v1-16b-a3b at its full 48 layers and grok-1-314b at 4 of
+     its 64 (256-2048; one flash launch per layer a prefill, one decode
+     launch per layer a tick, every expert read each tick, the bytes
+     printed beside the tick); no plain call.  Each prints
      wall time, prefill and decode tokens/s, the median time to first
      token, ticks, launches and peak memory, then the decode step's logits
      for request 0's second token against a re-prefill of (prompt + first
@@ -224,7 +242,8 @@ Phases (any failure exits non-zero; nothing is caught):
      recurrent states zeroed must fail, so that it holds the scans' final
      states' hand-off to the decode step; recurrentgemma-9b is held with
      its RG-LRU Lambda negated, where the states carry (as initialised
-     they barely do);
+     they barely do); the MoE models on a dropless copy of their configs,
+     the token's routing in the two paths printed layer by layer;
 6. profile — ``torch.profiler`` over one blocked FW call at homog256
    (device time by kernel) and one homog256 placeit run through the host
    GA and one through ga-batched (device busy share, the copies' time by
@@ -294,7 +313,8 @@ from repro_torch.kernels import selective_scan as tss  # noqa: E402
 from repro_torch.kernels import selective_scan_bwd as tsb  # noqa: E402
 from repro_torch.launch import kernel_timing as kt  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
-from repro_torch.models.model import LM  # noqa: E402
+from repro_torch.models import moe as tmoe  # noqa: E402
+from repro_torch.models.model import LM, dec_plan  # noqa: E402
 from repro_torch.models.rglru import RGLRU  # noqa: E402
 from repro_torch.models.transformer import leaf_kinds  # noqa: E402
 from repro_torch.models.tree import tree_map  # noqa: E402
@@ -410,8 +430,13 @@ ARCH3D_RUNS = tuple(ExperimentConfig(
                               ("stack3d64", "ga", 64)))
 
 
+# The script's start: each phase's header prints the seconds since, so
+# that a phase's wall is the difference between two headers.
+T0 = time.monotonic()
+
+
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    print(f"== [{time.monotonic() - T0:.1f} s] {name}", flush=True)
 
 
 def device_phase() -> str:
@@ -832,32 +857,70 @@ def attention_parity_phase(dev, worst: dict) -> None:
 # [0.25, 0.5)), decode 3.05e-5.
 FULL_RTOL, FULL_ATOL = 2.0 ** -6, 1e-5
 FULL_LIMIT = f"|kernel - plain| <= {FULL_ATOL:g} + {FULL_RTOL:g} |plain|"
-# The attention shapes of the serve runs, in bfloat16: each model's heads
-# and window from its config, flash at B = 1 (prefill takes one request
-# at a time) and two prompt lengths, decode at the 8-slot pool over the
-# cache as the model hands it over.  qwen3-1.7b: 16 query heads on 8 KV
-# heads, head dim 128, a 4096-token cache.  recurrentgemma-9b's local
+# The attention shapes of the serve runs, in bfloat16: each model's heads,
+# window and soft-cap from its config, flash at B = 1 (prefill takes one
+# request at a time) at its prompt lengths, decode at the 8-slot pool over
+# the cache as the model hands it over.  qwen3-1.7b: 16 query heads on 8
+# KV heads, head dim 128, a 4096-token cache.  recurrentgemma-9b's local
 # attention: 16 query heads on 1 KV head, head dim 256, a 2048-token
 # window; its prompts reach 3072 tokens, and its decode cache is a
 # 2048-slot ring that the model passes with lengths clamped to 2048 and no
-# window (``layers.attn_decode``).
-ATTN_TIMED = (("qwen3-1.7b", (512, 2048)),
-              ("recurrentgemma-9b", (2048, 3072)))
-SERVE_ATTN = " and ".join(arch for arch, _ in ATTN_TIMED)
+# window (``layers.attn_decode``).  moonshot-v1-16b-a3b: 16 on 16 heads of
+# 128.  grok-1-314b: 48 on 8 heads of 128 (six queries a KV head) with
+# logits soft-capped at 30, which no scaled_dot_product_attention call
+# computes (no library time).  seamless-m4t-medium (16 on 16 heads of 64,
+# ``ENCDEC_SERVE``'s run): the encoder bidirectional over 1024 frames, the
+# decoder's cross-attention from a 48-token prompt to that memory
+# (bidirectional, Sq < Sk) and its causal self-attention over the prompt;
+# decode over the cross caches with every length mem_len = 1024 and over
+# the self caches (4096 slots) with the lengths of its 64 tokens.
+ATTN_TIMED = (
+    ("qwen3-1.7b", ((512, 512, True), (2048, 2048, True))),
+    ("recurrentgemma-9b", ((2048, 2048, True), (3072, 3072, True))),
+    ("moonshot-v1-16b-a3b", ((256, 256, True), (2048, 2048, True))),
+    ("grok-1-314b", ((256, 256, True), (2048, 2048, True))),
+    ("seamless-m4t-medium", ((1024, 1024, False), (48, 1024, False),
+                             (48, 48, True))))
+SERVE_ATTN = ", ".join(arch for arch, _ in ATTN_TIMED)
 
 
-def attention_shapes(arch: str) -> tuple[dict, int | None, int]:
-    """(heads, flash window, decode cache length) of an arch's serve run."""
+def attention_shapes(arch: str) -> tuple[dict, int | None, float | None]:
+    """(heads, window, soft-cap) of an arch's attention layers."""
     cfg = get_config(arch)
     heads = dict(Hq=cfg.n_heads, Hkv=cfg.n_kv_heads, d=cfg.hd)
-    window = cfg.window or None
+    return heads, cfg.window or None, cfg.softcap
+
+
+def decode_runs(arch: str) -> list[tuple[str, int, np.ndarray]]:
+    """(label, cache length, lengths [B]) of each timed decode call: the
+    cache as the model hands it over, every row full and with lengths from
+    the seed; for the encoder-decoder model its cross caches (every length
+    ``mem_len``) and its self caches (its tokens' lengths)."""
+    B = SERVE_ENGINE.n_slots
+    rng = np.random.default_rng(0)
+    if arch == ENCDEC_ARCH:
+        P, Se, T = (ENCDEC_SERVE[k] for k in ("prompt", "frames", "tokens"))
+        return [(f"cross, every length mem_len {Se}", Se, np.full(B, Se)),
+                (f"self, lengths from the seed in [{P}, {P + T - 1}]",
+                 SERVE_ENGINE.cache_len, rng.integers(P, P + T, size=B))]
+    _, window, _ = attention_shapes(arch)
     cache = SERVE_ENGINE.cache_len
-    return heads, window, min(cache, window) if window else cache
+    cache = min(cache, window) if window else cache
+    return [(f"every length {cache}", cache, np.full(B, cache)),
+            ("lengths from the seed", cache,
+             rng.integers(1, cache + 1, size=B))]
 
 
-def flash_bound_ms(B, Sq, Sk, Hq, Hkv, d, window=None, itemsize=2):
-    """Causal, Sq = Sk: query i attends min(i + 1, window) keys."""
-    pairs = int(np.minimum(np.arange(1, Sq + 1), window or Sq).sum())
+def flash_bound_ms(B, Sq, Sk, Hq, Hkv, d, causal=True, window=None,
+                   itemsize=2):
+    """Causal (Sq = Sk): query i attends min(i + 1, window) keys;
+    bidirectional: every query every key.  A soft-cap's tanh per logit is
+    left out (at d = 128 it is under 1 % of the operations)."""
+    if causal:
+        assert Sq == Sk, "the causal bound is for Sq = Sk"
+        pairs = int(np.minimum(np.arange(1, Sq + 1), window or Sq).sum())
+    else:
+        pairs = Sq * Sk
     return _bound(4 * B * Hq * d * pairs,
                   itemsize * d * (2 * B * Sq * Hq + 2 * B * Sk * Hkv),
                   PEAK_BF16_OPS)
@@ -885,11 +948,13 @@ def _attn_row(t: dict, out: dict, what: str, bound: tuple) -> dict:
 def _attn_line(t: dict) -> str:
     masked = (f" (with a mask {t['library_masked']:.4f} ms)"
               if "library_masked" in t else "")
-    return (f"kernel {t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, sdpa "
-            f"{t['library']:.4f} ms{masked}, bound {t['bound']:.4f} ms "
-            f"({t['bound_by']}), {t['bound'] / t['kernel']:.4f} of bound; "
-            f"max abs err vs plain {t['max_abs_err']:.3g} (max |out| "
-            f"{t['max_abs_out']:.3g}; {t['limit_share']:.3f} of the limit)")
+    lib = ("no sdpa call (soft-cap)" if t["library"] is None
+           else f"sdpa {t['library']:.4f} ms{masked}")
+    return (f"kernel {t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, {lib}, "
+            f"bound {t['bound']:.4f} ms ({t['bound_by']}), "
+            f"{t['bound'] / t['kernel']:.4f} of bound; max abs err vs plain "
+            f"{t['max_abs_err']:.3g} (max |out| {t['max_abs_out']:.3g}; "
+            f"{t['limit_share']:.3f} of the limit)")
 
 
 # Calls between one pair of CUDA events when timing the attention kernels.
@@ -901,50 +966,57 @@ def attention_timing_phase(dev, worst: dict) -> dict:
     (``kernel_timing.batched_ms``); every timed output is held to
     ``FULL_LIMIT`` against the plain version's.  The yardstick
     (``library``) is the fastest ``scaled_dot_product_attention`` call
-    that computes the same function: ``is_causal=True`` where flash has
-    no window, no mask where every decode row is full, else a boolean
-    mask; the masked call is also timed beside the first two
-    (``library_masked``)."""
+    that computes the same function: ``is_causal=True`` where causal flash
+    has no window, no mask where flash is bidirectional or every decode
+    row is full, else a boolean mask; the masked call is also timed beside
+    the first two (``library_masked``).  None where the logits are
+    soft-capped."""
     F = torch.nn.functional
     rows = {}
-    for arch, flash_S in ATTN_TIMED:
-        heads, window, cache = attention_shapes(arch)
+    for arch, flash_shapes in ATTN_TIMED:
+        heads, window, softcap = attention_shapes(arch)
         phase(f"timing: flash_attention at {arch} prefill shapes (bf16, "
-              f"causal, window {window}; outputs {FULL_LIMIT})")
-        for S in flash_S:
-            shape = dict(B=1, Sq=S, Sk=S, **heads)
-            q, k, v = _on_card(testing.attention_operands(**shape, seed=S),
+              f"window {window}, soft-cap {softcap}; outputs {FULL_LIMIT})")
+        for Sq, Sk, causal in flash_shapes:
+            shape = dict(B=1, Sq=Sq, Sk=Sk, **heads)
+            kw = dict(causal=causal, window=window, softcap=softcap)
+            q, k, v = _on_card(testing.attention_operands(**shape, seed=Sq),
                                dev)
-            pos = torch.arange(S, device=dev)
-            mask = pos[None] <= pos[:, None]
-            if window:
-                mask &= pos[None] > pos[:, None] - window
             q_s, k_s, v_s = (x.transpose(1, 2) for x in (q, k, v))
-            fns = {
-                "kernel": lambda: tfa.flash_attention(q, k, v, window=window),
-                "plain": lambda: plain.attention_ref(q, k, v, window=window),
-                "library_masked": lambda: F.scaled_dot_product_attention(
-                    q_s, k_s, v_s, attn_mask=mask, enable_gqa=True)}
-            if window is None:
+            fns = {"kernel": lambda: tfa.flash_attention(q, k, v, **kw),
+                   "plain": lambda: plain.attention_ref(q, k, v, **kw)}
+            if softcap is None and not causal:
                 fns["library"] = lambda: F.scaled_dot_product_attention(
-                    q_s, k_s, v_s, is_causal=True, enable_gqa=True)
+                    q_s, k_s, v_s, enable_gqa=True)
+            elif softcap is None:
+                pos = torch.arange(Sq, device=dev)
+                mask = pos[None] <= pos[:, None]
+                if window:
+                    mask &= pos[None] > pos[:, None] - window
+                fns["library_masked"] = (
+                    lambda: F.scaled_dot_product_attention(
+                        q_s, k_s, v_s, attn_mask=mask, enable_gqa=True))
+                if window is None:
+                    fns["library"] = lambda: F.scaled_dot_product_attention(
+                        q_s, k_s, v_s, is_causal=True, enable_gqa=True)
             t, out = kt.batched_ms(fns, launches=ATTN_LAUNCHES, rounds=5)
-            if window is not None:
-                t["library"] = t.pop("library_masked")
-            t = _attn_row(t, out, f"flash_attention {arch} S={S}",
-                          flash_bound_ms(**shape, window=window))
+            if "library" not in t:
+                t["library"] = t.pop("library_masked", None)
+            label = (f"S={Sq}" if causal else
+                     f"Sq={Sq} Sk={Sk} bidirectional")
+            t = _attn_row(t, out, f"flash_attention {arch} {label}",
+                          flash_bound_ms(**shape, causal=causal,
+                                         window=window))
             worst["flash_attention"] = max(worst["flash_attention"],
                                            t["max_abs_err"])
-            rows[f"flash {arch} S={S}"] = t
-            print(f"  B=1 Sq=Sk={S:5d} {heads}: {_attn_line(t)}")
+            rows[f"flash {arch} {label}"] = t
+            print(f"  B=1 Sq={Sq:5d} Sk={Sk:5d} causal={causal} {heads}: "
+                  f"{_attn_line(t)}")
 
         B = SERVE_ENGINE.n_slots
-        phase(f"timing: decode_attention at {arch}'s decode shape (bf16, "
-              f"B={B}, cache {cache}; outputs {FULL_LIMIT})")
-        rng = np.random.default_rng(0)
-        for label, lens in ((f"every length {cache}", np.full(B, cache)),
-                            ("lengths from the seed",
-                             rng.integers(1, cache + 1, size=B))):
+        phase(f"timing: decode_attention at {arch}'s decode shapes (bf16, "
+              f"B={B}, soft-cap {softcap}; outputs {FULL_LIMIT})")
+        for label, cache, lens in decode_runs(arch):
             q, kc, vc, lens_np = testing.decode_operands(
                 B, cache, **heads, lengths=lens, seed=1)
             q, kc, vc = _on_card((q, kc, vc), dev)
@@ -953,18 +1025,22 @@ def attention_timing_phase(dev, worst: dict) -> dict:
             q_s, k_s, v_s = (q[:, :, None], kc.transpose(1, 2),
                              vc.transpose(1, 2))
             fns = {
-                "kernel": lambda: tda.decode_attention(q, kc, vc, lens),
-                "plain": lambda: plain.decode_attention_ref(q, kc, vc, lens),
-                "library_masked": lambda: F.scaled_dot_product_attention(
-                    q_s, k_s, v_s, attn_mask=mask[:, None, None],
-                    enable_gqa=True)}
+                "kernel": lambda: tda.decode_attention(q, kc, vc, lens,
+                                                       softcap=softcap),
+                "plain": lambda: plain.decode_attention_ref(
+                    q, kc, vc, lens, softcap=softcap)}
             full = bool((lens_np == cache).all())
-            if full:
+            if softcap is None:
+                fns["library_masked"] = (
+                    lambda: F.scaled_dot_product_attention(
+                        q_s, k_s, v_s, attn_mask=mask[:, None, None],
+                        enable_gqa=True))
+            if softcap is None and full:
                 fns["library"] = lambda: F.scaled_dot_product_attention(
                     q_s, k_s, v_s, enable_gqa=True)
             t, out = kt.batched_ms(fns, launches=ATTN_LAUNCHES, rounds=7)
-            if not full:
-                t["library"] = t.pop("library_masked")
+            if "library" not in t:
+                t["library"] = t.pop("library_masked", None)
             t = _attn_row(t, out, f"decode_attention {arch} {label}",
                           decode_bound_ms(B, **heads, lengths=lens_np))
             worst["decode_attention"] = max(worst["decode_attention"],
@@ -1284,13 +1360,19 @@ def scan_bwd_timing_phase(dev, worst: dict) -> dict:
 
 SERVE_ENGINE = EngineConfig(n_slots=8, cache_len=4096, eos=-1)
 SERVE_REQUESTS, SERVE_MAX_TOKENS = 16, 64
-# Each serve run: the arch and its prompt lengths (drawn from seed 0).
-# recurrentgemma-9b's prompts reach 3072 tokens, past its 2048-token
-# window, so its local-attention caches ring in prefill and in decode.
+# Each serve run: the arch, its prompt lengths (drawn from seed 0) and its
+# depth (None: the published depth).  recurrentgemma-9b's prompts reach
+# 3072 tokens, past its 2048-token window, so its local-attention caches
+# ring in prefill and in decode.  The MoE models (slice 16): moonshot at
+# its full 48 layers (28.06 B parameters, 56.1 GB in bf16, and a 12.9 GB
+# KV cache), grok-1 at 4 of its 64 (21.3 B parameters, 42.6 GB: the full
+# model's 316 B parameters cannot fit on one card).
 SERVE_RUNS = (
-    ("qwen3-1.7b", (256, 2048)),
-    ("falcon-mamba-7b", (256, 2048)),
-    ("recurrentgemma-9b", (256, 3072)),
+    ("qwen3-1.7b", (256, 2048), None),
+    ("falcon-mamba-7b", (256, 2048), None),
+    ("recurrentgemma-9b", (256, 3072), None),
+    ("moonshot-v1-16b-a3b", (256, 2048), None),
+    ("grok-1-314b", (256, 2048), 4),
 )
 # Request 0's decode-step logits against a re-prefill of (prompt + token
 # 1), both in bfloat16 on the card, may differ by this many bfloat16 ulps
@@ -1301,7 +1383,16 @@ SERVE_RUNS = (
 # all layers.  qwen3-1.7b: logits up to 4.94, so 4 x 2^-5 = 0.125 (0.0869
 # measured on an NVIDIA H100 80GB HBM3 at 700 W).  For a recurrent model
 # the check must also fail a decode step whose recurrent states were
-# zeroed (a hand-off that loses the prefill's final state).
+# zeroed (a hand-off that loses the prefill's final state).  An MoE model
+# is checked on a dropless copy of its config (capacity factor E / K, so
+# that every expert has a slot for every token): a prefill at capacity
+# may drop the last token where the decode step (one slot an expert)
+# never drops, which is the reference's semantics, not an error.  Where
+# two experts tie for the token's K-th place within the two paths'
+# rounding, the paths may choose differently (moonshot-v1-16b-a3b swaps
+# one such pair, 6.05e-6 apart, in one of its 48 layers on an NVIDIA H100
+# 80GB HBM3 at 700 W); the check prints each such layer and holds the
+# logits all the same.
 CONSISTENCY_ULPS = 4
 PROFILE_PREFILL = 1024
 
@@ -1311,20 +1402,27 @@ def bf16_ulp(x: float) -> float:
     return 2.0 ** (math.floor(math.log2(abs(x))) - 7)
 
 
-def serve_phase(dev, arch: str, prompt: tuple) -> tuple[dict, tuple]:
-    """One serve run at full width, with the counts set to 0 just before
-    it and read just after; returns the launch counts and (model, engine,
-    prompt lengths) for the profile."""
-    phase(f"main path: {arch} at full width through ServeEngine on the "
-          f"card")
-    cfg = get_config(arch)
+def serve_phase(dev, arch: str, prompt: tuple,
+                layers: int | None) -> tuple[dict, tuple]:
+    """One serve run at full width (``layers`` deep, or the published
+    depth), with the counts set to 0 just before it and read just after;
+    returns the launch counts and (model, engine, prompt lengths) for the
+    profile."""
+    full = get_config(arch)
+    cfg = full if layers is None else dataclasses.replace(full,
+                                                          n_layers=layers)
+    phase(f"main path: {arch} at full width, {cfg.n_layers} of its "
+          f"{full.n_layers} layers, through ServeEngine on the card")
     t0 = time.monotonic()
     model = LM(cfg, dev, torch.Generator(device=dev).manual_seed(0))
     torch.cuda.synchronize()
-    print(f"  {cfg.name}: {model.param_count() / 1e9:.4f} B "
-          f"parameters, {cfg.n_layers} layers {cfg.layer_plan()}, d_model "
-          f"{cfg.d_model}, {cfg.dtype}, initialised from torch.Generator "
-          f"seed 0 in {time.monotonic() - t0:.2f} s")
+    n_params = model.param_count()
+    print(f"  {cfg.name}: {n_params / 1e9:.4f} B parameters "
+          f"({2 * n_params / 1e9:.2f} GB in bf16), {cfg.n_layers} layers "
+          f"{cfg.layer_plan()}, d_model {cfg.d_model}, {cfg.dtype}, "
+          f"initialised from torch.Generator seed 0 in "
+          f"{time.monotonic() - t0:.2f} s; memory allocated "
+          f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB")
     eng = ServeEngine(model, SERVE_ENGINE)
     # One short request first, so that the run below finds cuBLAS and the
     # allocator warm; then the engine's counters start from zero.
@@ -1359,12 +1457,12 @@ def serve_phase(dev, arch: str, prompt: tuple) -> tuple[dict, tuple]:
           f"{1e3 * st['decode_s'] / ticks:.2f} ms per tick); time to first "
           f"token median {ttft:.3f} s; peak device memory "
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
-    # Every prefill launches one flash call per attention layer and one
-    # scan per recurrent layer; every tick one decode call per attention
-    # layer (the recurrent layers' one-token step is plain tensor code, as
-    # in the reference).
+    # Every prefill launches one flash call per attention layer (an MoE
+    # layer has one) and one scan per recurrent layer; every tick one
+    # decode call per attention layer (the recurrent layers' one-token
+    # step is plain tensor code, as in the reference).
     n = leaf_kinds(cfg)
-    n_attn = n["attn"] + n["lattn"]
+    n_attn = n["attn"] + n["lattn"] + n["moe"]
     expected = dict.fromkeys(KERNELS, 0)
     expected.update(flash_attention=n_attn * len(reqs),
                     decode_attention=n_attn * ticks,
@@ -1382,8 +1480,23 @@ def serve_phase(dev, arch: str, prompt: tuple) -> tuple[dict, tuple]:
     if launches != expected or plain_calls != 0:
         raise SystemExit(f"the {arch} serve run did not go through its "
                          f"kernels alone")
+    if n["moe"]:
+        print_expert_bytes(cfg, 1e3 * st["decode_s"] / ticks)
     consistency_check(model, reqs[0], dev)
     return launches, (model, eng, lens)
+
+
+def print_expert_bytes(cfg, tick_ms: float) -> None:
+    """A decode tick runs every expert of every MoE layer on its one slot
+    (capacity 1, the reference's function), so it reads all their
+    weights: printed beside that read's time at the HBM rate."""
+    n = leaf_kinds(cfg)["moe"]
+    nbytes = n * 3 * cfg.n_experts * cfg.d_model * cfg.d_ff * 2
+    print(f"  decode reads every expert each tick: {n} MoE layers x 3 x "
+          f"{cfg.n_experts} x {cfg.d_model} x {cfg.d_ff} bf16 = "
+          f"{nbytes / 1e9:.2f} GB a tick, {1e3 * nbytes / PEAK_BYTES:.3f} "
+          f"ms at {PEAK_BYTES / 1e12:.2f} TB/s, against {tick_ms:.2f} ms "
+          f"a tick measured")
 
 
 def _zero_states(tree: dict) -> None:
@@ -1406,25 +1519,37 @@ def _negate_lambda(model: LM) -> None:
             m.rg_lambda.data.neg_()
 
 
-def _decode_vs_reprefill(model: LM, ext, dev) -> tuple[float, float, float]:
+def _decode_vs_reprefill(model: LM, ext, dev, extra: dict | None = None,
+                         recurrent: bool = True,
+                         capacity_factor: float | None = None
+                         ) -> tuple[float, float, float | None]:
     """For the last token of ``ext``: the largest re-prefill logit and the
     max abs error of the decode step's logits against it, from the
-    prefill's caches as they are and with their recurrent states zeroed."""
+    prefill's caches as they are and (``recurrent``) with their recurrent
+    states zeroed.  ``extra`` holds an encoder-decoder model's prefill
+    ``src_embeds`` and decode ``mem_len``; ``capacity_factor`` is the
+    prefills' (``LM.prefill``)."""
+    extra = extra or {}
+    pre_extra = {k: v for k, v in extra.items() if k == "src_embeds"}
     L = SERVE_ENGINE.cache_len
-    pre, _ = model.prefill({"tokens": ext}, L)
-    _, caches = model.prefill({"tokens": ext[:, :-1]}, L)
-    lost = [tree_map(torch.clone, c) for c in caches]
-    for c in lost:
-        _zero_states(c)
+    pre, _ = model.prefill({"tokens": ext, **pre_extra}, L, capacity_factor)
+    _, caches = model.prefill({"tokens": ext[:, :-1], **pre_extra}, L,
+                              capacity_factor)
+    runs = [caches]
+    if recurrent:
+        runs.append([tree_map(torch.clone, c) for c in caches])
+        for c in runs[1]:
+            _zero_states(c)
     batch = {"tokens": ext[:, -1:], "lengths": torch.tensor(
-        [ext.shape[1] - 1], dtype=torch.int32, device=dev)}
+        [ext.shape[1] - 1], dtype=torch.int32, device=dev),
+        **{k: v for k, v in extra.items() if k == "mem_len"}}
     errs = []
-    for c in (caches, lost):
+    for c in runs:
         dec = model.decode_step(batch, c)
         if not (torch.isfinite(dec).all() and torch.isfinite(pre).all()):
             raise SystemExit(f"non-finite logits in {model.cfg.name}")
         errs.append(float((dec - pre).abs().max()))
-    return float(pre.abs().max()), *errs
+    return float(pre.abs().max()), errs[0], errs[1] if recurrent else None
 
 
 def consistency_check(model: LM, r0, dev) -> None:
@@ -1438,12 +1563,16 @@ def consistency_check(model: LM, r0, dev) -> None:
     recurrent = n["mamba"] + n["rec"] > 0
     ext = torch.as_tensor(np.concatenate([r0.prompt, r0.out_tokens[:1]])[
         None], dtype=torch.long, device=dev)
+    if n["moe"]:
+        moe_consistency_check(model, ext, dev)
+        return
     for negated in (False, True) if n["rec"] else (False,):
         label = "with Lambda negated" if negated else "as served"
         held = negated or not n["rec"]
         if negated:
             _negate_lambda(model)
-        top, err, err_lost = _decode_vs_reprefill(model, ext, dev)
+        top, err, err_lost = _decode_vs_reprefill(model, ext, dev,
+                                                  recurrent=recurrent)
         if negated:
             _negate_lambda(model)
         tol = CONSISTENCY_ULPS * bf16_ulp(top)
@@ -1462,12 +1591,114 @@ def consistency_check(model: LM, r0, dev) -> None:
                              f"zeroed recurrent states ({label})")
 
 
+def moe_consistency_check(model: LM, ext, dev) -> None:
+    """The consistency check of an MoE model with dropless prefills
+    (capacity factor E / K, ``LM.prefill``'s argument): the logits within
+    ``CONSISTENCY_ULPS``.  Prints, for the last token, how far the two
+    paths' router probabilities lie apart, in how many layers they chose
+    the same experts, the smallest gap between its K-th and (K+1)-th
+    router probability, and each layer where the paths chose differently
+    (two experts that tie within the paths' rounding: a swap needs the
+    paths' probabilities at least half the margin apart).  The routing is
+    read by a forward hook on each MoE block, which routes the block's
+    input again (the same function on the same input)."""
+    cfg = model.cfg
+    seen = []
+
+    def record(m, args, out):
+        x = args[0]
+        h = tmoe.rms_norm(x, m.norm, cfg.norm_eps)
+        probs, _, eidx = tmoe.route(m, h, cfg)
+        seen.append((eidx[0, -1].clone(), probs[0, -1].clone()))
+
+    hooks = [m.register_forward_hook(record) for m in model.modules()
+             if isinstance(m, tmoe.MoE)]
+    try:
+        top, err, _ = _decode_vs_reprefill(
+            model, ext, dev, recurrent=False,
+            capacity_factor=cfg.n_experts / cfg.top_k)
+    finally:
+        for hk in hooks:
+            hk.remove()
+    n = leaf_kinds(cfg)["moe"]
+    if len(seen) != 3 * n:
+        raise SystemExit(f"the {cfg.name} consistency check saw {len(seen)} "
+                         f"MoE calls, not 3 x {n}")
+    pre, dec = seen[:n], seen[2 * n:]
+    K = cfg.top_k
+    margins, deltas, flips = [], [], []
+    for i, ((e_pre, p_pre), (e_dec, p_dec)) in enumerate(zip(pre, dec)):
+        v = p_pre.sort(descending=True).values
+        margins.append(float(v[K - 1] - v[K]))
+        deltas.append(float((p_pre - p_dec).abs().max()))
+        if not torch.equal(e_pre.sort().values, e_dec.sort().values):
+            flips.append(i)
+    tol = CONSISTENCY_ULPS * bf16_ulp(top)
+    print(f"  consistency, dropless copy (capacity factor "
+          f"{cfg.n_experts / cfg.top_k:g}), request 0 (prompt "
+          f"{ext.shape[1] - 1}): the token's router probabilities in the "
+          f"two paths differ by at most {max(deltas):.3g}; its chosen "
+          f"experts equal in {n - len(flips)} of {n} layers (smallest "
+          f"top-{K} margin {min(margins):.3g})" + "".join(
+              f"; layer {i} swaps a near-tie (margin {margins[i]:.3g}, "
+              f"paths {deltas[i]:.3g} apart)" for i in flips))
+    print(f"  decode-step logits vs re-prefill max abs err {err:.4f} "
+          f"(logits up to {top:.2f}; tolerance {CONSISTENCY_ULPS} bf16 ulps "
+          f"there, {tol:g})")
+    if err > tol:
+        raise SystemExit(f"the {cfg.name} decode step disagrees with a "
+                         f"re-prefill")
+
+
+def print_moe_shares(prof, total_ms: float, moe_layers: int) -> None:
+    """Each MoE piece's ranges in a profile (``models.moe.RANGES``, forward
+    passes only): the device time of the kernels launched in them and its
+    share of the profile's device kernel time, and the ranges' span on the
+    device's timeline (idle gaps included).  Exits if a model of
+    ``moe_layers`` MoE layers left no range in its profile."""
+    kernels, span = {}, {}
+    for e in prof.key_averages():
+        if e.key in tmoe.RANGES:
+            to = (span if e.device_type == torch.autograd.DeviceType.CUDA
+                  else kernels)
+            to[e.key] = to.get(e.key, 0.0) + e.device_time_total / 1e3
+    if not kernels:
+        raise SystemExit(f"a profile of a model with {moe_layers} MoE layers "
+                         f"holds no MoE range")
+    print("  MoE block (forward ranges; kernel time): " + ", ".join(
+        f"{name[4:]} {kernels.get(name, 0.0):.3f} ms "
+        f"({100 * kernels.get(name, 0.0) / max(total_ms, 1e-9):.2f} %; span "
+        f"{span.get(name, 0.0):.3f} ms)" for name in tmoe.RANGES))
+
+
+def profile_calls(label: str, calls, moe_layers: int = 0) -> None:
+    """torch.profiler over each (what, fn) of ``calls`` after one warm
+    call: the wall, the device kernel time and busy share, an MoE model's
+    pieces (``print_moe_shares``) and the largest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    for what, fn in calls:
+        phase(f"profile: {label} {what}")
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+        rows, total = _kernel_times(prof)
+        print(f"  wall {1e3 * wall:.3f} ms under the profiler, device kernel "
+              f"time {total:.3f} ms ({100 * total / 1e3 / wall:.2f} % busy)")
+        if moe_layers:
+            print_moe_shares(prof, total, moe_layers)
+        for name, ms, n in rows[:8]:
+            print(f"  {ms:10.3f} ms {n:6d} x  {name[:90]}")
+
+
 def serve_profile_phase(dev, state: tuple) -> None:
     """torch.profiler over one prefill of ``PROFILE_PREFILL`` tokens and
     over 8 decode ticks of the full pool (lengths: the serve run's first 8
     prompts)."""
-    from torch.profiler import ProfilerActivity, profile
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     model, eng, lens = state
     cfg = model.cfg
     toks = torch.as_tensor(np.random.default_rng(1).integers(
@@ -1477,33 +1708,20 @@ def serve_profile_phase(dev, state: tuple) -> None:
         3, cfg.vocab, size=(SERVE_ENGINE.n_slots, 1)), device=dev),
         "lengths": torch.as_tensor(lens[:SERVE_ENGINE.n_slots],
                                    dtype=torch.int32, device=dev)}
-    for what, fn in (
-            (f"one prefill of {PROFILE_PREFILL} tokens", lambda: model.prefill(
-                {"tokens": toks}, SERVE_ENGINE.cache_len)),
-            (f"8 decode ticks of the {SERVE_ENGINE.n_slots}-slot pool",
-             lambda: [model.decode_step(batch, eng.caches)
-                      for _ in range(8)])):
-        phase(f"profile: {cfg.name} {what}")
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=acts) as prof:
-            t0 = time.monotonic()
-            fn()
-            torch.cuda.synchronize()
-            wall = time.monotonic() - t0
-        rows, total = _kernel_times(prof)
-        print(f"  wall {1e3 * wall:.3f} ms under the profiler, device kernel "
-              f"time {total:.3f} ms ({100 * total / 1e3 / wall:.2f} % busy)")
-        for name, ms, n in rows[:8]:
-            print(f"  {ms:10.3f} ms {n:6d} x  {name[:90]}")
+    profile_calls(cfg.name, (
+        (f"one prefill of {PROFILE_PREFILL} tokens", lambda: model.prefill(
+            {"tokens": toks}, SERVE_ENGINE.cache_len)),
+        (f"8 decode ticks of the {SERVE_ENGINE.n_slots}-slot pool",
+         lambda: [model.decode_step(batch, eng.caches) for _ in range(8)])),
+        leaf_kinds(cfg)["moe"])
 
 
 def serve_all_phase(dev) -> dict:
     """Each serve run, then its profile; each model is freed before the
     next one is built.  Returns the launches summed over the runs."""
     total = dict.fromkeys(KERNELS, 0)
-    for arch, prompt in SERVE_RUNS:
-        launches, state = serve_phase(dev, arch, prompt)
+    for arch, prompt, layers in SERVE_RUNS:
+        launches, state = serve_phase(dev, arch, prompt, layers)
         for k, n in launches.items():
             total[k] += n
         serve_profile_phase(dev, state)
@@ -2057,7 +2275,7 @@ def _kernel_times(prof) -> tuple[list, float]:
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0]
+            and e.self_device_time_total > 0 and e.key not in tmoe.RANGES]
     rows.sort(key=lambda r: -r[1])
     return rows, sum(r[1] for r in rows)
 
@@ -2069,7 +2287,10 @@ def profile_phase(dev) -> None:
     design phase's unsharded engine, and over the Evaluator's norm-sample
     draw alone (the host-built graphs both runs still score).  Profiling
     adds host time, so the runs' walls here are longer than the main
-    path's."""
+    path's.  Exits if a profile records none of its kernels.  Runs before
+    any profiled train step: after a profiled session of very many
+    kernels (a train step), the profiler records no device activity in a
+    short session that follows (``launch/profile_loss.py``)."""
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     phase("profile: one fw_counts_tiled call at homog256 placeit")
@@ -2084,6 +2305,9 @@ def profile_phase(dev) -> None:
     print(f"  device kernel time {total:.4f} ms in {len(rows)} kernels")
     for name, ms, n in rows[:8]:
         print(f"  {ms:10.4f} ms {n:5d} x  {name[:90]}")
+    if [n for name, _, n in rows if "fw_tiled_kernel" in name] != [1]:
+        raise SystemExit("the single-call profile did not record its one "
+                         "fw_counts_tiled kernel")
     arch = resolve_arch(HOMOG256.arch, HOMOG256.config)
     rep = make_rep(arch, HOMOG256.arch)
     runs = [(f"one {cfg.arch} {cfg.config} {cfg.algorithms[0]} "
@@ -2105,6 +2329,8 @@ def profile_phase(dev) -> None:
             torch.cuda.synchronize()
             wall = time.monotonic() - t0
         rows, total = _kernel_times(prof)
+        if not rows:
+            raise SystemExit(f"the profile of {what} recorded no kernel")
         print(f"  wall {wall:.3f} s under the profiler, device kernel time "
               f"{total / 1e3:.4f} s ({100 * total / 1e3 / wall:.2f} % busy)")
         for name, ms, n in rows[:10]:
@@ -2182,7 +2408,10 @@ RTRAIN_CKPT_DIR = Path(__file__).resolve().parent / "build" / "smoke_rckpt"
 RTRAIN_KERNELS = {
     "falcon-mamba-7b": ("selective_scan", "selective_scan_bwd"),
     "recurrentgemma-9b": ("rglru_scan", "rglru_scan_bwd", "flash_attention",
-                          "flash_attention_bwd")}
+                          "flash_attention_bwd"),
+    "moonshot-v1-16b-a3b": ("flash_attention", "flash_attention_bwd"),
+    "seamless-m4t-medium": ("flash_attention", "flash_attention_bwd"),
+    "grok-1-314b": ("flash_attention", "flash_attention_bwd")}
 # Their kernel-against-plain steps: falcon-mamba-7b at depth 2, B = 2, and
 # recurrentgemma-9b at depth 3 (one rec, rec, attention block), B = 1, at
 # full width with S cut to RCOMPARE_S to bound the plain loops' time; the
@@ -2497,6 +2726,39 @@ def _saturation_probe(scan, count: torch.Tensor):
     return probe
 
 
+def train_report(dev, arch: str, n_params: int, B: int, hist: list,
+                 note: str, extra: str = "") -> dict:
+    """Prints a train run of ``RTRAIN_STEPS`` steps at S = ``RTRAIN_S``
+    (``hist``: (loss, seconds) a step): the loss at its ends, the median
+    step, tokens/s, 6 N tokens' share of the bf16 peak and the peak
+    memory, then the launches.  The loss must be finite and fall, the
+    run launch ``RTRAIN_KERNELS[arch]`` and call no plain version.
+    Returns the launches."""
+    launches, _ = read_counts()
+    calls = dict(plain.calls)
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = [loss for loss, _ in hist]
+    step_s = statistics.median(dt for _, dt in hist)
+    tokens = B * RTRAIN_S
+    flops = 6 * n_params * tokens / step_s
+    print(f"  {n_params} parameters; loss {losses[0]:.4f} (step 1) -> "
+          f"{losses[-1]:.4f} (step {RTRAIN_STEPS}); median step "
+          f"{1e3 * step_s:.1f} ms, {tokens / step_s:.1f} tokens/s, 6 N "
+          f"tokens at {flops / 1e12:.2f} TFLOP/s = "
+          f"{flops / PEAK_BF16_OPS:.4f} of the bf16 peak; {note}; "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB")
+    print(f"  kernel launches {launches}; plain calls {calls}"
+          + (f"; {extra}" if extra else ""))
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise SystemExit(f"the {arch} training loss did not fall: {losses}")
+    if not all(launches[k] > 0 for k in RTRAIN_KERNELS[arch]):
+        raise SystemExit(f"training {arch} did not launch "
+                         f"{RTRAIN_KERNELS[arch]}")
+    if sum(calls.values()):
+        raise SystemExit(f"training {arch} called a plain version: {calls}")
+    return launches
+
+
 def recurrent_train_phase(dev, arch: str, layers: int, B: int,
                           lr: float) -> dict:
     """Slice 14's main path: ``train.step`` and ``train.loop`` on ``arch``
@@ -2538,34 +2800,15 @@ def recurrent_train_phase(dev, arch: str, layers: int, B: int,
     finally:
         ops.rglru_scan = keep
     wall = time.monotonic() - t0
-    launches, _ = read_counts()
-    calls = dict(plain.calls)
-    peak = torch.cuda.max_memory_allocated(dev)
     if [s_ for s_, _, _ in ls.history] != list(range(1, RTRAIN_STEPS + 1)):
         raise SystemExit(f"steps run: {[s_ for s_, _, _ in ls.history]}")
-    losses = [loss for _, loss, _ in ls.history]
-    step_s = statistics.median(dt for _, _, dt in ls.history)
-    tokens = B * RTRAIN_S
-    flops = 6 * n_params * tokens / step_s
-    print(f"  {n_params} parameters; loss {losses[0]:.4f} (step 1) -> "
-          f"{losses[-1]:.4f} (step {RTRAIN_STEPS}); median step "
-          f"{1e3 * step_s:.1f} ms, {tokens / step_s:.1f} tokens/s, 6 N "
-          f"tokens at {flops / 1e12:.2f} TFLOP/s = "
-          f"{flops / PEAK_BF16_OPS:.4f} of the bf16 peak; run {wall:.1f} s "
-          f"wall (its last-step checkpoint included); max_memory_allocated "
-          f"{peak / 2**30:.2f} GiB")
-    print(f"  kernel launches {launches}; plain calls {calls}; a >= 1 "
-          f"reaching rglru_scan: {int(saturated)}")
+    launches = train_report(
+        dev, arch, n_params, B, [(loss, dt) for _, loss, dt in ls.history],
+        f"run {wall:.1f} s wall (its last-step checkpoint included)",
+        f"a >= 1 reaching rglru_scan: {int(saturated)}")
     if int(saturated):
         raise SystemExit(f"training {arch}: {int(saturated)} saturated "
                          f"gates (a >= 1, a NaN gradient) reached rglru_scan")
-    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        raise SystemExit(f"the {arch} training loss did not fall: {losses}")
-    if not all(launches[k] > 0 for k in RTRAIN_KERNELS[arch]):
-        raise SystemExit(f"training {arch} did not launch "
-                         f"{RTRAIN_KERNELS[arch]}")
-    if sum(calls.values()):
-        raise SystemExit(f"training {arch} called a plain version: {calls}")
     print(f"  profile: one more train step (step {RTRAIN_STEPS + 1})")
     state = _profiled_step(step, state, stream.batch_at(RTRAIN_STEPS))
     del state, step, model, stream
@@ -2575,23 +2818,29 @@ def recurrent_train_phase(dev, arch: str, layers: int, B: int,
     return launches
 
 
-def recurrent_compare_phase(dev) -> None:
-    """One training step of each recurrent model (``RCOMPARE``) through
-    the kernels against the same step through the plain versions
-    (``testing.plain_selective_scan``, ``plain_rglru_scan`` and
-    ``plain_attention`` in the wrappers' places)."""
-    for arch, layers, B in RCOMPARE:
+def compare_steps_phase(dev, runs) -> None:
+    """One training step of each model of ``runs`` ((arch, depth, B): the
+    recurrent families' ``RCOMPARE`` and slice 16's ``FAMILY_COMPARE``)
+    at full width, S = ``RCOMPARE_S``, through the kernels against the
+    same step through the plain versions (``testing.plain_selective_scan``,
+    ``plain_rglru_scan`` and ``plain_attention`` in the wrappers'
+    places)."""
+    for arch, layers, B in runs:
         cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+        if cfg.family == "encdec":
+            cfg = dataclasses.replace(cfg, n_enc_layers=layers)
         phase(f"check: one training step of {arch} at full width, depth "
-              f"{layers} ({cfg.layer_plan()}), B = {B}, S = {RCOMPARE_S}, "
+              f"{layers} ({dec_plan(cfg)}), B = {B}, S = {RCOMPARE_S}, "
               f"through the kernels vs through the plain versions (loss "
               f"within {COMPARE_LOSS_RTOL:g} relative, each gradient within "
               f"{COMPARE_GRAD_RTOL:g} of its norm)")
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
         model = LM(cfg, dev, torch.Generator(dev).manual_seed(0))
+        n_params = model.param_count()
         model.requires_grad_(True)
-        batch = TokenStream(DataConfig(vocab=cfg.vocab, seq_len=RCOMPARE_S,
-                                       global_batch=B), device=dev
-                            ).batch_at(0)
+        batch = lm_batch(cfg, B, RCOMPARE_S, 0, dev)
         reset_counts()
         loss_k, grads_k = _loss_and_grads(model, batch)
         launches, plain_calls = read_counts()
@@ -2610,11 +2859,13 @@ def recurrent_compare_phase(dev) -> None:
                              f"calls {plain_calls}")
         rel_loss, worst, worst_name = _step_disagreement(loss_k, loss_p,
                                                          grads_k, grads_p)
-        print(f"  loss {float(loss_k):.6f} (kernels) vs {float(loss_p):.6f} "
-              f"(plain): {rel_loss:.3g} relative; worst gradient "
-              f"{worst_name}: {worst:.3g} of its norm; {len(grads_p)} "
-              f"gradients; kernel launches "
-              f"{ {k: launches[k] for k in RTRAIN_KERNELS[arch]} }")
+        print(f"  {n_params} parameters; loss {float(loss_k):.6f} (kernels) "
+              f"vs {float(loss_p):.6f} (plain): {rel_loss:.3g} relative; "
+              f"worst gradient {worst_name}: {worst:.3g} of its norm; "
+              f"{len(grads_p)} gradients; kernel launches "
+              f"{ {k: launches[k] for k in RTRAIN_KERNELS[arch]} }; "
+              f"max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
         if not rel_loss <= COMPARE_LOSS_RTOL or \
                 not worst <= COMPARE_GRAD_RTOL:
             raise SystemExit(f"the {arch} kernel step disagrees with the "
@@ -2622,6 +2873,220 @@ def recurrent_compare_phase(dev) -> None:
         del model, grads_k, grads_p
         gc.collect()
         torch.cuda.empty_cache()
+
+
+# -- the MoE and encoder-decoder families (slice 16) ------------------------
+
+# The encoder-decoder serve run: seamless-m4t-medium at full width and
+# depth (12 encoder and 12 decoder layers, 0.98 B parameters), bf16, seed
+# 0, through LM.prefill then greedy LM.decode_step (the reference's
+# ServeEngine takes no src_embeds or mem_len): 8 requests in one prefill,
+# each a 48-token prompt and 1024 frames of src_embeds from the seed,
+# 64 tokens each; every row attends its whole memory (mem_len 1024, as
+# the prefill does).
+ENCDEC_ARCH = "seamless-m4t-medium"
+ENCDEC_SERVE = dict(B=8, prompt=48, frames=1024, tokens=64)
+# The new families' training runs through train.step (bf16, remat, S =
+# RTRAIN_S, the reference's train_4k length, weights from seed 0, AdamW, 5
+# warm-up steps then cosine, RTRAIN_STEPS steps): (arch, depth or None, B,
+# lr).  moonshot at 4 of its 48 layers (2.95 B parameters: 35 GB of
+# parameters, gradients and float32 moments at 12 bytes a parameter, so
+# full depth's 28 B cannot train on one card); seamless at full width and
+# depth, its src_embeds 4096 frames from the seed.  No checkpoint is
+# written (train.loop writes one at the last step: 29.5 GB for moonshot,
+# which would outlast the run; slice 12's run covers the checkpoint path).
+FAMILY_TRAIN = (("moonshot-v1-16b-a3b", 4, 2, TRAIN_LR),
+                (ENCDEC_ARCH, None, 2, TRAIN_LR))
+# The kernel-against-plain steps at full width, B = 1, S = RCOMPARE_S:
+# moonshot at depth 2, seamless with 2 encoder and 2 decoder layers, and
+# grok-1 at depth 1 (6.53 B parameters: an AdamW step's 12 bytes a
+# parameter is 78 GB before activations, so grok-1 trains on the card at
+# no depth; its loss and gradients are checked instead).
+FAMILY_COMPARE = (("moonshot-v1-16b-a3b", 2, 1), (ENCDEC_ARCH, 2, 1),
+                  ("grok-1-314b", 1, 1))
+
+
+def lm_batch(cfg, B: int, S: int, i: int, dev) -> dict:
+    """Batch i of the synthetic token stream, with an encoder-decoder
+    model's ``src_embeds`` (S frames, float32 normals from seed 1000 + i,
+    in bf16)."""
+    batch = TokenStream(DataConfig(vocab=cfg.vocab, seq_len=S,
+                                   global_batch=B), device=dev).batch_at(i)
+    if cfg.family == "encdec":
+        batch["src_embeds"] = torch.randn(
+            B, S, cfg.d_model, device=dev,
+            generator=torch.Generator(dev).manual_seed(1000 + i)).to(
+                torch.bfloat16)
+    return batch
+
+
+def encdec_serve_phase(dev) -> tuple[dict, tuple]:
+    """The encoder-decoder serve run (``ENCDEC_SERVE``), with the counts
+    set to 0 just before it and read just after: one prefill (the encoder
+    over every row's frames, the decoder over the prompts) and greedy
+    decode steps, each tick's tokens copied to the host as a server
+    streams them.  Exact launches: flash once per encoder, self- and
+    cross-attention layer, decode twice per decoder layer a tick; no
+    plain call; tokens in range; the consistency check.  Returns the
+    launches and what the profile needs."""
+    cfg = get_config(ENCDEC_ARCH)
+    B, P, Se, T = (ENCDEC_SERVE[k] for k in ("B", "prompt", "frames",
+                                             "tokens"))
+    phase(f"main path, slice 16: {ENCDEC_ARCH} at full width and depth "
+          f"({cfg.n_enc_layers} encoder and {cfg.n_layers} decoder layers) "
+          f"through LM.prefill and LM.decode_step: {B} requests in one "
+          f"prefill, prompts of {P} tokens, {Se} frames of src_embeds each, "
+          f"{T} tokens each")
+    t0 = time.monotonic()
+    model = LM(cfg, dev, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = model.param_count()
+    print(f"  {n_params / 1e9:.4f} B parameters ({2 * n_params / 1e9:.2f} "
+          f"GB in bf16), d_model {cfg.d_model}, {cfg.n_heads} heads of "
+          f"{cfg.hd}, vocab {cfg.vocab} (padded {cfg.vocab_padded}), "
+          f"initialised in {time.monotonic() - t0:.2f} s")
+    L = SERVE_ENGINE.cache_len
+    prompts = torch.as_tensor(np.random.default_rng(0).integers(
+        3, cfg.vocab, size=(B, P)), dtype=torch.long, device=dev)
+    src = torch.randn(B, Se, cfg.d_model, device=dev,
+                      generator=torch.Generator(dev).manual_seed(0)).to(
+                          torch.bfloat16)
+    mem_len = torch.full((B,), Se, dtype=torch.int32, device=dev)
+
+    def serve(n_tokens: int) -> tuple:
+        t0 = time.monotonic()
+        logits, caches = model.prefill({"tokens": prompts,
+                                        "src_embeds": src}, L)
+        out = [logits.argmax(-1).tolist()]
+        t1 = time.monotonic()
+        lengths = torch.full((B,), P, dtype=torch.int32, device=dev)
+        for _ in range(n_tokens - 1):
+            tok = torch.as_tensor(out[-1], device=dev)[:, None]
+            logits = model.decode_step({"tokens": tok, "lengths": lengths,
+                                        "mem_len": mem_len}, caches)
+            out.append(logits.argmax(-1).tolist())
+            lengths += 1
+        return np.array(out).T, caches, t1 - t0, time.monotonic() - t1
+
+    serve(2)                            # warm cuBLAS and the allocator
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    toks, caches, pre_s, dec_s = serve(T)
+    torch.cuda.synchronize()
+    launches, plain_calls = read_counts()
+    ticks = T - 1
+    expected = dict.fromkeys(KERNELS, 0)
+    expected.update(flash_attention=cfg.n_enc_layers + 2 * cfg.n_layers,
+                    decode_attention=2 * cfg.n_layers * ticks)
+    print(f"  prefill {B * P} tokens and {B * Se} frames in {pre_s:.3f} s "
+          f"({B * P / pre_s:.1f} tokens/s); decode {B * ticks} tokens in "
+          f"{dec_s:.3f} s ({B * ticks / dec_s:.1f} tokens/s, "
+          f"{1e3 * dec_s / ticks:.2f} ms per tick); peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    print("  launches: " + ", ".join(
+        f"{k} {launches[k]} (expected {expected[k]})" for k in KERNELS
+        if expected[k] or launches[k]) + f"; plain calls {plain_calls}")
+    if toks.shape != (B, T) or not ((0 <= toks)
+                                    & (toks < cfg.vocab_padded)).all():
+        raise SystemExit(f"the {ENCDEC_ARCH} serve run emitted "
+                         f"{toks.shape} tokens or tokens out of range")
+    if launches != expected or plain_calls != 0:
+        raise SystemExit(f"the {ENCDEC_ARCH} serve run did not go through "
+                         f"its kernels alone")
+    # Request 0: its second token's decode-step logits against a
+    # re-prefill of (prompt + first token) over the same frames.
+    ext = torch.cat([prompts[:1], torch.as_tensor(
+        toks[:1, :1], device=dev)], dim=1)
+    top, err, _ = _decode_vs_reprefill(
+        model, ext, dev, {"src_embeds": src[:1], "mem_len": mem_len[:1]},
+        recurrent=False)
+    tol = CONSISTENCY_ULPS * bf16_ulp(top)
+    print(f"  consistency, request 0 (prompt {P}, {Se} frames): decode-step "
+          f"logits vs re-prefill max abs err {err:.4f} (logits up to "
+          f"{top:.2f}; tolerance {CONSISTENCY_ULPS} bf16 ulps there, "
+          f"{tol:g})")
+    if err > tol:
+        raise SystemExit(f"the {ENCDEC_ARCH} decode step disagrees with a "
+                         f"re-prefill")
+    batch = {"tokens": torch.as_tensor(toks[:, -1:], device=dev),
+             "lengths": torch.full((B,), P + T - 1, dtype=torch.int32,
+                                   device=dev), "mem_len": mem_len}
+    return launches, (model, {"tokens": prompts[:1], "src_embeds": src[:1]},
+                      batch, caches)
+
+
+def family_serve_phase(dev) -> dict:
+    """The encoder-decoder serve run, then a profile of one prefill of
+    request 0 (its encoder and decoder) and of 8 decode ticks of the
+    batch."""
+    launches, (model, one, batch, caches) = encdec_serve_phase(dev)
+    profile_calls(ENCDEC_ARCH, (
+        ("one prefill (1 request)", lambda: model.prefill(
+            one, SERVE_ENGINE.cache_len)),
+        (f"8 decode ticks of the {ENCDEC_SERVE['B']}-row batch",
+         lambda: [model.decode_step(batch, caches) for _ in range(8)])))
+    del model, one, batch, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def family_train_phase(dev, arch: str, layers: int | None, B: int,
+                       lr: float) -> dict:
+    """Slice 16's training runs (``FAMILY_TRAIN``) through ``train.step``,
+    each step timed on the host clock to a synchronisation.  The loss must
+    fall and be finite, an MoE model's aux metric finite; the attention
+    kernels must launch both ways and no plain version be called.  Then
+    one profiled step."""
+    full = get_config(arch)
+    cfg = full if layers is None else dataclasses.replace(full,
+                                                          n_layers=layers)
+    phase(f"main path, slice 16: train.step on {arch} at full width, "
+          f"{cfg.n_layers} of its {full.n_layers} layers"
+          + (f" and {cfg.n_enc_layers} encoder layers"
+             if cfg.family == "encdec" else "")
+          + f" ({dec_plan(cfg)}, d_model {cfg.d_model}, vocab "
+          f"{cfg.vocab}, {cfg.dtype}, remat {cfg.remat}), B = {B}, S = "
+          f"{RTRAIN_S}, {RTRAIN_STEPS} steps of AdamW at lr {lr:g}; no "
+          f"checkpoint")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = LM(cfg, dev, torch.Generator(dev).manual_seed(0))
+    n_params = model.param_count()
+    ocfg = OptConfig(lr=lr, total_steps=RTRAIN_STEPS, warmup_steps=5)
+    step = build_train_step(model, ocfg)
+    state = init_state(model, ocfg)
+    reset_counts()
+    hist = []
+    t_run = time.monotonic()
+    for i in range(RTRAIN_STEPS):
+        batch = lm_batch(cfg, B, RTRAIN_S, i, dev)
+        t0 = time.monotonic()
+        state, met = step(state, batch)
+        torch.cuda.synchronize()
+        dt = time.monotonic() - t0
+        hist.append((float(met["loss"]), float(met["aux"]), dt))
+        print(f"  step {i + 1} loss {hist[-1][0]:.4f} aux {hist[-1][1]:.4f} "
+              f"dt {1e3 * dt:.0f}ms", flush=True)
+    wall = time.monotonic() - t_run
+    launches = train_report(
+        dev, arch, n_params, B, [(loss, dt) for loss, _, dt in hist],
+        f"run {wall:.1f} s wall"
+        + ("; 6 N counts every expert, more than a step computes"
+           if cfg.n_experts else ""))
+    if cfg.n_experts and not all(np.isfinite(a) and a > 0
+                                 for _, a, _ in hist):
+        raise SystemExit(f"the {arch} aux metric: {[a for _, a, _ in hist]}")
+    print(f"  profile: one more train step (step {RTRAIN_STEPS + 1})")
+    state = _profiled_step(step, state, lm_batch(cfg, B, RTRAIN_S,
+                                                 RTRAIN_STEPS, dev),
+                           leaf_kinds(cfg)["moe"])
+    del state, step, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 # Device-kernel groups of the training profile, by name.
@@ -2659,10 +3124,10 @@ def train_profile_phase(dev) -> None:
     torch.cuda.empty_cache()
 
 
-def _profiled_step(step, state, batch):
+def _profiled_step(step, state, batch, moe_layers: int = 0):
     """One train step under torch.profiler: prints the device busy share
-    and device time by kernel group (``TRAIN_GROUPS``) and by kernel;
-    returns the new state."""
+    and device time by kernel group (``TRAIN_GROUPS``) and by kernel, and
+    an MoE model's pieces; returns the new state."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -2674,6 +3139,8 @@ def _profiled_step(step, state, batch):
     print(f"  wall {1e3 * wall:.3f} ms under the profiler, device kernel "
           f"time {total:.3f} ms ({100 * total / 1e3 / wall:.2f} % busy); "
           f"loss {float(met['loss']):.4f}")
+    if moe_layers:
+        print_moe_shares(prof, total, moe_layers)
     groups = dict.fromkeys([g for g, _ in TRAIN_GROUPS] + ["other"], 0.0)
     for name, ms, _ in rows:
         g = next((g for g, keys in TRAIN_GROUPS
@@ -2743,16 +3210,17 @@ def main() -> None:
     timing.update(attention_bwd_timing_phase(dev, max_err))
     timing.update(scan_bwd_timing_phase(dev, max_err))
     launches = main_path_phase(dev)
+    profile_phase(dev)
     paths = [sweep_phase, pareto_phase, trace_phase, design_phase,
              arch3d_phase, train_phase]
     paths += [lambda d, r=r: recurrent_train_phase(d, *r) for r in RTRAIN]
-    for path in paths + [bridge_phase]:
+    paths += [lambda d, r=r: family_train_phase(d, *r) for r in FAMILY_TRAIN]
+    for path in paths + [bridge_phase, family_serve_phase]:
         for k, n in path(dev).items():
             launches[k] += n
     train_compare_phase(dev)
-    recurrent_compare_phase(dev)
+    compare_steps_phase(dev, RCOMPARE + FAMILY_COMPARE)
     train_profile_phase(dev)
-    profile_phase(dev)
     for k, n in serve_all_phase(dev).items():
         launches[k] += n
     t1 = timing["homog32 baseline"]        # the quickstart's shape, V = 216

@@ -8,7 +8,7 @@ the bounded-state archs (falcon-mamba-7b, recurrentgemma-9b) run it.
 
 The reference's ``input_specs`` and ``cache_specs`` are dry-run stand-ins
 for XLA's ahead-of-time compiles; they wait for the dry-run port
-(ROADMAP queue 1 item 15e).
+(ROADMAP queue 1 item 15e-4).
 """
 from __future__ import annotations
 

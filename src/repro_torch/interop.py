@@ -26,6 +26,7 @@ from .core.api import ExperimentConfig
 from .core.chiplets import TRAFFIC_TYPES
 from .core.cost import CostNormalizers
 from .core.objective import NORM_DIM, Objective, weight_dim
+from .models.model import GROUP_KEYS
 
 GRAPH_KEYS = {"W": torch.float32, "edges": torch.long,
               "edge_mask": torch.bool, "area": torch.float32,
@@ -135,21 +136,21 @@ def _leaf(val, i: int | None = None):
 def _unstack(tree: Mapping) -> dict:
     """A tree shaped as ``init_params``' output (its leaves arrays, or
     8-bit states) as the port's flat dict keyed by parameter name: each
-    group of ``tree["groups"]``, whose arrays stack the group's layers on
-    a leading axis, becomes ``groups.<g>.<i>.<path>`` entries."""
+    group of ``tree["groups"]`` (and of an encoder-decoder model's
+    ``tree["enc_groups"]``), whose arrays stack the group's layers on a
+    leading axis, becomes ``groups.<g>.<i>.<path>`` (``enc_groups.<g>.<i>.
+    <path>``) entries, ``<path>`` the dotted keys inside the layer (an MoE
+    layer's ``moe.we1``, a decoder layer's ``xattn.wq``)."""
     out = {}
     for key, val in tree.items():
-        if key == "groups":
+        if key in GROUP_KEYS:
             for g, group in enumerate(val):
                 for path, arr in _flatten(group):
                     n = np.shape(arr["q"] if _is_q8(arr) else arr)[0]
                     for i in range(n):
-                        out[f"groups.{g}.{i}.{path}"] = _leaf(arr, i)
-        elif (isinstance(val, Mapping) and not _is_q8(val)) \
-                or key == "enc_groups":
-            raise NotImplementedError(
-                f"LM parameters {key!r}: the encoder-decoder family waits "
-                f"for the enc-dec slice (ROADMAP queue 1 item 15e)")
+                        out[f"{key}.{g}.{i}.{path}"] = _leaf(arr, i)
+        elif isinstance(val, Mapping) and not _is_q8(val):
+            raise ValueError(f"LM parameters: unexpected subtree {key!r}")
         else:
             out[key] = _leaf(val)
     return out
@@ -161,9 +162,10 @@ def lm_params_from_jax(params: Mapping) -> dict:
 
     ``params`` is ``init_params``'s nested dict with numpy leaves: float32
     arrays, or bfloat16 arrays viewed as ``uint16``.  Each group of
-    ``params["groups"]``, whose arrays stack the group's layers on a
-    leading axis, is unstacked into ``groups.<g>.<i>.<path>`` entries; the
-    rest keeps its key.  The tensors lie on the CPU; ``load_state_dict``
+    ``params["groups"]`` and ``params["enc_groups"]``, whose arrays stack
+    the group's layers on a leading axis, is unstacked into
+    ``groups.<g>.<i>.<path>`` (``enc_groups...``) entries; the rest keeps
+    its key.  The tensors lie on the CPU; ``load_state_dict``
     copies them to the model's device and dtype."""
     return _unstack(params)
 

@@ -5,7 +5,8 @@ seeded ``torch.Generator``, AdamW, the train step and the synthetic token
 stream, and runs the fault-tolerant loop (``train.loop.run``), which
 resumes from the newest committed checkpoint in ``--ckpt-dir``.  It runs
 on the card unless ``--device cpu`` is given; one device only
-(``--model-par`` > 1 needs the sharding rules, ROADMAP queue 1 item 15e).
+(``--model-par`` > 1 needs the sharding rules, ROADMAP queue 1 item
+15e-3).
 It logs every ``--log-every`` steps (10, but at least once in a run of
 fewer steps) and ends with the reference's ``[train] done: ...`` line.
 
@@ -57,7 +58,7 @@ def main(argv=None, log=print):
     if args.model_par > 1:
         raise NotImplementedError(
             "--model-par > 1 shards the model over a mesh: the sharding "
-            "rules wait for ROADMAP queue 1 item 15e")
+            "rules wait for ROADMAP queue 1 item 15e-3")
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.smoke:

@@ -12,8 +12,9 @@ such a module as ``p``, in the reference's order of operations:
   the plain versions on the CPU).
 
 The reference's ``shard()`` constraints are single-device no-ops here and
-are dropped.  Cross-attention (``xattn*``) waits for the encoder-decoder
-slice (ROADMAP queue 1 item 15e).
+are dropped.  Cross-attention (:class:`CrossAttention` and the ``xattn*``
+functions) attends the encoder's output, bidirectionally, through the same
+kernels.
 """
 from __future__ import annotations
 
@@ -226,6 +227,56 @@ def attn_cache_init(cfg: LMConfig, B: int, cache_len: int, device,
     shape = (B, Sc, cfg.n_kv_heads, cfg.hd)
     return {"k": torch.zeros(shape, dtype=dtype_of(cfg), device=device),
             "v": torch.zeros(shape, dtype=dtype_of(cfg), device=device)}
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (encoder-decoder); the encoder's output is the memory.
+# ---------------------------------------------------------------------------
+
+class CrossAttention(nn.Module):
+    """The parameters of one cross-attention block (``xattn_init``):
+    ``norm``, ``wq`` [D, H hd], ``wk`` and ``wv`` [D, Hkv hd] and ``wo``
+    [H hd, D], with the unpadded head count and no bias or qk-norm."""
+
+    def __init__(self, cfg: LMConfig, device, gen=None):
+        super().__init__()
+        D, H, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        dt = dtype_of(cfg)
+        self.norm = param(rms_norm_init(D, device))
+        self.wq = param(dense_init(gen, D, H * hd, dt, device))
+        self.wk = param(dense_init(gen, D, Hkv * hd, dt, device))
+        self.wv = param(dense_init(gen, D, Hkv * hd, dt, device))
+        self.wo = param(dense_init(gen, H * hd, D, dt, device))
+
+
+def xattn_kv(p: CrossAttention, memory, cfg: LMConfig) -> dict:
+    """The memory's keys and values [B, Sm, Hkv, hd], computed once a
+    prefill (decode's cross cache)."""
+    B, Sm, _ = memory.shape
+    return {"k": (memory @ p.wk).reshape(B, Sm, cfg.n_kv_heads, cfg.hd),
+            "v": (memory @ p.wv).reshape(B, Sm, cfg.n_kv_heads, cfg.hd)}
+
+
+def xattn(p: CrossAttention, x, memory, cfg: LMConfig):
+    """x [B, S, D] decoder states attend memory [B, Sm, D], every query
+    every position (no RoPE, no mask; S and Sm may differ)."""
+    B, S, _ = x.shape
+    h = rms_norm(x, p.norm, cfg.norm_eps)
+    q = (h @ p.wq).reshape(B, S, cfg.n_heads, cfg.hd)
+    kv = xattn_kv(p, memory, cfg)
+    o = sdpa_train(q, kv["k"], kv["v"], cfg, window=None, causal=False)
+    return x + o.reshape(B, S, cfg.n_heads * cfg.hd) @ p.wo
+
+
+def xattn_decode(p: CrossAttention, x, kv: dict, cfg: LMConfig, mem_len):
+    """One token x [B, 1, D] attends the first ``mem_len`` [B] (int32)
+    positions of its row's cross cache; no soft-cap and no window, as in
+    the reference."""
+    B = x.shape[0]
+    h = rms_norm(x, p.norm, cfg.norm_eps)
+    q = (h @ p.wq).reshape(B, cfg.n_heads, cfg.hd)
+    o = ops.decode_attention(q, kv["k"], kv["v"], mem_len)
+    return x + o.reshape(B, 1, cfg.n_heads * cfg.hd) @ p.wo
 
 
 # ---------------------------------------------------------------------------

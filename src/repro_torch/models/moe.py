@@ -1,0 +1,200 @@
+"""Mixture-of-Experts block: top-k routing with capacity-sort dispatch.
+
+The port of ``repro.models.moe``.  Token assignments are sorted by expert
+within each batch row and each expert takes its first C of them
+(``capacity``), giving dense ``[B, E, C, D]`` buffers; the three expert
+products are plain batched products (cuBLAS on the card), as in the
+reference, which has no Pallas kernel here.  The reference's ``shard()``
+constraints are single-device no-ops and are dropped (the sharding rules
+are ROADMAP queue 1 item 15e-3).
+
+Where the reference leaves an order to its library, the port fixes the
+one the reference computes:
+
+- top-k by a stable descending sort, so that tied probabilities pick the
+  lower expert first, as ``jax.lax.top_k`` does;
+- the assignments sorted by a stable ``argsort``, as ``jnp.argsort``;
+- the combine adds each token's kept contributions one after another in
+  the model dtype, in the order of the reference's scatter-add (expert
+  ascending), without atomics: with K = 6 in bfloat16 the sum depends on
+  its order.
+
+The load-balancing aux loss multiplies each expert's count of assignments
+by ``1 / (B S K)``, one rounding where the reference adds the constant once
+per assignment (the two may differ in the last bits).  Nothing in the block
+reads a value back to the host or copies one to the card.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+from torch.profiler import record_function
+
+from .config import LMConfig
+from .layers import dense_init, dtype_of, param, rms_norm, rms_norm_init
+
+
+# The profiler ranges of the block's pieces: the norm, the router and the
+# capacity sort with the gathers into the experts' slots, the three expert
+# products, and the gating and the combine (forward passes; the backward
+# runs in autograd's own nodes).
+RANGES = ("moe dispatch", "moe expert products", "moe combine")
+
+
+def _expert_init(gen, shape, scale: float, dtype, device) -> torch.Tensor:
+    w = torch.empty(shape, dtype=torch.float32, device=device)
+    if gen is not None:
+        w.normal_(generator=gen).mul_(scale)
+    return w.to(dtype)
+
+
+class MoE(nn.Module):
+    """The parameters of one MoE block (``moe_init``): ``norm`` [D],
+    ``router`` [D, E] (float32), ``we1`` and ``we3`` [E, D, F] (gate and
+    up) and ``we2`` [E, F, D] (down) in the model dtype."""
+
+    def __init__(self, cfg: LMConfig, device, gen=None):
+        super().__init__()
+        D, Fd, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+        dt = dtype_of(cfg)
+        self.norm = param(rms_norm_init(D, device))
+        self.router = param(dense_init(gen, D, E, torch.float32, device))
+        self.we1 = param(_expert_init(gen, (E, D, Fd), D ** -0.5, dt, device))
+        self.we3 = param(_expert_init(gen, (E, D, Fd), D ** -0.5, dt, device))
+        self.we2 = param(_expert_init(gen, (E, Fd, D), Fd ** -0.5, dt,
+                                      device))
+
+    def forward(self, x: torch.Tensor, cfg: LMConfig,
+                capacity_factor: float | None = None):
+        """:func:`moe_mlp` on this block."""
+        return moe_mlp(self, x, cfg, capacity_factor)
+
+
+def capacity(cfg: LMConfig, S: int, capacity_factor: float | None = None
+             ) -> int:
+    """Slots an expert has in a row of S tokens: 1 at decode (a token's
+    top-k experts are distinct, so one slot each drops nothing), else
+    ``S K cf / E`` + 1 rounded up to a multiple of 8 (at least 8); cf is
+    ``capacity_factor``, by default the config's."""
+    if S == 1:
+        return 1
+    cf = cfg.capacity_factor if capacity_factor is None else capacity_factor
+    c = int(S * cfg.top_k * cf / cfg.n_experts) + 1
+    return max(8, -(-c // 8) * 8)
+
+
+def route(p: MoE, h: torch.Tensor, cfg: LMConfig):
+    """The router on normed states h [B, S, D]: float32 probabilities
+    [B, S, E], the top-k gates renormalised to sum to 1 and the chosen
+    experts [B, S, K] (highest first; among ties the lower index)."""
+    probs = torch.softmax(h.float() @ p.router, dim=-1)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    K = cfg.top_k
+    gates, eidx = vals[..., :K], idx[..., :K]
+    gates = gates / gates.sum(-1, keepdim=True).clamp(min=1e-9)
+    return probs, gates, eidx
+
+
+def aux_loss(probs: torch.Tensor, eidx: torch.Tensor, E: int) -> torch.Tensor:
+    """Switch load balancing: ``E * sum_e mean(probs)_e * frac_e``, frac_e
+    the share of the B S K assignments that chose expert e."""
+    me = probs.mean(dim=(0, 1))
+    flat = eidx.reshape(-1)
+    # Integer counts by scatter_add_ (bincount would read its input's
+    # largest value back to the host); the share a Python scalar, which
+    # the product takes in float32 without a copy to the card.
+    counts = torch.zeros(E, dtype=torch.long, device=flat.device)
+    ce = (counts.scatter_add_(0, flat, torch.ones_like(flat)).float()
+          * (1.0 / eidx.numel()))
+    return E * torch.sum(me * ce)
+
+
+def dispatch(eidx: torch.Tensor, E: int, C: int):
+    """The per-row capacity sort of the assignments eidx [B, S, K]:
+    ``tok`` [B, E, C], the token each expert slot takes (clamped in
+    range where the slot is empty), ``valid`` [B, E, C], ``assign`` [B,
+    E, C], the assignment (s K + k) in each slot, and ``slot`` [B, S K],
+    the slot e C + c each assignment lands in (C or more past capacity:
+    dropped)."""
+    B, S, K = eidx.shape
+    flat_e = eidx.reshape(B, S * K)
+    order = torch.argsort(flat_e, dim=-1, stable=True)
+    counts = torch.zeros(B, E, dtype=torch.long, device=eidx.device)
+    counts.scatter_add_(1, flat_e, torch.ones_like(flat_e))
+    starts = torch.cumsum(counts, dim=-1) - counts
+    cs = torch.arange(C, device=eidx.device)
+    slots = starts[:, :, None] + cs                       # [B, E, C]
+    valid = cs < counts[:, :, None]
+    assign = torch.gather(order, 1, slots.clamp(max=S * K - 1).reshape(
+        B, E * C)).reshape(B, E, C)
+    # Each assignment's rank in the sorted order, less its expert's start:
+    # its slot within the expert.
+    rank = torch.empty_like(order).scatter_(
+        1, order, torch.arange(S * K, device=eidx.device).expand(B, -1))
+    within = rank - torch.gather(starts, 1, flat_e)
+    slot = torch.where(within < C, flat_e * C + within, E * C)
+    return assign // K, valid, assign, slot
+
+
+def combine(ye: torch.Tensor, slot: torch.Tensor, eidx: torch.Tensor):
+    """The experts' gated outputs ye [B, E, C, D] summed back per token
+    [B, S, D]: each token's kept contributions added one after another in
+    ye's dtype, its experts ascending (the reference's scatter-add order:
+    expert, then slot), starting from zero."""
+    B, E, C, D = ye.shape
+    S, K = eidx.shape[1:]
+    # The token's assignments with their experts in ascending order.
+    perm = torch.argsort(eidx, dim=-1)
+    slot = torch.gather(slot.reshape(B, S, K), 2, perm)
+    kept = slot < E * C
+    rows = torch.gather(ye.reshape(B, E * C, D), 1,
+                        torch.where(kept, slot, 0).reshape(B, S * K, 1)
+                        .expand(-1, -1, D)).reshape(B, S, K, D)
+    rows = torch.where(kept[..., None], rows, 0)
+    y = torch.zeros(B, S, D, dtype=ye.dtype, device=ye.device)
+    for k in range(K):
+        y = y + rows[:, :, k]
+    return y
+
+
+def gather(h: torch.Tensor, gates: torch.Tensor, tok, valid, assign):
+    """The experts' inputs xe [B, E, C, D] (the normed states of each
+    slot's token) and the slots' gates [B, E, C] (float32, 0 in the empty
+    slots)."""
+    B, _, D = h.shape
+    E, C = tok.shape[1:]
+    gsel = torch.gather(gates.reshape(B, -1), 1, assign.reshape(B, E * C))
+    gsel = torch.where(valid, gsel.reshape(B, E, C), 0.0)
+    xe = torch.gather(h, 1, tok.reshape(B, E * C, 1).expand(-1, -1, D))
+    return xe.reshape(B, E, C, D), gsel
+
+
+def experts(p: MoE, xe: torch.Tensor) -> torch.Tensor:
+    """Each expert's SwiGLU MLP on its slots: [B, E, C, D] -> [B, E, C,
+    D], three batched products over the experts."""
+    a = torch.einsum("becd,edf->becf", xe, p.we1)
+    b = torch.einsum("becd,edf->becf", xe, p.we3)
+    return torch.einsum("becf,efd->becd", F.silu(a) * b, p.we2)
+
+
+def moe_mlp(p: MoE, x: torch.Tensor, cfg: LMConfig,
+            capacity_factor: float | None = None):
+    """x [B, S, D] -> (x + the experts' mixture [B, S, D], the aux loss, a
+    float32 scalar).  ``capacity_factor`` overrides the config's (a
+    dropless check).  The pieces run under ``torch.profiler`` ranges
+    (``RANGES``), so that a profile attributes their device time."""
+    E = cfg.n_experts
+    C = capacity(cfg, x.shape[1], capacity_factor)
+    with record_function(RANGES[0]):
+        h = rms_norm(x, p.norm, cfg.norm_eps)
+        probs, gates, eidx = route(p, h, cfg)
+        aux = aux_loss(probs, eidx, E)
+        tok, valid, assign, slot = dispatch(eidx, E, C)
+        xe, gsel = gather(h, gates, tok, valid, assign)
+    with record_function(RANGES[1]):
+        ye = experts(p, xe)
+    with record_function(RANGES[2]):
+        ye = ye * gsel[..., None].to(ye.dtype)
+        y = x + combine(ye, slot, eidx).to(x.dtype)
+    return y, aux

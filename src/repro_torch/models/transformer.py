@@ -1,25 +1,30 @@
 """Decoder layers: the port of ``repro.models.transformer``.
 
-Layers are grouped into homogeneous runs (``LMConfig.layer_plan``).  Where
-the reference stacks a group's parameters on a leading axis and applies
-them with ``lax.scan``, the port keeps an ``nn.ModuleList`` of
-:class:`Layer` modules per group and runs them one after another; the
-group's caches stay stacked on a leading layer axis, as in the reference
-(``{"k": [n, B, Sc, Hkv, hd], "v": ...}`` for attention, nested dicts for
-a super-block), and layer i works on their slice i in place.
+Layers are grouped into homogeneous runs (``LMConfig.layer_plan``; an
+encoder-decoder model's decoder is one group of ``xdec`` layers and its
+encoder one of ``attn``).  Where the reference stacks a group's
+parameters on a leading axis and applies them with ``lax.scan``, the port
+keeps an ``nn.ModuleList`` of :class:`Layer` modules per group and runs
+them one after another; the group's caches stay stacked on a leading
+layer axis, as in the reference (``{"k": [n, B, Sc, Hkv, hd], "v": ...}``
+for attention, nested dicts for a super-block or a cross-attention
+layer), and layer i works on their slice i in place.
 
 Layer kinds:
 
-- ``attn``  — GQA attention + SwiGLU MLP (dense);
+- ``attn``  — GQA attention + SwiGLU MLP (dense; the encoder's layers
+  with the mask off);
+- ``moe``   — GQA attention + top-k MoE MLP (``models.moe``); its
+  training pass also returns the load-balancing aux loss;
 - ``lattn`` — local (sliding-window) attention + MLP (griffin), its cache
   ``min(cache_len, window)`` positions, a ring when the window is shorter;
 - ``rec``   — RG-LRU recurrent block + MLP (griffin);
 - ``mamba`` — Mamba-1 block;
 - ``super`` — one griffin super-block: ``cfg.pattern`` of ``rec`` and
-  ``lattn`` sub-blocks ``s0``, ``s1``, ...
-
-The other kinds raise ``NotImplementedError`` naming the ROADMAP item
-that brings them.
+  ``lattn`` sub-blocks ``s0``, ``s1``, ...;
+- ``xdec``  — decoder layer of an encoder-decoder model: self-attention,
+  cross-attention to the encoder's output (the memory), MLP; its cache
+  ``{"self": attention cache, "cross": the memory's K and V}``.
 """
 from __future__ import annotations
 
@@ -29,15 +34,9 @@ from torch import nn
 
 from . import layers as L
 from .config import LMConfig
+from .moe import MoE
 from .rglru import RGLRU, rglru_cache_init, rglru_decode, rglru_train
 from .ssm import Mamba, mamba_cache_init, mamba_decode, mamba_train
-
-# The layer kinds still to come, and the ROADMAP item that brings each.
-LATER = {
-    "moe": "MoE layers (models/moe.py) wait for ROADMAP queue 1 item 15e",
-    "xdec": "encoder-decoder layers wait for the enc-dec slice (ROADMAP "
-            "queue 1 item 15e)",
-}
 
 
 def _sub_kind(ch: str) -> str:
@@ -57,17 +56,18 @@ def leaf_kinds(cfg: LMConfig) -> Counter:
 
 class Layer(nn.Module):
     """One layer of ``kind`` with the reference's parameters
-    (``layer_init``: ``attn`` and ``mlp``, ``rec`` and ``mlp``, ``mamba``,
-    or the sub-layers ``s0``...), and the three passes over them:
-    ``forward`` (the full-sequence pass of training), ``prefill`` and
-    ``decode``."""
+    (``layer_init``: ``attn`` and ``mlp``, ``attn`` and ``moe``, ``rec``
+    and ``mlp``, ``mamba``, ``attn``, ``xattn`` and ``mlp``, or the
+    sub-layers ``s0``...), and the three passes over them: ``run`` (the
+    full-sequence pass of training, which ``forward`` calls), ``prefill``
+    and ``decode``.  An ``xdec`` layer takes the encoder's output
+    (``memory`` [B, Sm, D]) in the full-sequence passes and the memory's
+    valid length (``mem_len`` [B]) at decode."""
 
     def __init__(self, kind: str, cfg: LMConfig, device, gen=None):
         super().__init__()
-        if kind in LATER:
-            raise NotImplementedError(f"layer kind {kind!r}: {LATER[kind]}")
         self.kind, self.cfg = kind, cfg
-        if kind in ("attn", "lattn"):
+        if kind in ("attn", "lattn", "moe", "xdec"):
             self.attn = L.Attention(cfg, device, gen)
         elif kind == "rec":
             self.rec = RGLRU(cfg, device, gen)
@@ -80,31 +80,50 @@ class Layer(nn.Module):
                 self.add_module(f"s{i}", sub)
         else:
             raise ValueError(kind)
-        if kind in ("attn", "lattn", "rec"):
+        if kind == "moe":
+            self.moe = MoE(cfg, device, gen)
+        if kind == "xdec":
+            self.xattn = L.CrossAttention(cfg, device, gen)
+        if kind in ("attn", "lattn", "rec", "xdec"):
             self.mlp = L.MLP(cfg, device, gen)
         # The local-attention window (None: global attention).
         self.window = (cfg.window or None) if kind == "lattn" else None
 
-    def forward(self, x, pos, causal: bool = True):
+    def forward(self, x, pos, causal: bool = True, memory=None):
+        return self.run(x, pos, causal, memory)[0]
+
+    def run(self, x, pos, causal: bool = True, memory=None):
+        """The training pass: (x, aux), aux the MoE layer's load-balancing
+        loss (a float32 scalar) or None for the other kinds."""
         cfg = self.cfg
         if self.kind == "super":
             for sub in self.subs:
                 x = sub(x, pos, causal)
-            return x
+            return x, None
         if self.kind == "mamba":
-            return mamba_train(self.mamba, x, cfg)
+            return mamba_train(self.mamba, x, cfg), None
         if self.kind == "rec":
             x = rglru_train(self.rec, x, cfg)
+        elif self.kind in ("moe", "xdec"):
+            # Causal whatever the caller asks, as in the reference.
+            x = L.attn_train(self.attn, x, cfg, pos)
         else:
             # A local-attention layer is causal whatever the caller asks,
             # as in the reference.
             x = L.attn_train(self.attn, x, cfg, pos, window=self.window,
                              causal=causal or self.kind == "lattn")
-        return L.mlp(self.mlp, x, cfg)
+        if self.kind == "moe":
+            return self.moe(x, cfg)
+        if self.kind == "xdec":
+            x = L.xattn(self.xattn, x, memory, cfg)
+        return L.mlp(self.mlp, x, cfg), None
 
-    def prefill(self, x, pos, cache_len: int):
+    def prefill(self, x, pos, cache_len: int, memory=None,
+                capacity_factor: float | None = None):
         """Returns (x, cache); an attention cache is zero-padded to
-        ``cache_len`` (``min(cache_len, window)`` for ``lattn``)."""
+        ``cache_len`` (``min(cache_len, window)`` for ``lattn``).  An MoE
+        layer runs at the prompt's capacity (``capacity_factor``, by
+        default the config's) and its aux loss is dropped."""
         cfg = self.cfg
         if self.kind == "super":
             cache = {}
@@ -120,11 +139,17 @@ class Layer(nn.Module):
             x, cache = L.attn_prefill(
                 self.attn, x, cfg, pos, window=w,
                 cache_len=min(cache_len, w) if w else cache_len)
+        if self.kind == "moe":
+            return self.moe(x, cfg, capacity_factor)[0], cache
+        if self.kind == "xdec":
+            x = L.xattn(self.xattn, x, memory, cfg)
+            cache = {"self": cache,
+                     "cross": L.xattn_kv(self.xattn, memory, cfg)}
         return L.mlp(self.mlp, x, cfg), cache
 
-    def decode(self, x, cache: dict, length):
+    def decode(self, x, cache: dict, length, mem_len=None):
         """One token; writes the new cache entries into ``cache`` in
-        place."""
+        place.  An MoE layer runs with S = 1 (one slot an expert)."""
         cfg = self.cfg
         if self.kind == "super":
             for i, sub in enumerate(self.subs):
@@ -134,12 +159,17 @@ class Layer(nn.Module):
             return mamba_decode(self.mamba, x, cache, cfg)
         if self.kind == "rec":
             x = rglru_decode(self.rec, x, cache, cfg)
+        elif self.kind == "xdec":
+            x = L.attn_decode(self.attn, x, cache["self"], cfg, length)
+            x = L.xattn_decode(self.xattn, x, cache["cross"], cfg, mem_len)
         else:
             x = L.attn_decode(self.attn, x, cache, cfg, length,
                               window=self.window)
+        if self.kind == "moe":
+            return self.moe(x, cfg)[0]
         return L.mlp(self.mlp, x, cfg)
 
-    def init_cache(self, B: int, cache_len: int) -> dict:
+    def init_cache(self, B: int, cache_len: int, mem_len: int = 0) -> dict:
         cfg = self.cfg
         device = next(self.parameters()).device
         if self.kind == "super":
@@ -149,5 +179,9 @@ class Layer(nn.Module):
             return mamba_cache_init(cfg, B, device)
         if self.kind == "rec":
             return rglru_cache_init(cfg, B, device)
-        return L.attn_cache_init(cfg, B, cache_len, device,
-                                 window=self.window)
+        cache = L.attn_cache_init(cfg, B, cache_len, device,
+                                  window=self.window)
+        if self.kind == "xdec":
+            kv = L.attn_cache_init(cfg, B, mem_len, device)
+            cache = {"self": cache, "cross": kv}
+        return cache

@@ -403,7 +403,11 @@ def attention_tile_cases() -> dict:
     d = 256, query tiles of 64 rows, 32 at d >= 128; dq 64 query rows a
     block, key tiles of 64, 32 at d >= 128): Sq and Sk one below and one
     above multiples of 32 and 64 (31, 33, 95, 97, 191, 193), windows of
-    32 and 64 keys, and g = 3 (smollm-360m's 15 query heads on 5)."""
+    32 and 64 keys, and g = 3 (smollm-360m's 15 query heads on 5).  Then
+    the MoE and encoder-decoder families' shapes: g = 6 at d = 128 with a
+    soft-cap of 30 (grok-1's 48 query heads on 8), causal with Sq = Sk and
+    a query chunk with Sq < Sk, and seamless's 16 heads of 64 attending a
+    shorter memory bidirectionally (Sq > Sk, cross-attention)."""
     specs = [
         (dict(B=1, Sq=1, Sk=1, Hq=2, Hkv=1, d=128), dict(causal=True)),
         (dict(B=1, Sq=63, Sk=63, Hq=2, Hkv=2, d=64), dict(causal=True)),
@@ -444,6 +448,11 @@ def attention_tile_cases() -> dict:
         (dict(B=1, Sq=33, Sk=97, Hq=3, Hkv=1, d=256), dict(causal=True)),
         (dict(B=1, Sq=31, Sk=33, Hq=2, Hkv=2, d=256), dict(causal=False)),
         (dict(B=1, Sq=97, Sk=31, Hq=3, Hkv=1, d=32), dict(causal=False)),
+        (dict(B=1, Sq=193, Sk=193, Hq=12, Hkv=2, d=128),
+         dict(causal=True, softcap=30.0)),
+        (dict(B=1, Sq=65, Sk=300, Hq=6, Hkv=1, d=128),
+         dict(causal=True, softcap=30.0)),
+        (dict(B=1, Sq=300, Sk=129, Hq=16, Hkv=16, d=64), dict(causal=False)),
     ]
     cases = {}
     for i, (shape, kw) in enumerate(specs):
@@ -471,7 +480,8 @@ def decode_cases() -> dict:
     ``tests/test_kernels.py::test_decode_attention`` (B = 3, lengths
     S, S // 2 and 1), ragged lengths with 0 and 1, a window, a soft-cap at
     qwen3's grouping and head dim, head dim 256 with 8 query rows per KV
-    head, and 16 query rows per KV head (two row chunks in the kernel)."""
+    head, 16 query rows per KV head (two row chunks in the kernel), and
+    grok-1's grouping (6 query rows per KV head of 128, soft-cap 30)."""
     specs = [
         (dict(S=33, Hq=4, Hkv=2, d=16), None, {}),
         (dict(S=64, Hq=8, Hkv=8, d=32), None, {}),
@@ -482,6 +492,7 @@ def decode_cases() -> dict:
         (dict(S=70, Hq=8, Hkv=1, d=256), [70, 21, 0],
          dict(window=20, softcap=30.0)),
         (dict(S=45, Hq=16, Hkv=1, d=16), [45, 44, 3], {}),
+        (dict(S=50, Hq=6, Hkv=1, d=128), [50, 1, 37], dict(softcap=30.0)),
     ]
     cases = {}
     for i, (shape, lens, kw) in enumerate(specs):
@@ -504,7 +515,9 @@ def decode_split_cases() -> dict:
     in one call, a window, a soft-cap, the recurrentgemma ring (lengths
     clamped to S, no window), one split only (no partials), the most
     splits (64), query heads per KV head g in {1, 2, 8, 16} and 24 (two
-    row chunks of the tensor-core kernel), head dims 16 to 256."""
+    row chunks of the tensor-core kernel), head dims 16 to 256; grok-1's
+    serve cache (48 query heads on 8 of 128, soft-cap 30, 4096 positions)
+    and seamless's cross cache (16 heads of 64 over a 1024-frame memory)."""
     specs = [
         (dict(S=1024, Hq=2, Hkv=2, d=64), [0, 1, 255, 256, 257, 1024], {}),
         (dict(S=2000, Hq=4, Hkv=2, d=128), [2000, 1999, 513, 511, 512, 1],
@@ -520,6 +533,9 @@ def decode_split_cases() -> dict:
         (dict(S=1024, Hq=24, Hkv=1, d=64), [1024, 257], {}),
         (dict(S=64, Hq=16, Hkv=1, d=128), [64, 0, 33], {}),
         (dict(S=16384, Hq=2, Hkv=1, d=64), [16384], {}),
+        (dict(S=4096, Hq=48, Hkv=8, d=128), [4096, 2049, 1],
+         dict(softcap=30.0)),
+        (dict(S=1024, Hq=16, Hkv=16, d=64), [1024, 1024, 513], {}),
     ]
     cases = {}
     for i, (shape, lens, kw) in enumerate(specs):

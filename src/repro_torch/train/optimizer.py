@@ -20,12 +20,12 @@ their own dtype):
 - a parameter is updated in float32 and cast to its dtype once.
 
 The reference stacks each group's layers on a leading axis, so a group
-parameter (a ``groups.`` name) has one axis more there: the 8-bit state
-rule, which keeps leaves of fewer than two axes in float32, counts that
-axis, so that a state carried across (``interop.adamw_state_from_jax``)
-keeps its form.  ``compressed_psum`` (the all-reduce over a mesh axis)
-needs a process group and waits for the sharding rules (ROADMAP queue 1
-item 15e).
+parameter (a ``groups.`` or ``enc_groups.`` name) has one axis more
+there: the 8-bit state rule, which keeps leaves of fewer than two axes in
+float32, counts that axis, so that a state carried across
+(``interop.adamw_state_from_jax``) keeps its form.  ``compressed_psum``
+(the all-reduce over a mesh axis) needs a process group and waits for
+the sharding rules (ROADMAP queue 1 item 15e-3).
 """
 from __future__ import annotations
 
@@ -33,6 +33,8 @@ import math
 from dataclasses import dataclass
 
 import torch
+
+from ..models.model import GROUP_KEYS
 
 
 @dataclass(frozen=True)
@@ -92,13 +94,14 @@ def dequantize_int8(q, scale, shape, block: int = 256):
 
 def stacks(names) -> list[list[str]]:
     """The parameter names as the reference's leaves: the layers of a
-    group that share a path (``groups.<g>.<i>.<path>``, i = 0, 1, ...)
-    form one stacked leaf, every other name a leaf of its own."""
+    group that share a path (``groups.<g>.<i>.<path>``, i = 0, 1, ...;
+    likewise ``enc_groups``) form one stacked leaf, every other name a
+    leaf of its own."""
     out, at = [], {}
     for name in names:
         parts = name.split(".", 3)
-        if parts[0] == "groups" and len(parts) == 4:
-            key = (parts[1], parts[3])
+        if parts[0] in GROUP_KEYS and len(parts) == 4:
+            key = (parts[0], parts[1], parts[3])
             if key not in at:
                 at[key] = len(out)
                 out.append([])
@@ -155,7 +158,7 @@ def _dq8(t) -> torch.Tensor:
 def stacked_ndim(name: str, x: torch.Tensor) -> int:
     """The number of axes the leaf has in the reference, whose groups
     stack their layers on a leading axis."""
-    return x.dim() + (1 if name.startswith("groups.") else 0)
+    return x.dim() + (1 if name.split(".", 1)[0] in GROUP_KEYS else 0)
 
 
 def _maybe_q8(name: str, x: torch.Tensor, use: bool):
@@ -192,9 +195,15 @@ def global_norm(tree: dict) -> torch.Tensor:
 
 
 @torch.no_grad()
-def adamw_update(cfg: OptConfig, grads: dict, state: dict, params: dict):
+def adamw_update(cfg: OptConfig, grads: dict, state: dict, params: dict,
+                 donate: bool = False):
     """Returns (new_params, new_state, metrics): new tensors, the inputs
-    untouched.  Metrics: ``grad_norm`` (before clipping) and ``lr``.
+    untouched, unless ``donate``: then each leaf's gradient and old
+    moments are taken out of ``grads`` and ``state`` as its new moments
+    are made, so that the old and the new state never live whole at once
+    (the caller passes a state it will not read again, as the reference's
+    launcher donates its state to the jitted step).  Metrics:
+    ``grad_norm`` (before clipping) and ``lr``.
 
     Each leaf's float32 gradient is made when its update runs, and the
     update's intermediates are computed in place on tensors the update
@@ -219,12 +228,13 @@ def adamw_update(cfg: OptConfig, grads: dict, state: dict, params: dict):
     bc1 = 1 - b1 ** stepf
     bc2 = 1 - b2 ** stepf
     new_params, new_m, new_v = {}, {}, {}
+    take = dict.pop if donate else dict.__getitem__
     for name, p in params.items():
-        g = grads[name].float()
+        g = take(grads, name).float()
         if scale is not None:
             g = g * scale
-        m = b1 * _dq8(state["m"][name]) + (1 - b1) * g
-        v = b2 * _dq8(state["v"][name]) + (1 - b2) * g * g
+        m = b1 * _dq8(take(state["m"], name)) + (1 - b1) * g
+        v = b2 * _dq8(take(state["v"], name)) + (1 - b2) * g * g
         del g
         delta = m / bc1                                    # mh
         den = v / bc2                                      # vh

@@ -6,7 +6,11 @@ the parameters are the model's own (``LM.named_parameters``): a step
 differentiates ``model.loss_fn`` with autograd, computes the update
 functionally (``optimizer.adamw_update``) and copies the new values into
 the model's parameters in place, so that the model always holds the
-state's parameters.  The batch is split on its leading axis into
+state's parameters.  A step consumes its input state: the update takes
+each leaf's old moments out of it as it makes the new ones (``donate``),
+as the reference's launcher donates the state to its jitted step, so
+that two AdamW states never live whole at once (moonshot-v1-16b-a3b at 4
+layers: 23.6 GB of float32 moments each).  The batch is split on its leading axis into
 ``microbatches``; their gradients are accumulated in ``accum_dtype``
 (float32 by default, whatever the parameters' dtype), then divided by the
 count, as the reference does.
@@ -64,7 +68,7 @@ def build_train_step(model: LM, opt_cfg: OptConfig, *, microbatches: int = 1,
             loss = loss / microbatches
             metrics = {}
         new_params, new_opt, opt_metrics = adamw_update(
-            opt_cfg, grads, state["opt"], params)
+            opt_cfg, grads, state["opt"], params, donate=True)
         with torch.no_grad():
             for n in names:
                 params[n].copy_(new_params[n])

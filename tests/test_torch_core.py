@@ -215,9 +215,12 @@ def test_interop_normalizers_roundtrip():
 
 def test_unported_parts_refuse_by_name():
     # The 3D families, the archive and sharding are ported (queue 1 items
-    # 12 and 13); what is left refuses by its ROADMAP item.
-    with pytest.raises(NotImplementedError, match="queue 1 item 15e"):
-        interop.lm_params_from_jax({"enc_groups": []})
+    # 12 and 13), and so is the encoder-decoder family (15e-2): its
+    # encoder's groups are carried across, and a subtree the reference's
+    # parameters do not have is refused by name.
+    assert interop.lm_params_from_jax({"enc_groups": []}) == {}
+    with pytest.raises(ValueError, match="'extra'"):
+        interop.lm_params_from_jax({"extra": {"w": np.zeros(2, np.float32)}})
     with pytest.raises(TypeError, match="device_stage_key"):
         DevicePipeline._stages(object(), "cpu")
     rep = tapi.make_rep(tchiplets.resolve_arch("stack3d32"), "stack3d32")

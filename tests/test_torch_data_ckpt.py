@@ -15,7 +15,7 @@ on the CPU.
   bit (parameters, optimizer state, losses); the straggler watermark.
 - ``python -m repro_torch.launch.train --smoke --device cpu --steps 3``
   prints the reference's ``[train] done`` line; ``--model-par 2`` raises
-  naming ROADMAP item 15e.
+  naming ROADMAP item 15e-3.
 """
 import json
 import os
@@ -224,6 +224,6 @@ def test_launcher_prints_the_done_line(tmp_path):
 
 
 def test_launcher_refuses_model_parallelism(tmp_path):
-    with pytest.raises(NotImplementedError, match="15e"):
+    with pytest.raises(NotImplementedError, match="15e-3"):
         launch_train.main(["--smoke", "--device", "cpu", "--model-par", "2",
                            "--ckpt-dir", str(tmp_path)])

@@ -198,6 +198,27 @@ def _close_state(got, want, name):
                         atol=OPT_TOL * float(want.abs().max()), err_msg=name)
 
 
+@pytest.mark.parametrize("mode", ["plain", "state_int8"])
+def test_adamw_update_donated_equals_functional(mode):
+    """``donate=True`` gives the functional update's bits and takes every
+    gradient and old moment out of its inputs."""
+    jp, grads = _opt_inputs("bfloat16", 1e-3)
+    _, tcfg = _opt_cfgs(**({} if mode == "plain" else {mode: True}))
+    params = lm_params_from_jax(jax.tree.map(_np, jp))
+    g = lm_params_from_jax(jax.tree.map(_np, grads[0]))
+    state = topt.adamw_init(tcfg, params)
+    want = topt.adamw_update(tcfg, g, state, params)
+    got = topt.adamw_update(tcfg, dict(g), {**state, "m": dict(state["m"]),
+                                            "v": dict(state["v"])},
+                            params, donate=True)
+    for a, b in zip(jax.tree.leaves(got[:2]), jax.tree.leaves(want[:2])):
+        assert torch.equal(a, b)
+    donated_g = dict(g)
+    donated = {**state, "m": dict(state["m"]), "v": dict(state["v"])}
+    topt.adamw_update(tcfg, donated_g, donated, params, donate=True)
+    assert donated_g == {} and donated["m"] == {} and donated["v"] == {}
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("mode", ["plain", "compress_int8", "state_int8"])
 def test_adamw_update_matches_reference(mode, dtype):

@@ -23,6 +23,11 @@
   for reduced falcon-mamba-7b (2 layers) and recurrentgemma-9b (3 layers,
   S past its window), with ``testing.plain_selective_scan`` and
   ``plain_rglru_scan`` in the scans' places as well.
+- The same step for reduced grok-1-314b and moonshot-v1-16b-a3b (MoE)
+  and seamless-m4t-medium (encoder, decoder and cross-attention over a
+  memory shorter than the decoder's sequence).
+- The MoE block makes no host sync (``torch.cuda.set_sync_debug_mode``)
+  at a training shape, its backward included, and at decode.
 - Decode attention, which has no backward, raises on operands that
   require a gradient under grad mode and runs under ``torch.no_grad``;
   the two scans launch their forward and backward kernels under grad.
@@ -46,6 +51,7 @@ from repro_torch.kernels import rglru_scan as trg
 from repro_torch.kernels import rglru_scan_bwd as trb
 from repro_torch.kernels import selective_scan as tss
 from repro_torch.kernels import selective_scan_bwd as tsb
+from repro_torch.models import moe as tmoe
 from repro_torch.models.model import LM
 
 pytestmark = pytest.mark.gpu
@@ -249,6 +255,75 @@ def test_recurrent_train_step_kernels_match_plain(cuda, arch):
         gk = grads_k[name]
         atol = 1e-4 * float(gp.abs().max())
         assert float((gk - gp).abs().max()) <= atol, name
+
+
+# The MoE and encoder-decoder families' steps: reduced (float32), depth 2,
+# seamless with a 150-frame memory (its cross-attention Sq > Sk).
+NEW_FAMILIES = ("grok-1-314b", "moonshot-v1-16b-a3b", "seamless-m4t-medium")
+
+
+@pytest.mark.parametrize("arch", NEW_FAMILIES)
+def test_new_family_train_step_kernels_match_plain(cuda, arch):
+    cfg = get_config(arch).reduced(n_layers=2)
+    model = LM(cfg, cuda, torch.Generator(cuda).manual_seed(0))
+    model.requires_grad_(True)
+    batch = TokenStream(DataConfig(vocab=cfg.vocab, seq_len=200,
+                                   global_batch=2), device=cuda).batch_at(0)
+    if cfg.family == "encdec":
+        batch["src_embeds"] = torch.randn(
+            2, 150, cfg.d_model, device=cuda,
+            generator=torch.Generator(cuda).manual_seed(1))
+    tref.calls.clear()
+    fwd, bwd = tfa.launches, tfb.launches
+    loss_k, grads_k = _loss_and_grads(model, batch)
+    torch.cuda.synchronize()
+    assert sum(tref.calls.values()) == 0
+    # One forward and one backward launch a self-attention layer, and for
+    # seamless a cross-attention and an encoder layer more.
+    n = cfg.n_layers * (2 if cfg.family == "encdec" else 1) \
+        + cfg.n_enc_layers
+    assert tfb.launches - bwd == n
+    assert tfa.launches - fwd >= n
+    flash = ops.flash_attention
+    ops.flash_attention = testing.plain_attention
+    try:
+        loss_p, grads_p = _loss_and_grads(model, batch)
+    finally:
+        ops.flash_attention = flash
+    assert abs(float(loss_k) - float(loss_p)) <= 1e-5 * abs(float(loss_p))
+    for name, gp in grads_p.items():
+        gk = grads_k[name]
+        atol = 1e-4 * float(gp.abs().max())
+        assert float((gk - gp).abs().max()) <= atol, name
+
+
+@pytest.mark.parametrize("S", (200, 1))
+def test_moe_block_makes_no_host_sync(cuda, S):
+    """The MoE block of reduced moonshot-v1-16b-a3b with 6 of 16 experts
+    a token, at a training shape (S = 200: forward and backward) and at
+    decode (S = 1, no grad): no host sync."""
+    cfg = get_config("moonshot-v1-16b-a3b").reduced(n_experts=16, top_k=6)
+    p = tmoe.MoE(cfg, cuda, torch.Generator(cuda).manual_seed(0))
+    x = torch.randn(2, S, cfg.d_model, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(1))
+
+    def call():
+        if S == 1:
+            with torch.no_grad():
+                return p(x, cfg)
+        xg = x.clone().requires_grad_()
+        y, aux = p(xg, cfg)
+        (y.sum() + aux).backward()
+        return y, aux
+
+    call()                          # cuBLAS and the allocator warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        call()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
 
 
 def test_kernels_without_backward_refuse_grad(cuda):
