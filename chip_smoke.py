@@ -244,6 +244,20 @@ two headers):
      its RG-LRU Lambda negated, where the states carry (as initialised
      they barely do); the MoE models on a dropless copy of their configs,
      the token's routing in the two paths printed layer by layer;
+   - slice 17, model parallelism (``sharding_phase``): a one-rank NCCL
+     group (a ``FileStore`` under ``build/``), a (1, 1) ``DeviceMesh``,
+     and ``launch.train.sharded_training``'s DTensor step against the
+     plain step from the same seed, in turns, equal bit for bit after
+     every step (loss, gradient norm, every parameter): smollm-360m at
+     full width and depth (``TRAIN_*``: B = 8, S = 2048, bf16, remat), 4
+     steps, both attention kernels launched on the local shards and no
+     plain call, each path's median step printed; falcon-mamba-7b and
+     moonshot-v1-16b-a3b at full width and one layer, 2 steps each (the
+     selective-scan kernels, the MoE block's per-row pieces and experts
+     on the shards); ``compressed_psum`` over the group on a float32
+     8192 x 8192 tensor, bit for bit ``dequantize_int8(quantize_int8(x))``,
+     timed; ``launch.train --model-par 2`` on the one card failing on the
+     reference's assertion.  More cards than one are not measured;
 6. profile — ``torch.profiler`` over one blocked FW call at homog256
    (device time by kernel) and one homog256 placeit run through the host
    GA and one through ga-batched (device busy share, the copies' time by
@@ -277,6 +291,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
@@ -324,6 +339,8 @@ from repro_torch.train.loop import LoopConfig  # noqa: E402
 from repro_torch.train.loop import run as train_loop_run  # noqa: E402
 from repro_torch.train.optimizer import OptConfig  # noqa: E402
 from repro_torch.train.step import build_train_step, init_state  # noqa: E402
+from repro_torch.train import optimizer as topt  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.serve.engine import (EngineConfig, Request,  # noqa: E402
                                       ServeEngine)
 
@@ -3153,6 +3170,149 @@ def _profiled_step(step, state, batch, moe_layers: int = 0):
     return state
 
 
+# -- model parallelism (slice 17) --------------------------------------------
+# The DTensor step on a (1, 1) mesh of one NCCL rank against the plain step
+# from the same seed: smollm-360m at TRAIN_* for SHARD_STEPS steps, then
+# (arch, layers, B) at full width, S = RTRAIN_S, SHARD_FAMILY_STEPS steps.
+SHARD_STEPS = 4
+SHARD_FAMILY = (("falcon-mamba-7b", 1, 2), ("moonshot-v1-16b-a3b", 1, 1))
+SHARD_FAMILY_STEPS = 2
+SHARD_KERNELS = {TRAIN_ARCH: ("flash_attention", "flash_attention_bwd"),
+                 "falcon-mamba-7b": ("selective_scan", "selective_scan_bwd"),
+                 "moonshot-v1-16b-a3b": ("flash_attention",
+                                         "flash_attention_bwd")}
+PSUM_SHAPE = (8192, 8192)
+SHARD_DIR = Path(__file__).resolve().parent / "build" / "smoke_shard"
+
+
+def _lockstep(arch: str, cfg, B: int, S: int, steps: int, mesh, dev
+              ) -> dict:
+    """``steps`` plain and DTensor steps in turns from one seed (each
+    timed on the host clock to a synchronisation), held equal bit for bit
+    after every step; the counts are set to 0 just before each DTensor
+    step and read just after.  Returns the DTensor steps' launches."""
+    ocfg = OptConfig(lr=TRAIN_LR, total_steps=TRAIN_STEPS, warmup_steps=5)
+    gc.collect()
+    torch.cuda.empty_cache()
+    plain_model = LM(cfg, dev, torch.Generator(dev).manual_seed(0))
+    plain_step = build_train_step(plain_model, ocfg)
+    plain_state = init_state(plain_model, ocfg)
+    model = LM(cfg, dev, torch.Generator(dev).manual_seed(0))
+    state, step, _ = launch_train.sharded_training(model, ocfg, mesh)
+    launches = dict.fromkeys(KERNELS, 0)
+    calls = 0
+    t_plain, t_dt = [], []
+    for i in range(steps):
+        batch = lm_batch(cfg, B, S, i, dev)
+        t0 = time.monotonic()
+        plain_state, mp_ = plain_step(plain_state, batch)
+        torch.cuda.synchronize()
+        t_plain.append(time.monotonic() - t0)
+        reset_counts()
+        t0 = time.monotonic()
+        state, md = step(state, batch)
+        torch.cuda.synchronize()
+        t_dt.append(time.monotonic() - t0)
+        n, c = read_counts()
+        calls += c
+        for k, v in n.items():
+            launches[k] += v
+        differ = [name for name, p in plain_state["params"].items()
+                  if not torch.equal(p, state["params"][name].full_tensor())]
+        same = (torch.equal(mp_["loss"], md["loss"])
+                and torch.equal(mp_["grad_norm"], md["grad_norm"]))
+        print(f"  step {i + 1}: loss {float(md['loss']):.6f} (DTensor) / "
+              f"{float(mp_['loss']):.6f} (plain), grad_norm "
+              f"{float(md['grad_norm']):.6f} / {float(mp_['grad_norm']):.6f}"
+              f"; {len(plain_state['params']) - len(differ)} of "
+              f"{len(plain_state['params'])} parameters equal; "
+              f"{1e3 * t_dt[-1]:.1f} / {1e3 * t_plain[-1]:.1f} ms",
+              flush=True)
+        if not same or differ:
+            raise SystemExit(f"{arch}: the DTensor step differs from the "
+                             f"plain step at step {i + 1} (parameters "
+                             f"{differ[:5]})")
+    print(f"  {arch}: median of steps 2-{steps}: "
+          f"{1e3 * statistics.median(t_dt[1:]):.1f} ms (DTensor, (1, 1) "
+          f"mesh) vs {1e3 * statistics.median(t_plain[1:]):.1f} ms (plain); "
+          f"step 1 {1e3 * t_dt[0]:.1f} / {1e3 * t_plain[0]:.1f} ms; "
+          f"DTensor launches {launches}; plain calls {calls}")
+    if calls or any(launches[k] <= 0 for k in SHARD_KERNELS[arch]):
+        raise SystemExit(f"{arch}: the DTensor steps did not go through "
+                         f"{SHARD_KERNELS[arch]} alone")
+    del plain_state, state, plain_model, model, step, plain_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def sharding_phase(dev) -> dict:
+    """Slice 17's main path: model parallelism's DTensor step on a (1, 1)
+    mesh of one NCCL rank, bit for bit the plain step; compressed_psum;
+    the launcher's divisibility assertion.  Returns the DTensor steps'
+    launches."""
+    phase("main path, slice 17: model parallelism on a (1, 1) DeviceMesh "
+          "of one NCCL rank: the DTensor step against the plain step, bit "
+          "for bit")
+    t_phase = time.monotonic()
+    shutil.rmtree(SHARD_DIR, ignore_errors=True)
+    SHARD_DIR.mkdir(parents=True)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(SHARD_DIR / "store"), 1), rank=0, world_size=1, device_id=dev)
+    launches = dict.fromkeys(KERNELS, 0)
+    try:
+        mesh = make_host_mesh(1)
+        cfg = get_config(TRAIN_ARCH)
+        print(f"  {TRAIN_ARCH} at full width and depth ({cfg.n_layers} "
+              f"layers, bf16, remat), B = {TRAIN_B}, S = {TRAIN_S}, "
+              f"{SHARD_STEPS} steps", flush=True)
+        runs = [(TRAIN_ARCH, cfg, TRAIN_B, TRAIN_S, SHARD_STEPS)]
+        for arch, layers, B in SHARD_FAMILY:
+            runs.append((arch, dataclasses.replace(get_config(arch),
+                                                   n_layers=layers),
+                         B, RTRAIN_S, SHARD_FAMILY_STEPS))
+        for arch, cfg, B, S, steps in runs:
+            if arch != TRAIN_ARCH:
+                print(f"  {arch} at full width, {cfg.n_layers} layer, B = "
+                      f"{B}, S = {S}, {steps} steps", flush=True)
+            for k, n in _lockstep(arch, cfg, B, S, steps, mesh, dev
+                                  ).items():
+                launches[k] += n
+        x = torch.randn(PSUM_SHAPE, device=dev,
+                        generator=torch.Generator(dev).manual_seed(0))
+        want = topt.dequantize_int8(*topt.quantize_int8(x), x.shape)
+        got = topt.compressed_psum(x, "data", mesh=mesh)
+        if not torch.equal(got, want):
+            raise SystemExit("compressed_psum differs from "
+                             "dequantize_int8(quantize_int8(x))")
+        del want, got
+        ms, _ = kt.batched_ms({
+            "psum": lambda: topt.compressed_psum(x, "data", mesh=mesh),
+            "local": lambda: topt.dequantize_int8(*topt.quantize_int8(x),
+                                                  x.shape)}, 1, 10)
+        print(f"  compressed_psum over the one-rank 'data' axis, float32 "
+              f"{PSUM_SHAPE[0]} x {PSUM_SHAPE[1]}: bit for bit "
+              f"dequantize_int8(quantize_int8(x)); {ms['psum']:.3f} ms a "
+              f"call, of which the quantize-dequantize alone "
+              f"{ms['local']:.3f} ms")
+        del x
+        try:
+            launch_train.main(["--model-par", "2", "--steps", "1",
+                               "--ckpt-dir", str(SHARD_DIR / "ckpt")],
+                              log=lambda *_: None)
+        except AssertionError:
+            print("  launch.train --model-par 2 on one rank: the "
+                  "reference's assertion (the model axis must divide the "
+                  "ranks)")
+        else:
+            raise SystemExit("launch.train --model-par 2 ran on one rank")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(SHARD_DIR, ignore_errors=True)
+    print(f"  sharding phase {time.monotonic() - t_phase:.1f} s")
+    return launches
+
+
 def bridge_phase(dev) -> dict:
     """Slice 12: the co-design bridge on the card
     (``examples/design_accelerator.py``'s synthetic decode signature)."""
@@ -3215,7 +3375,7 @@ def main() -> None:
              arch3d_phase, train_phase]
     paths += [lambda d, r=r: recurrent_train_phase(d, *r) for r in RTRAIN]
     paths += [lambda d, r=r: family_train_phase(d, *r) for r in FAMILY_TRAIN]
-    for path in paths + [bridge_phase, family_serve_phase]:
+    for path in paths + [bridge_phase, family_serve_phase, sharding_phase]:
         for k, n in path(dev).items():
             launches[k] += n
     train_compare_phase(dev)

@@ -15,8 +15,16 @@ steps without a marker are ignored.  The tree is a nested dict of tensors
 (the train state), flattened in sorted-key order as the reference's
 pytrees are; bfloat16 leaves are stored as their uint16 bits (numpy has
 no bfloat16), recorded as "bfloat16" in the manifest and restored bit for
-bit.  :func:`restore` returns the tensors on ``device`` (the CPU by
-default) in place of the reference's ``shardings``.
+bit.
+
+A tree of DTensors (a model-parallel train state) is saved whole: every
+rank takes part in gathering each leaf, rank 0 alone writes, and the
+ranks meet at a barrier before :func:`save` returns, so the layout on disk
+does not depend on the mesh.  :func:`restore` returns plain tensors on
+``device`` (the CPU by default), or with ``shardings`` (a tree of
+``NamedSharding``s like the target, as ``train.step.shard_state`` gives)
+each leaf laid out on its mesh: a checkpoint saved on one mesh restores
+onto another, or onto none (elastic restore).
 """
 from __future__ import annotations
 
@@ -27,6 +35,10 @@ import tempfile
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
+
+from ..sharding.partition import place
 
 
 def _flatten(tree, prefix: str = "") -> list:
@@ -63,21 +75,43 @@ def _to_numpy(leaf) -> tuple[np.ndarray, str]:
 
 def save(dir_: str, step: int, tree, *, extras: dict | None = None,
          keep: int = 3) -> str:
-    """Atomically write a checkpoint; prune to the newest ``keep`` steps."""
+    """Atomically write a checkpoint; prune to the newest ``keep`` steps.
+    With DTensor leaves every rank must call it (rank 0 writes)."""
+    flat = _flatten(tree)
+    paths = [p for p, _ in flat]
+    if not any(isinstance(leaf, DTensor) for _, leaf in flat):
+        return _save(dir_, step, paths, (leaf for _, leaf in flat), extras,
+                     keep)
+    # Each leaf gathered whole on every rank (a collective, in the one
+    # order every rank flattens the tree in); rank 0 writes them one by
+    # one, the others only take part; then a barrier.
+    whole = (leaf.full_tensor() if isinstance(leaf, DTensor) else leaf
+             for _, leaf in flat)
+    if dist.get_rank() == 0:
+        final = _save(dir_, step, paths, whole, extras, keep)
+    else:
+        for _ in whole:
+            pass
+        final = os.path.join(dir_, f"step_{step:09d}")
+    dist.barrier()
+    return final
+
+
+def _save(dir_: str, step: int, paths: list, leaves, extras, keep: int
+          ) -> str:
     os.makedirs(dir_, exist_ok=True)
     name = f"step_{step:09d}"
     final = os.path.join(dir_, name)
-    flat = _flatten(tree)
     tmp = tempfile.mkdtemp(dir=dir_, prefix=".tmp_" + name)
     try:
-        manifest = {"step": step, "n_leaves": len(flat),
+        manifest = {"step": step, "n_leaves": len(paths),
                     "extras": extras or {}, "leaves": []}
-        for i, (_, leaf) in enumerate(flat):
+        for i, leaf in enumerate(leaves):
             arr, dtype = _to_numpy(leaf)
             np.save(os.path.join(tmp, f"arr_{i:05d}.npy"), arr)
             manifest["leaves"].append({"shape": list(arr.shape),
                                        "dtype": dtype})
-        manifest["paths"] = [p for p, _ in flat]
+        manifest["paths"] = paths
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
             json.dump(manifest, f)
         if os.path.exists(final):
@@ -119,11 +153,14 @@ def latest_step(dir_: str) -> int | None:
     return steps[-1] if steps else None
 
 
-def restore(dir_: str, like, *, step: int | None = None, device=None):
+def restore(dir_: str, like, *, step: int | None = None, device=None,
+            shardings=None):
     """Restore into the structure of ``like`` (a nested dict of tensors or
     of anything with a ``shape``).  Returns (tree, step, extras), the
-    leaves on ``device`` (default: the CPU) in the checkpoint's dtypes.
-    Raises on a different leaf count or a shape mismatch."""
+    leaves on ``device`` (default: the CPU) in the checkpoint's dtypes,
+    or, with ``shardings`` (a tree like ``like`` of ``NamedSharding``s),
+    each leaf laid out on its mesh (on the mesh's device).  Raises on a
+    different leaf count or a shape mismatch."""
     step = latest_step(dir_) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no committed checkpoint in {dir_}")
@@ -147,4 +184,7 @@ def restore(dir_: str, like, *, step: int | None = None, device=None):
         else:
             t = torch.from_numpy(arr)
         leaves.append(t if device is None else t.to(device))
-    return (_unflatten(like, leaves), step, manifest.get("extras", {}))
+    tree = _unflatten(like, leaves)
+    if shardings is not None:
+        tree = place(tree, shardings)
+    return tree, step, manifest.get("extras", {})

@@ -17,8 +17,9 @@ is the same split and merge in plain PyTorch.
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
-from . import build, ref
+from . import build, on_shards, ref
 from .flash_attention import check_attention_inputs
 
 # Launches of the kernel (not of the plain version).
@@ -73,7 +74,12 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      softcap: float | None = None) -> torch.Tensor:
     """One-token GQA attention: q [B, Hq, d], caches [B, S, Hkv, d],
     lengths [B] (the valid prefix of each row) -> [B, Hq, d] in q's dtype;
-    see ``ref.decode_attention_ref``."""
+    see ``ref.decode_attention_ref``.  DTensor operands run on each rank's
+    shards (``on_shards``)."""
+    if isinstance(q, DTensor):
+        return on_shards.decode_attention(decode_attention, q, k_cache,
+                                          v_cache, lengths, scale, window,
+                                          softcap)
     if q.dim() != 3 or k_cache.dim() != 4:
         raise ValueError(f"decode_attention takes q [B, Hq, d] and caches "
                          f"[B, S, Hkv, d], got {tuple(q.shape)} and "

@@ -22,8 +22,9 @@ raises if its kernel cannot build or launch.
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
-from . import build, ref
+from . import build, on_shards, ref
 from . import flash_attention_bwd as bwd
 
 # The head dims the kernel has template instances for.
@@ -65,7 +66,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     pos_offset: int | None = None) -> torch.Tensor:
     """GQA attention: q [B, Sq, Hq, d], k and v [B, Sk, Hkv, d] ->
     [B, Sq, Hq, d] in q's dtype.  Query i sits at ``pos_offset + i``
-    (``Sk - Sq``, end-aligned, by default); see ``ref.attention_ref``."""
+    (``Sk - Sq``, end-aligned, by default); see ``ref.attention_ref``.
+    DTensor operands run on each rank's shards (``on_shards``)."""
+    if isinstance(q, DTensor):
+        return on_shards.flash_attention(flash_attention, q, k, v, causal,
+                                         window, scale, softcap, pos_offset)
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention takes [B, S, H, d] operands, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "

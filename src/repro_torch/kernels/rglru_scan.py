@@ -11,8 +11,9 @@ plain ``ref.rglru_bwd_ref`` on CPU tensors).
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
-from . import build, ref
+from . import build, on_shards, ref
 from . import rglru_scan_bwd as bwd
 from .selective_scan import check_scan_inputs
 
@@ -30,7 +31,10 @@ def rglru_scan(x: torch.Tensor, a: torch.Tensor,
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """RG-LRU recurrence: x, a [B, S, D] (one dtype, float32 or bfloat16),
     h0 [B, D] (float32; zeros by default) -> (every h [B, S, D] in x's
-    dtype, h_final [B, D] float32); see ``ref.rglru_ref``."""
+    dtype, h_final [B, D] float32); see ``ref.rglru_ref``.  DTensor
+    operands run on each rank's shards (``on_shards``)."""
+    if isinstance(x, DTensor):
+        return on_shards.rglru_scan(rglru_scan, x, a, h0)
     if not isinstance(x, torch.Tensor) or x.dim() != 3:
         raise ValueError("rglru_scan takes x [B, S, D]")
     B, S, D = x.shape

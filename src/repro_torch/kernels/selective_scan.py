@@ -13,8 +13,9 @@ an operand requiring a gradient) the wrapper goes through
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
-from . import build, ref
+from . import build, on_shards, ref
 from . import selective_scan_bwd as bwd
 
 # The largest state size N the kernel holds in registers (8 lanes a
@@ -63,7 +64,11 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     """Mamba-1 selective scan: x, dt [Bt, S, Di] (float32 or bfloat16),
     A [Di, N], B and C [Bt, S, N], D [Di], h0 [Bt, Di, N] (float32; zeros
     by default) -> (y [Bt, S, Di] in x's dtype, h_final [Bt, Di, N]
-    float32); see ``ref.selective_scan_ref``."""
+    float32); see ``ref.selective_scan_ref``.  DTensor operands run on
+    each rank's shards (``on_shards``)."""
+    if isinstance(x, DTensor):
+        return on_shards.selective_scan(selective_scan, x, dt, A, B, C, D,
+                                        h0)
     if not isinstance(x, torch.Tensor) or x.dim() != 3:
         raise ValueError("selective_scan takes x [Bt, S, Di]")
     if not isinstance(A, torch.Tensor) or A.dim() != 2:

@@ -11,8 +11,10 @@ such a module as ``p``, in the reference's order of operations:
 - attention goes through ``kernels.ops`` (the CUDA kernels on the card,
   the plain versions on the CPU).
 
-The reference's ``shard()`` constraints are single-device no-ops here and
-are dropped.  Cross-attention (:class:`CrossAttention` and the ``xattn*``
+The reference's ``shard()`` constraints stand at its places
+(``sharding.partition.shard``): no-ops on plain tensors, and on DTensors
+(model parallelism, ``launch.train --model-par``) a redistribution to the
+rules' layout.  Cross-attention (:class:`CrossAttention` and the ``xattn*``
 functions) attends the encoder's output, bidirectionally, through the same
 kernels.
 """
@@ -23,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels import ops
+from ..sharding.partition import shard
 from .config import LMConfig
 
 
@@ -131,7 +134,9 @@ def qkv(p: Attention, x, cfg: LMConfig, pos):
     if cfg.qk_norm:
         q = rms_norm(q, p.q_norm, cfg.norm_eps)
         k = rms_norm(k, p.k_norm, cfg.norm_eps)
-    return rope(q, pos, cfg.rope_theta), rope(k, pos, cfg.rope_theta), v
+    q = shard(rope(q, pos, cfg.rope_theta), "act_heads")
+    k = shard(rope(k, pos, cfg.rope_theta), "act_kv")
+    return q, k, shard(v, "act_kv")
 
 
 def sdpa_train(q, k, v, cfg: LMConfig, *, window: int | None,
@@ -156,7 +161,7 @@ def attn_train(p: Attention, x, cfg: LMConfig, pos, *,
     B, S, _ = x.shape
     q, k, v = qkv(p, rms_norm(x, p.norm, cfg.norm_eps), cfg, pos)
     o = sdpa_train(q, k, v, cfg, window=window, causal=causal)
-    return x + o.reshape(B, S, cfg.n_heads_p * cfg.hd) @ p.wo
+    return x + shard(o.reshape(B, S, cfg.n_heads_p * cfg.hd) @ p.wo, "act")
 
 
 def attn_prefill(p: Attention, x, cfg: LMConfig, pos, *,
@@ -183,7 +188,8 @@ def attn_prefill(p: Attention, x, cfg: LMConfig, pos, *,
         ins = min(S, cache_len)
         kc[:, :ins] = k[:, :ins]
         vc[:, :ins] = v[:, :ins]
-    return x + o, {"k": kc, "v": vc}
+    return x + shard(o, "act"), {"k": shard(kc, "cache"),
+                                 "v": shard(vc, "cache")}
 
 
 def _write_position(cache: torch.Tensor, slot: torch.Tensor,
@@ -299,4 +305,6 @@ class MLP(nn.Module):
 
 def mlp(p: MLP, x, cfg: LMConfig):
     h = rms_norm(x, p.norm, cfg.norm_eps)
-    return x + (F.silu(h @ p.w1) * (h @ p.w3)) @ p.w2
+    a = shard(h @ p.w1, "act_ff")
+    b = shard(h @ p.w3, "act_ff")
+    return x + shard((F.silu(a) * b) @ p.w2, "act")

@@ -30,10 +30,12 @@ result).  The scans' gradients go through their autograd Functions
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..core.proxies import resolve_device
+from ..sharding.partition import shard
 from .config import LMConfig
 from .layers import dense_init, dtype_of, param, rms_norm, rms_norm_init
 from .transformer import Layer
@@ -99,14 +101,16 @@ class LM(nn.Module):
 
     def _embed(self, tokens):
         # sqrt(d_model) rounded to the model dtype first, as the reference
-        # does (45.2548 is 45.25 in bfloat16).
-        return self.embed[tokens] * torch.tensor(
+        # does (45.2548 is 45.25 in bfloat16).  ``F.embedding`` reads the
+        # rows the reference's indexing reads, and has a rule for a table
+        # split over the vocabulary.
+        return F.embedding(tokens, self.embed) * torch.tensor(
             self.cfg.d_model ** 0.5, dtype=dtype_of(self.cfg),
             device=self.device)
 
     def _logits(self, x):
         head = self.embed.T if self.cfg.tie_embeddings else self.lm_head
-        return (x @ head).float()
+        return shard((x @ head).float(), "logits")
 
     def _encode(self, src_embeds):
         """The encoder: its ``attn`` layers over ``src_embeds`` [B, Se, D]
@@ -143,8 +147,8 @@ class LM(nn.Module):
             n_front = batch["patch_embeds"].shape[1]
             x = torch.cat([batch["patch_embeds"].to(x.dtype), x], dim=1)
         B, S = x.shape[:2]
-        return (x, torch.arange(S, device=x.device)[None].expand(B, -1),
-                n_front)
+        return (shard(x, "act"),
+                torch.arange(S, device=x.device)[None].expand(B, -1), n_front)
 
     def loss_fn(self, batch):
         """(loss, metrics) as the reference's ``loss_fn``: token-level

@@ -5,8 +5,12 @@ within each batch row and each expert takes its first C of them
 (``capacity``), giving dense ``[B, E, C, D]`` buffers; the three expert
 products are plain batched products (cuBLAS on the card), as in the
 reference, which has no Pallas kernel here.  The reference's ``shard()``
-constraints are single-device no-ops and are dropped (the sharding rules
-are ROADMAP queue 1 item 15e-3).
+constraints stand at its places.  On DTensors (model parallelism) the
+router and the expert products follow the rules (experts split over the
+model axis when it divides their count, else each expert's d_ff), and
+the per-row pieces (the top-k sort, the capacity sort, the gathers and
+the combine's ordered adds) run on each rank's batch rows
+(``sharding.partition.per_row``).
 
 Where the reference leaves an order to its library, the port fixes the
 one the reference computes:
@@ -29,8 +33,11 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.profiler import record_function
 
+from ..sharding.partition import (from_local, grads_over, local_part,
+                                  per_row, shard)
 from .config import LMConfig
 from .layers import dense_init, dtype_of, param, rms_norm, rms_norm_init
 
@@ -89,25 +96,40 @@ def route(p: MoE, h: torch.Tensor, cfg: LMConfig):
     [B, S, E], the top-k gates renormalised to sum to 1 and the chosen
     experts [B, S, K] (highest first; among ties the lower index)."""
     probs = torch.softmax(h.float() @ p.router, dim=-1)
+    return (probs, *per_row(lambda pr: top_k(pr, cfg.top_k), probs))
+
+
+def top_k(probs: torch.Tensor, K: int):
+    """The K largest probabilities of each token, renormalised, and their
+    experts (highest first; among ties the lower index)."""
     vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
-    K = cfg.top_k
     gates, eidx = vals[..., :K], idx[..., :K]
-    gates = gates / gates.sum(-1, keepdim=True).clamp(min=1e-9)
-    return probs, gates, eidx
+    return gates / gates.sum(-1, keepdim=True).clamp(min=1e-9), eidx
 
 
 def aux_loss(probs: torch.Tensor, eidx: torch.Tensor, E: int) -> torch.Tensor:
     """Switch load balancing: ``E * sum_e mean(probs)_e * frac_e``, frac_e
     the share of the B S K assignments that chose expert e."""
     me = probs.mean(dim=(0, 1))
+    ce = expert_counts(eidx, E).float() * (1.0 / eidx.numel())
+    return E * torch.sum(me * ce)
+
+
+def expert_counts(eidx: torch.Tensor, E: int) -> torch.Tensor:
+    """How many of the assignments eidx chose each expert ([E] integers;
+    a DTensor split over the batch counts its rows and sums across the
+    ranks)."""
+    if isinstance(eidx, DTensor):
+        part = tuple(Partial() if p.is_shard(0) else Replicate()
+                     for p in eidx.placements)
+        return from_local(expert_counts(eidx.to_local(), E),
+                          eidx.device_mesh, part, (E,))
     flat = eidx.reshape(-1)
     # Integer counts by scatter_add_ (bincount would read its input's
     # largest value back to the host); the share a Python scalar, which
     # the product takes in float32 without a copy to the card.
     counts = torch.zeros(E, dtype=torch.long, device=flat.device)
-    ce = (counts.scatter_add_(0, flat, torch.ones_like(flat)).float()
-          * (1.0 / eidx.numel()))
-    return E * torch.sum(me * ce)
+    return counts.scatter_add_(0, flat, torch.ones_like(flat))
 
 
 def dispatch(eidx: torch.Tensor, E: int, C: int):
@@ -158,24 +180,88 @@ def combine(ye: torch.Tensor, slot: torch.Tensor, eidx: torch.Tensor):
     return y
 
 
-def gather(h: torch.Tensor, gates: torch.Tensor, tok, valid, assign):
+def gather(h: torch.Tensor, gates: torch.Tensor, tok, valid, assign, slot,
+           eidx):
     """The experts' inputs xe [B, E, C, D] (the normed states of each
-    slot's token) and the slots' gates [B, E, C] (float32, 0 in the empty
-    slots)."""
-    B, _, D = h.shape
+    slot's token, 0 in the empty slots) and the slots' gates [B, E, C]
+    (float32, 0 in the empty slots).  The gradient of h sums each token's
+    kept slots in the combine's order (:class:`SlotGather`)."""
+    B = h.shape[0]
     E, C = tok.shape[1:]
     gsel = torch.gather(gates.reshape(B, -1), 1, assign.reshape(B, E * C))
     gsel = torch.where(valid, gsel.reshape(B, E, C), 0.0)
-    xe = torch.gather(h, 1, tok.reshape(B, E * C, 1).expand(-1, -1, D))
-    return xe.reshape(B, E, C, D), gsel
+    return SlotGather.apply(h, tok, valid, slot, eidx), gsel
+
+
+class SlotGather(torch.autograd.Function):
+    """xe[b, e, c] = h[b, tok[b, e, c]] in a kept slot, 0 in an empty one
+    (whose gate is 0, so the block's output is the same either way).  Its
+    backward adds each token's kept slots' gradients in the combine's
+    order (:func:`combine`), so that the gradient of h is the same bits
+    every run: ``torch.gather``'s backward adds a token's K rows with
+    atomics on the card, in no fixed order."""
+
+    @staticmethod
+    def forward(ctx, h, tok, valid, slot, eidx):
+        B, E, C = tok.shape
+        D = h.shape[-1]
+        ctx.save_for_backward(slot, eidx)
+        xe = torch.gather(h, 1, tok.reshape(B, E * C, 1).expand(-1, -1, D))
+        return torch.where(valid[..., None], xe.reshape(B, E, C, D), 0)
+
+    @staticmethod
+    def backward(ctx, g):
+        slot, eidx = ctx.saved_tensors
+        return combine(g, slot, eidx), None, None, None, None
 
 
 def experts(p: MoE, xe: torch.Tensor) -> torch.Tensor:
     """Each expert's SwiGLU MLP on its slots: [B, E, C, D] -> [B, E, C,
     D], three batched products over the experts."""
-    a = torch.einsum("becd,edf->becf", xe, p.we1)
-    b = torch.einsum("becd,edf->becf", xe, p.we3)
-    return torch.einsum("becf,efd->becd", F.silu(a) * b, p.we2)
+    xe = shard(xe, "moe_disp")
+    if isinstance(xe, DTensor):
+        return _experts_on_shards(p, xe)
+    return _swiglu(xe, p.we1, p.we3, p.we2)
+
+
+def _swiglu(xe, we1, we3, we2):
+    a = torch.einsum("becd,edf->becf", xe, we1)
+    b = torch.einsum("becd,edf->becf", xe, we3)
+    return torch.einsum("becf,efd->becd", F.silu(a) * b, we2)
+
+
+def _experts_on_shards(p: MoE, xe: DTensor) -> DTensor:
+    """:func:`experts` on each rank's shards (DTensor's own einsum
+    mis-strides the sharded batch in its backward).  On each mesh dim: the
+    batch rows split (the weights gathered: their FSDP shards), or the
+    experts split (expert-parallel), or each expert's d_ff split
+    (tensor-parallel inside the experts: the gate and up products and
+    ``moe_ff`` hold a slice of d_ff, and the down product is a partial
+    sum), or nothing."""
+    xp, w13, w2p, out, split = [], [], [], [], []
+    for px, pw in zip(xe.placements, p.we1.placements):
+        if px.is_shard(0) or px.is_shard(1):
+            d = 0 if px.is_shard(0) else 1
+            xp.append(Shard(d))
+            w = Shard(0) if d == 1 else Replicate()
+            w13.append(w)
+            w2p.append(w)
+            out.append(Shard(d))
+        elif pw.is_shard(2):
+            xp.append(Replicate())
+            w13.append(Shard(2))
+            w2p.append(Shard(1))
+            out.append(Partial())
+        else:
+            xp.append(Replicate())
+            w13.append(Replicate())
+            w2p.append(Replicate())
+            out.append(Replicate())
+        split.append(not isinstance(out[-1], Replicate))
+    local = [local_part(xe, xp, grads_over(xp, split))]
+    for w, pl in ((p.we1, w13), (p.we3, w13), (p.we2, w2p)):
+        local.append(local_part(w, pl, grads_over(pl, split)))
+    return from_local(_swiglu(*local), xe.device_mesh, out, xe.shape)
 
 
 def moe_mlp(p: MoE, x: torch.Tensor, cfg: LMConfig,
@@ -190,11 +276,12 @@ def moe_mlp(p: MoE, x: torch.Tensor, cfg: LMConfig,
         h = rms_norm(x, p.norm, cfg.norm_eps)
         probs, gates, eidx = route(p, h, cfg)
         aux = aux_loss(probs, eidx, E)
-        tok, valid, assign, slot = dispatch(eidx, E, C)
-        xe, gsel = gather(h, gates, tok, valid, assign)
+        tok, valid, assign, slot = per_row(
+            lambda e: dispatch(e, E, C), eidx)
+        xe, gsel = per_row(gather, h, gates, tok, valid, assign, slot, eidx)
     with record_function(RANGES[1]):
         ye = experts(p, xe)
     with record_function(RANGES[2]):
         ye = ye * gsel[..., None].to(ye.dtype)
-        y = x + combine(ye, slot, eidx).to(x.dtype)
+        y = x + shard(per_row(combine, ye, slot, eidx).to(x.dtype), "act")
     return y, aux

@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels import ops
+from ..sharding.partition import shard
 from .config import LMConfig
 from .layers import dense_init, dtype_of, param, rms_norm, rms_norm_init
 from .ssm import conv_causal
@@ -74,8 +75,8 @@ def _in(p: RGLRU, x, cfg: LMConfig, conv_state=None):
     approximation."""
     h = rms_norm(x, p.norm, cfg.norm_eps)
     gate = F.gelu(h @ p.rg_gate, approximate="tanh")
-    u, conv_state = conv_causal(h @ p.rg_in, p.rg_conv_w, p.rg_conv_b,
-                                conv_state)
+    u, conv_state = conv_causal(shard(h @ p.rg_in, "act_inner"), p.rg_conv_w,
+                                p.rg_conv_b, conv_state)
     return gate, u, conv_state
 
 
@@ -84,10 +85,10 @@ def rglru_train(p: RGLRU, x, cfg: LMConfig, *, return_cache: bool = False):
     gate, u, conv_state = _in(p, x, cfg)
     a, xin = _gates(p, u)
     hs, hT = ops.rglru_scan(xin.to(u.dtype), a.to(u.dtype))
-    out = x + (hs.to(x.dtype) * gate) @ p.rg_out
+    out = x + shard((hs.to(x.dtype) * gate) @ p.rg_out, "act")
     if not return_cache:
         return out
-    return out, {"conv": conv_state, "h": hT}
+    return out, {"conv": conv_state, "h": shard(hT, "state")}
 
 
 def rglru_decode(p: RGLRU, x, cache: dict, cfg: LMConfig):

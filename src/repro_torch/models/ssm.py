@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels import ops
+from ..sharding.partition import shard
 from .config import LMConfig
 from .layers import dense_init, dtype_of, param, rms_norm, rms_norm_init
 
@@ -83,7 +84,8 @@ def _ssm_params(p: Mamba, u, cfg: LMConfig):
 def _in(p: Mamba, x, cfg: LMConfig, conv_state=None):
     """Norm, in_proj, conv and silu: (u, z, the conv's new state)."""
     u, z = (rms_norm(x, p.norm, cfg.norm_eps) @ p.in_proj).chunk(2, dim=-1)
-    u, conv_state = conv_causal(u, p.conv_w, p.conv_b, conv_state)
+    u, conv_state = conv_causal(shard(u, "act_inner"), p.conv_w, p.conv_b,
+                                conv_state)
     return F.silu(u), z, conv_state
 
 
@@ -92,10 +94,10 @@ def mamba_train(p: Mamba, x, cfg: LMConfig, *, return_cache: bool = False):
     u, z, conv_state = _in(p, x, cfg)
     dt, A, Bm, Cm = _ssm_params(p, u, cfg)
     y, hT = ops.selective_scan(u, dt, A, Bm, Cm, p.Dskip)
-    out = x + (y * F.silu(z)) @ p.out_proj
+    out = x + shard((y * F.silu(z)) @ p.out_proj, "act")
     if not return_cache:
         return out
-    return out, {"conv": conv_state, "h": hT}
+    return out, {"conv": conv_state, "h": shard(hT, "state")}
 
 
 def mamba_decode(p: Mamba, x, cache: dict, cfg: LMConfig):

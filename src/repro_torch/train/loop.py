@@ -15,7 +15,10 @@ watermark, preemption-safe saves.  The port of ``repro.train.loop``.
                 next step boundary.
 
 A step's time ``dt`` ends with one device synchronisation (the
-reference's ``block_until_ready``).
+reference's ``block_until_ready``).  A model-parallel state (DTensors)
+restores onto ``state_shardings`` (``train.step.shard_state``'s), which
+may lie on another mesh than the checkpoint's writer's; every rank runs
+the loop, and ``ckpt.save`` gathers each leaf for rank 0 to write.
 """
 from __future__ import annotations
 
@@ -73,7 +76,8 @@ def _sync(metrics: dict) -> None:
 
 
 def run(loop_cfg: LoopConfig, *, state, train_step: Callable, stream,
-        log: Callable = print) -> tuple[Any, LoopState]:
+        state_shardings=None, log: Callable = print
+        ) -> tuple[Any, LoopState]:
     """Run (or resume) training.  Returns (final_state, loop_state)."""
     ls = LoopState()
 
@@ -81,7 +85,8 @@ def run(loop_cfg: LoopConfig, *, state, train_step: Callable, stream,
     last = ckpt.latest_step(loop_cfg.ckpt_dir)
     if last is not None:
         restored, step, extras = ckpt.restore(
-            loop_cfg.ckpt_dir, state, device=_first_leaf(state).device)
+            loop_cfg.ckpt_dir, state, device=_first_leaf(state).device,
+            shardings=state_shardings)
         _load_into(state, restored)
         del restored
         ls.step = step

@@ -23,9 +23,15 @@ The reference stacks each group's layers on a leading axis, so a group
 parameter (a ``groups.`` or ``enc_groups.`` name) has one axis more
 there: the 8-bit state rule, which keeps leaves of fewer than two axes in
 float32, counts that axis, so that a state carried across
-(``interop.adamw_state_from_jax``) keeps its form.  ``compressed_psum``
-(the all-reduce over a mesh axis) needs a process group and waits for
-the sharding rules (ROADMAP queue 1 item 15e-3).
+(``interop.adamw_state_from_jax``) keeps its form.
+
+Under model parallelism (``train.step.build_sharded_train_step``) the
+parameters, gradients and states are DTensors laid out by the sharding
+rules, and the update runs on them as it is: the global norm sums every
+shard, and ``compress_int8``'s blocks, which span the shards of a leaf,
+are laid over the whole leaves, so that they give the unsharded result.
+:func:`compressed_psum` is the int8-quantized all-reduce over a mesh
+axis.
 """
 from __future__ import annotations
 
@@ -33,8 +39,11 @@ import math
 from dataclasses import dataclass
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from ..models.model import GROUP_KEYS
+from ..sharding.partition import current_ctx, cut
 
 
 @dataclass(frozen=True)
@@ -92,6 +101,26 @@ def dequantize_int8(q, scale, shape, block: int = 256):
     return blk.reshape(-1)[:n].reshape(shape)
 
 
+def compressed_psum(x: torch.Tensor, axis_name: str, block: int = 256,
+                    mesh=None) -> torch.Tensor:
+    """Int8-quantized all-reduce over a mesh axis: each rank quantizes its
+    contribution (``quantize_int8``), dequantizes it, and the dequantized
+    values are summed over the ranks of ``axis_name`` (the reference sums
+    the dequantized values too).  ``x`` is this rank's local tensor; the
+    mesh is ``mesh``, by default the installed sharding context's."""
+    if mesh is None:
+        ctx = current_ctx()
+        if ctx is None:
+            raise ValueError("compressed_psum needs a mesh (or an installed "
+                             "sharding context)")
+        mesh = ctx.mi.mesh
+    q, s = quantize_int8(x, block)
+    deq = dequantize_int8(q, s, x.shape, block)
+    dist.all_reduce(deq, op=dist.ReduceOp.SUM,
+                    group=mesh.get_group(axis_name))
+    return deq
+
+
 def stacks(names) -> list[list[str]]:
     """The parameter names as the reference's leaves: the layers of a
     group that share a path (``groups.<g>.<i>.<path>``, i = 0, 1, ...;
@@ -114,7 +143,15 @@ def stacks(names) -> list[list[str]]:
 def compress_grads(grads: dict, err: dict, block: int = 256):
     """Quantize grads + err to int8 and return (dequantized, new_err).
     The blocks run over each reference leaf, a group's layers stacked
-    (:func:`stacks`), so that they fall where the reference's do."""
+    (:func:`stacks`), so that they fall where the reference's do.  DTensor
+    leaves are gathered whole for it, and the results cut back to their
+    layouts."""
+    if any(isinstance(g, DTensor) for g in grads.values()):
+        deq, new_err = compress_grads(
+            {n: _whole(g) for n, g in grads.items()},
+            {n: _whole(e) for n, e in err.items()}, block)
+        return ({n: _cut_like(t, grads[n]) for n, t in deq.items()},
+                {n: _cut_like(t, err[n]) for n, t in new_err.items()})
     deq, new_err = {}, {}
     for names in stacks(grads):
         tot = torch.cat([(grads[n].float() + err[n]).reshape(-1)
@@ -130,6 +167,17 @@ def compress_grads(grads: dict, err: dict, block: int = 256):
                           - dn.float()).to(e.dtype)
             at += g.numel()
     return deq, new_err
+
+
+def _whole(t):
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _cut_like(t: torch.Tensor, like):
+    """``t`` (the same on every rank) laid out as ``like`` is."""
+    if not isinstance(like, DTensor):
+        return t
+    return cut(t, like.device_mesh, like.placements)
 
 
 # ---------------------------------------------------------------------------
@@ -174,7 +222,7 @@ def adamw_init(cfg: OptConfig, params: dict) -> dict:
     """Zero moments (and error feedback with ``compress_int8``) on each
     parameter's device, a step count of 0 (int32)."""
     def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return torch.zeros_like(p, dtype=torch.float32)
 
     first = next(iter(params.values()))
     state = {

@@ -14,12 +14,26 @@ layers: 23.6 GB of float32 moments each).  The batch is split on its leading axi
 ``microbatches``; their gradients are accumulated in ``accum_dtype``
 (float32 by default, whatever the parameters' dtype), then divided by the
 count, as the reference does.
+
+Model parallelism (:func:`build_sharded_train_step`) runs the same step on
+DTensors: :func:`shard_state` lays the model's parameters and the AdamW
+state out over a ``DeviceMesh`` by the sharding rules
+(``sharding.rules.param_pspecs``, the step count replicated), each batch
+is split by ``batch_pspecs``, and the step runs under the rules' activation
+constraints (``sharding.partition.use_sharding``).  On a mesh of one rank
+it computes the plain step's numbers bit for bit.
 """
 from __future__ import annotations
 
 import torch
+from torch import nn
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
 
 from ..models.model import LM
+from ..sharding import rules
+from ..sharding.partition import (P, NamedSharding, ShardingCtx, cut,
+                                  place, placements, use_sharding)
 from .optimizer import OptConfig, adamw_init, adamw_update
 
 
@@ -33,17 +47,25 @@ def init_state(model: LM, opt_cfg: OptConfig) -> dict:
 
 
 def build_train_step(model: LM, opt_cfg: OptConfig, *, microbatches: int = 1,
-                     accum_dtype: str = "float32"):
+                     accum_dtype: str = "float32", place=None):
     """``train_step(state, batch) -> (state, metrics)``; metrics ``loss``,
     ``grad_norm`` and ``lr`` (plus ``ce``, ``aux`` and ``ntok`` with one
     microbatch, as in the reference), as tensors on the model's device.
-    ``accum_dtype='bfloat16'`` halves the accumulator's memory."""
+    ``accum_dtype='bfloat16'`` halves the accumulator's memory.
+    ``place`` (a batch -> batch function) lays out each microbatch after
+    the split (:func:`build_sharded_train_step` splits it over the mesh)."""
     acc_dt = getattr(torch, accum_dtype)
     names = [n for n, _ in model.named_parameters()]
 
     def grads_of(params, batch):
+        if place is not None:
+            batch = place(batch)
         loss, metrics = model.loss_fn(batch)
-        grads = torch.autograd.grad(loss, [params[n] for n in names])
+        ps = [params[n] for n in names]
+        grads = torch.autograd.grad(loss, ps)
+        # A DTensor gradient comes back in the parameter's layout.
+        grads = [g.redistribute(p.device_mesh, p.placements)
+                 if isinstance(g, DTensor) else g for g, p in zip(grads, ps)]
         return loss.detach(), metrics, dict(zip(names, grads))
 
     def split(batch, i):
@@ -56,8 +78,8 @@ def build_train_step(model: LM, opt_cfg: OptConfig, *, microbatches: int = 1,
         if microbatches == 1:
             loss, metrics, grads = grads_of(params, batch)
         else:
-            grads = {n: torch.zeros(params[n].shape, dtype=acc_dt,
-                                    device=params[n].device) for n in names}
+            grads = {n: torch.zeros_like(params[n], dtype=acc_dt)
+                     for n in names}
             loss = torch.zeros((), dtype=torch.float32,
                                device=params[names[0]].device)
             for i in range(microbatches):
@@ -75,5 +97,68 @@ def build_train_step(model: LM, opt_cfg: OptConfig, *, microbatches: int = 1,
         out = {"loss": loss, **opt_metrics,
                **{k: v.detach() for k, v in metrics.items()}}
         return {"params": params, "opt": new_opt}, out
+
+    return train_step
+
+
+# ---------------------------------------------------------------------------
+# Model parallelism: the same step on DTensors over a DeviceMesh
+# ---------------------------------------------------------------------------
+
+def _named(specs, mi):
+    if isinstance(specs, dict):
+        return {k: _named(v, mi) for k, v in specs.items()}
+    return mi.named(specs)
+
+
+def shard_state(model: LM, opt_cfg: OptConfig, mi) -> tuple[dict, dict]:
+    """The model's parameters laid out over ``mi.mesh`` by the rules
+    (replaced in the model by DTensor parameters cut from the tensors it
+    holds, which every rank drew from the same seed), and a fresh AdamW
+    state laid out the same way, the step count replicated.  Returns
+    (state, shardings), the shardings a tree of ``NamedSharding``s like the
+    state (what ``train.loop.run`` and ``ckpt.restore`` take)."""
+    cfg = model.cfg
+    specs = rules.param_pspecs(cfg, dict(model.named_parameters()), mi)
+    for name, p in list(model.named_parameters()):
+        owner, _, attr = name.rpartition(".")
+        mod = model.get_submodule(owner)
+        mesh, pl = mi.named(specs[name])
+        setattr(mod, attr, nn.Parameter(cut(p.detach(), mesh, pl),
+                                        requires_grad=False))
+    state = init_state(model, opt_cfg)
+    o_specs = rules.param_pspecs(cfg, state["opt"], mi)
+    o_specs["step"] = P()
+    shardings = {"params": _named(specs, mi), "opt": _named(o_specs, mi)}
+    state["opt"] = place(state["opt"], shardings["opt"])
+    return state, shardings
+
+
+def build_sharded_train_step(model: LM, opt_cfg: OptConfig,
+                             ctx: ShardingCtx, shardings: dict, *,
+                             microbatches: int = 1,
+                             accum_dtype: str = "float32"):
+    """The train step on :func:`shard_state`'s state: each microbatch (a
+    plain batch, the same on every rank) split by ``batch_pspecs``, the
+    step run under ``use_sharding(ctx)`` (plain tensors it makes, as
+    positions and masks, taken as replicated), the new AdamW state laid
+    out as ``shardings`` says, and the metrics returned as plain tensors,
+    the same on every rank."""
+    mi = ctx.mi
+
+    def place_batch(batch):
+        specs = rules.batch_pspecs(batch, mi)
+        return place(batch, {k: NamedSharding(mi.mesh, placements(
+            mi.mesh, specs[k], x.shape)) for k, x in batch.items()})
+
+    raw = build_train_step(model, opt_cfg, microbatches=microbatches,
+                           accum_dtype=accum_dtype, place=place_batch)
+
+    def train_step(state, batch):
+        with use_sharding(ctx), implicit_replication():
+            state, metrics = raw(state, batch)
+            state["opt"] = place(state["opt"], shardings["opt"])
+        return state, {k: v.full_tensor() if isinstance(v, DTensor) else v
+                       for k, v in metrics.items()}
 
     return train_step

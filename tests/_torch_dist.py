@@ -1,0 +1,225 @@
+"""Run a function on several CPU ranks (gloo) for the port's tests.
+
+:func:`run_ranks` spawns ``world`` processes once, each joining a gloo
+process group through a ``FileStore`` under the test's temporary
+directory (no port to collide on between xdist workers), with one torch
+thread a rank, and returns each rank's result.  The functions run here
+import torch and ``repro_torch`` only: the children never load JAX, and
+the tests compare their results with the reference in the parent.
+"""
+import os
+
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+
+def _main(rank: int, world: int, tmp: str, fn, args) -> None:
+    torch.set_num_threads(1)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(os.path.join(tmp, "store"), world),
+        rank=rank, world_size=world)
+    try:
+        out = fn(rank, tmp, *args)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, os.path.join(tmp, f"result_{rank}.pt"))
+
+
+def run_ranks(fn, world: int, tmp, *args) -> list:
+    """``fn(rank, tmp, *args)`` on ``world`` gloo ranks; the ranks'
+    results (anything ``torch.save`` takes), in rank order."""
+    tmp = str(tmp)
+    mp.start_processes(_main, args=(world, tmp, fn, args), nprocs=world,
+                       start_method="spawn", join=True)
+    return [torch.load(os.path.join(tmp, f"result_{r}.pt"),
+                       weights_only=False) for r in range(world)]
+
+
+# ---------------------------------------------------------------------------
+# The ranks' work
+# ---------------------------------------------------------------------------
+
+def psum_rank(rank, tmp, xs, blocks, lin):
+    """``compressed_psum`` of ``xs[rank]`` over a 2-rank axis for each
+    block size (the mesh passed, and the installed context's); and of
+    ``lin`` over an axis of one rank."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.sharding.partition import (MeshInfo, ShardingCtx,
+                                                use_sharding)
+    from repro_torch.train.optimizer import compressed_psum
+
+    mesh = init_device_mesh("cpu", (2,), mesh_dim_names=("d",))
+    x = torch.from_numpy(xs[rank])
+    out = {b: compressed_psum(x, "d", b, mesh=mesh).numpy() for b in blocks}
+    with use_sharding(ShardingCtx(MeshInfo(mesh=mesh, dp=("d",)))):
+        out["ctx"] = compressed_psum(x, "d").numpy()
+    one = init_device_mesh("cpu", (2, 1), mesh_dim_names=("x", "d"))
+    out["one"] = compressed_psum(torch.from_numpy(lin), "d",
+                                 mesh=one).numpy()
+    return out
+
+
+def lm_batch(cfg, B: int, S: int, seed: int) -> dict:
+    """A training batch from ``seed``: tokens, their next tokens as labels
+    (the last few masked with -1), and an encoder-decoder model's
+    ``src_embeds``."""
+    g = torch.Generator().manual_seed(seed)
+    toks = torch.randint(3, cfg.vocab, (B, S), generator=g)
+    labels = toks.roll(-1, 1)
+    labels[:, -3:] = -1
+    batch = {"tokens": toks, "labels": labels}
+    if cfg.family == "encdec":
+        batch["src_embeds"] = torch.randn(B, S // 2 + 1, cfg.d_model,
+                                          generator=g)
+    return batch
+
+
+def _grads(model, batch, names):
+    loss, _ = model.loss_fn(batch)
+    return loss.detach(), torch.autograd.grad(
+        loss, [dict(model.named_parameters())[n] for n in names])
+
+
+def _whole(t):
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def step_pair(cfg, mesh, opt_cfg, microbatches: int = 1, steps: int = 2,
+              B: int = 4, S: int = 16) -> dict:
+    """The plain step and the DTensor step on ``mesh`` from one state:
+    the loss and the gradients of the first batch (the largest gradient
+    error over the parameters, relative to each one's largest entry), and
+    ``steps`` train steps of each (losses, gradient norms, the largest
+    parameter difference after them; ``bitwise`` if every loss, norm and
+    parameter is equal bit for bit)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.launch.train import sharded_training
+    from repro_torch.models.model import LM
+    from repro_torch.sharding import rules
+    from repro_torch.sharding.partition import MeshInfo, use_sharding
+    from repro_torch.sharding.partition import place
+    from repro_torch.train.step import build_train_step, init_state
+
+    plain = LM(cfg, "cpu", torch.Generator().manual_seed(0))
+    model = LM(cfg, "cpu", torch.Generator().manual_seed(0))
+    s1 = init_state(plain, opt_cfg)
+    st1 = build_train_step(plain, opt_cfg, microbatches=microbatches)
+    s2, st2, shardings = sharded_training(model, opt_cfg, mesh,
+                                          microbatches=microbatches)
+    names = list(s1["params"])
+    batch = lm_batch(cfg, B, S, 100)
+    l1, g1 = _grads(plain, batch, names)
+    mi = MeshInfo(mesh=mesh, dp=("data",), tp="model")
+    with use_sharding(rules.make_ctx(cfg, mi)), implicit_replication():
+        db = place(batch, {k: mi.named(v) for k, v in
+                           rules.batch_pspecs(batch, mi).items()})
+        l2, g2 = _grads(model, db, names)
+    out = {"loss": (float(l1), float(_whole(l2))),
+           "grad_err": max(float((_whole(b) - a).abs().max()
+                                 / a.abs().max().clamp(min=1e-30))
+                           for a, b in zip(g1, g2)),
+           "losses": [], "norms": [], "bitwise": True}
+    for i in range(steps):
+        batch = lm_batch(cfg, B, S, i)
+        s1, m1 = st1(s1, batch)
+        s2, m2 = st2(s2, batch)
+        out["losses"].append((float(m1["loss"]), float(m2["loss"])))
+        out["norms"].append((float(m1["grad_norm"]),
+                             float(m2["grad_norm"])))
+        out["bitwise"] &= bool(torch.equal(m1["loss"], m2["loss"])
+                               and torch.equal(m1["grad_norm"],
+                                               m2["grad_norm"]))
+    errs = [(s1["params"][n] - _whole(s2["params"][n])).abs().max()
+            for n in names]
+    out["param_err"] = float(max(errs))
+    out["bitwise"] &= all(float(e) == 0 for e in errs)
+    out["placements"] = {n: tuple(str(p) for p in s2["params"][n].placements)
+                         for n in names}
+    out["shardings"] = {n: tuple(str(p) for p in shardings["params"][n][1])
+                        for n in names}
+    return out
+
+
+def model_parallel_rank(rank, tmp, cases, one_by_one, launcher):
+    """Each case ``(name, cfg, (dp, tp), opt_cfg, microbatches)``:
+    :func:`step_pair` on a (dp, tp) mesh of the two ranks.  Each
+    ``one_by_one`` config: :func:`step_pair` on a (1, 1) mesh of this rank
+    alone.  Then ``launch.train.main(launcher)`` on both ranks (its
+    losses), and an elastic restore: a state saved from a (1, 2) mesh
+    restored onto (2, 1) and onto no mesh."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    out = {"cases": {}, "one": {}}
+    for name, cfg, shape, opt_cfg, mb in cases:
+        mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data",
+                                                             "model"))
+        out["cases"][name] = step_pair(cfg, mesh, opt_cfg, mb)
+    own = init_device_mesh("cpu", (2, 1, 1),
+                           mesh_dim_names=("rank", "data", "model"))
+    for name, cfg, opt_cfg in one_by_one:
+        out["one"][name] = step_pair(cfg, own["data", "model"], opt_cfg)
+    from repro_torch.launch import train as launch_train
+    _, ls = launch_train.main(launcher + ["--ckpt-dir",
+                                          os.path.join(tmp, "launch")],
+                              log=lambda *_: None)
+    out["launcher"] = [loss for _, loss, _ in ls.history]
+    out["elastic"] = _elastic(tmp, one_by_one[0][1], one_by_one[0][2])
+    return out
+
+
+def _elastic(tmp, cfg, opt_cfg) -> dict:
+    """A state after one step on a (1, 2) mesh, saved, then restored onto
+    a (2, 1) mesh's shardings and onto no mesh: whether every leaf equals
+    the saved state's bit for bit, and whether the restored leaves lie as
+    the (2, 1) shardings say."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.launch.train import sharded_training
+    from repro_torch.models.model import LM
+    from repro_torch.train.loop import _load_into
+
+    d = os.path.join(tmp, "elastic")
+    m12 = init_device_mesh("cpu", (1, 2), mesh_dim_names=("data", "model"))
+    m21 = init_device_mesh("cpu", (2, 1), mesh_dim_names=("data", "model"))
+    state, step, _ = sharded_training(
+        LM(cfg, "cpu", torch.Generator().manual_seed(0)), opt_cfg, m12)
+    state, _ = step(state, lm_batch(cfg, 4, 16, 7))
+    ckpt.save(d, 1, state)
+    saved = _flat({k: state[k] for k in state})
+    target, _, sh21 = sharded_training(
+        LM(cfg, "cpu", torch.Generator().manual_seed(1)), opt_cfg, m21)
+    onto, _, _ = ckpt.restore(d, target, shardings=sh21)
+    _load_into(target, onto)
+    plain, _, _ = ckpt.restore(d, target)
+    got21, gotp = _flat(target), _flat(plain)
+    return {"n": len(saved),
+            "onto_21": all(torch.equal(saved[k], got21[k]) for k in saved),
+            "onto_none": all(torch.equal(saved[k], gotp[k]) for k in saved),
+            "plain": not any(isinstance(t, DTensor) for t in _leaves(plain)),
+            "misplaced": [(str(t.placements), str(s.placements))
+                          for t, s in zip(_leaves(target), _leaves(sh21))
+                          if t.placements != s.placements
+                          or t.device_mesh != m21]}
+
+
+def _leaves(tree) -> list:
+    """The leaves of a nested dict in sorted-key order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    return [tree]
+
+
+def _flat(tree, prefix: str = "") -> dict:
+    if isinstance(tree, dict):
+        out = {}
+        for k in sorted(tree):
+            out.update(_flat(tree[k], f"{prefix}{k}/"))
+        return out
+    return {prefix: _whole(tree).detach().clone()}

@@ -14,8 +14,9 @@ on the CPU.
   and stops) and resumed to step 8 equals a straight 8-step run bit for
   bit (parameters, optimizer state, losses); the straggler watermark.
 - ``python -m repro_torch.launch.train --smoke --device cpu --steps 3``
-  prints the reference's ``[train] done`` line; ``--model-par 2`` raises
-  naming ROADMAP item 15e-3.
+  prints the reference's ``[train] done`` line; in one process
+  ``--model-par 2`` fails on the reference's assertion that the model
+  axis divides the ranks (``launch.mesh.make_host_mesh``).
 """
 import json
 import os
@@ -224,6 +225,7 @@ def test_launcher_prints_the_done_line(tmp_path):
 
 
 def test_launcher_refuses_model_parallelism(tmp_path):
-    with pytest.raises(NotImplementedError, match="15e-3"):
+    with pytest.raises(AssertionError):
         launch_train.main(["--smoke", "--device", "cpu", "--model-par", "2",
                            "--ckpt-dir", str(tmp_path)])
+    assert ckpt.committed_steps(str(tmp_path)) == []
