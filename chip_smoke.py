@@ -35,6 +35,13 @@ two headers):
    ``decode_split_cases``) in both dtypes, and at the serve shapes in
    bfloat16 to a limit scaled to the outputs (two bfloat16 ulps of each
    entry plus 1e-5, ``FULL_LIMIT``).
+   The decode kernel's log-sum-exp (``return_lse``; slice 18) on the
+   same cases in both dtypes: the output the same bits as without it, the
+   lse -inf in the same rows as the plain version's and elsewhere within
+   ``LSE_ATOL`` + ``LSE_RTOL`` |lse|; and the cache cut into 2 and 4
+   pieces over its positions, each piece through the kernel with its
+   local lengths, merged (``testing.decode_pieces``), within the decode
+   cases' tolerances of the uncut call.
    The flash-attention backward kernel against ``ref.attention_bwd_ref``
    on ``testing.attention_cases`` (every option of the forward) and
    ``attention_tile_cases`` (the edges of its tiles) in both
@@ -258,6 +265,19 @@ two headers):
      8192 x 8192 tensor, bit for bit ``dequantize_int8(quantize_int8(x))``,
      timed; ``launch.train --model-par 2`` on the one card failing on the
      reference's assertion.  More cards than one are not measured;
+   - slice 18, the dry run and the roofline (``dryrun_phase``):
+     ``python -m repro_torch.launch.dryrun`` on qwen3-1.7b train_4k and
+     decode_32k (its cache split over positions) and moonshot
+     prefill_32k (its experts split), each in a process of its own, all
+     at once, on the card's fake tensors over 256 fake ranks; each must
+     be ok with FLOPs, bytes and collective bytes, and its roofline row
+     at this card's rates is printed; then the smollm-360m train step
+     (``TRAIN_*``) counted on fake tensors and run for real: the product
+     FLOPs by op equal to ``FlopCounterMode``'s, each kernel's counted
+     calls equal to its launches, the predicted peak within
+     ``DRYRUN_PEAK_RTOL`` of ``max_memory_allocated``, and the step no
+     faster than the roofline's bound (the larger of its compute and
+     memory terms);
 6. profile — ``torch.profiler`` over one blocked FW call at homog256
    (device time by kernel) and one homog256 placeit run through the host
    GA and one through ga-batched (device busy share, the copies' time by
@@ -828,6 +848,66 @@ def _require_close(what: str, name: str, got, want, rtol: float,
     return err, share
 
 
+# The decode kernel's log-sum-exp against the plain version's: -inf at the
+# same rows (a row that sees no position), else within LSE_ATOL + LSE_RTOL
+# |lse| (float32 sums of the same logits in another order, and exp2/log2
+# where the plain version takes exp/log).
+LSE_ATOL, LSE_RTOL = 1e-4, 1e-5
+
+
+def _require_lse(what: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """Max abs error of a kernel's lse against the plain one's; exits
+    unless the -inf rows agree and the rest lie within the limit."""
+    inf = torch.isneginf(want)
+    if not torch.equal(torch.isneginf(got), inf):
+        raise SystemExit(f"{what}: the lse's -inf rows differ")
+    if bool(inf.all()):
+        return 0.0
+    return _require_close(what, "lse", got[~inf], want[~inf], LSE_RTOL,
+                          LSE_ATOL)[0]
+
+
+def decode_lse_phase(dev) -> None:
+    """Slice 18: the decode kernel's lse against the plain version's, and
+    a cache cut into 2 and 4 pieces over its positions, each piece through
+    the kernel with its local lengths and the pieces merged
+    (``testing.decode_pieces``), against the uncut call, within row 5's
+    case tolerances (``ATTN_TOL``), in float32 and bfloat16, on the decode
+    cases and the edges of the kernel's split."""
+    cases = {**testing.decode_cases(), **testing.decode_split_cases()}
+    phase(f"parity, slice 18: decode_attention's lse vs the plain lse "
+          f"({LSE_ATOL:g} + {LSE_RTOL:g} |lse|) and the cache cut into 2 "
+          f"and 4 pieces, merged, vs the uncut call (allclose "
+          f"{ATTN_TOL['decode_attention']}), {len(cases)} cases x 2 dtypes")
+    worst = {"lse": 0.0, "pieces": 0.0}
+    for name, make in cases.items():
+        *ops_np, lens_np, kw = make()
+        for dt in (torch.float32, torch.bfloat16):
+            q, kc, vc = (torch.from_numpy(a).to(dev, dt) for a in ops_np)
+            lens = torch.from_numpy(lens_np).to(dev)
+            out, lse = tda.decode_attention(q, kc, vc, lens, **kw,
+                                            return_lse=True)
+            if not torch.equal(out, tda.decode_attention(q, kc, vc, lens,
+                                                         **kw)):
+                raise SystemExit(f"decode {name}: the output changes when "
+                                 f"the kernel writes its lse")
+            _, want = plain.decode_attention_ref(q, kc, vc, lens, **kw,
+                                                 return_lse=True)
+            worst["lse"] = max(worst["lse"], _require_lse(
+                f"decode lse {name} {dt}", lse, want))
+            tol = ATTN_TOL["decode_attention"][str(dt)[6:]]
+            for n in (2, 4):
+                got = testing.decode_pieces(tda.decode_attention, q, kc, vc,
+                                            lens, n, **kw)
+                worst["pieces"] = max(worst["pieces"], _require_close(
+                    f"decode {name} {dt} in {n} pieces, merged", name, got,
+                    out, tol)[0])
+    torch.cuda.synchronize()
+    print(f"  every case within tolerance: lse max abs err "
+          f"{worst['lse']:.3g}, pieces merged vs uncut max abs err "
+          f"{worst['pieces']:.3g}")
+
+
 def attention_parity_phase(dev, worst: dict) -> None:
     phase("parity: flash_attention and decode_attention kernels vs plain "
           "versions (allclose: flash 2e-5, decode 3e-5 in float32; 2e-2 in "
@@ -1044,6 +1124,8 @@ def attention_timing_phase(dev, worst: dict) -> dict:
             fns = {
                 "kernel": lambda: tda.decode_attention(q, kc, vc, lens,
                                                        softcap=softcap),
+                "kernel_lse": lambda: tda.decode_attention(
+                    q, kc, vc, lens, softcap=softcap, return_lse=True),
                 "plain": lambda: plain.decode_attention_ref(
                     q, kc, vc, lens, softcap=softcap)}
             full = bool((lens_np == cache).all())
@@ -1060,11 +1142,19 @@ def attention_timing_phase(dev, worst: dict) -> dict:
                 t["library"] = t.pop("library_masked", None)
             t = _attn_row(t, out, f"decode_attention {arch} {label}",
                           decode_bound_ms(B, **heads, lengths=lens_np))
+            if not torch.equal(out["kernel_lse"][0], out["kernel"]):
+                raise SystemExit(f"decode {arch} {label}: the output "
+                                 f"changes when the kernel writes its lse")
+            _, want_lse = plain.decode_attention_ref(
+                q, kc, vc, lens, softcap=softcap, return_lse=True)
+            _require_lse(f"timed decode {arch} {label}",
+                         out["kernel_lse"][1], want_lse)
             worst["decode_attention"] = max(worst["decode_attention"],
                                             t["max_abs_err"])
             rows[f"decode {arch} {label}"] = t
             print(f"  B={B} S={cache} ({label}, {int(lens_np.sum())} valid "
-                  f"rows): {_attn_line(t)}")
+                  f"rows): {_attn_line(t)}; with the lse written "
+                  f"{t['kernel_lse']:.4f} ms")
     return rows
 
 
@@ -3313,6 +3403,174 @@ def sharding_phase(dev) -> dict:
     return launches
 
 
+# Slice 18: the production dry run's cells on the card's fake tensors (a
+# fake group of 256 ranks, rank 0's program): a train cell, a decode cell
+# whose cache the rules split over its positions (qwen3-1.7b's 8 KV heads
+# do not divide the model axis of 16), an MoE prefill with its experts
+# split.  Each in a process of its own, all three at once.
+DRYRUN_CELLS = (("qwen3-1.7b", "train_4k"), ("qwen3-1.7b", "decode_32k"),
+                ("moonshot-v1-16b-a3b", "prefill_32k"))
+DRYRUN_DIR = Path(__file__).resolve().parent / "build" / "smoke_dryrun"
+DRYRUN_TIMEOUT = 600
+# The dry run's predicted peak of the one-card train step against
+# torch.cuda.max_memory_allocated above the memory held before the model
+# was built: the count has no allocator rounding (512-byte blocks),
+# cuBLAS workspace or autograd bookkeeping.  Seen 0.12 % to 0.54 % below
+# the measured on the H100; the limit is about four times that.
+DRYRUN_PEAK_RTOL = 0.02
+
+
+def _dryrun_cells() -> list:
+    """Runs ``launch.dryrun`` on ``DRYRUN_CELLS`` (the card's fake tensors,
+    the single-pod mesh), one process a cell, and returns the artifacts;
+    exits unless each is ok with FLOPs, bytes and collective bytes."""
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    env = dict(os.environ, OMP_NUM_THREADS="2",
+               PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--mesh", "single", "--out", str(DRYRUN_DIR)],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for arch, shape in DRYRUN_CELLS]
+    try:
+        outs = [p.communicate(timeout=DRYRUN_TIMEOUT)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    recs = []
+    for (arch, shape), p, out in zip(DRYRUN_CELLS, procs, outs):
+        path = DRYRUN_DIR / f"{arch}__{shape}__single.json"
+        rec = json.loads(path.read_text()) if path.exists() else {}
+        if p.returncode or not rec.get("ok") or not (
+                rec["flops_total"] > 0 and rec["bytes_accessed_total"] > 0
+                and rec["collectives"]["wire_bytes_per_chip"] > 0):
+            raise SystemExit(f"dry run {arch} {shape}: exit {p.returncode}, "
+                             f"{rec.get('error')}\n{out[-3000:]}")
+        recs.append(rec)
+    return recs
+
+
+def dryrun_phase(dev) -> dict:
+    """Slice 18's main path: the dry run and the roofline.  The
+    production cells through ``python -m repro_torch.launch.dryrun``
+    (fake "cuda" tensors, 256 fake ranks), their roofline rows at this
+    card's rates; then the smoke's smollm-360m train step (``TRAIN_*``:
+    B = 8, S = 2048, bf16, remat, no mesh) counted on fake tensors and run
+    for real: the per-op product FLOPs equal to ``FlopCounterMode``'s, the
+    kernels' counted calls equal to their launches, the predicted peak
+    within ``DRYRUN_PEAK_RTOL`` of the measured, and the measured step
+    not below the roofline's bound, the larger of its compute and memory
+    terms (so that bytes counted too many can fail it).  Returns the real
+    step's launches."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs.registry import make_inputs
+    from repro_torch.launch import dryrun, roofline
+
+    cells = ", ".join(" ".join(c) for c in DRYRUN_CELLS)
+    phase(f"main path, slice 18: the dry run ({cells}; single pod, 256 "
+          f"fake ranks, fake cuda tensors) and the roofline at this card's "
+          f"rates")
+    t_phase = time.monotonic()
+    recs = _dryrun_cells()
+    rows = [roofline.roofline_row(rec) for rec in recs]
+    print("  " + roofline.format_table(rows).replace("\n", "\n  "))
+    for rec, row in zip(recs, rows):
+        print(f"  {rec['arch']} {rec['shape']}: {rec['seconds']} s to count; "
+              f"card {rec['card']}; flops {rec['flops_total']:.4g}, bytes "
+              f"{rec['bytes_accessed_total']:.4g} (converts "
+              f"{rec['convert_bytes_total']:.4g}), wire "
+              f"{rec['collectives']['wire_bytes_per_chip']:.4g} B in "
+              f"{rec['n_collective_lines']} collectives; kernels "
+              f"{rec['kernel_calls']}; terms compute "
+              f"{row['t_compute_s']:.4g} s, memory {row['t_memory_s']:.4g} "
+              f"s, collective {row['t_collective_s']:.4g} s; peak "
+              f"{row['hbm_gb_per_chip']:.3f} GB, fits {row['fits_hbm']}")
+    print(f"  dry run cells {time.monotonic() - t_phase:.1f} s", flush=True)
+
+    cfg = get_config(TRAIN_ARCH)
+    opt = OptConfig(lr=TRAIN_LR)
+    print(f"  {TRAIN_ARCH} train step, B = {TRAIN_B}, S = {TRAIN_S}, bf16, "
+          f"remat, no mesh: counted on fake tensors, then run", flush=True)
+    with dryrun.fake_execution():
+        fmodel = LM(cfg, dev)
+        fstate = init_state(fmodel, opt)
+        fstep = build_train_step(fmodel, opt)
+        fbatch = make_inputs(cfg, "train", TRAIN_B, TRAIN_S, dev)
+        counted = dryrun.count(lambda: fstep(fstate, fbatch),
+                               (fstate, fbatch))
+    del fmodel, fstate, fstep, fbatch
+    base = torch.cuda.memory_allocated(dev)
+    model = LM(cfg, dev, torch.Generator(dev).manual_seed(0))
+    state = init_state(model, opt)
+    step = build_train_step(model, opt)
+    batch = TokenStream(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S,
+                                   global_batch=TRAIN_B), device=dev
+                        ).batch_at(0)
+    state, _ = step(state, batch)                 # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    with FlopCounterMode(display=False) as fc:
+        state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    launches, calls = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    real_flops = {str(k).split(".", 1)[-1]: v
+                  for k, v in fc.get_flop_counts()["Global"].items()}
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    step_ms = 1e3 * statistics.median(times)
+    kernels = set(counted["kernel_calls"])
+    fake_flops = {k: v for k, v in counted["flops_by_op"].items()
+                  if k not in kernels}
+    mem = counted["memory_analysis"]
+    predicted = (mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+                 + mem["output_size_in_bytes"] - mem["alias_size_in_bytes"])
+    rates = bridge.device_rates(dev)
+    t_comp = 1e3 * counted["flops_total"] / rates.peak_flops
+    t_mem = 1e3 * counted["bytes_accessed_total"] / rates.hbm_bw
+    print(f"  product FLOPs by op: counted {fake_flops}, FlopCounterMode "
+          f"{real_flops}; kernel calls counted {counted['kernel_calls']}, "
+          f"launched {launches}; plain calls {calls}")
+    print(f"  peak: predicted {predicted / 2**30:.3f} GiB (arguments "
+          f"{mem['argument_size_in_bytes'] / 2**30:.3f}, temp "
+          f"{mem['temp_size_in_bytes'] / 2**30:.3f}), measured "
+          f"{peak / 2**30:.3f} GiB above the {base / 2**30:.3f} GiB held "
+          f"before: {predicted / peak - 1:+.4f}")
+    flops, nbytes = counted["flops_total"], counted["bytes_accessed_total"]
+    print(f"  step {step_ms:.1f} ms (median of 3; loss "
+          f"{float(metrics['loss']):.4f}) vs the roofline's terms at this "
+          f"card's rates: compute {t_comp:.2f} ms ({flops:.4g} FLOPs), "
+          f"memory {t_mem:.2f} ms ({nbytes:.4g} bytes, converts "
+          f"{counted['convert_bytes_total']:.4g}); the bound "
+          f"{max(t_comp, t_mem):.2f} ms is {max(t_comp, t_mem) / step_ms:.3f} "
+          f"of the step")
+    if fake_flops != real_flops:
+        raise SystemExit("the dry run's product FLOPs differ from "
+                         "FlopCounterMode's over the real step")
+    if calls or any(launches[k] != n
+                    for k, n in counted["kernel_calls"].items()):
+        raise SystemExit("the dry run's kernel calls differ from the "
+                         "real step's launches")
+    if abs(predicted / peak - 1) > DRYRUN_PEAK_RTOL:
+        raise SystemExit(f"the predicted peak is not within "
+                         f"{DRYRUN_PEAK_RTOL:g} of the measured")
+    if step_ms < max(t_comp, t_mem):
+        raise SystemExit("the measured step is below the roofline's bound")
+    del model, state, step, batch, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  dry run phase {time.monotonic() - t_phase:.1f} s")
+    return launches
+
+
 def bridge_phase(dev) -> dict:
     """Slice 12: the co-design bridge on the card
     (``examples/design_accelerator.py``'s synthetic decode signature)."""
@@ -3360,6 +3618,7 @@ def main() -> None:
     funcs = build_phase()
     max_err = parity_phase(dev)
     attention_parity_phase(dev, max_err)
+    decode_lse_phase(dev)
     attention_bwd_parity_phase(dev, max_err)
     scan_parity_phase(dev, max_err)
     scan_bwd_parity_phase(dev, max_err)
@@ -3375,7 +3634,8 @@ def main() -> None:
              arch3d_phase, train_phase]
     paths += [lambda d, r=r: recurrent_train_phase(d, *r) for r in RTRAIN]
     paths += [lambda d, r=r: family_train_phase(d, *r) for r in FAMILY_TRAIN]
-    for path in paths + [bridge_phase, family_serve_phase, sharding_phase]:
+    for path in paths + [bridge_phase, family_serve_phase, sharding_phase,
+                         dryrun_phase]:
         for k, n in path(dev).items():
             launches[k] += n
     train_compare_phase(dev)
@@ -3446,7 +3706,8 @@ def main() -> None:
         "launches": launches[k], "max_abs_err": max_err[k], "ms": ms,
         "plain_ms": t["plain"], "bound_ms": t["bound"],
         "bound_by": t["bound_by"], "library_ms": t.get("library"),
-        "parity": parity}
+        "parity": parity,
+        **({"ms_with_lse": t["kernel_lse"]} if "kernel_lse" in t else {})}
         for k, src, where, ms, t, parity in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,4 +1,6 @@
 """Assigned-architecture configs (one module per arch) + registry."""
-from .registry import ARCHS, SHAPES, all_cells, eligible_shapes, get_config
+from .registry import (ARCHS, SHAPES, all_cells, cache_specs,
+                       eligible_shapes, get_config, input_specs)
 
-__all__ = ["ARCHS", "SHAPES", "all_cells", "eligible_shapes", "get_config"]
+__all__ = ["ARCHS", "SHAPES", "all_cells", "cache_specs", "eligible_shapes",
+           "get_config", "input_specs"]

@@ -6,14 +6,18 @@ the reference's.  Every architecture is a selectable config
 (``--arch <id>``); ``long_500k`` needs sub-quadratic attention, so only
 the bounded-state archs (falcon-mamba-7b, recurrentgemma-9b) run it.
 
-The reference's ``input_specs`` and ``cache_specs`` are dry-run stand-ins
-for XLA's ahead-of-time compiles; they wait for the dry-run port
-(ROADMAP queue 1 item 15e-4).
+``input_specs`` and ``cache_specs`` give every model input and the
+decode caches as tensors of the reference's shapes and dtypes on a given
+device, by default ``"meta"`` (nothing allocated); the dry run
+(``launch.dryrun``) makes them under a ``FakeTensorMode``, where they are
+fake tensors.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+
+import torch
 
 from ..models.config import LMConfig
 
@@ -117,3 +121,70 @@ def eligible_shapes(arch: str) -> list[str]:
 
 def all_cells() -> list[tuple[str, str]]:
     return [(a, s) for a in ARCHS for s in eligible_shapes(a)]
+
+
+# ---------------------------------------------------------------------------
+# Input specs (tensors without data: "meta", or fake under FakeTensorMode)
+# ---------------------------------------------------------------------------
+
+def input_specs(arch: str, shape: str, *, batch_override: int | None = None,
+                device="meta") -> dict:
+    """Every model input of the cell (arch, shape) as a tensor on
+    ``device``, the reference's shapes and dtypes: train ``tokens`` and
+    ``labels`` [B, S] int32, prefill ``tokens``, decode ``tokens`` [B, 1]
+    and ``lengths`` [B] int32; plus ``patch_embeds`` [B, P, D] for the VLM
+    stub, and ``src_embeds`` [B, S, D] (train, prefill) or ``mem_len``
+    [B] int32 (decode) for the encoder-decoder, in the model dtype."""
+    sh = SHAPES[shape]
+    return make_inputs(get_config(arch), sh.kind,
+                       batch_override or sh.global_batch, sh.seq_len, device)
+
+
+def make_inputs(cfg: LMConfig, kind: str, B: int, S: int,
+                device="meta") -> dict:
+    """:func:`input_specs` for a config and a (kind, B, S), as zeros
+    (valid token ids and lengths, so that a real tensor runs too)."""
+    dt = getattr(torch, cfg.dtype)
+    D = cfg.d_model
+
+    def zeros(*size, dtype=torch.int32):
+        return torch.zeros(size, dtype=dtype, device=device)
+
+    if kind in ("train", "prefill"):
+        spec = {"tokens": zeros(B, S)}
+        if kind == "train":
+            spec["labels"] = zeros(B, S)
+        if cfg.frontend == "patch":
+            spec["patch_embeds"] = zeros(B, cfg.n_frontend_tokens, D,
+                                         dtype=dt)
+        if cfg.family == "encdec":
+            spec["src_embeds"] = zeros(B, S, D, dtype=dt)
+        return spec
+    # decode: one new token against a cache of S
+    spec = {"tokens": zeros(B, 1), "lengths": zeros(B)}
+    if cfg.family == "encdec":
+        spec["mem_len"] = zeros(B)
+    return spec
+
+
+def cache_specs(arch: str, shape: str, *, batch_override: int | None = None,
+                device="meta") -> list:
+    """The decode caches of the cell as empty tensors on ``device``: what
+    ``LM.init_cache`` makes (one nested dict a group, each leaf the
+    group's layers stacked first), the reference's shapes and dtypes."""
+    from ..models.model import LM
+
+    cfg = get_config(arch)
+    sh = SHAPES[shape]
+    B = batch_override or sh.global_batch
+    mem_len = sh.seq_len if cfg.family == "encdec" else 0
+    caches = LM(cfg, device="meta").init_cache(B, sh.seq_len, mem_len)
+    return _empty_like_tree(caches, device)
+
+
+def _empty_like_tree(tree, device):
+    if isinstance(tree, list):
+        return [_empty_like_tree(t, device) for t in tree]
+    if isinstance(tree, dict):
+        return {k: _empty_like_tree(v, device) for k, v in tree.items()}
+    return torch.empty(tree.shape, dtype=tree.dtype, device=device)

@@ -48,10 +48,14 @@ from .registries import OPTIMIZERS
 class DeviceRates:
     """A device's peak rates: ``peak_flops`` (operations/s of the dense
     low-precision tensor path), ``hbm_bw`` (memory bytes/s) and
-    ``link_bw`` (bytes/s of one inter-device link)."""
+    ``link_bw`` (bytes/s of one inter-device link); ``dci_bw`` (bytes/s a
+    device across nodes, the roofline's cross-pod term) and ``hbm_bytes``
+    (its memory's capacity), where known."""
     peak_flops: float
     hbm_bw: float
     link_bw: float
+    dci_bw: float | None = None
+    hbm_bytes: float | None = None
 
 
 # The cards the port knows, by ``torch.cuda.get_device_name``.
@@ -60,9 +64,11 @@ DEVICE_RATES = {
     # full power limit).  NVIDIA's data sheet: 989 TFLOP/s dense bf16 on
     # the tensor cores, 3.35 TB/s of HBM3, and NVLink 4 at 900 GB/s over
     # 18 links, 50 GB/s a link (both directions counted, as the sheet's
-    # 900 GB/s counts them).
+    # 900 GB/s counts them); 80 GB of HBM3.  Across nodes: one ConnectX-7
+    # NDR 400 Gb/s port a GPU, as a DGX H100 has, 50 GB/s.
     "NVIDIA H100 80GB HBM3": DeviceRates(peak_flops=989e12, hbm_bw=3.35e12,
-                                         link_bw=50e9),
+                                         link_bw=50e9, dci_bw=50e9,
+                                         hbm_bytes=80e9),
 }
 
 

@@ -71,10 +71,10 @@ SIGNATURES = {
     # scale, softcap, causal, window, pos_offset, device, stream
     "flash_attention_bwd": [*[_P] * 10, *[_L] * 15, _I, _I, _I, _I, _I,
                             _I, _I, _F, _F, _I, _I, _I, _I, _P],
-    # q, k cache, v cache, lengths, out, split scratch, tickets, B, S, Hq,
-    # Hkv, d, dtype code, scale, softcap, window, n_split, chunk, device,
-    # stream
-    "decode_attention_fwd": [*[_P] * 7, _I, _I, _I, _I, _I, _I,
+    # q, k cache, v cache, lengths, out, lse (or null), split scratch,
+    # tickets, B, S, Hq, Hkv, d, dtype code, scale, softcap, window,
+    # n_split, chunk, device, stream
+    "decode_attention_fwd": [*[_P] * 8, _I, _I, _I, _I, _I, _I,
                              _F, _F, _I, _I, _I, _I, _P],
     # x, dt, A, B, C, D, h0, y, h_final, chunk-boundary states (or null),
     # Bt, S, Di, N, x dtype code, dt dtype code, device, stream

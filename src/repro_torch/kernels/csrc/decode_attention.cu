@@ -11,7 +11,12 @@
 //     window w >= 0 only those with p >= lengths[b] - w; softcap c > 0
 //     turns logits s into c * tanh(s / c);
 //   - a row that sees no position (length 0) gives zeros;
-//   - sums in float32, the output in q's dtype, contiguous [B, Hq, d].
+//   - sums in float32, the output in q's dtype, contiguous [B, Hq, d];
+//   - where asked (lse not null), each row's log-sum-exp of its seen
+//     logits, [B, Hq] float32, -inf for a row that sees no position: the
+//     merged (m, l) of the splits, (m + log2 l) ln 2.  With it the outputs
+//     of a cache cut into pieces (over ranks, repro_torch/kernels/
+//     on_shards.py) merge into the uncut call's.
 // Head dims 16, 32, 64, 128 and 256 are template instances.
 //
 // Bound on an H100 SXM: the bytes.  Each valid K and V row is read once
@@ -70,6 +75,7 @@ using namespace mma_bf16;
 
 constexpr float kNegInf = -1.0e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kMaxSplits = 64;    // decode_attention.py::MAX_SPLITS
 
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
@@ -83,6 +89,7 @@ struct Args {
   const void* v;
   const int* lengths;
   void* o;
+  float* lse;        // [B * Hq] or null
   float* part;       // [B * Hq * n_split][d] acc, then (m, l) of each
   int* tickets;      // [B * Hkv * row chunks], 0 between launches
   int S, Hq, Hkv;
@@ -104,8 +111,14 @@ __device__ __forceinline__ Span block_span(const Args& a, int b, int split) {
   return Span{max(c0, p_begin), min(min(c0 + a.chunk, a.S), p_end)};
 }
 
+// A row's log-sum-exp from its merged max m (log2 units) and sum l.
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return l > 0.0f ? (m + log2f(l)) * kLn2 : -INFINITY;
+}
+
 // One (row, channel) of a block's result: the output itself with one
-// split, else the block's partial (the row's m and l with channel 0).
+// split (and the row's lse with channel 0), else the block's partial (the
+// row's m and l with channel 0).
 // The scratch holds the accumulators [B * Hq * n_split][D] first (so that
 // each row of them starts on 16 bytes), then (m, l) pairs.
 template <int D, typename T>
@@ -113,6 +126,7 @@ __device__ __forceinline__ void emit(const Args& a, long long row, int split,
                                      int c, float m, float l, float acc) {
   if (a.n_split == 1) {
     store(static_cast<T*>(a.o) + row * D + c, l > 0.0f ? acc / l : 0.0f);
+    if (c == 0 && a.lse != nullptr) a.lse[row] = row_lse(m, l);
     return;
   }
   const long long slot = row * a.n_split + split;
@@ -160,6 +174,7 @@ __device__ void merge_splits(const Args& a, long long row0, int nr,
       L = fmaf(l, f, L);
     }
     s_l[r] = L;
+    if (a.lse != nullptr) a.lse[row0 + r] = row_lse(M, L);
   }
   __syncthreads();
   // kPer groups of 4 channels a thread at a time: kPer * n_split loads of
@@ -706,15 +721,17 @@ extern "C" {
 // CUDA-core kernel), 1 bfloat16 (the tensor-core kernel), the same for q,
 // the caches and out.  q [B, Hq, d], the caches [B, S, Hkv, d] and
 // out [B, Hq, d] are contiguous and 16-byte aligned; lengths is [B]
-// int32; out is written in full.  The cache is split into n_split chunks
+// int32; out is written in full, and so is lse [B, Hq] (float32) unless
+// it is null.  The cache is split into n_split chunks
 // of `chunk` positions (n_split * chunk >= S); with n_split > 1, `part`
 // holds B * Hq * n_split * (d + 2) float32 of scratch and `tickets`
 // B * Hkv * ceil(Hq / Hkv / 8) int32 that are 0 at the launch (the kernel
 // leaves them 0).
 int decode_attention_fwd(const void* q, const void* k_cache,
                          const void* v_cache, const int* lengths, void* out,
-                         float* part, int* tickets, int B, int S, int Hq,
-                         int Hkv, int d, int dtype, float scale,
+                         float* lse, float* part, int* tickets, int B,
+                         int S, int Hq, int Hkv, int d, int dtype,
+                         float scale,
                          float softcap, int window, int n_split, int chunk,
                          int device, void* stream) {
   if (B <= 0 || Hq <= 0) return 0;
@@ -723,8 +740,9 @@ int decode_attention_fwd(const void* q, const void* k_cache,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const Args a{q, k_cache, v_cache, lengths, out, part, tickets, S, Hq, Hkv,
-               scale, softcap, window, n_split, chunk};
+  const Args a{q,    k_cache, v_cache, lengths, out, lse,     part, tickets,
+               S,    Hq,      Hkv,     scale,   softcap, window, n_split,
+               chunk};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0: err = launch_d<false>(a, B, d, s); break;

@@ -12,14 +12,17 @@ picks the number of splits from the shapes alone, so the host never reads
 the lengths; the wrapper allocates the split partials' scratch with
 ``torch.empty`` and keeps one zeroed ticket buffer a stream, which the
 kernel leaves zeroed after every launch.  ``ref.decode_attention_split_ref``
-is the same split and merge in plain PyTorch.
+is the same split and merge in plain PyTorch.  Asked for it, the kernel
+also writes each row's log-sum-exp from the merged partials: with it the
+outputs of a cache cut into pieces (over ranks, ``on_shards``) merge into
+the uncut call's.
 """
 from __future__ import annotations
 
 import torch
 from torch.distributed.tensor import DTensor
 
-from . import build, on_shards, ref
+from . import build, custom_ops, on_shards, ref
 from .flash_attention import check_attention_inputs
 
 # Launches of the kernel (not of the plain version).
@@ -71,12 +74,20 @@ def _ticket_buffer(device: torch.device, stream: int,
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, lengths: torch.Tensor, *,
                      scale: float | None = None, window: int | None = None,
-                     softcap: float | None = None) -> torch.Tensor:
+                     softcap: float | None = None,
+                     return_lse: bool = False):
     """One-token GQA attention: q [B, Hq, d], caches [B, S, Hkv, d],
     lengths [B] (the valid prefix of each row) -> [B, Hq, d] in q's dtype;
-    see ``ref.decode_attention_ref``.  DTensor operands run on each rank's
-    shards (``on_shards``)."""
+    see ``ref.decode_attention_ref``.  With ``return_lse`` also each
+    row's log-sum-exp [B, Hq] (float32, -inf for a row of length 0),
+    which the kernel writes beside the output: what merges the outputs
+    of a cache cut over its positions (``on_shards``).  DTensor operands
+    run on each rank's shards (``on_shards``); fake tensors go to the
+    custom op (``custom_ops``), which the dry run counts."""
     if isinstance(q, DTensor):
+        if return_lse:
+            raise ValueError("decode_attention returns no lse for DTensor "
+                             "operands (the ranks' are merged)")
         return on_shards.decode_attention(decode_attention, q, k_cache,
                                           v_cache, lengths, scale, window,
                                           softcap)
@@ -102,10 +113,16 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                          f"{softcap}")
     ops_ = {"q": q, "k_cache": k_cache, "v_cache": v_cache}
     check_attention_inputs("decode_attention", ops_, d)
+    if custom_ops.is_fake(q):
+        out, lse = custom_ops.decode_attention(q, k_cache, v_cache, lengths,
+                                               scale, window, softcap,
+                                               return_lse)
+        return (out, lse) if return_lse else out
     if q.device.type == "cpu":
         return ref.decode_attention_ref(q, k_cache, v_cache, lengths,
                                         scale=scale, window=window,
-                                        softcap=softcap)
+                                        softcap=softcap,
+                                        return_lse=return_lse)
     build.refuse_grad("decode_attention", *ops_.values())
     for key, x in ops_.items():
         if not x.is_contiguous() or x.data_ptr() % 16:
@@ -114,15 +131,21 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if lengths.device != q.device or lengths.dtype != torch.int32:
         raise ValueError("decode_attention takes int32 lengths on q's "
                          "device")
-    return _launch(q, k_cache, v_cache, lengths.contiguous(), scale, window,
-                   softcap)
+    out, lse = _launch(q, k_cache, v_cache, lengths.contiguous(), scale,
+                       window, softcap, return_lse)
+    return (out, lse) if return_lse else out
 
 
-def _launch(q, k_cache, v_cache, lengths, scale, window, softcap):
+def _launch(q, k_cache, v_cache, lengths, scale, window, softcap,
+            with_lse: bool = False):
+    """The output, and the log-sum-exp [B, Hq] (float32) with
+    ``with_lse``, else None."""
     global launches
     B, Hq, d = q.shape
     S, Hkv = k_cache.shape[1], k_cache.shape[2]
     out = torch.empty_like(q)
+    lse = (torch.empty(B, Hq, dtype=torch.float32, device=q.device)
+           if with_lse else None)
     if out.numel():
         lib = build.load()
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -133,7 +156,8 @@ def _launch(q, k_cache, v_cache, lengths, scale, window, softcap):
                                  B * Hkv * -(-(Hq // Hkv) // 8))
         rc = lib.decode_attention_fwd(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            lengths.data_ptr(), out.data_ptr(), part.data_ptr(),
+            lengths.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), part.data_ptr(),
             tickets.data_ptr(), B, S, Hq, Hkv, d,
             build.DTYPE_CODES[str(q.dtype)[6:]],
             d ** -0.5 if scale is None else scale,
@@ -142,4 +166,4 @@ def _launch(q, k_cache, v_cache, lengths, scale, window, softcap):
             q.device.index, stream)
         build.check_rc(lib, rc, "decode_attention")
         launches += 1
-    return out
+    return out, lse

@@ -24,7 +24,7 @@ from __future__ import annotations
 import torch
 from torch.distributed.tensor import DTensor
 
-from . import build, on_shards, ref
+from . import build, custom_ops, on_shards, ref
 from . import flash_attention_bwd as bwd
 
 # The head dims the kernel has template instances for.
@@ -67,7 +67,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """GQA attention: q [B, Sq, Hq, d], k and v [B, Sk, Hkv, d] ->
     [B, Sq, Hq, d] in q's dtype.  Query i sits at ``pos_offset + i``
     (``Sk - Sq``, end-aligned, by default); see ``ref.attention_ref``.
-    DTensor operands run on each rank's shards (``on_shards``)."""
+    DTensor operands run on each rank's shards (``on_shards``); fake
+    tensors go to the custom op (``custom_ops``), which the dry run
+    counts."""
     if isinstance(q, DTensor):
         return on_shards.flash_attention(flash_attention, q, k, v, causal,
                                          window, scale, softcap, pos_offset)
@@ -88,12 +90,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{softcap}")
     ops_ = {"q": q, "k": k, "v": v}
     check_attention_inputs("flash_attention", ops_, d)
-    if q.device.type == "cuda" and q.dtype == torch.bfloat16:
+    fake = custom_ops.is_fake(q)
+    if q.device.type == "cuda" and q.dtype == torch.bfloat16 and not fake:
         for key, x in ops_.items():
             check_16_byte_rows("flash_attention", key, x)
     if build.needs_grad(q, k, v):
         return FlashAttention.apply(q, k, v, causal, window, scale, softcap,
                                     pos_offset)
+    if fake:
+        return custom_ops.flash_attention(q, k, v, causal, window, scale,
+                                          softcap, pos_offset, False)[0]
     if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, causal=causal, window=window,
                                  scale=scale, softcap=softcap,
@@ -111,7 +117,10 @@ class FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, causal, window, scale, softcap, pos_offset):
         kw = dict(causal=causal, window=window, scale=scale, softcap=softcap,
                   pos_offset=pos_offset)
-        if q.device.type == "cpu":
+        if custom_ops.is_fake(q):
+            out, lse = custom_ops.flash_attention(
+                q, k, v, causal, window, scale, softcap, pos_offset, True)
+        elif q.device.type == "cpu":
             out, lse = ref.attention_ref(q, k, v, return_lse=True, **kw)
         else:
             out, lse = _launch(q, k, v, causal, window, scale, softcap,

@@ -36,7 +36,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         pos_offset: int | None = None) -> tuple:
     """(dq, dk, dv) of flash attention: q, o and dout [B, Sq, Hq, d], k
     and v [B, Sk, Hkv, d], lse [B, Hq, Sq] float32 (the forward's), the
-    forward's options; see ``ref.attention_bwd_ref``."""
+    forward's options; see ``ref.attention_bwd_ref``.  Fake tensors go to
+    the custom op (``custom_ops``)."""
+    from . import custom_ops
     from .flash_attention import (check_16_byte_rows, check_attention_inputs,
                                   rows_16_byte_aligned)
 
@@ -53,15 +55,18 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"[{B}, {Hq}, {Sq}], got {lse.dtype} "
                          f"{tuple(lse.shape)}")
     ops_ = {"q": q, "k": k, "v": v, "o": o}
-    rows16 = q.device.type == "cuda" and q.dtype == torch.bfloat16
+    kw = dict(causal=causal, window=window, scale=scale, softcap=softcap,
+              pos_offset=pos_offset)
+    rows16 = (q.device.type == "cuda" and q.dtype == torch.bfloat16
+              and not custom_ops.is_fake(q))
     if dout.stride(-1) != 1 or (rows16 and not rows_16_byte_aligned(dout)):
         dout = dout.clone(memory_format=torch.contiguous_format)
     check_attention_inputs("flash_attention_bwd", {**ops_, "dout": dout}, d)
     if rows16:
         for key, x in ops_.items():
             check_16_byte_rows("flash_attention_bwd", key, x)
-    kw = dict(causal=causal, window=window, scale=scale, softcap=softcap,
-              pos_offset=pos_offset)
+    if custom_ops.is_fake(q):
+        return custom_ops.flash_attention_bwd(q, k, v, o, dout, lse, **kw)
     if q.device.type == "cpu":
         return ref.attention_bwd_ref(q, k, v, o, dout, lse, **kw)
     if lse.device != q.device:

@@ -6,8 +6,13 @@ split over the batch (the data axes) and the heads (the model axis), and
 the scans' over the batch and the channels; attention and both scans are
 independent across those, so each rank runs the hand-written kernel (on
 the card) or the plain version (on the CPU) on its shards, never a gather
-to full tensors followed by one call.  The wrappers' launch and plain-call
-counters count these calls as any other.
+to full tensors followed by one call.  A decode cache split over its
+positions (the rules' layout where the KV heads do not divide the model
+axis, in prefill's and decode's caches) is not independent across the
+ranks: each runs the decode kernel on its positions, with its row's
+log-sum-exp, and the partial softmaxes merge by all-reduces.  The
+wrappers' launch and plain-call counters count these calls as any
+other.
 
 An operand that is replicated on a mesh dim over which the work is split
 (K and V where the KV heads do not divide the model axis, the scan's A
@@ -18,6 +23,10 @@ wrapper to call, so that the wrapper modules keep the dispatch.
 """
 from __future__ import annotations
 
+import math
+
+import torch
+import torch.distributed._functional_collectives as funcol
 from torch.distributed.tensor import Replicate, Shard
 
 from ..sharding.partition import (from_local, global_offset, grads_over,
@@ -105,12 +114,12 @@ def decode_attention(fn, q, k_cache, v_cache, lengths, scale, window,
                      softcap):
     """``fn`` (the decode wrapper) on each rank's shards of q [B, Hq, d],
     the caches [B, S, Hkv, d] and lengths [B]: the batch and the heads
-    split.  A cache split over its positions would need the partial
-    softmaxes merged across ranks, which no kernel here does: it
-    raises."""
+    split, or the cache split over its positions (the rules' layout for
+    KV heads that the model axis does not divide), which
+    :func:`_decode_over_positions` merges across the ranks."""
     if any(p.is_shard(1) for p in k_cache.placements):
-        raise NotImplementedError(
-            "decode_attention on a cache split over its positions")
+        return _decode_over_positions(fn, q, k_cache, v_cache, lengths,
+                                      scale, window, softcap)
     qp, kp, _ = _attention_plan(q, k_cache, head_dim=1)
     ql = local_part(q, qp)
     kl, vl = local_part(k_cache, kp), local_part(v_cache, kp)
@@ -121,6 +130,47 @@ def decode_attention(fn, q, k_cache, v_cache, lengths, scale, window,
     out = fn(ql, kl, vl, local_part(lengths, lp), scale=scale,
              window=window, softcap=softcap)
     return from_local(out, q.device_mesh, qp, q.shape)
+
+
+def _decode_over_positions(fn, q, k_cache, v_cache, lengths, scale, window,
+                           softcap):
+    """Decode attention on a cache split over its positions.  Each rank
+    runs ``fn`` on its own positions [off, off + S_l) for every query
+    head of its batch rows, with the local length ``clamp(length - off,
+    0)`` (the kernel sees no position past S_l; the window, p >= length -
+    window, stays against the global position), and gets its rows'
+    output o_r and log-sum-exp lse_r.  The ranks merge them as XLA's
+    partial softmax does: M = max_r lse_r (an all-reduce), w_r =
+    e^(lse_r - M) (0 for a rank that sees no position, lse_r = -inf),
+    out = sum_r w_r o_r / sum_r w_r (sum all-reduces, in float32), zeros
+    where no rank sees a position: ``ref.merge_decode_ref`` over the
+    ranks."""
+    mesh = q.device_mesh
+    pos = [i for i, p in enumerate(k_cache.placements) if p.is_shard(1)]
+    batch = [p.is_shard(0) for p in k_cache.placements]
+    kp = tuple(Shard(0) if b else Shard(1) if i in pos else Replicate()
+               for i, b in enumerate(batch))
+    rp = _pl(batch)
+    ql = local_part(q, rp).contiguous()
+    kl, vl = local_part(k_cache, kp), local_part(v_cache, kp)
+    off = global_offset(k_cache, kp)[1]
+    lens = (local_part(lengths, rp) - off).clamp(min=0)
+    if window is None:
+        lens = lens.clamp(max=kl.shape[1])
+    out, lse = fn(ql, kl.contiguous(), vl.contiguous(),
+                  lens.to(lengths.dtype), scale=scale, window=window,
+                  softcap=softcap, return_lse=True)
+    big = lse
+    for i in pos:
+        big = funcol.all_reduce(big, "max", (mesh, i))
+    w = torch.where(lse > -math.inf, torch.exp(lse - big), 0.0)
+    num = w[..., None] * out.float()
+    for i in pos:
+        num = funcol.all_reduce(num, "sum", (mesh, i))
+        w = funcol.all_reduce(w, "sum", (mesh, i))
+    merged = torch.where(w[..., None] > 0, num / w.clamp(min=1e-30)[..., None],
+                         0.0).to(out.dtype)
+    return from_local(merged, mesh, rp, q.shape)
 
 
 def _scan_plan(x):

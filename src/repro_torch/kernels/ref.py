@@ -471,13 +471,17 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
                          v_cache: torch.Tensor, lengths: torch.Tensor, *,
                          scale: float | None = None,
                          window: int | None = None,
-                         softcap: float | None = None) -> torch.Tensor:
+                         softcap: float | None = None,
+                         return_lse: bool = False):
     """One-token GQA attention over a KV cache, as
     ``repro.kernels.ref.decode_attention_ref`` computes it.
 
     q: [B, Hq, d]; caches: [B, S, Hkv, d]; lengths: [B], the valid prefix
     of each row (the new token, at ``lengths - 1``, already written).  A
     row of length 0 gives zeros.  Float32 math; the output has q's dtype.
+    With ``return_lse`` it returns (out, lse): lse [B, Hq] float32, each
+    row's log-sum-exp of its seen (capped) logits, -inf for a row that
+    sees no position.
     """
     calls["decode_attention_ref"] += 1
     B, Hq, d = q.shape
@@ -495,7 +499,33 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
         mask &= kpos > lengths - 1 - window
     p = _softmax_masked(logits, mask[:, None, None])
     out = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
-    return out.reshape(B, Hq, d).to(q.dtype)
+    out = out.reshape(B, Hq, d).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.logsumexp(logits.masked_fill(~mask[:, None, None],
+                                             -math.inf), dim=-1)
+    return out, lse.reshape(B, Hq)
+
+
+def merge_decode_ref(outs: list, lses: list) -> torch.Tensor:
+    """Decode outputs of a cache cut into pieces over its positions,
+    merged into the uncut call's: each piece's output o_i [B, Hq, d] and
+    log-sum-exp lse_i [B, Hq] (-inf for a piece whose row sees no
+    position), M = max_i lse_i, w_i = e^(lse_i - M) (0 where lse_i =
+    -inf), out = sum_i w_i o_i / sum_i w_i in float32, zeros where no
+    piece sees a position; the output in the pieces' dtype.
+    ``on_shards`` merges the ranks' pieces the same way, by all-reduces."""
+    big = torch.stack(lses).amax(0)
+    num = torch.zeros(outs[0].shape, dtype=torch.float32,
+                      device=outs[0].device)
+    den = torch.zeros_like(big)
+    for o, lse in zip(outs, lses):
+        w = torch.where(lse > -math.inf, torch.exp(lse - big), 0.0)
+        num = num + w[..., None] * o.float()
+        den = den + w
+    return torch.where(den[..., None] > 0,
+                       num / den.clamp(min=1e-30)[..., None],
+                       0.0).to(outs[0].dtype)
 
 
 def decode_attention_split_ref(q: torch.Tensor, k_cache: torch.Tensor,

@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 from torch.distributed.tensor import DTensor
 
-from . import build, on_shards, ref
+from . import build, custom_ops, on_shards, ref
 from . import rglru_scan_bwd as bwd
 from .selective_scan import check_scan_inputs
 
@@ -32,7 +32,8 @@ def rglru_scan(x: torch.Tensor, a: torch.Tensor,
     """RG-LRU recurrence: x, a [B, S, D] (one dtype, float32 or bfloat16),
     h0 [B, D] (float32; zeros by default) -> (every h [B, S, D] in x's
     dtype, h_final [B, D] float32); see ``ref.rglru_ref``.  DTensor
-    operands run on each rank's shards (``on_shards``)."""
+    operands run on each rank's shards (``on_shards``); fake tensors go
+    to the custom op (``custom_ops``), which the dry run counts."""
     if isinstance(x, DTensor):
         return on_shards.rglru_scan(rglru_scan, x, a, h0)
     if not isinstance(x, torch.Tensor) or x.dim() != 3:
@@ -49,6 +50,8 @@ def rglru_scan(x: torch.Tensor, a: torch.Tensor,
                         f"{x.dtype} and {a.dtype}")
     if build.needs_grad(x, a, h0):
         return RGLRUScan.apply(x, a, h0)
+    if custom_ops.is_fake(x):
+        return custom_ops.rglru_scan(x, a, h0, False)[:2]
     if x.device.type == "cpu":
         return ref.rglru_ref(x, a, h0)
     return _launch(*_on_card(x, a, h0))[:2]
@@ -94,7 +97,11 @@ class RGLRUScan(torch.autograd.Function):
     def forward(ctx, x, a, h0):
         ctx.set_materialize_grads(False)
         ctx.has_h0 = h0 is not None
-        if x.device.type == "cpu":
+        if custom_ops.is_fake(x):
+            y, hf, h32 = custom_ops.rglru_scan(x, a, h0, True)
+            ctx.save_for_backward(x, a, h0, custom_ops.optional(h32)
+                                  if x.dtype != torch.float32 else y)
+        elif x.device.type == "cpu":
             y, hf = ref.rglru_ref(x, a, h0)
             ctx.save_for_backward(x, a, h0, None)
         else:

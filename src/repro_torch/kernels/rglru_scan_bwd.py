@@ -29,7 +29,9 @@ def rglru_scan_bwd(x: torch.Tensor, a: torch.Tensor, h0: torch.Tensor | None,
     dh_final [B, D] (zeros when None).  ``states``: every h in float32
     [B, S, D], as ``rglru_scan._launch(..., states=True)`` returns it:
     required on the card, not used on the CPU (the plain version
-    recomputes every state from h0)."""
+    recomputes every state from h0).  Fake tensors go to the custom op
+    (``custom_ops``)."""
+    from . import custom_ops
     from .rglru_scan import _on_card
     from .selective_scan import check_scan_inputs
 
@@ -45,6 +47,8 @@ def rglru_scan_bwd(x: torch.Tensor, a: torch.Tensor, h0: torch.Tensor | None,
     if a.dtype != x.dtype or dy.dtype != x.dtype:
         raise TypeError(f"rglru_scan_bwd takes x, a and dy in one dtype, "
                         f"got {x.dtype}, {a.dtype} and {dy.dtype}")
+    if custom_ops.is_fake(x):
+        return custom_ops.rglru_scan_bwd(x, a, h0, dy, dh_final, states)
     if x.device.type == "cpu":
         return ref.rglru_bwd_ref(x, a, h0, dy, dh_final)
     if states is None:

@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 from torch.distributed.tensor import DTensor
 
-from . import build, on_shards, ref
+from . import build, custom_ops, on_shards, ref
 from . import selective_scan_bwd as bwd
 
 # The largest state size N the kernel holds in registers (8 lanes a
@@ -65,7 +65,8 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     A [Di, N], B and C [Bt, S, N], D [Di], h0 [Bt, Di, N] (float32; zeros
     by default) -> (y [Bt, S, Di] in x's dtype, h_final [Bt, Di, N]
     float32); see ``ref.selective_scan_ref``.  DTensor operands run on
-    each rank's shards (``on_shards``)."""
+    each rank's shards (``on_shards``); fake tensors go to the custom op
+    (``custom_ops``), which the dry run counts."""
     if isinstance(x, DTensor):
         return on_shards.selective_scan(selective_scan, x, dt, A, B, C, D,
                                         h0)
@@ -87,6 +88,8 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     check_scan_inputs("selective_scan", ops_, shapes, ("x", "dt"))
     if build.needs_grad(x, dt, A, B, C, D, h0):
         return SelectiveScan.apply(x, dt, A, B, C, D, h0)
+    if custom_ops.is_fake(x):
+        return custom_ops.selective_scan(x, dt, A, B, C, D, h0, False)[:2]
     if x.device.type == "cpu":
         return ref.selective_scan_ref(x, dt, A, B, C, D, h0)
     return _launch(*_on_card(x, dt, A, B, C, D, h0))[:2]
@@ -135,7 +138,10 @@ class SelectiveScan(torch.autograd.Function):
     def forward(ctx, x, dt, A, B, C, D, h0):
         ctx.set_materialize_grads(False)
         ctx.has_h0 = h0 is not None
-        if x.device.type == "cpu":
+        if custom_ops.is_fake(x):
+            y, hf, hb = custom_ops.selective_scan(x, dt, A, B, C, D, h0, True)
+            ctx.save_for_backward(x, dt, A, B, C, D, h0, hb)
+        elif x.device.type == "cpu":
             y, hf = ref.selective_scan_ref(x, dt, A, B, C, D, h0)
             ctx.save_for_backward(x, dt, A, B, C, D, h0, None)
         else:

@@ -39,7 +39,9 @@ def selective_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     dtype, dh_final [Bt, Di, N] (zeros when None).  ``states``: the state
     entering each chunk, as ``selective_scan._launch(..., states=True)``
     returns it: required on the card, not used on the CPU (the plain
-    version recomputes every state from h0)."""
+    version recomputes every state from h0).  Fake tensors go to the
+    custom op (``custom_ops``)."""
+    from . import custom_ops
     from .selective_scan import CHUNK, _on_card, check_scan_inputs
 
     Bt, S, Di = x.shape
@@ -57,6 +59,9 @@ def selective_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if dy.dtype != x.dtype:
         raise TypeError(f"selective_scan_bwd takes dy in x's dtype "
                         f"{x.dtype}, got {dy.dtype}")
+    if custom_ops.is_fake(x):
+        return tuple(custom_ops.selective_scan_bwd(
+            x, dt, A, B, C, D, h0, dy, dh_final, states))
     if x.device.type == "cpu":
         return ref.selective_scan_bwd_ref(x, dt, A, B, C, D, h0, dy,
                                           dh_final)

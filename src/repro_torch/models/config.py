@@ -11,7 +11,8 @@ Fields the port reads differently: ``attn_impl`` is kept for the
 comparison only (the port's kernels dispatch on the tensor's device, a
 CUDA tensor to the kernel, a CPU tensor to the plain version);
 ``scan_layers`` only shapes the reference's XLA program (the port runs
-its layers one after another, eagerly); ``remat`` makes ``LM.loss_fn``
+its layers one after another, eagerly, and its dry run counts every
+layer it runs, so it ignores the field too); ``remat`` makes ``LM.loss_fn``
 recompute each layer in the backward
 (``torch.utils.checkpoint.checkpoint``), as the reference's
 ``jax.checkpoint``.

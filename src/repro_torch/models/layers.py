@@ -14,9 +14,13 @@ such a module as ``p``, in the reference's order of operations:
 The reference's ``shard()`` constraints stand at its places
 (``sharding.partition.shard``): no-ops on plain tensors, and on DTensors
 (model parallelism, ``launch.train --model-par``) a redistribution to the
-rules' layout.  Cross-attention (:class:`CrossAttention` and the ``xattn*``
-functions) attends the encoder's output, bidirectionally, through the same
-kernels.
+rules' layout.  The port adds one at the residual branches that the
+reference leaves to XLA (decode's attention and recurrent steps, the
+cross-attention): XLA sums a row-split product's partial results at
+once, DTensor would carry the partial sum down the residual stream and
+sum it again at every later use.  Cross-attention (:class:`CrossAttention`
+and the ``xattn*`` functions) attends the encoder's output,
+bidirectionally, through the same kernels.
 """
 from __future__ import annotations
 
@@ -24,8 +28,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
 from ..kernels import ops
-from ..sharding.partition import shard
+from ..sharding.partition import (current_ctx, from_local, global_offset,
+                                  local_part, local_span, placements,
+                                  rows_matmul, shard)
 from .config import LMConfig
 
 
@@ -125,18 +133,39 @@ def qkv(p: Attention, x, cfg: LMConfig, pos):
     k and v [B, S, Hkv, hd]."""
     B, S, _ = x.shape
     H, Hkv, hd = cfg.n_heads_p, cfg.n_kv_heads, cfg.hd
-    q, k, v = x @ p.wq, x @ p.wk, x @ p.wv
+    q, k, v = (rows_matmul(x, w) for w in (p.wq, p.wk, p.wv))
     if cfg.qkv_bias:
         q, k, v = q + p.bq, k + p.bk, v + p.bv
-    q = q.reshape(B, S, H, hd)
-    k = k.reshape(B, S, Hkv, hd)
-    v = v.reshape(B, S, Hkv, hd)
+    q, k, v = _heads(q, H, hd), _heads(k, Hkv, hd), _heads(v, Hkv, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p.q_norm, cfg.norm_eps)
         k = rms_norm(k, p.k_norm, cfg.norm_eps)
     q = shard(rope(q, pos, cfg.rope_theta), "act_heads")
     k = shard(rope(k, pos, cfg.rope_theta), "act_kv")
     return q, k, shard(v, "act_kv")
+
+
+def _heads(x, n: int, hd: int):
+    """x [B, S, n hd] -> [B, S, n, hd].  A DTensor split over its last dim
+    more ways than the n heads divide (qwen3-1.7b's 8 KV heads of 128,
+    whose projection the rules split 16 ways; a B = 1 cell's heads over
+    both mesh dims) is first gathered on the minor mesh dims that the
+    heads do not divide: the rules keep such heads whole (``act_kv``)."""
+    B, S = x.shape[:2]
+    if isinstance(x, DTensor):
+        mesh, ways, pl = x.device_mesh, 1, []
+        for i, p in enumerate(x.placements):
+            # A strided shard (the last dim split over two mesh dims) has
+            # a ``dim`` but is not ``is_shard``.
+            if getattr(p, "dim", None) == 2:
+                if n % (ways * mesh.size(i)):
+                    p = Replicate()
+                else:
+                    ways *= mesh.size(i)
+            pl.append(p)
+        if tuple(pl) != tuple(x.placements):
+            x = x.redistribute(mesh, tuple(pl))
+    return x.reshape(B, S, n, hd)
 
 
 def sdpa_train(q, k, v, cfg: LMConfig, *, window: int | None,
@@ -161,7 +190,8 @@ def attn_train(p: Attention, x, cfg: LMConfig, pos, *,
     B, S, _ = x.shape
     q, k, v = qkv(p, rms_norm(x, p.norm, cfg.norm_eps), cfg, pos)
     o = sdpa_train(q, k, v, cfg, window=window, causal=causal)
-    return x + shard(o.reshape(B, S, cfg.n_heads_p * cfg.hd) @ p.wo, "act")
+    o = rows_matmul(o.reshape(B, S, cfg.n_heads_p * cfg.hd), p.wo)
+    return x + shard(o, "act")
 
 
 def attn_prefill(p: Attention, x, cfg: LMConfig, pos, *,
@@ -172,35 +202,80 @@ def attn_prefill(p: Attention, x, cfg: LMConfig, pos, *,
     B, S, _ = x.shape
     q, k, v = qkv(p, rms_norm(x, p.norm, cfg.norm_eps), cfg, pos)
     o = sdpa_train(q, k, v, cfg, window=window)
-    o = o.reshape(B, S, cfg.n_heads_p * cfg.hd) @ p.wo
+    o = rows_matmul(o.reshape(B, S, cfg.n_heads_p * cfg.hd), p.wo)
     if window is None and S > cache_len:
         raise ValueError(
             f"prefill length {S} exceeds cache_len {cache_len} "
             "(only windowed layers may ring-wrap)")
-    kc = k.new_zeros(B, cache_len, cfg.n_kv_heads, cfg.hd)
-    vc = torch.zeros_like(kc)
+    return x + shard(o, "act"), {"k": _prefill_cache(k, cache_len, window),
+                                 "v": _prefill_cache(v, cache_len, window)}
+
+
+def _fill_slots(k, cache_len: int, window: int | None, lo: int, n: int):
+    """Slots [lo, lo + n) of the prefill cache of k [B, S, Hkv, hd]: in
+    ring order for a windowed layer whose cache is the window and shorter
+    than the prompt (position p at slot p % window: slot s holds the last
+    window positions' p = S - window + (s - S + window) mod window), else
+    position s at slot s for s < min(S, cache_len) and zeros after."""
+    B, S = k.shape[:2]
     if window is not None and cache_len == window and S > window:
-        # ring order: position p stored at slot p % window
-        slots = torch.arange(S - window, S, device=x.device) % window
-        kc[:, slots] = k[:, -window:]
-        vc[:, slots] = v[:, -window:]
-    else:
-        ins = min(S, cache_len)
-        kc[:, :ins] = k[:, :ins]
-        vc[:, :ins] = v[:, :ins]
-    return x + shard(o, "act"), {"k": shard(kc, "cache"),
-                                 "v": shard(vc, "cache")}
+        slots = torch.arange(lo, lo + n, device=k.device)
+        return k[:, S - window + (slots - S + window) % window]
+    out = k.new_zeros(B, n, *k.shape[2:])
+    hi = min(lo + n, S, cache_len)
+    if hi > lo:
+        out[:, :hi - lo] = k[:, lo:hi]
+    return out
+
+
+def _prefill_cache(k, cache_len: int, window: int | None):
+    """The prefill cache [B, cache_len, Hkv, hd] of k.  A DTensor k is
+    laid out as the installed rules' ``"cache"`` spec says (the heads or
+    the positions split over the model axis) and each rank fills its own
+    slots from its shard of k, whole over the positions: no collective
+    where k is already replicated there, as the rules keep it when the
+    KV heads do not divide the axis."""
+    ctx = current_ctx()
+    if not isinstance(k, DTensor) or ctx is None:
+        return shard(_fill_slots(k, cache_len, window, 0, cache_len),
+                     "cache")
+    mesh, shape = k.device_mesh, (k.shape[0], cache_len, *k.shape[2:])
+    spec = tuple(ctx.act_specs["cache"])
+    pl = placements(mesh, spec + (None,) * (4 - len(spec)), shape)
+    kl = local_part(k, tuple(Replicate() if p.is_shard(1) else p
+                             for p in pl))
+    n, off = local_span(shape, mesh, pl)
+    return from_local(_fill_slots(kl, cache_len, window, off[1], n[1]),
+                      mesh, pl, shape)
 
 
 def _write_position(cache: torch.Tensor, slot: torch.Tensor,
                     new: torch.Tensor) -> None:
     """cache[b, slot[b]] = new[b] in place, for the rows whose slot lies
     inside the cache; a row whose slot is past the end keeps its cache (the
-    reference's one-hot ``where`` matches no position there)."""
+    reference's one-hot ``where`` matches no position there).  On a
+    DTensor cache each rank writes its own shard: the rank whose positions
+    hold the slot (a cache split over its positions), the others keep
+    their bits."""
+    if isinstance(cache, DTensor):
+        mesh, pl = cache.device_mesh, cache.placements
+        # new [B, Hkv, hd] and slot [B] as the cache lays out its rows and
+        # heads, whole over its positions.
+        npl = tuple(Shard(0) if p.is_shard(0) else Shard(1) if p.is_shard(2)
+                    else Replicate() for p in pl)
+        spl = tuple(Shard(0) if p.is_shard(0) else Replicate() for p in pl)
+        off = global_offset(cache, pl)[1]
+        _write_slots(cache.to_local(), local_part(slot, spl) - off,
+                     local_part(new, npl))
+        return
+    _write_slots(cache, slot, new)
+
+
+def _write_slots(cache, slot, new) -> None:
     Sc = cache.shape[1]
     rows = torch.arange(cache.shape[0], device=cache.device)
-    idx = slot.clamp(max=Sc - 1).long()
-    inside = (slot < Sc)[:, None, None]
+    idx = slot.clamp(0, Sc - 1).long()
+    inside = ((slot >= 0) & (slot < Sc))[:, None, None]
     cache[rows, idx] = torch.where(inside, new, cache[rows, idx])
 
 
@@ -224,7 +299,7 @@ def attn_decode(p: Attention, x, cache: dict, cfg: LMConfig, length, *,
         (length + 1).clamp(max=Sc) if ring else length + 1,
         window=None if ring else window, softcap=cfg.softcap)
     o = o.reshape(B, 1, cfg.n_heads_p * cfg.hd) @ p.wo
-    return x + o
+    return x + shard(o, "act")
 
 
 def attn_cache_init(cfg: LMConfig, B: int, cache_len: int, device,
@@ -263,15 +338,17 @@ def xattn_kv(p: CrossAttention, memory, cfg: LMConfig) -> dict:
             "v": (memory @ p.wv).reshape(B, Sm, cfg.n_kv_heads, cfg.hd)}
 
 
-def xattn(p: CrossAttention, x, memory, cfg: LMConfig):
+def xattn(p: CrossAttention, x, memory, cfg: LMConfig, kv=None):
     """x [B, S, D] decoder states attend memory [B, Sm, D], every query
-    every position (no RoPE, no mask; S and Sm may differ)."""
+    every position (no RoPE, no mask; S and Sm may differ).  ``kv``: the
+    memory's keys and values when the caller has them (prefill keeps them
+    as the cross cache)."""
     B, S, _ = x.shape
     h = rms_norm(x, p.norm, cfg.norm_eps)
     q = (h @ p.wq).reshape(B, S, cfg.n_heads, cfg.hd)
-    kv = xattn_kv(p, memory, cfg)
+    kv = xattn_kv(p, memory, cfg) if kv is None else kv
     o = sdpa_train(q, kv["k"], kv["v"], cfg, window=None, causal=False)
-    return x + o.reshape(B, S, cfg.n_heads * cfg.hd) @ p.wo
+    return x + shard(o.reshape(B, S, cfg.n_heads * cfg.hd) @ p.wo, "act")
 
 
 def xattn_decode(p: CrossAttention, x, kv: dict, cfg: LMConfig, mem_len):
@@ -282,7 +359,7 @@ def xattn_decode(p: CrossAttention, x, kv: dict, cfg: LMConfig, mem_len):
     h = rms_norm(x, p.norm, cfg.norm_eps)
     q = (h @ p.wq).reshape(B, cfg.n_heads, cfg.hd)
     o = ops.decode_attention(q, kv["k"], kv["v"], mem_len)
-    return x + o.reshape(B, 1, cfg.n_heads * cfg.hd) @ p.wo
+    return x + shard(o.reshape(B, 1, cfg.n_heads * cfg.hd) @ p.wo, "act")
 
 
 # ---------------------------------------------------------------------------
@@ -305,6 +382,6 @@ class MLP(nn.Module):
 
 def mlp(p: MLP, x, cfg: LMConfig):
     h = rms_norm(x, p.norm, cfg.norm_eps)
-    a = shard(h @ p.w1, "act_ff")
-    b = shard(h @ p.w3, "act_ff")
-    return x + shard((F.silu(a) * b) @ p.w2, "act")
+    a = shard(rows_matmul(h, p.w1), "act_ff")
+    b = shard(rows_matmul(h, p.w3), "act_ff")
+    return x + shard(rows_matmul(F.silu(a) * b, p.w2), "act")

@@ -35,7 +35,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..core.proxies import resolve_device
-from ..sharding.partition import shard
+from ..sharding.partition import embed_rows, per_row, rows_matmul, shard
 from .config import LMConfig
 from .layers import dense_init, dtype_of, param, rms_norm, rms_norm_init
 from .transformer import Layer
@@ -101,16 +101,16 @@ class LM(nn.Module):
 
     def _embed(self, tokens):
         # sqrt(d_model) rounded to the model dtype first, as the reference
-        # does (45.2548 is 45.25 in bfloat16).  ``F.embedding`` reads the
-        # rows the reference's indexing reads, and has a rule for a table
-        # split over the vocabulary.
-        return F.embedding(tokens, self.embed) * torch.tensor(
+        # does (45.2548 is 45.25 in bfloat16).  ``embed_rows`` reads the
+        # rows the reference's indexing reads, each rank its own where the
+        # table is split over the vocabulary.
+        return embed_rows(tokens, self.embed) * torch.tensor(
             self.cfg.d_model ** 0.5, dtype=dtype_of(self.cfg),
             device=self.device)
 
     def _logits(self, x):
         head = self.embed.T if self.cfg.tie_embeddings else self.lm_head
-        return shard((x @ head).float(), "logits")
+        return shard(rows_matmul(x, head).float(), "logits")
 
     def _encode(self, src_embeds):
         """The encoder: its ``attn`` layers over ``src_embeds`` [B, Se, D]
@@ -178,8 +178,10 @@ class LM(nn.Module):
         labels = batch["labels"]
         mask = (labels >= 0).float()
         lab = labels.clamp(min=0).long()
-        logp = torch.log_softmax(logits, dim=-1)
-        ll = logp.gather(-1, lab[..., None])[..., 0]
+        # Row by row (``per_row``): on DTensors the log-softmax needs the
+        # whole vocabulary, and a gather's backward on a DTensor makes a
+        # zero gradient of the global shape on every rank.
+        ll = per_row(_label_logp, logits, lab)
         ntok = mask.sum().clamp(min=1.0)
         ce = -(ll * mask).sum() / ntok
         loss = ce + cfg.router_aux_weight * aux
@@ -235,6 +237,12 @@ class LM(nn.Module):
             caches.append(tree_map(
                 lambda t, n=len(group): t.new_zeros(n, *t.shape), one))
         return caches
+
+
+def _label_logp(logits, labels):
+    """Each position's float32 log-probability of its label."""
+    logp = torch.log_softmax(logits, dim=-1)
+    return logp.gather(-1, labels[..., None])[..., 0]
 
 
 def _stack(plan: list, cfg: LMConfig, device, gen) -> nn.ModuleList:

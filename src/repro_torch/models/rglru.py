@@ -101,7 +101,7 @@ def rglru_decode(p: RGLRU, x, cache: dict, cfg: LMConfig):
           + torch.sqrt(torch.clamp(1 - a0 * a0, min=0.0)) * xin[:, 0])
     cache["conv"].copy_(conv_state)
     cache["h"].copy_(hn)
-    return x + (hn[:, None].to(x.dtype) * gate) @ p.rg_out
+    return x + shard((hn[:, None].to(x.dtype) * gate) @ p.rg_out, "act")
 
 
 def rglru_cache_init(cfg: LMConfig, B: int, device) -> dict:

@@ -75,7 +75,11 @@ def conv_causal(u, w, b, state=None):
 
 def _ssm_params(p: Mamba, u, cfg: LMConfig):
     R, N = cfg.dt_rank_, cfg.ssm_state
-    dt_r, Bm, Cm = torch.split(u @ p.x_proj, [R, N, N], dim=-1)
+    # ``x_proj``'s rows follow the split channels, so on DTensors the
+    # product is a partial sum: summed here (the ``act`` layout), as XLA
+    # sums it (DTensor 2.11 cannot carry it into ``dt_w``'s split output).
+    dt_r, Bm, Cm = torch.split(shard(u @ p.x_proj, "act"), [R, N, N],
+                               dim=-1)
     dt = F.softplus(dt_r.float() @ p.dt_w + p.dt_b[None, None])
     A = -torch.exp(p.A_log)
     return dt, A, Bm.float(), Cm.float()
@@ -112,7 +116,7 @@ def mamba_decode(p: Mamba, x, cache: dict, cfg: LMConfig):
     y = y[:, None].to(x.dtype) * F.silu(z)
     cache["conv"].copy_(conv_state)
     cache["h"].copy_(hn)
-    return x + y @ p.out_proj
+    return x + shard(y @ p.out_proj, "act")
 
 
 def mamba_cache_init(cfg: LMConfig, B: int, device) -> dict:

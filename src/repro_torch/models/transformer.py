@@ -142,9 +142,9 @@ class Layer(nn.Module):
         if self.kind == "moe":
             return self.moe(x, cfg, capacity_factor)[0], cache
         if self.kind == "xdec":
-            x = L.xattn(self.xattn, x, memory, cfg)
-            cache = {"self": cache,
-                     "cross": L.xattn_kv(self.xattn, memory, cfg)}
+            kv = L.xattn_kv(self.xattn, memory, cfg)
+            x = L.xattn(self.xattn, x, memory, cfg, kv)
+            cache = {"self": cache, "cross": kv}
         return L.mlp(self.mlp, x, cfg), cache
 
     def decode(self, x, cache: dict, length, mem_len=None):

@@ -27,10 +27,12 @@ from dataclasses import dataclass, field
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
                                       distribute_tensor)
 from torch.distributed.tensor._utils import (
     compute_local_shape_and_global_offset)
+from torch.utils._python_dispatch import _disable_current_modes
 
 # The installed context.  Not a contextvar, as the reference's is: the
 # autograd engine runs a CUDA backward (and with it the recomputed forward
@@ -210,6 +212,18 @@ def cut(t: torch.Tensor, mesh, placements) -> DTensor:
                               stride=d.stride())
 
 
+def shard_module(module: torch.nn.Module, shardings: dict) -> None:
+    """Replace each parameter of ``module`` by the DTensor cut from it as
+    its ``shardings`` entry (a ``NamedSharding``, keyed by parameter name)
+    lays it out; every rank holds the same tensors before (drawn from the
+    same seed).  The new parameters are frozen, as the model's are."""
+    for name, p in list(module.named_parameters()):
+        owner, _, attr = name.rpartition(".")
+        mesh, pl = shardings[name]
+        setattr(module.get_submodule(owner), attr, torch.nn.Parameter(
+            cut(p.detach(), mesh, pl), requires_grad=False))
+
+
 def place(tree, shardings):
     """Every tensor of a nested dict laid out as its ``shardings`` entry
     (a ``NamedSharding``): a DTensor redistributed, a plain tensor (the
@@ -224,8 +238,17 @@ def place(tree, shardings):
 
 def global_offset(x: DTensor, placements) -> tuple:
     """Where this rank's shard of ``x`` under ``placements`` starts."""
-    return compute_local_shape_and_global_offset(
-        x.shape, x.device_mesh, tuple(placements))[1]
+    return local_span(x.shape, x.device_mesh, placements)[1]
+
+
+def local_span(shape, mesh, placements) -> tuple:
+    """(the shape, the offset) of this rank's shard of a tensor of
+    ``shape`` laid out on ``mesh`` as ``placements`` say: host arithmetic
+    on the mesh's coordinates, outside any dispatch mode (a fake-tensor
+    mode would make the coordinates fake, and their values unreadable)."""
+    with _disable_current_modes():
+        return compute_local_shape_and_global_offset(
+            torch.Size(shape), mesh, tuple(placements))
 
 
 def grads_over(placements, split) -> tuple:
@@ -234,6 +257,58 @@ def grads_over(placements, split) -> tuple:
     ``Partial()`` where it is replicated on such a dim."""
     return tuple(Partial() if s and isinstance(p, Replicate) else p
                  for p, s in zip(placements, split))
+
+
+def embed_rows(tokens, table):
+    """``F.embedding(tokens, table)``.  On a DTensor table split over its
+    rows (the vocabulary over the model axis) each rank looks up the
+    tokens in its own rows, zero for the others, and the sum over those
+    mesh dims (an all-reduce) is the lookup, laid out as the tokens: what
+    DTensor's own rule computes through its masked partial, whose
+    handling differs between torch releases; the table's other dims
+    (FSDP) are gathered first, and its gradient lands in each rank's rows
+    alone."""
+    if not isinstance(table, DTensor) or not any(
+            p.is_shard(0) for p in table.placements):
+        return F.embedding(tokens, table)
+    mesh = table.device_mesh
+    rows = tuple(Shard(0) if p.is_shard(0) else Replicate()
+                 for p in table.placements)
+    if isinstance(tokens, DTensor):
+        tp = tuple(Shard(0) if p.is_shard(0) else Replicate()
+                   for p in tokens.placements)
+        ids = local_part(tokens, tp)
+    else:
+        tp = (Replicate(),) * mesh.ndim
+        ids = tokens
+    # Where the tokens are split and the table is not, each rank's
+    # gradient is a part of the sum.
+    local = local_part(table, rows, grads_over(rows, [
+        p.is_shard(0) for p in tp]))
+    lo, n = global_offset(table, rows)[0], local.shape[0]
+    ids = ids - lo
+    inside = (ids >= 0) & (ids < n)
+    out = F.embedding(ids.clamp(0, n - 1), local) * inside[..., None]
+    pl = tuple(Partial() if r.is_shard(0) else t for r, t in zip(rows, tp))
+    out = from_local(out, mesh, pl, (*tokens.shape, table.shape[1]))
+    return out.redistribute(mesh, tp)
+
+
+def rows_matmul(x, w):
+    """``x @ w`` for x [B, S, D].  A DTensor x split over its sequence
+    (dim 1, smollm-360m's sequence parallelism) takes the product on each
+    rank's rows against the whole weight (gathered where it is split;
+    its gradient a ``Partial()`` sum where x is split), the output laid
+    out as x: DTensor 2.11, on the card, refuses the product's flattening
+    of a split sequence into rows.  Anything else is ``x @ w``."""
+    if not (isinstance(x, DTensor) and isinstance(w, DTensor)
+            and any(p.is_shard(1) for p in x.placements)):
+        return x @ w
+    whole = (Replicate(),) * len(w.placements)
+    wl = local_part(w, whole, grads_over(
+        whole, [not p.is_replicate() for p in x.placements]))
+    return from_local(x.to_local() @ wl, x.device_mesh, x.placements,
+                      (*x.shape[:-1], w.shape[-1]))
 
 
 def per_row(fn, *args):

@@ -547,6 +547,30 @@ def decode_split_cases() -> dict:
     return cases
 
 
+def decode_pieces(fn, q, k_cache, v_cache, lengths, n: int, **kw):
+    """Decode attention on a cache cut into ``n`` pieces over its
+    positions (``ceil(S / n)`` each), as ranks holding a position-split
+    cache run it: ``fn`` (a decode wrapper) on each piece with its local
+    lengths ``clamp(lengths - lo, 0)`` (and at most the piece's length
+    without a window; the window stays against the global position) and
+    ``return_lse``, then ``ref.merge_decode_ref``.  Rows whose whole
+    length lies in one piece see no position in the others."""
+    S = k_cache.shape[1]
+    step = -(-S // n)
+    outs, lses = [], []
+    for lo in range(0, S, step):
+        hi = min(lo + step, S)
+        local = (lengths - lo).clamp(min=0)
+        if kw.get("window") is None:
+            local = local.clamp(max=hi - lo)
+        o, lse = fn(q, k_cache[:, lo:hi].contiguous(),
+                    v_cache[:, lo:hi].contiguous(),
+                    local.to(lengths.dtype), return_lse=True, **kw)
+        outs.append(o)
+        lses.append(lse)
+    return ref.merge_decode_ref(outs, lses)
+
+
 def sscan_operands(Bt: int, S: int, Di: int, N: int, seed: int = 0,
                    h0: bool = False) -> tuple:
     """x, dt, A, B, C, D (and h0 [Bt, Di, N], else None) for the selective

@@ -26,14 +26,13 @@ it computes the plain step's numbers bit for bit.
 from __future__ import annotations
 
 import torch
-from torch import nn
 from torch.distributed.tensor import DTensor
 from torch.distributed.tensor.experimental import implicit_replication
 
 from ..models.model import LM
 from ..sharding import rules
-from ..sharding.partition import (P, NamedSharding, ShardingCtx, cut,
-                                  place, placements, use_sharding)
+from ..sharding.partition import (P, NamedSharding, ShardingCtx, place,
+                                  placements, shard_module, use_sharding)
 from .optimizer import OptConfig, adamw_init, adamw_update
 
 
@@ -120,12 +119,7 @@ def shard_state(model: LM, opt_cfg: OptConfig, mi) -> tuple[dict, dict]:
     state (what ``train.loop.run`` and ``ckpt.restore`` take)."""
     cfg = model.cfg
     specs = rules.param_pspecs(cfg, dict(model.named_parameters()), mi)
-    for name, p in list(model.named_parameters()):
-        owner, _, attr = name.rpartition(".")
-        mod = model.get_submodule(owner)
-        mesh, pl = mi.named(specs[name])
-        setattr(mod, attr, nn.Parameter(cut(p.detach(), mesh, pl),
-                                        requires_grad=False))
+    shard_module(model, _named(specs, mi))
     state = init_state(model, opt_cfg)
     o_specs = rules.param_pspecs(cfg, state["opt"], mi)
     o_specs["step"] = P()

@@ -30,11 +30,23 @@ def _main(rank: int, world: int, tmp: str, fn, args) -> None:
 def run_ranks(fn, world: int, tmp, *args) -> list:
     """``fn(rank, tmp, *args)`` on ``world`` gloo ranks; the ranks'
     results (anything ``torch.save`` takes), in rank order."""
+    return start_ranks(fn, world, tmp, *args)()
+
+
+def start_ranks(fn, world: int, tmp, *args):
+    """:func:`run_ranks` started, not waited for: returns the function
+    that waits for the ranks and returns their results."""
     tmp = str(tmp)
-    mp.start_processes(_main, args=(world, tmp, fn, args), nprocs=world,
-                       start_method="spawn", join=True)
-    return [torch.load(os.path.join(tmp, f"result_{r}.pt"),
-                       weights_only=False) for r in range(world)]
+    ctx = mp.start_processes(_main, args=(world, tmp, fn, args),
+                             nprocs=world, start_method="spawn", join=False)
+
+    def results() -> list:
+        while not ctx.join():
+            pass
+        return [torch.load(os.path.join(tmp, f"result_{r}.pt"),
+                           weights_only=False) for r in range(world)]
+
+    return results
 
 
 # ---------------------------------------------------------------------------
@@ -223,3 +235,115 @@ def _flat(tree, prefix: str = "") -> dict:
             out.update(_flat(tree[k], f"{prefix}{k}/"))
         return out
     return {prefix: _whole(tree).detach().clone()}
+
+
+# ---------------------------------------------------------------------------
+# The dry run's counts and sharded serving (tests/test_torch_dryrun.py)
+# ---------------------------------------------------------------------------
+
+def _named_tree(specs, mi):
+    if isinstance(specs, dict):
+        return {k: _named_tree(v, mi) for k, v in specs.items()}
+    return mi.named(specs)
+
+
+def _cache_leaves(tree) -> list:
+    if isinstance(tree, (list, tuple)):
+        return [x for t in tree for x in _cache_leaves(t)]
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _cache_leaves(tree[k])]
+    return [tree]
+
+
+def serve_pair(cfg, shape, B: int, S: int, cache_len: int, lengths) -> dict:
+    """Prefill and decode on a (dp, tp) ``shape`` mesh of the ranks,
+    parameters laid out by the rules, against the plain model from the
+    same seed: the largest differences of the prefill's logits and caches,
+    and of a decode step's logits and written caches (from random caches,
+    the rows' ``lengths`` so far), and each decode cache's placements."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.models.model import LM
+    from repro_torch.models.tree import tree_map
+    from repro_torch.sharding import rules
+    from repro_torch.sharding.partition import (MeshInfo, place,
+                                                shard_module, use_sharding)
+
+    mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
+    mi = MeshInfo(mesh=mesh, dp=("data",), tp="model")
+    plain = LM(cfg, "cpu", torch.Generator().manual_seed(0))
+    model = LM(cfg, "cpu", torch.Generator().manual_seed(0))
+    specs = rules.param_pspecs(cfg, dict(model.named_parameters()), mi)
+    shard_module(model, _named_tree(specs, mi))
+    g = torch.Generator().manual_seed(1)
+    mem = S + 3 if cfg.family == "encdec" else 0
+    batch = {"tokens": torch.randint(3, cfg.vocab, (B, S), generator=g)}
+    if mem:
+        batch["src_embeds"] = torch.randn(B, mem, cfg.d_model, generator=g)
+
+    def placed(b):
+        return place(b, {k: mi.named(v) for k, v in
+                         rules.batch_pspecs(b, mi).items()})
+
+    def err(a, b):
+        return max(float((_whole(y) - x).abs().max())
+                   for x, y in zip(_cache_leaves(a), _cache_leaves(b)))
+
+    l1, c1 = plain.prefill(batch, cache_len)
+    with use_sharding(rules.make_ctx(cfg, mi, cache_len=cache_len,
+                                     seq_shard_attn=True)), \
+            implicit_replication():
+        l2, c2 = model.prefill(placed(batch), cache_len)
+    out = {"prefill_logits": err(l1, l2), "prefill_caches": err(c1, c2)}
+    dec = {"tokens": torch.randint(3, cfg.vocab, (B, 1), generator=g),
+           "lengths": torch.tensor(lengths, dtype=torch.int32)}
+    if mem:
+        dec["mem_len"] = torch.tensor([mem - i for i in range(B)],
+                                      dtype=torch.int32)
+    gc = torch.Generator().manual_seed(5)
+    c1 = [tree_map(lambda t: torch.randn(t.shape, generator=gc).to(t.dtype),
+                   c) for c in plain.init_cache(B, cache_len, mem)]
+    c2 = [tree_map(torch.clone, c) for c in c1]
+    d1 = plain.decode_step(dec, c1)
+    cs = rules.cache_pspecs(cfg, c2, mi, cache_len=cache_len)
+    with use_sharding(rules.make_ctx(cfg, mi, cache_len=cache_len)), \
+            implicit_replication():
+        dc = [place(c, _named_tree(s, mi)) for c, s in zip(c2, cs)]
+        d2 = model.decode_step(placed(dec), dc)
+    out.update(decode_logits=err(d1, d2), decode_caches=err(c1, dc),
+               placements=[str(t.placements) for t in _cache_leaves(dc)])
+    return out
+
+
+def dryrun_rank(rank, tmp, count_cases, serve_cases):
+    """Each count case ``(name, arch, cfg, shape_spec, mesh, mb)``: the
+    dry run's cell (``launch.dryrun.build_cell``) on real CPU tensors on
+    a (dp, tp) mesh of the ranks, counted (``launch.dryrun.count``).
+    Each serve case ``(name, cfg, mesh, B, S, cache_len, lengths)``:
+    :func:`serve_pair`."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.launch import dryrun
+
+    from repro_torch.kernels import custom_ops
+
+    out = {"counts": {}, "serve": {}}
+    # The wrappers send only fake tensors to the kernels' custom ops; the
+    # count cases send these ranks' real ones there too, so that they run
+    # the program the fake group counts (each op's body is the plain
+    # version with the kernel's outputs).
+    is_fake, custom_ops.is_fake = custom_ops.is_fake, lambda t: True
+    try:
+        for name, arch, cfg, spec, shape, mb in count_cases:
+            mesh = init_device_mesh("cpu", shape,
+                                    mesh_dim_names=("data", "model"))
+            run, args, _, _, _ = dryrun.build_cell(
+                arch, spec, mesh, torch.device("cpu"), cfg=cfg,
+                microbatches=mb)
+            out["counts"][name] = dryrun.count(run, args)
+    finally:
+        custom_ops.is_fake = is_fake
+    for name, cfg, shape, B, S, cache_len, lengths in serve_cases:
+        out["serve"][name] = serve_pair(cfg, shape, B, S, cache_len, lengths)
+    return out
