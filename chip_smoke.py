@@ -268,10 +268,16 @@ two headers):
    - slice 18, the dry run and the roofline (``dryrun_phase``):
      ``python -m repro_torch.launch.dryrun`` on qwen3-1.7b train_4k and
      decode_32k (its cache split over positions) and moonshot
-     prefill_32k (its experts split), each in a process of its own, all
+     prefill_32k (its experts split), and (slice 19) falcon-mamba-7b and
+     recurrentgemma-9b prefill_32k, each in a process of its own, all
      at once, on the card's fake tensors over 256 fake ranks; each must
      be ok with FLOPs, bytes and collective bytes, and its roofline row
-     at this card's rates is printed; then the smollm-360m train step
+     at this card's rates is printed; each is held to the JAX package's
+     compiled cell (``tests/data/dryrun_reference_single.json``, written
+     by ``tests/_torch_dryrun_reference.py``): FLOPs and argument bytes
+     equal, wire bytes no more, and the peak (arguments and temp) no more
+     than ``DRYRUN_REF_PEAK`` times the reference's; then the smollm-360m
+     train step
      (``TRAIN_*``) counted on fake tensors and run for real: the product
      FLOPs by op equal to ``FlopCounterMode``'s, each kernel's counted
      calls equal to its launches, the predicted peak within
@@ -3407,9 +3413,22 @@ def sharding_phase(dev) -> dict:
 # fake group of 256 ranks, rank 0's program): a train cell, a decode cell
 # whose cache the rules split over its positions (qwen3-1.7b's 8 KV heads
 # do not divide the model axis of 16), an MoE prefill with its experts
-# split.  Each in a process of its own, all three at once.
+# split; slice 19 adds the SSM and hybrid prefills, whose counts torch
+# 2.11 once took other layouts for.  Each in a process of its own, all
+# at once.
 DRYRUN_CELLS = (("qwen3-1.7b", "train_4k"), ("qwen3-1.7b", "decode_32k"),
-                ("moonshot-v1-16b-a3b", "prefill_32k"))
+                ("moonshot-v1-16b-a3b", "prefill_32k"),
+                ("falcon-mamba-7b", "prefill_32k"),
+                ("recurrentgemma-9b", "prefill_32k"))
+# The JAX package's records of those cells, compiled on 256 host devices
+# (the card has no JAX): ``tests/_torch_dryrun_reference.py``.
+DRYRUN_REFERENCE = (Path(__file__).resolve().parent / "tests" / "data"
+                    / "dryrun_reference_single.json")
+# A cell's counted peak (arguments and temp) against the reference's:
+# seen 0.067 (qwen3-1.7b train) to 0.808 (falcon-mamba-7b prefill) here,
+# on torch 2.13; the XLA CPU backend's temp is no card's, so the limit
+# holds the port to the reference's footprint, not to a ratio of it.
+DRYRUN_REF_PEAK = 1.0
 DRYRUN_DIR = Path(__file__).resolve().parent / "build" / "smoke_dryrun"
 DRYRUN_TIMEOUT = 600
 # The dry run's predicted peak of the one-card train step against
@@ -3452,6 +3471,40 @@ def _dryrun_cells() -> list:
     return recs
 
 
+def _hold_to_reference(recs: list) -> None:
+    """Each dry-run cell against the JAX package's compiled one
+    (``DRYRUN_REFERENCE``): FLOPs and argument bytes equal, total wire
+    bytes a chip no more, and arguments + temp no more than
+    ``DRYRUN_REF_PEAK`` times the reference's; exits on any miss."""
+    ref = json.loads(DRYRUN_REFERENCE.read_text())["cells"]
+    misses = []
+    for rec in recs:
+        r = ref[f"{rec['arch']}/{rec['shape']}"]
+        mr, mp = r["memory_analysis"], rec["memory_analysis"]
+        peak = mp["argument_size_in_bytes"] + mp["temp_size_in_bytes"]
+        limit = DRYRUN_REF_PEAK * (mr["argument_size_in_bytes"]
+                                   + mr["temp_size_in_bytes"])
+        wire = rec["collectives"]["wire_bytes_per_chip"]
+        rwire = r["collectives"]["wire_bytes_per_chip"]
+        print(f"  {rec['arch']} {rec['shape']} against the reference: "
+              f"flops {rec['flops_total']:.6e} / {r['flops_total']:.6e}, "
+              f"arguments {mp['argument_size_in_bytes']} / "
+              f"{mr['argument_size_in_bytes']} B, wire {wire / 1e9:.4f} / "
+              f"{rwire / 1e9:.4f} GB, peak {peak / 1e9:.3f} GB against "
+              f"{limit / 1e9:.3f} GB")
+        if rec["flops_total"] != r["flops_total"]:
+            misses.append(f"{rec['arch']} {rec['shape']} flops")
+        if mp["argument_size_in_bytes"] != mr["argument_size_in_bytes"]:
+            misses.append(f"{rec['arch']} {rec['shape']} arguments")
+        if wire > rwire:
+            misses.append(f"{rec['arch']} {rec['shape']} wire")
+        if peak > limit:
+            misses.append(f"{rec['arch']} {rec['shape']} peak")
+    if misses:
+        raise SystemExit("the dry run differs from the JAX package's "
+                         "compiled cells: " + ", ".join(misses))
+
+
 def dryrun_phase(dev) -> dict:
     """Slice 18's main path: the dry run and the roofline.  The
     production cells through ``python -m repro_torch.launch.dryrun``
@@ -3489,6 +3542,7 @@ def dryrun_phase(dev) -> dict:
               f"s, collective {row['t_collective_s']:.4g} s; peak "
               f"{row['hbm_gb_per_chip']:.3f} GB, fits {row['fits_hbm']}")
     print(f"  dry run cells {time.monotonic() - t_phase:.1f} s", flush=True)
+    _hold_to_reference(recs)
 
     cfg = get_config(TRAIN_ARCH)
     opt = OptConfig(lr=TRAIN_LR)

@@ -30,6 +30,15 @@ executed ops, not of a compiled module (no fusion: every eager op reads
 and writes its operands), and the bytes of dtype conversions stay in
 ``bytes_accessed_total`` (``launch.roofline``).  ``scan_layers`` and
 ``--unrolled`` have no counterpart: every layer and microbatch runs.
+What agrees with it, cell for cell (``tests/test_torch_dryrun_reference*
+.py`` on a (2, 4) mesh, ``chip_smoke.py`` on the single pod against
+``tests/data/dryrun_reference_single.json``): rank 0's product FLOPs are
+one device's of the reference's compiled step (the products run on each
+rank's shards, ``sharding.partition.matmul``; the log-softmax on the
+vocabulary's shards), the argument bytes are those the program reads
+(the train step reads its shard of the batch), and the collectives move
+no more bytes than the reference's.  The artifact also names the
+largest tensors live at the peak (``peak_tensors``).
 
 The fake tensors are the card's (``"cuda"``) unless ``--device cpu`` is
 given, and then the artifact names ``DEFAULT_CARD`` as the card whose
@@ -256,10 +265,11 @@ def build_cell(arch: str, shape, mesh, device, *, cfg=None,
         step = build_sharded_train_step(
             model, opt_cfg, ctx, shardings, microbatches=mb,
             accum_dtype=ov.get("accum_dtype", "float32"))
-        # The step cuts each microbatch of the global batch; the device's
-        # argument is its shard.
-        return ((lambda: step(state, batch)),
-                (state, place(batch, b_named)), cfg, mi, mb)
+        # The device's argument is its shard of the batch; the step takes
+        # each microbatch's rows of the global batch from the shards (the
+        # reference's program moves them likewise).
+        db = place(batch, b_named)
+        return (lambda: step(state, db)), (state, db), cfg, mi, mb
 
     shard_module(model, _named(_serving_param_specs(cfg, params, mi,
                                                     p_specs), mi))

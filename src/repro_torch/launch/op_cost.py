@@ -33,10 +33,15 @@ counted.
   of ``pod_size``; a schedule of the largest, each with the line of the
   model or train step that ran it (the innermost frame of the port's
   ``models``, ``train`` or ``kernels`` packages).
+- **arguments**: the bytes of the registered inputs that the program
+  reads, as a compiled program's inputs are those it uses (XLA prunes
+  the rest: an encoder-decoder's decode step takes no encoder weights).
 - **peak memory**: the bytes of the storages that the program makes, and
   frees, above the arguments' (finalizers on the storages); the
   arguments' own storages count as freed when the program drops them
-  (AdamW's donated moments).
+  (AdamW's donated moments).  ``peak_tensors`` names the largest
+  storages live at the peak (64 MiB and up): the tensor that made each,
+  its op and the line of the port's code that ran it.
 
 There is no while-loop trip logic: the port runs its layers and
 microbatches eagerly, so every op it executes is counted.  The kernel
@@ -85,6 +90,8 @@ NO_BYTES = {aten.detach, aten._unsafe_view, aten.empty, aten.empty_strided,
 # Ops that read only output-sized data (XLA's gather model).
 GATHERS = {aten.index, aten.gather, aten.index_select, aten.embedding}
 POD_SIZE = 256
+# The storages the peak's record names: 64 MiB and up.
+PEAK_TENSOR_MIN = 1 << 26
 # The packages whose frames name a collective's place in the schedule.
 _SITES = tuple(os.sep + os.path.join("repro_torch", p) + os.sep
                for p in ("models", "train", "kernels"))
@@ -173,20 +180,31 @@ class OpCost(TorchDispatchMode):
         self.schedule: list = []        # (path, kind, wire, shape)
         self.live = 0                   # bytes above the arguments
         self.peak = 0
-        self.arg_bytes = 0
+        self._arg_sizes: dict = {}      # storage -> the arguments' bytes
+        self._read: set = set()         # the argument storages read
         self._arg_storages: dict = {}
         self._tracked: set = set()
         self._groups: dict = {}
         self._suspended = 0
         self._prop = None
+        self._large: dict = {}          # live storages of PEAK_TENSOR_MIN+
+        self._peak_large: dict = {}     # ... as they stood at the peak
 
     # -- inputs and outputs --------------------------------------------------
 
     def arguments(self, tree) -> None:
-        """Register ``tree``'s tensors as the program's arguments: their
-        bytes (each local shard once) are the argument size, and their
-        storages count as freed when the program drops them."""
-        self.arg_bytes += tensor_bytes(tree)
+        """Register ``tree``'s tensors as the program's arguments: the
+        bytes of those that the program reads (each local shard once) are
+        the argument size, as a compiled program's inputs are the
+        arguments it uses (XLA prunes the others: the encoder's weights
+        in an encoder-decoder's decode step), and their storages count as
+        freed when the program drops them."""
+        for t in tree_flatten(tree)[0]:
+            if isinstance(t, torch.Tensor):
+                t = t.to_local() if isinstance(t, DTensor) else t
+                key = t.untyped_storage()._cdata
+                self._arg_sizes[key] = self._arg_sizes.get(key, 0) \
+                    + _nbytes(t)
         for key, s in _storages(tree).items():
             if key not in self._tracked:
                 self._arg_storages[key] = s.nbytes()
@@ -204,7 +222,8 @@ class OpCost(TorchDispatchMode):
                     if isinstance(t, torch.Tensor)
                     and (t.to_local() if isinstance(t, DTensor) else t
                          ).untyped_storage()._cdata in self._arg_storages)
-        return {"argument_size_in_bytes": int(self.arg_bytes),
+        args = sum(self._arg_sizes[k] for k in self._read)
+        return {"argument_size_in_bytes": int(args),
                 "output_size_in_bytes": int(out_b),
                 "alias_size_in_bytes": int(alias),
                 "temp_size_in_bytes": int(max(0, self.peak
@@ -231,10 +250,20 @@ class OpCost(TorchDispatchMode):
                  "shape": sh}
                 for p, k, w, sh in sorted(self.schedule,
                                           key=lambda e: -e[2])[:12]],
+            "peak_tensors": self.peak_tensors(),
             "kernel_calls": dict(sorted(self.kernel_calls.items())),
             "flops_by_op": {k: float(v) for k, v in
                             sorted(self.flops_by_op.items())},
         }
+
+    def peak_tensors(self, n: int = 8) -> list:
+        """The largest storages live at the peak (of ``PEAK_TENSOR_MIN``
+        bytes or more): their bytes, the dtype and shape of the tensor
+        that made them, and the op and line of the port's code that
+        made them."""
+        return [{"bytes": b, "shape": shape, "op": op, "path": path}
+                for b, (shape, op, path) in sorted(
+                    self._peak_large.values(), key=lambda e: -e[0])[:n]]
 
     # -- the mode ------------------------------------------------------------
 
@@ -274,16 +303,24 @@ class OpCost(TorchDispatchMode):
 
     # -- counting ------------------------------------------------------------
 
-    def _track(self, s, key, nbytes: int, counted: bool = True) -> None:
+    def _track(self, s, key, nbytes: int, counted: bool = True,
+               made=None) -> None:
         self._tracked.add(key)
         if counted:
             self.live += nbytes
-            self.peak = max(self.peak, self.live)
+            if nbytes >= PEAK_TENSOR_MIN:
+                self._large[key] = (nbytes, made)
+            if self.live > self.peak:
+                self.peak = self.live
+                self._peak_large = dict(self._large)
         weakref.finalize(s, self._free, key, nbytes)
 
     def _free(self, key, nbytes: int) -> None:
         self._tracked.discard(key)
+        self._large.pop(key, None)
         self._arg_storages.pop(key, None)
+        if key not in self._read:     # its key may name a new storage
+            self._arg_sizes.pop(key, None)
         self.live -= nbytes
 
     @staticmethod
@@ -320,6 +357,10 @@ class OpCost(TorchDispatchMode):
             self.kernel_calls[KERNELS[packet]] += 1
         functional = func.namespace.startswith(("_c10d_functional",
                                                  "_dtensor"))
+        if not func.is_view and packet not in NO_BYTES:
+            self._read.update(k for k in (t.untyped_storage()._cdata
+                                          for t in ins)
+                              if k in self._arg_sizes)
         if functional and packet.__name__ in COLLECTIVES:
             self._collective(func, args, kwargs, outs)
         elif functional:
@@ -333,7 +374,11 @@ class OpCost(TorchDispatchMode):
                 s = t.untyped_storage()
                 key = s._cdata
                 if key not in held and key not in self._tracked:
-                    self._track(s, key, s.nbytes())
+                    made = None
+                    if s.nbytes() >= PEAK_TENSOR_MIN:
+                        made = (f"{t.dtype}{list(t.shape)}"[:48],
+                                str(packet).split(".", 1)[-1], self._path())
+                    self._track(s, key, s.nbytes(), made=made)
 
     def _bytes(self, func, packet, ins, outs, args) -> None:
         out_b = sum(map(_nbytes, outs))

@@ -18,7 +18,9 @@ rules' layout.  The port adds one at the residual branches that the
 reference leaves to XLA (decode's attention and recurrent steps, the
 cross-attention): XLA sums a row-split product's partial results at
 once, DTensor would carry the partial sum down the residual stream and
-sum it again at every later use.  Cross-attention (:class:`CrossAttention`
+sum it again at every later use.  The products go through
+``sharding.partition.matmul``, which on DTensors multiplies each rank's
+shards as the reference's partitioner lays them out.  Cross-attention (:class:`CrossAttention`
 and the ``xattn*`` functions) attends the encoder's output,
 bidirectionally, through the same kernels.
 """
@@ -33,7 +35,7 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 from ..kernels import ops
 from ..sharding.partition import (current_ctx, from_local, global_offset,
                                   local_part, local_span, placements,
-                                  rows_matmul, shard)
+                                  matmul, shard)
 from .config import LMConfig
 
 
@@ -133,7 +135,7 @@ def qkv(p: Attention, x, cfg: LMConfig, pos):
     k and v [B, S, Hkv, hd]."""
     B, S, _ = x.shape
     H, Hkv, hd = cfg.n_heads_p, cfg.n_kv_heads, cfg.hd
-    q, k, v = (rows_matmul(x, w) for w in (p.wq, p.wk, p.wv))
+    q, k, v = (matmul(x, w) for w in (p.wq, p.wk, p.wv))
     if cfg.qkv_bias:
         q, k, v = q + p.bq, k + p.bk, v + p.bv
     q, k, v = _heads(q, H, hd), _heads(k, Hkv, hd), _heads(v, Hkv, hd)
@@ -190,7 +192,7 @@ def attn_train(p: Attention, x, cfg: LMConfig, pos, *,
     B, S, _ = x.shape
     q, k, v = qkv(p, rms_norm(x, p.norm, cfg.norm_eps), cfg, pos)
     o = sdpa_train(q, k, v, cfg, window=window, causal=causal)
-    o = rows_matmul(o.reshape(B, S, cfg.n_heads_p * cfg.hd), p.wo)
+    o = matmul(o.reshape(B, S, cfg.n_heads_p * cfg.hd), p.wo)
     return x + shard(o, "act")
 
 
@@ -202,7 +204,7 @@ def attn_prefill(p: Attention, x, cfg: LMConfig, pos, *,
     B, S, _ = x.shape
     q, k, v = qkv(p, rms_norm(x, p.norm, cfg.norm_eps), cfg, pos)
     o = sdpa_train(q, k, v, cfg, window=window)
-    o = rows_matmul(o.reshape(B, S, cfg.n_heads_p * cfg.hd), p.wo)
+    o = matmul(o.reshape(B, S, cfg.n_heads_p * cfg.hd), p.wo)
     if window is None and S > cache_len:
         raise ValueError(
             f"prefill length {S} exceeds cache_len {cache_len} "
@@ -298,7 +300,7 @@ def attn_decode(p: Attention, x, cache: dict, cfg: LMConfig, length, *,
         q[:, 0], kc, vc,
         (length + 1).clamp(max=Sc) if ring else length + 1,
         window=None if ring else window, softcap=cfg.softcap)
-    o = o.reshape(B, 1, cfg.n_heads_p * cfg.hd) @ p.wo
+    o = matmul(o.reshape(B, 1, cfg.n_heads_p * cfg.hd), p.wo)
     return x + shard(o, "act")
 
 
@@ -334,8 +336,8 @@ def xattn_kv(p: CrossAttention, memory, cfg: LMConfig) -> dict:
     """The memory's keys and values [B, Sm, Hkv, hd], computed once a
     prefill (decode's cross cache)."""
     B, Sm, _ = memory.shape
-    return {"k": (memory @ p.wk).reshape(B, Sm, cfg.n_kv_heads, cfg.hd),
-            "v": (memory @ p.wv).reshape(B, Sm, cfg.n_kv_heads, cfg.hd)}
+    return {"k": matmul(memory, p.wk).reshape(B, Sm, cfg.n_kv_heads, cfg.hd),
+            "v": matmul(memory, p.wv).reshape(B, Sm, cfg.n_kv_heads, cfg.hd)}
 
 
 def xattn(p: CrossAttention, x, memory, cfg: LMConfig, kv=None):
@@ -345,10 +347,11 @@ def xattn(p: CrossAttention, x, memory, cfg: LMConfig, kv=None):
     as the cross cache)."""
     B, S, _ = x.shape
     h = rms_norm(x, p.norm, cfg.norm_eps)
-    q = (h @ p.wq).reshape(B, S, cfg.n_heads, cfg.hd)
+    q = matmul(h, p.wq).reshape(B, S, cfg.n_heads, cfg.hd)
     kv = xattn_kv(p, memory, cfg) if kv is None else kv
     o = sdpa_train(q, kv["k"], kv["v"], cfg, window=None, causal=False)
-    return x + shard(o.reshape(B, S, cfg.n_heads * cfg.hd) @ p.wo, "act")
+    return x + shard(matmul(o.reshape(B, S, cfg.n_heads * cfg.hd), p.wo),
+                     "act")
 
 
 def xattn_decode(p: CrossAttention, x, kv: dict, cfg: LMConfig, mem_len):
@@ -357,9 +360,10 @@ def xattn_decode(p: CrossAttention, x, kv: dict, cfg: LMConfig, mem_len):
     the reference."""
     B = x.shape[0]
     h = rms_norm(x, p.norm, cfg.norm_eps)
-    q = (h @ p.wq).reshape(B, cfg.n_heads, cfg.hd)
+    q = matmul(h, p.wq).reshape(B, cfg.n_heads, cfg.hd)
     o = ops.decode_attention(q, kv["k"], kv["v"], mem_len)
-    return x + shard(o.reshape(B, 1, cfg.n_heads * cfg.hd) @ p.wo, "act")
+    return x + shard(matmul(o.reshape(B, 1, cfg.n_heads * cfg.hd), p.wo),
+                     "act")
 
 
 # ---------------------------------------------------------------------------
@@ -382,6 +386,6 @@ class MLP(nn.Module):
 
 def mlp(p: MLP, x, cfg: LMConfig):
     h = rms_norm(x, p.norm, cfg.norm_eps)
-    a = shard(rows_matmul(h, p.w1), "act_ff")
-    b = shard(rows_matmul(h, p.w3), "act_ff")
-    return x + shard(rows_matmul(F.silu(a) * b, p.w2), "act")
+    a = shard(matmul(h, p.w1), "act_ff")
+    b = shard(matmul(h, p.w3), "act_ff")
+    return x + shard(matmul(F.silu(a) * b, p.w2), "act")

@@ -30,12 +30,11 @@ result).  The scans' gradients go through their autograd Functions
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..core.proxies import resolve_device
-from ..sharding.partition import embed_rows, per_row, rows_matmul, shard
+from ..sharding.partition import embed_rows, label_logp, matmul, shard
 from .config import LMConfig
 from .layers import dense_init, dtype_of, param, rms_norm, rms_norm_init
 from .transformer import Layer
@@ -110,7 +109,7 @@ class LM(nn.Module):
 
     def _logits(self, x):
         head = self.embed.T if self.cfg.tie_embeddings else self.lm_head
-        return shard(rows_matmul(x, head).float(), "logits")
+        return shard(matmul(x, head).float(), "logits")
 
     def _encode(self, src_embeds):
         """The encoder: its ``attn`` layers over ``src_embeds`` [B, Se, D]
@@ -178,10 +177,9 @@ class LM(nn.Module):
         labels = batch["labels"]
         mask = (labels >= 0).float()
         lab = labels.clamp(min=0).long()
-        # Row by row (``per_row``): on DTensors the log-softmax needs the
-        # whole vocabulary, and a gather's backward on a DTensor makes a
-        # zero gradient of the global shape on every rank.
-        ll = per_row(_label_logp, logits, lab)
+        # On DTensors each rank takes its rows and vocabulary shard
+        # (``label_logp``): the vocabulary is never gathered.
+        ll = label_logp(logits, lab)
         ntok = mask.sum().clamp(min=1.0)
         ce = -(ll * mask).sum() / ntok
         loss = ce + cfg.router_aux_weight * aux
@@ -237,12 +235,6 @@ class LM(nn.Module):
             caches.append(tree_map(
                 lambda t, n=len(group): t.new_zeros(n, *t.shape), one))
         return caches
-
-
-def _label_logp(logits, labels):
-    """Each position's float32 log-probability of its label."""
-    logp = torch.log_softmax(logits, dim=-1)
-    return logp.gather(-1, labels[..., None])[..., 0]
 
 
 def _stack(plan: list, cfg: LMConfig, device, gen) -> nn.ModuleList:

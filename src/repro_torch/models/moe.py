@@ -8,9 +8,11 @@ reference, which has no Pallas kernel here.  The reference's ``shard()``
 constraints stand at its places.  On DTensors (model parallelism) the
 router and the expert products follow the rules (experts split over the
 model axis when it divides their count, else each expert's d_ff), and
-the per-row pieces (the top-k sort, the capacity sort, the gathers and
-the combine's ordered adds) run on each rank's batch rows
-(``sharding.partition.per_row``).
+the per-row pieces (the top-k sort and the capacity sort) run on each
+rank's batch rows (``sharding.partition.per_row``), and the gather into
+the experts' slots and the combine's ordered adds on each rank's rows
+and its own experts, the combine a partial sum that the ``act`` layout
+reduces, as the reference's partitioner sums it.
 
 Where the reference leaves an order to its library, the port fixes the
 one the reference computes:
@@ -36,8 +38,9 @@ from torch import nn
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.profiler import record_function
 
-from ..sharding.partition import (from_local, grads_over, local_part,
-                                  per_row, shard)
+from ..sharding.partition import (current_ctx, from_local, global_offset,
+                                  grads_over, local_part, local_span,
+                                  matmul, per_row, placements, shard)
 from .config import LMConfig
 from .layers import dense_init, dtype_of, param, rms_norm, rms_norm_init
 
@@ -95,7 +98,7 @@ def route(p: MoE, h: torch.Tensor, cfg: LMConfig):
     """The router on normed states h [B, S, D]: float32 probabilities
     [B, S, E], the top-k gates renormalised to sum to 1 and the chosen
     experts [B, S, K] (highest first; among ties the lower index)."""
-    probs = torch.softmax(h.float() @ p.router, dim=-1)
+    probs = torch.softmax(matmul(h.float(), p.router), dim=-1)
     return (probs, *per_row(lambda pr: top_k(pr, cfg.top_k), probs))
 
 
@@ -110,9 +113,31 @@ def top_k(probs: torch.Tensor, K: int):
 def aux_loss(probs: torch.Tensor, eidx: torch.Tensor, E: int) -> torch.Tensor:
     """Switch load balancing: ``E * sum_e mean(probs)_e * frac_e``, frac_e
     the share of the B S K assignments that chose expert e."""
-    me = probs.mean(dim=(0, 1))
+    me = _mean_rows(probs)
     ce = expert_counts(eidx, E).float() * (1.0 / eidx.numel())
     return E * torch.sum(me * ce)
+
+
+def _mean_rows(probs: torch.Tensor) -> torch.Tensor:
+    """``probs.mean(dim=(0, 1))``.  A DTensor split over its batch rows
+    sums its rows on each rank and the ranks' sums by an all-reduce, so
+    that the gradient reaches each rank's rows without a collective
+    (DTensor's own rule reduce-scatters it on torch 2.13, not on 2.11)."""
+    if not isinstance(probs, DTensor):
+        return probs.mean(dim=(0, 1))
+    mesh, whole = probs.device_mesh, (Replicate(),) * probs.device_mesh.ndim
+    rows = tuple(Shard(0) if p.is_shard(0) else Replicate()
+                 for p in probs.placements)
+    split = tuple(p.is_shard(0) and mesh.size(i) > 1
+                  for i, p in enumerate(rows))
+    local = local_part(probs, rows)
+    if not any(split):
+        return from_local(local.mean(dim=(0, 1)), mesh, whole,
+                          probs.shape[2:])
+    part = tuple(Partial() if s else Replicate() for s in split)
+    total = local.sum(dim=(0, 1)) / (probs.shape[0] * probs.shape[1])
+    return from_local(total, mesh, part, probs.shape[2:]).redistribute(
+        mesh, whole)
 
 
 def expert_counts(eidx: torch.Tensor, E: int) -> torch.Tensor:
@@ -159,18 +184,22 @@ def dispatch(eidx: torch.Tensor, E: int, C: int):
     return assign // K, valid, assign, slot
 
 
-def combine(ye: torch.Tensor, slot: torch.Tensor, eidx: torch.Tensor):
+def combine(ye: torch.Tensor, slot: torch.Tensor, eidx: torch.Tensor,
+            first: int = 0, E: int | None = None):
     """The experts' gated outputs ye [B, E, C, D] summed back per token
     [B, S, D]: each token's kept contributions added one after another in
     ye's dtype, its experts ascending (the reference's scatter-add order:
-    expert, then slot), starting from zero."""
-    B, E, C, D = ye.shape
+    expert, then slot), starting from zero.  ye may hold the experts
+    ``first`` on of E (a rank's own experts): then the sum is of theirs
+    alone."""
+    B, El, C, D = ye.shape
+    E = El if E is None else E
     S, K = eidx.shape[1:]
     # The token's assignments with their experts in ascending order.
     perm = torch.argsort(eidx, dim=-1)
-    slot = torch.gather(slot.reshape(B, S, K), 2, perm)
-    kept = slot < E * C
-    rows = torch.gather(ye.reshape(B, E * C, D), 1,
+    slot = torch.gather(slot.reshape(B, S, K), 2, perm) - first * C
+    kept = (slot >= 0) & (slot < El * C) if El < E else slot < E * C
+    rows = torch.gather(ye.reshape(B, El * C, D), 1,
                         torch.where(kept, slot, 0).reshape(B, S * K, 1)
                         .expand(-1, -1, D)).reshape(B, S, K, D)
     rows = torch.where(kept[..., None], rows, 0)
@@ -181,16 +210,17 @@ def combine(ye: torch.Tensor, slot: torch.Tensor, eidx: torch.Tensor):
 
 
 def gather(h: torch.Tensor, gates: torch.Tensor, tok, valid, assign, slot,
-           eidx):
+           eidx, first: int = 0, E: int | None = None):
     """The experts' inputs xe [B, E, C, D] (the normed states of each
     slot's token, 0 in the empty slots) and the slots' gates [B, E, C]
     (float32, 0 in the empty slots).  The gradient of h sums each token's
-    kept slots in the combine's order (:class:`SlotGather`)."""
+    kept slots in the combine's order (:class:`SlotGather`).  tok, valid
+    and assign may hold the experts ``first`` on of E (a rank's own)."""
     B = h.shape[0]
-    E, C = tok.shape[1:]
-    gsel = torch.gather(gates.reshape(B, -1), 1, assign.reshape(B, E * C))
-    gsel = torch.where(valid, gsel.reshape(B, E, C), 0.0)
-    return SlotGather.apply(h, tok, valid, slot, eidx), gsel
+    El, C = tok.shape[1:]
+    gsel = torch.gather(gates.reshape(B, -1), 1, assign.reshape(B, El * C))
+    gsel = torch.where(valid, gsel.reshape(B, El, C), 0.0)
+    return SlotGather.apply(h, tok, valid, slot, eidx, first, E), gsel
 
 
 class SlotGather(torch.autograd.Function):
@@ -202,17 +232,19 @@ class SlotGather(torch.autograd.Function):
     atomics on the card, in no fixed order."""
 
     @staticmethod
-    def forward(ctx, h, tok, valid, slot, eidx):
-        B, E, C = tok.shape
+    def forward(ctx, h, tok, valid, slot, eidx, first=0, E=None):
+        B, El, C = tok.shape
         D = h.shape[-1]
         ctx.save_for_backward(slot, eidx)
-        xe = torch.gather(h, 1, tok.reshape(B, E * C, 1).expand(-1, -1, D))
-        return torch.where(valid[..., None], xe.reshape(B, E, C, D), 0)
+        ctx.first, ctx.E = first, E
+        xe = torch.gather(h, 1, tok.reshape(B, El * C, 1).expand(-1, -1, D))
+        return torch.where(valid[..., None], xe.reshape(B, El, C, D), 0)
 
     @staticmethod
     def backward(ctx, g):
         slot, eidx = ctx.saved_tensors
-        return combine(g, slot, eidx), None, None, None, None
+        return (combine(g, slot, eidx, ctx.first, ctx.E),
+                None, None, None, None, None, None)
 
 
 def experts(p: MoE, xe: torch.Tensor) -> torch.Tensor:
@@ -278,10 +310,75 @@ def moe_mlp(p: MoE, x: torch.Tensor, cfg: LMConfig,
         aux = aux_loss(probs, eidx, E)
         tok, valid, assign, slot = per_row(
             lambda e: dispatch(e, E, C), eidx)
-        xe, gsel = per_row(gather, h, gates, tok, valid, assign, slot, eidx)
+        xe, gsel = _gather_own(h, gates, tok, valid, assign, slot, eidx)
     with record_function(RANGES[1]):
         ye = experts(p, xe)
     with record_function(RANGES[2]):
-        ye = ye * gsel[..., None].to(ye.dtype)
-        y = x + shard(per_row(combine, ye, slot, eidx).to(x.dtype), "act")
+        y = x + shard(_combine_own(ye, gsel, slot, eidx).to(x.dtype),
+                      "act")
     return y, aux
+
+
+def _own_experts(x: DTensor) -> tuple:
+    """(row placements, expert placements, the mesh dims that split the
+    experts) of a dispatch buffer [B, E, C, ...] laid out as ``moe_disp``
+    says, the rows as x's: ``Shard(0)`` where x splits its batch,
+    ``Shard(1)`` where the rules split the experts."""
+    mesh = x.device_mesh
+    rows = tuple(Shard(0) if p.is_shard(0) else Replicate()
+                 for p in x.placements)
+    ctx = current_ctx()
+    spec = ctx.act_specs.get("moe_disp") if ctx is not None else None
+    disp = placements(mesh, spec) if spec is not None else rows
+    split = tuple(p.is_shard(1) and mesh.size(i) > 1
+                  for i, p in enumerate(disp))
+    own = tuple(Shard(1) if e else r for r, e in zip(rows, split))
+    return rows, own, split
+
+
+def _gather_own(h, gates, tok, valid, assign, slot, eidx):
+    """:func:`gather` on each rank's batch rows and its own experts (the
+    experts the rules give it), so that the dispatch buffers come out
+    split over the experts without a gather; the gradients of h and of
+    the gates are then ``Partial()`` sums over those mesh dims (each
+    rank's experts' part).  Plain tensors: :func:`gather`."""
+    if not isinstance(h, DTensor):
+        return gather(h, gates, tok, valid, assign, slot, eidx)
+    rows, own, split = _own_experts(h)
+    mesh, E = h.device_mesh, tok.shape[1]
+    idx = [local_part(t, rows) for t in (tok, valid, assign, slot, eidx)]
+    shape, offset = local_span(tok.shape, mesh, own)
+    first, n = offset[1], shape[1]
+    tk, vl, asg = (t[:, first:first + n] for t in idx[:3])
+    part = grads_over(rows, split)
+    xe, gsel = gather(local_part(h, rows, part), local_part(gates, rows, part),
+                      tk, vl, asg, idx[3], idx[4], first, E)
+    return (from_local(xe, mesh, own, (*tok.shape, h.shape[-1])),
+            from_local(gsel, mesh, own, tok.shape))
+
+
+def _combine_own(ye, gsel, slot, eidx):
+    """The experts' outputs ye gated by gsel and combined
+    (:func:`combine`), on each rank's batch rows and its own experts: a
+    ``Partial()`` sum over the mesh dims that split the experts (or over
+    which ye is itself a partial sum), which the ``act`` layout reduces,
+    instead of a gather of every expert's outputs; the gates' gradient
+    is summed over D on each rank before it is reduced.  Plain tensors:
+    ``combine(ye * gsel, ...)``."""
+    if not isinstance(ye, DTensor):
+        return combine(ye * gsel[..., None].to(ye.dtype), slot, eidx)
+    rows, own, split = _own_experts(ye)
+    mesh, E = ye.device_mesh, ye.shape[1]
+    pl = tuple(p if p.is_partial() else o
+               for p, o in zip(ye.placements, own))
+    partial = [p.is_partial() for p in ye.placements]
+    first = global_offset(ye, own)[1]
+    # A partial ye's gradient is the whole sum's: replicated; the gates'
+    # is a partial sum where ye is one.
+    grad = tuple(Replicate() if p.is_partial() else p for p in pl)
+    g = local_part(gsel, own, grads_over(own, partial))
+    y = combine(local_part(ye, pl, grad) * g[..., None].to(ye.dtype),
+                local_part(slot, rows), local_part(eidx, rows), first, E)
+    out = tuple(Partial() if s or p else r
+                for r, s, p in zip(rows, split, partial))
+    return from_local(y, mesh, out, (*eidx.shape[:2], ye.shape[-1]))

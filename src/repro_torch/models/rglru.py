@@ -25,7 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels import ops
-from ..sharding.partition import shard
+from ..sharding.partition import matmul, shard
 from .config import LMConfig
 from .layers import dense_init, dtype_of, param, rms_norm, rms_norm_init
 from .ssm import conv_causal
@@ -63,8 +63,8 @@ def _gates(p: RGLRU, u):
     """(a, gated input), both float32; the products with ``rg_a`` and
     ``rg_i`` run in full float32 (TF32 stays off)."""
     uf = u.float()
-    r = torch.sigmoid(uf @ p.rg_a)
-    i = torch.sigmoid(uf @ p.rg_i)
+    r = torch.sigmoid(matmul(uf, p.rg_a))
+    i = torch.sigmoid(matmul(uf, p.rg_i))
     a = torch.exp(-_C * F.softplus(p.rg_lambda)[None, None] * r)
     return a, i * uf
 
@@ -74,8 +74,9 @@ def _in(p: RGLRU, x, cfg: LMConfig, conv_state=None):
     (gate, u, the conv's new state).  ``jax.nn.gelu`` defaults to the tanh
     approximation."""
     h = rms_norm(x, p.norm, cfg.norm_eps)
-    gate = F.gelu(h @ p.rg_gate, approximate="tanh")
-    u, conv_state = conv_causal(shard(h @ p.rg_in, "act_inner"), p.rg_conv_w,
+    gate = F.gelu(matmul(h, p.rg_gate), approximate="tanh")
+    u, conv_state = conv_causal(shard(matmul(h, p.rg_in), "act_inner"),
+                                p.rg_conv_w,
                                 p.rg_conv_b, conv_state)
     return gate, u, conv_state
 
@@ -85,7 +86,7 @@ def rglru_train(p: RGLRU, x, cfg: LMConfig, *, return_cache: bool = False):
     gate, u, conv_state = _in(p, x, cfg)
     a, xin = _gates(p, u)
     hs, hT = ops.rglru_scan(xin.to(u.dtype), a.to(u.dtype))
-    out = x + shard((hs.to(x.dtype) * gate) @ p.rg_out, "act")
+    out = x + shard(matmul(hs.to(x.dtype) * gate, p.rg_out), "act")
     if not return_cache:
         return out
     return out, {"conv": conv_state, "h": shard(hT, "state")}
@@ -101,7 +102,8 @@ def rglru_decode(p: RGLRU, x, cache: dict, cfg: LMConfig):
           + torch.sqrt(torch.clamp(1 - a0 * a0, min=0.0)) * xin[:, 0])
     cache["conv"].copy_(conv_state)
     cache["h"].copy_(hn)
-    return x + shard((hn[:, None].to(x.dtype) * gate) @ p.rg_out, "act")
+    return x + shard(matmul(hn[:, None].to(x.dtype) * gate, p.rg_out),
+                     "act")
 
 
 def rglru_cache_init(cfg: LMConfig, B: int, device) -> dict:

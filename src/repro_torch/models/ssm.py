@@ -24,7 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels import ops
-from ..sharding.partition import shard
+from ..sharding.partition import column_blocks, matmul, pointwise, shard
 from .config import LMConfig
 from .layers import dense_init, dtype_of, param, rms_norm, rms_norm_init
 
@@ -78,16 +78,17 @@ def _ssm_params(p: Mamba, u, cfg: LMConfig):
     # ``x_proj``'s rows follow the split channels, so on DTensors the
     # product is a partial sum: summed here (the ``act`` layout), as XLA
     # sums it (DTensor 2.11 cannot carry it into ``dt_w``'s split output).
-    dt_r, Bm, Cm = torch.split(shard(u @ p.x_proj, "act"), [R, N, N],
-                               dim=-1)
-    dt = F.softplus(dt_r.float() @ p.dt_w + p.dt_b[None, None])
+    dt_r, Bm, Cm = torch.split(shard(matmul(u, p.x_proj), "act"),
+                               [R, N, N], dim=-1)
+    dt = pointwise(F.softplus,
+                   matmul(dt_r.float(), p.dt_w) + p.dt_b[None, None])
     A = -torch.exp(p.A_log)
     return dt, A, Bm.float(), Cm.float()
 
 
 def _in(p: Mamba, x, cfg: LMConfig, conv_state=None):
     """Norm, in_proj, conv and silu: (u, z, the conv's new state)."""
-    u, z = (rms_norm(x, p.norm, cfg.norm_eps) @ p.in_proj).chunk(2, dim=-1)
+    u, z = column_blocks(rms_norm(x, p.norm, cfg.norm_eps), p.in_proj, 2)
     u, conv_state = conv_causal(shard(u, "act_inner"), p.conv_w, p.conv_b,
                                 conv_state)
     return F.silu(u), z, conv_state
@@ -98,7 +99,7 @@ def mamba_train(p: Mamba, x, cfg: LMConfig, *, return_cache: bool = False):
     u, z, conv_state = _in(p, x, cfg)
     dt, A, Bm, Cm = _ssm_params(p, u, cfg)
     y, hT = ops.selective_scan(u, dt, A, Bm, Cm, p.Dskip)
-    out = x + shard((y * F.silu(z)) @ p.out_proj, "act")
+    out = x + shard(matmul(y * F.silu(z), p.out_proj), "act")
     if not return_cache:
         return out
     return out, {"conv": conv_state, "h": shard(hT, "state")}
@@ -116,7 +117,7 @@ def mamba_decode(p: Mamba, x, cache: dict, cfg: LMConfig):
     y = y[:, None].to(x.dtype) * F.silu(z)
     cache["conv"].copy_(conv_state)
     cache["h"].copy_(hn)
-    return x + shard(y @ p.out_proj, "act")
+    return x + shard(matmul(y, p.out_proj), "act")
 
 
 def mamba_cache_init(cfg: LMConfig, B: int, device) -> dict:

@@ -18,6 +18,15 @@ DeviceMesh`` with named dims, or any object with the reference's
 ``.shape`` mapping (axis name -> size) and ``.axis_names`` (the rules
 only read sizes, so shape-only meshes check the production layouts
 without devices).
+
+Where DTensor's own rules would repeat work on every rank or gather an
+operand that the reference's partitioner keeps split, the model calls
+the functions here, which work on each rank's local shards:
+:func:`matmul` (every product of a weight), :func:`column_blocks`
+(a product whose output columns are cut into blocks), :func:`label_logp`
+(the loss's log-softmax on the vocabulary's shards), :func:`embed_rows`
+(the vocabulary-split lookup), :func:`pointwise` (an elementwise
+function) and :func:`amax_rows` (row maxima).
 """
 from __future__ import annotations
 
@@ -294,21 +303,140 @@ def embed_rows(tokens, table):
     return out.redistribute(mesh, tp)
 
 
-def rows_matmul(x, w):
-    """``x @ w`` for x [B, S, D].  A DTensor x split over its sequence
-    (dim 1, smollm-360m's sequence parallelism) takes the product on each
-    rank's rows against the whole weight (gathered where it is split;
-    its gradient a ``Partial()`` sum where x is split), the output laid
-    out as x: DTensor 2.11, on the card, refuses the product's flattening
-    of a split sequence into rows.  Anything else is ``x @ w``."""
-    if not (isinstance(x, DTensor) and isinstance(w, DTensor)
-            and any(p.is_shard(1) for p in x.placements)):
+def _split_dim(p):
+    """The tensor dim a placement splits (a strided shard's too), else
+    None."""
+    return p.dim if p.is_shard() or hasattr(p, "split_factor") else None
+
+
+def matmul(x, w):
+    """``x @ w`` for x [..., K] and a matrix w [K, N].  On DTensors the
+    product runs on each rank's local shards in the layout the
+    reference's partitioner gives it, so that no rank repeats another's
+    work and no operand is gathered beyond what the split needs.  Mesh
+    dim by mesh dim:
+
+    - x split over a row dim (batch or sequence): w gathered whole on
+      that dim (the FSDP gather), its gradient a ``Partial()`` sum;
+    - else w split over its columns N: x whole, the output split over
+      its last dim, x's gradient a ``Partial()`` sum;
+    - else w or x split over K: both taken split over K (a local chunk
+      of the one that is whole), the output a ``Partial()`` sum, which
+      the next ``shard`` reduces;
+    - else both whole.
+
+    A partial x is reduced first.  Plain tensors give ``x @ w``."""
+    if not (isinstance(x, DTensor) and isinstance(w, DTensor)):
         return x @ w
-    whole = (Replicate(),) * len(w.placements)
-    wl = local_part(w, whole, grads_over(
-        whole, [not p.is_replicate() for p in x.placements]))
-    return from_local(x.to_local() @ wl, x.device_mesh, x.placements,
-                      (*x.shape[:-1], w.shape[-1]))
+    last = x.ndim - 1
+    xp, wp, yp, xg, wg = [], [], [], [], []
+    for a, b in zip(x.placements, w.placements):
+        ad, bd = _split_dim(a), _split_dim(b)
+        if ad is not None and ad != last:          # rows split
+            xp.append(a), wp.append(Replicate()), yp.append(a)
+            xg.append(a), wg.append(Partial())
+        elif bd == 1:                              # columns split
+            xp.append(Replicate()), wp.append(b), yp.append(Shard(last))
+            xg.append(Partial()), wg.append(b)
+        elif ad == last or bd == 0:                # K split
+            xp.append(Shard(last)), wp.append(Shard(0)), yp.append(Partial())
+            xg.append(Shard(last)), wg.append(Shard(0))
+        else:
+            xp.append(Replicate()), wp.append(Replicate())
+            yp.append(Replicate()), xg.append(Replicate())
+            wg.append(Replicate())
+    y = local_part(x, xp, xg) @ local_part(w, wp, wg)
+    return from_local(y, x.device_mesh, yp, (*x.shape[:-1], w.shape[-1]))
+
+
+def amax_rows(x):
+    """``x.amax(dim=-1, keepdim=True)``.  On a DTensor whose last dim a
+    mesh dim splits, each rank's maximum and an all-reduce of the
+    maxima over those mesh dims, the result whole there: the program
+    both torch releases then run (2.13 alone would reduce-scatter it)."""
+    if not isinstance(x, DTensor):
+        return x.amax(dim=-1, keepdim=True)
+    mesh, last = x.device_mesh, x.ndim - 1
+    cut_last = [_split_dim(p) == last for p in x.placements]
+    part = tuple(Partial("max") if c else p
+                 for p, c in zip(x.placements, cut_last))
+    whole = tuple(Replicate() if c else p
+                  for p, c in zip(x.placements, cut_last))
+    local = x.to_local().amax(dim=-1, keepdim=True)
+    return from_local(local, mesh, part, (*x.shape[:-1], 1)).redistribute(
+        mesh, whole)
+
+
+def pointwise(fn, x):
+    """``fn(x)`` for an elementwise ``fn``, on a DTensor x on each rank's
+    shard: torch 2.11's DTensor has no sharding rule for some such
+    functions (``F.softplus``) and gathers x whole first."""
+    if not isinstance(x, DTensor):
+        return fn(x)
+    return from_local(fn(x.to_local()), x.device_mesh, x.placements,
+                      x.shape)
+
+
+def column_blocks(x, w, n: int) -> list:
+    """``(x @ w).chunk(n, dim=-1)``.  A chunk of a DTensor product whose
+    columns a mesh dim splits is gathered (falcon-mamba's ``in_proj`` holds
+    u and z side by side); where the product's output is the larger (a
+    training or prefill step), each block of w is instead redistributed
+    to w's layout and multiplied on its own (:func:`matmul`), so that
+    only the weight moves."""
+    split = isinstance(w, DTensor) and any(
+        _split_dim(p) == 1 and w.device_mesh.size(i) > 1
+        for i, p in enumerate(w.placements))
+    if not split or math.prod(x.shape[:-1]) <= w.shape[0]:
+        return list(matmul(x, w).chunk(n, dim=-1))
+    mesh, width = w.device_mesh, w.shape[1] // n
+    return [matmul(x, w[:, i * width:(i + 1) * width].redistribute(
+        mesh, w.placements)) for i in range(n)]
+
+
+def label_logp(logits, labels):
+    """Each position's float32 log-probability of its label: logits [B, S,
+    V] (float32), labels [B, S] (int64), both DTensors or neither.  On
+    DTensors each rank works on its own rows; where the vocabulary is
+    split over a mesh dim of more than one rank, the log-softmax is taken
+    on the shards (the rows' max and sum of exponentials and the label's
+    logit combined by all-reduces over those dims), as the reference's
+    partitioner keeps it, instead of gathering the vocabulary.  Elsewhere
+    (plain tensors, or the vocabulary whole on every rank) it is the
+    plain log-softmax on each rank's rows."""
+    if not isinstance(logits, DTensor):
+        return _label_logp(logits, labels)
+    mesh, last = logits.device_mesh, logits.ndim - 1
+    vocab = [_split_dim(p) == last and mesh.size(i) > 1
+             for i, p in enumerate(logits.placements)]
+    rows = tuple(Replicate() if _split_dim(p) in (None, last) else p
+                 for p in logits.placements)
+    lab = local_part(labels, rows)
+    shape = logits.shape[:-1]
+    if not any(vocab):
+        return from_local(_label_logp(local_part(logits, rows), lab), mesh,
+                          rows, shape)
+    cols = tuple(Shard(last) if v else r for r, v in zip(rows, vocab))
+    local = local_part(logits, cols)
+    lo, n = global_offset(logits, cols)[last], local.shape[-1]
+
+    def over_vocab(t, op="sum"):
+        pl = tuple(Partial(op) if v else r for r, v in zip(rows, vocab))
+        return from_local(t, mesh, pl, shape).redistribute(mesh, rows)
+
+    m = over_vocab(local.detach().amax(dim=-1), "max").to_local()
+    s = over_vocab(torch.exp(local - m[..., None]).sum(dim=-1))
+    ids = lab - lo
+    inside = (ids >= 0) & (ids < n)
+    picked = local.gather(-1, ids.clamp(0, n - 1)[..., None])[..., 0]
+    picked = over_vocab(picked * inside)
+    return picked - from_local(m, mesh, rows, shape) - torch.log(s)
+
+
+def _label_logp(logits, labels):
+    """The plain float32 log-softmax's entry at each position's label."""
+    logp = torch.log_softmax(logits, dim=-1)
+    return logp.gather(-1, labels[..., None])[..., 0]
 
 
 def per_row(fn, *args):

@@ -43,7 +43,7 @@ import torch.distributed as dist
 from torch.distributed.tensor import DTensor
 
 from ..models.model import GROUP_KEYS
-from ..sharding.partition import current_ctx, cut
+from ..sharding.partition import amax_rows, current_ctx, cut
 
 
 @dataclass(frozen=True)
@@ -189,7 +189,7 @@ def _q8(x: torch.Tensor) -> dict:
 
     Quantizing in sqrt-space concentrates resolution near zero (linear
     int8 zeroes small second moments and Adam's 1/sqrt(v) explodes)."""
-    s = x.abs().amax(dim=-1, keepdim=True)
+    s = amax_rows(x.abs())
     xn = x / torch.where(s == 0, 1.0, s)
     q = (torch.round(torch.sqrt(xn.abs()) * 127.0) * torch.sign(xn)
          ).to(torch.int8)

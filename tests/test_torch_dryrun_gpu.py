@@ -80,12 +80,13 @@ def test_decode_pieces_merge_to_the_uncut_call(name, dtype, n, dev):
 
 
 # (arch, shape, mesh, reduced-config overrides): a position-split decode
-# cache, and moonshot's experts split over "data", which DTensor moves by
-# all-to-all.
+# cache, moonshot's experts and FSDP over "data", and smollm-360m's
+# sequence parallelism, whose splits DTensor moves by all-to-all.
 CELLS = (("recurrentgemma-9b", ShapeSpec("decode_32k", 16, 2, "decode"),
           (1, 2), dict(window=8, n_layers=3)),
          ("moonshot-v1-16b-a3b", ShapeSpec("train_4k", 16, 4, "train"),
-          (2, 1), {}))
+          (2, 1), {}),
+         ("smollm-360m", ShapeSpec("train_4k", 16, 4, "train"), (1, 2), {}))
 
 
 def test_fake_cuda_counts_equal_fake_cpu(dev):
@@ -107,4 +108,4 @@ def test_fake_cuda_counts_equal_fake_cpu(dev):
                     "memory_analysis"):
             assert a[key] == b[key], key
         assert a["flops_total"] > 0
-    assert got["cuda"][1]["collectives"]["ops"]["all-to-all"]["count"] > 0
+    assert got["cuda"][2]["collectives"]["ops"]["all-to-all"]["count"] > 0
