@@ -268,16 +268,20 @@ two headers):
    - slice 18, the dry run and the roofline (``dryrun_phase``):
      ``python -m repro_torch.launch.dryrun`` on qwen3-1.7b train_4k and
      decode_32k (its cache split over positions) and moonshot
-     prefill_32k (its experts split), and (slice 19) falcon-mamba-7b and
-     recurrentgemma-9b prefill_32k, each in a process of its own, all
-     at once, on the card's fake tensors over 256 fake ranks; each must
-     be ok with FLOPs, bytes and collective bytes, and its roofline row
-     at this card's rates is printed; each is held to the JAX package's
+     prefill_32k (its experts split), (slice 19) falcon-mamba-7b and
+     recurrentgemma-9b prefill_32k, and (slice 20) moonshot train_4k at
+     8 of its 48 layers (its router's weight gradient a block of rows a
+     model rank), each in a process of its own, all at once, on the
+     card's fake tensors over 256 fake ranks; each must be ok with
+     FLOPs, bytes and collective bytes, and its roofline row at this
+     card's rates is printed; each is held to the JAX package's
      compiled cell (``tests/data/dryrun_reference_single.json``, written
      by ``tests/_torch_dryrun_reference.py``): FLOPs and argument bytes
      equal, wire bytes no more, and the peak (arguments and temp) no more
-     than ``DRYRUN_REF_PEAK`` times the reference's; then the smollm-360m
-     train step
+     than ``DRYRUN_REF_PEAK`` times the reference's; then (slice 20)
+     ``DRYRUN_ORDER_CELL`` counted on fake cuda and fake CPU tensors in
+     this process, after the sharding phase's NCCL steps: the counts
+     must agree field for field; then the smollm-360m train step
      (``TRAIN_*``) counted on fake tensors and run for real: the product
      FLOPs by op equal to ``FlopCounterMode``'s, each kernel's counted
      calls equal to its launches, the predicted peak within
@@ -323,6 +327,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import testing  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs.registry import ShapeSpec  # noqa: E402
 from repro_torch.core import api  # noqa: E402
 from repro_torch.core import bridge  # noqa: E402
 from repro_torch.core import pareto  # noqa: E402
@@ -2470,14 +2475,22 @@ BWD_LIMIT = (f"|kernel - plain| <= {BWD_ATOL_SHARE:g} max|plain| + "
 # The forward's log-sum-exp against the plain version's (float32 sums of
 # exps in other orders; the kernel's ex2.approx in bfloat16).
 LSE_TOL = 1e-5
-# The attention shapes of the training runs (bfloat16, causal): smollm-360m
-# at the smoke's B = 8 (15 query heads on 5 KV heads of 64) and qwen3-1.7b
-# at B = 1 (16 on 8 of 128), S = 2048; recurrentgemma-9b at its training
-# run's B = 1, S = 4096 (16 on 1 of 256, its 2048-token window in force).
+# The attention shapes of the training runs (bfloat16), (arch, B, S,
+# causal): smollm-360m at the smoke's B = 8 (15 query heads on 5 KV heads
+# of 64) and qwen3-1.7b at B = 1 (16 on 8 of 128), S = 2048;
+# recurrentgemma-9b at its training run's B = 1, S = 4096 (16 on 1 of 256,
+# its 2048-token window in force); moonshot-v1-16b-a3b's (16 on 16 of 128)
+# and seamless-m4t-medium's (16 on 16 of 64: the decoder's causal self-
+# attention, and the encoder's and the cross-attention's, 4096 frames
+# both, bidirectional) at their training runs' B = 2, S = 4096.
 TRAIN_S = 2048
 RTRAIN_S = 4096
-BWD_TIMED = (("smollm-360m", 8, TRAIN_S), ("qwen3-1.7b", 1, TRAIN_S),
-             ("recurrentgemma-9b", 1, RTRAIN_S))
+BWD_TIMED = (("smollm-360m", 8, TRAIN_S, True),
+             ("qwen3-1.7b", 1, TRAIN_S, True),
+             ("recurrentgemma-9b", 1, RTRAIN_S, True),
+             ("moonshot-v1-16b-a3b", 2, RTRAIN_S, True),
+             ("seamless-m4t-medium", 2, RTRAIN_S, True),
+             ("seamless-m4t-medium", 2, RTRAIN_S, False))
 # The full-width training run: smollm-360m (the reference launcher's
 # default arch) at its published widths and depth, bfloat16, weights from
 # seed 0, B = 8, S = 2048, remat, AdamW at lr 1e-3 (5 warm-up steps, then
@@ -2609,12 +2622,14 @@ def attention_bwd_parity_phase(dev, worst: dict) -> None:
               f"{worst['flash_attention_bwd']:.3g})")
 
 
-def flash_bwd_bound_ms(B, S, Hq, Hkv, d, window=None, itemsize=2):
-    """Causal, Sq = Sk = S: 10 B Hq d operations a seen (query, key) pair
-    (the logits, dP, dv, dk, dq products; query i sees min(i + 1, window)
-    keys) against reading q, k, v, o, dO and lse and writing dq, dk and dv
-    once."""
-    pairs = int(np.minimum(np.arange(1, S + 1), window or S).sum())
+def flash_bwd_bound_ms(B, S, Hq, Hkv, d, window=None, itemsize=2,
+                       causal=True):
+    """Sq = Sk = S: 10 B Hq d operations a seen (query, key) pair (the
+    logits, dP, dv, dk, dq products; causal, query i sees min(i + 1,
+    window) keys, else all S) against reading q, k, v, o, dO and lse and
+    writing dq, dk and dv once."""
+    pairs = (int(np.minimum(np.arange(1, S + 1), window or S).sum())
+             if causal else S * S)
     return _bound(10 * B * Hq * d * pairs,
                   itemsize * d * (4 * B * S * Hq + 4 * B * S * Hkv)
                   + 4 * B * Hq * S, PEAK_BF16_OPS)
@@ -2628,14 +2643,17 @@ def attention_bwd_timing_phase(dev, worst: dict) -> dict:
     ``BWD_LIMIT`` and to one more call's, bit for bit."""
     F = torch.nn.functional
     rows = {}
-    for arch, B, S in BWD_TIMED:
+    for arch, B, S, causal in BWD_TIMED:
         cfg = get_config(arch)
         window = cfg.window or None
         kw = {} if window is None else {"window": window}
+        if not causal:
+            kw["causal"] = False
         shape = dict(B=B, Sq=S, Sk=S, Hq=cfg.n_heads, Hkv=cfg.n_kv_heads,
                      d=cfg.hd)
+        how = "causal" if causal else "bidirectional"
         phase(f"timing: flash_attention_bwd at {arch}'s training shape "
-              f"(bf16, causal, window {window}, {shape}; outputs "
+              f"(bf16, {how}, window {window}, {shape}; outputs "
               f"{BWD_LIMIT})")
         q, k, v = _on_card(testing.attention_operands(**shape, seed=B), dev)
         out, lse, g = _bwd_inputs(q, k, v, kw, seed=B)
@@ -2643,7 +2661,7 @@ def attention_bwd_timing_phase(dev, worst: dict) -> dict:
                          for x in (q, k, v))
         if window is None:
             o_s = F.scaled_dot_product_attention(
-                q_s, k_s, v_s, is_causal=True, enable_gqa=True)
+                q_s, k_s, v_s, is_causal=causal, enable_gqa=True)
         else:
             pos = torch.arange(S, device=dev)
             mask = (pos[None] <= pos[:, None]) & (
@@ -2668,9 +2686,9 @@ def attention_bwd_timing_phase(dev, worst: dict) -> dict:
         worst["flash_attention_bwd"] = max(worst["flash_attention_bwd"], err)
         t["bound"], t["bound_by"] = flash_bwd_bound_ms(**{
             k_: shape[k_] for k_ in ("B", "Hq", "Hkv", "d")}, S=S,
-            window=window)
+            window=window, causal=causal)
         t["max_abs_err"], t["limit_share"] = err, share
-        rows[f"flash_bwd {arch}"] = t
+        rows[f"flash_bwd {arch}" + ("" if causal else " bidirectional")] = t
         print(f"  kernel {t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, "
               f"sdpa backward{' (mask)' if window else ''} "
               f"{t['library']:.4f} ms, bound {t['bound']:.4f} "
@@ -3414,12 +3432,28 @@ def sharding_phase(dev) -> dict:
 # whose cache the rules split over its positions (qwen3-1.7b's 8 KV heads
 # do not divide the model axis of 16), an MoE prefill with its experts
 # split; slice 19 adds the SSM and hybrid prefills, whose counts torch
-# 2.11 once took other layouts for.  Each in a process of its own, all
-# at once.
-DRYRUN_CELLS = (("qwen3-1.7b", "train_4k"), ("qwen3-1.7b", "decode_32k"),
-                ("moonshot-v1-16b-a3b", "prefill_32k"),
-                ("falcon-mamba-7b", "prefill_32k"),
-                ("recurrentgemma-9b", "prefill_32k"))
+# 2.11 once took other layouts for; slice 20 the MoE train step, whose
+# router's weight gradient each model rank computes a block of rows of
+# (at 8 of its 48 layers: about 40 s to count, 4 min at full depth).
+# (arch, shape, layers or None for the full depth), each in a process of
+# its own, all at once.
+DRYRUN_CELLS = (("qwen3-1.7b", "train_4k", None),
+                ("qwen3-1.7b", "decode_32k", None),
+                ("moonshot-v1-16b-a3b", "prefill_32k", None),
+                ("falcon-mamba-7b", "prefill_32k", None),
+                ("recurrentgemma-9b", "prefill_32k", None),
+                ("moonshot-v1-16b-a3b", "train_4k", 8))
+# Counted on the card's fake tensors and on fake CPU tensors after the
+# sharding phase's NCCL steps, the two must agree field for field:
+# recurrentgemma-9b decode_32k cut to 3 layers and a window of 8 on a
+# (1, 2) fake group (a position-split ring cache), the cell whose fake
+# "cuda" count once depended on what the process ran before.
+DRYRUN_ORDER_CELL = ("recurrentgemma-9b", ShapeSpec("decode_32k", 16, 2,
+                                                    "decode"),
+                     (1, 2), {"n_layers": 3, "window": 8})
+DRYRUN_ORDER_FIELDS = ("flops_total", "bytes_accessed_total",
+                       "convert_bytes_total", "collectives", "kernel_calls",
+                       "memory_analysis")
 # The JAX package's records of those cells, compiled on 256 host devices
 # (the card has no JAX): ``tests/_torch_dryrun_reference.py``.
 DRYRUN_REFERENCE = (Path(__file__).resolve().parent / "tests" / "data"
@@ -3448,9 +3482,10 @@ def _dryrun_cells() -> list:
                PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
     procs = [subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-         "--shape", shape, "--mesh", "single", "--out", str(DRYRUN_DIR)],
+         "--shape", shape, "--mesh", "single", "--out", str(DRYRUN_DIR)]
+        + (["--layers", str(layers)] if layers else []),
         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True) for arch, shape in DRYRUN_CELLS]
+        text=True) for arch, shape, layers in DRYRUN_CELLS]
     try:
         outs = [p.communicate(timeout=DRYRUN_TIMEOUT)[0] for p in procs]
     finally:
@@ -3459,8 +3494,9 @@ def _dryrun_cells() -> list:
                 p.kill()
                 p.wait()
     recs = []
-    for (arch, shape), p, out in zip(DRYRUN_CELLS, procs, outs):
-        path = DRYRUN_DIR / f"{arch}__{shape}__single.json"
+    for (arch, shape, layers), p, out in zip(DRYRUN_CELLS, procs, outs):
+        path = DRYRUN_DIR / (f"{arch}__{shape}__single"
+                             + (f"__{layers}l" if layers else "") + ".json")
         rec = json.loads(path.read_text()) if path.exists() else {}
         if p.returncode or not rec.get("ok") or not (
                 rec["flops_total"] > 0 and rec["bytes_accessed_total"] > 0
@@ -3479,7 +3515,8 @@ def _hold_to_reference(recs: list) -> None:
     ref = json.loads(DRYRUN_REFERENCE.read_text())["cells"]
     misses = []
     for rec in recs:
-        r = ref[f"{rec['arch']}/{rec['shape']}"]
+        r = ref[f"{rec['arch']}/{rec['shape']}" + (
+            f"/n_layers={rec['layers']}" if rec.get("layers") else "")]
         mr, mp = r["memory_analysis"], rec["memory_analysis"]
         peak = mp["argument_size_in_bytes"] + mp["temp_size_in_bytes"]
         limit = DRYRUN_REF_PEAK * (mr["argument_size_in_bytes"]
@@ -3505,6 +3542,37 @@ def _hold_to_reference(recs: list) -> None:
                          "compiled cells: " + ", ".join(misses))
 
 
+def _order_check(dev) -> None:
+    """``DRYRUN_ORDER_CELL`` counted on fake tensors of the card and of
+    the CPU, in this process after the earlier phases (the sharding
+    phase's NCCL steps among them); exits unless the counts agree."""
+    from repro_torch.launch import dryrun
+
+    arch, spec, dims, cut = DRYRUN_ORDER_CELL
+    cfg = get_config(arch).reduced(**cut)
+    t0 = time.monotonic()
+    got = []
+    try:
+        for d in (dev, torch.device("cpu")):
+            mesh = dryrun.fake_mesh("single", d.type, dims=dims)
+            got.append(dryrun.count_cell(arch, spec, mesh, d, cfg=cfg,
+                                         microbatches=1))
+            dist.destroy_process_group()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    card, cpu = got
+    differ = [k for k in DRYRUN_ORDER_FIELDS if card[k] != cpu[k]]
+    print(f"  {arch} {spec.name} {dims}, cut {cut}, after the earlier "
+          f"phases: bytes {card['bytes_accessed_total']:.0f} on fake "
+          f"{dev.type}, {cpu['bytes_accessed_total']:.0f} on fake cpu; "
+          f"differing fields {differ} ({time.monotonic() - t0:.1f} s)",
+          flush=True)
+    if differ:
+        raise SystemExit(f"the dry run's fake cuda and fake cpu counts "
+                         f"differ in {differ}")
+
+
 def dryrun_phase(dev) -> dict:
     """Slice 18's main path: the dry run and the roofline.  The
     production cells through ``python -m repro_torch.launch.dryrun``
@@ -3522,7 +3590,8 @@ def dryrun_phase(dev) -> dict:
     from repro_torch.configs.registry import make_inputs
     from repro_torch.launch import dryrun, roofline
 
-    cells = ", ".join(" ".join(c) for c in DRYRUN_CELLS)
+    cells = ", ".join(f"{a} {s}" + (f" ({n} layers)" if n else "")
+                      for a, s, n in DRYRUN_CELLS)
     phase(f"main path, slice 18: the dry run ({cells}; single pod, 256 "
           f"fake ranks, fake cuda tensors) and the roofline at this card's "
           f"rates")
@@ -3543,6 +3612,7 @@ def dryrun_phase(dev) -> dict:
               f"{row['hbm_gb_per_chip']:.3f} GB, fits {row['fits_hbm']}")
     print(f"  dry run cells {time.monotonic() - t_phase:.1f} s", flush=True)
     _hold_to_reference(recs)
+    _order_check(dev)
 
     cfg = get_config(TRAIN_ARCH)
     opt = OptConfig(lr=TRAIN_LR)

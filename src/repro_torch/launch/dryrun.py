@@ -47,7 +47,7 @@ that fails records its error and the run goes on.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen3-1.7b --shape train_4k \\
-      --mesh single [--device cpu]
+      --mesh single [--device cpu] [--layers 8]
   python -m repro_torch.launch.dryrun --all [--mesh both] [--force] \
       [--jobs 6]
 """
@@ -388,7 +388,24 @@ def fake_mesh(mesh_kind: str, device_type: str, dims: tuple | None = None):
     if not dist.is_initialized():
         dist.init_process_group("fake", store=FakeStore(), rank=0,
                                 world_size=n)
+        clear_sharding_caches()
     return init_device_mesh(device_type, dims, mesh_dim_names=axes)
+
+
+def clear_sharding_caches() -> None:
+    """Empty DTensor's caches of sharding propagation (the Python one of
+    this thread and, where the release has one, the C++ one), whose
+    entries hold the meshes, and so the process groups, of the layouts
+    they saw: a group made anew starts from none of a destroyed one's."""
+    prop = DTensor._op_dispatcher.sharding_propagator
+    for cache in (prop.propagate_op_sharding,
+                  getattr(prop, "_propagate_tensor_meta_cached", None)):
+        if cache is not None:
+            cache.cache_clear()
+    fast = getattr(torch._C, "_clear_DTensor_sharding_propagator_cache",
+                   None)
+    if fast is not None:
+        fast()
 
 
 def card_for(device) -> str:
@@ -405,9 +422,14 @@ def card_for(device) -> str:
 
 
 def run_cell(arch: str, shape: str, mesh_kind: str, *,
-             out_dir=ARTIFACT_DIR, force=False, device=None) -> dict:
+             out_dir=ARTIFACT_DIR, force=False, device=None,
+             layers: int | None = None) -> dict:
+    """Count one cell and write its artifact (``layers`` cuts the depth:
+    the config's ``n_layers``, recorded as ``layers`` and in the file's
+    name)."""
     os.makedirs(out_dir, exist_ok=True)
-    tag = f"{arch}__{shape}__{mesh_kind}"
+    tag = f"{arch}__{shape}__{mesh_kind}" + (f"__{layers}l" if layers
+                                              else "")
     path = os.path.join(out_dir, tag + ".json")
     if os.path.exists(path) and not force:
         with open(path) as f:
@@ -417,9 +439,14 @@ def run_cell(arch: str, shape: str, mesh_kind: str, *,
     rec = {"arch": arch, "shape": shape, "mesh": mesh_kind,
            "n_chips": mesh.size(), "ok": False,
            "card": card_for(dev), "device": dev.type}
+    cut = None
+    if layers:
+        rec["layers"] = layers
+        cut = dataclasses.replace(prod_config(arch, shape)[0],
+                                  n_layers=layers)
     t0 = time.time()
     try:
-        got = count_cell(arch, shape, mesh, dev)
+        got = count_cell(arch, shape, mesh, dev, cfg=cut)
         mi = got.pop("mi")
         cfg = got.pop("cfg")
         rec.update(got)
@@ -451,6 +478,8 @@ def main(argv=None):
     ap.add_argument("--jobs", type=int, default=1,
                     help="cells counted side by side, each in a process of "
                          "its own (its own fake group)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut each cell's depth to this many layers")
     args = ap.parse_args(argv)
     meshes = {"single": ["single"], "multi": ["multi"],
               "both": ["single", "multi"]}[args.mesh]
@@ -462,7 +491,7 @@ def main(argv=None):
     for arch, shape, mk in todo:
         rec = run_cell(arch, shape, mk, out_dir=args.out,
                        force=args.force and args.jobs == 1,
-                       device=args.device)
+                       device=args.device, layers=args.layers)
         recs.append(rec)
         status = "OK " if rec.get("ok") else "FAIL"
         mem = rec.get("memory_analysis", {})
@@ -490,6 +519,8 @@ def _run_jobs(todo: list, args) -> None:
     flags = ["--out", args.out] + (["--force"] if args.force else [])
     if args.device:
         flags += ["--device", args.device]
+    if args.layers:
+        flags += ["--layers", str(args.layers)]
 
     def one(cell):
         arch, shape, mk = cell

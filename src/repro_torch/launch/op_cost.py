@@ -29,10 +29,13 @@ counted.
   the reference's ring formulas for the wire bytes a device (R the
   result's bytes, g the group: all-gather R (g - 1) / g,
   all-reduce 2 R (g - 1) / g, reduce-scatter R (g - 1), all-to-all
-  R (g - 1) / g), crossing pods where the group holds ranks of two pods
-  of ``pod_size``; a schedule of the largest, each with the line of the
-  model or train step that ran it (the innermost frame of the port's
-  ``models``, ``train`` or ``kernels`` packages).
+  R (g - 1) / g; an all-to-all that sends one block to one rank and
+  takes one from one rank is a collective-permute, R), crossing pods
+  where the group holds ranks of two pods of ``pod_size`` (a permute:
+  where its other rank lies in another pod); a schedule of the
+  largest, each with the line of the model or train step that ran it
+  (the innermost frame of the port's ``models``, ``train`` or
+  ``kernels`` packages).
 - **arguments**: the bytes of the registered inputs that the program
   reads, as a compiled program's inputs are those it uses (XLA prunes
   the rest: an encoder-decoder's decode step takes no encoder weights).
@@ -133,7 +136,7 @@ def ring_wire(kind: str, R: float, g: int) -> float:
         return R * (g - 1)
     if kind == "all-to-all":
         return R * (g - 1) / g
-    return R
+    return R                  # a collective-permute
 
 
 @contextlib.contextmanager
@@ -186,7 +189,6 @@ class OpCost(TorchDispatchMode):
         self._tracked: set = set()
         self._groups: dict = {}
         self._suspended = 0
-        self._prop = None
         self._large: dict = {}          # live storages of PEAK_TENSOR_MIN+
         self._peak_large: dict = {}     # ... as they stood at the peak
 
@@ -268,29 +270,46 @@ class OpCost(TorchDispatchMode):
     # -- the mode ------------------------------------------------------------
 
     def __enter__(self):
-        # DTensor runs each op on fake tensors of the global shapes to
-        # learn the output's layout: not part of this device's program.
-        prop = ShardingPropagator._propagate_tensor_meta_non_cached
-        mode = self
-
-        def propagate(*args, **kwargs):
-            mode._suspended += 1
-            try:
-                return prop(*args, **kwargs)
-            finally:
-                mode._suspended -= 1
-
-        self._prop = prop
-        ShardingPropagator._propagate_tensor_meta_non_cached = propagate
-        self._host = host_placement_math()
-        self._host.__enter__()
+        # DTensor's sharding propagation is host work, not this device's
+        # program: it runs each op on fake tensors of the global shapes to
+        # learn the output's layout, and an op without a sharding rule
+        # through its decomposition on meta tensors.  It runs once a layout
+        # (DTensor caches the result), so counting it would make a count
+        # depend on what the process ran before.
+        prop = DTensor._op_dispatcher.sharding_propagator
+        self._patches = contextlib.ExitStack()
+        for owner, name in (
+                (ShardingPropagator, "_propagate_tensor_meta_non_cached"),
+                (ShardingPropagator, "propagate_op_sharding_non_cached"),
+                (prop, "propagate_op_sharding")):
+            if hasattr(owner, name):
+                self._patches.enter_context(self._uncounted(owner, name))
+        self._patches.enter_context(host_placement_math())
         return super().__enter__()
 
     def __exit__(self, *exc):
         out = super().__exit__(*exc)
-        self._host.__exit__(*exc)
-        ShardingPropagator._propagate_tensor_meta_non_cached = self._prop
+        self._patches.close()
         return out
+
+    @contextlib.contextmanager
+    def _uncounted(self, owner, name):
+        """``owner.name`` (a method, or an instance's cached callable)
+        replaced while the mode is entered by one that counts nothing."""
+        raw = getattr(owner, name)
+
+        def call(*args, **kwargs):
+            self._suspended += 1
+            try:
+                return raw(*args, **kwargs)
+            finally:
+                self._suspended -= 1
+
+        setattr(owner, name, call)
+        try:
+            yield
+        finally:
+            setattr(owner, name, raw)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         if any(issubclass(t, DTensor) for t in types):
@@ -404,8 +423,15 @@ class OpCost(TorchDispatchMode):
         bound = dict(zip(names, args), **kwargs)
         ranks = self._group(bound["group_name"])
         R = sum(map(_nbytes, outs))
-        wire = ring_wire(kind, R, len(ranks))
         cross = len({r // self.pod_size for r in ranks}) > 1
+        to = [r for r, n in zip(ranks, bound.get("input_split_sizes", ()))
+              if n]
+        if kind == "all-to-all" and len(to) == 1 and sum(
+                1 for n in bound["output_split_sizes"] if n) == 1:
+            # One block to one rank and one from one: a permute.
+            kind = "collective-permute"
+            cross = to[0] // self.pod_size != dist.get_rank() // self.pod_size
+        wire = ring_wire(kind, R, len(ranks))
         key = kind + ("/cross-pod" if cross else "")
         e = self.coll.setdefault(key, [0, 0.0])
         e[0] += 1

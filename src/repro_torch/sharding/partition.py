@@ -323,11 +323,16 @@ def matmul(x, w):
     - else w or x split over K: both taken split over K (a local chunk
       of the one that is whole), the output a ``Partial()`` sum, which
       the next ``shard`` reduces;
-    - else both whole.
+    - else both whole; where w's rows are split over the dims that split
+      x's rows (FSDP), its gradient is computed a block of rows a rank
+      (:func:`_row_block_plan`).
 
     A partial x is reduced first.  Plain tensors give ``x @ w``."""
     if not (isinstance(x, DTensor) and isinstance(w, DTensor)):
         return x @ w
+    plan = _row_block_plan(x, w)
+    if plan is not None:
+        return _row_block_matmul(x, w, plan)
     last = x.ndim - 1
     xp, wp, yp, xg, wg = [], [], [], [], []
     for a, b in zip(x.placements, w.placements):
@@ -347,6 +352,111 @@ def matmul(x, w):
             wg.append(Replicate())
     y = local_part(x, xp, xg) @ local_part(w, wp, wg)
     return from_local(y, x.device_mesh, yp, (*x.shape[:-1], w.shape[-1]))
+
+
+class RowBlockPlan(NamedTuple):
+    """How a rank computes its block of a weight's gradient rows: block
+    ``block`` of ``blocks``, summed over the mesh dims ``sums`` and
+    swapped with the global rank ``partner`` (the swap is its own
+    inverse: the partner's block is this rank's shard)."""
+
+    sums: tuple
+    block: int
+    blocks: int
+    partner: int
+
+
+def _row_block_plan(x: DTensor, w: DTensor) -> RowBlockPlan | None:
+    """XLA's partitioner splits the gradient of a weight w [K, N] whose
+    rows K are split over the mesh dims F that also split x's rows
+    (FSDP), where x and w are both whole on the model dim M: the k =
+    |F| blocks of K go to the model ranks, M's rank m computing block
+    h = m // r of its rows' gradient (r = |M| / k); an all-reduce over
+    the dims that split x's rows sums it, and a permute takes it to the
+    rank whose shard it is: F's coordinate h, M's the sender's F
+    coordinate times r plus m mod r (seen in the compiled MoE router of
+    moonshot-v1-16b-a3b on the (2, 4) and (16, 16) meshes: a half and a
+    sixteenth of the rows a rank).  None where the layout is another,
+    k does not divide |M|, or the mesh is not the whole process group
+    (the permute runs over it)."""
+    mesh, last = x.device_mesh, x.ndim - 1
+    if w.ndim != 2 or mesh.size() != torch.distributed.get_world_size() \
+            or any(p.is_partial() for p in x.placements):
+        return None
+    fsdp, sums, model = [], [], []
+    for i, (a, b) in enumerate(zip(x.placements, w.placements)):
+        rows = _split_dim(a) not in (None, last)
+        if rows and b.is_shard(0):
+            fsdp.append(i), sums.append(i)
+        elif rows and b.is_replicate():
+            sums.append(i)
+        elif a.is_replicate() and b.is_replicate():
+            model += [i] if mesh.size(i) > 1 else []
+        elif mesh.size(i) > 1:
+            return None
+    k = math.prod(mesh.size(i) for i in fsdp)
+    if k < 2 or len(model) != 1 or mesh.size(model[0]) % k:
+        return None
+    c = mesh.get_coordinate()
+    m, r = c[model[0]], mesh.size(model[0]) // k
+    d = 0
+    for i in fsdp:
+        d = d * mesh.size(i) + c[i]
+    coord, h = list(c), m // r
+    for i in reversed(fsdp):
+        h, coord[i] = divmod(h, mesh.size(i))
+    coord[model[0]] = d * r + m % r
+    with _disable_current_modes():      # the mesh's ranks, on the host
+        partner = int(mesh.mesh[tuple(coord)])
+    return RowBlockPlan(tuple(sums), m // r, k, partner)
+
+
+class _RowBlockGrad(torch.autograd.Function):
+    """``x @ w_full`` on local tensors, whose backward gives x's gradient
+    whole and w's as this rank's shard ``w_shard`` of its rows: the
+    block of the plan computed, summed over the plan's dims by
+    all-reduces and swapped with the partner (an all-to-all that sends
+    one block to one rank) over the whole group."""
+
+    @staticmethod
+    def forward(ctx, x, w_full, w_shard, plan, mesh):
+        ctx.save_for_backward(x, w_full)
+        ctx.plan, ctx.mesh = plan, mesh
+        return x @ w_full
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w_full = ctx.saved_tensors
+        plan, mesh = ctx.plan, ctx.mesh
+        c10d = torch.ops._c10d_functional
+        K, N = w_full.shape
+        n = K // plan.blocks
+        dy2 = dy.reshape(-1, N)
+        rows = x.reshape(-1, K)[:, plan.block * n:(plan.block + 1) * n]
+        g = rows.t() @ dy2
+        for i in plan.sums:
+            g = c10d.wait_tensor(c10d.all_reduce(
+                g, "sum", mesh.get_group(i).group_name))
+        world = torch.distributed.get_world_size()
+        splits = [n if j == plan.partner else 0 for j in range(world)]
+        g = c10d.wait_tensor(c10d.all_to_all_single(
+            g, splits, splits,
+            torch.distributed.distributed_c10d._get_default_group()
+            .group_name))
+        return dy @ w_full.t(), None, g, None, None
+
+
+def _row_block_matmul(x: DTensor, w: DTensor, plan: RowBlockPlan):
+    """:func:`matmul` where :func:`_row_block_plan` gives a plan: w
+    gathered whole for the product (the FSDP gather), x and the output
+    laid out as x, and w's gradient this rank's shard of its rows
+    (``_RowBlockGrad``), laid out as w."""
+    mesh = x.device_mesh
+    whole = (Replicate(),) * mesh.ndim
+    y = _RowBlockGrad.apply(
+        local_part(x, x.placements), local_part(w.detach(), whole),
+        w.to_local(grad_placements=w.placements), plan, mesh)
+    return from_local(y, mesh, x.placements, (*x.shape[:-1], w.shape[-1]))
 
 
 def amax_rows(x):

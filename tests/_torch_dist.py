@@ -7,6 +7,7 @@ thread a rank, and returns each rank's result.  The functions run here
 import torch and ``repro_torch`` only: the children never load JAX, and
 the tests compare their results with the reference in the parent.
 """
+import contextlib
 import os
 
 import torch
@@ -100,6 +101,26 @@ def _whole(t):
     return t.full_tensor() if isinstance(t, DTensor) else t
 
 
+@contextlib.contextmanager
+def _counting_row_blocks():
+    """Counts the weight gradients computed a block of rows a rank
+    (``sharding.partition._RowBlockGrad``'s backward) while entered."""
+    from repro_torch.sharding import partition
+
+    fn, raw = partition._RowBlockGrad, partition._RowBlockGrad.backward
+    n = [0]
+
+    def backward(ctx, dy):
+        n[0] += 1
+        return raw(ctx, dy)
+
+    fn.backward = staticmethod(backward)
+    try:
+        yield n
+    finally:
+        fn.backward = staticmethod(raw)
+
+
 def step_pair(cfg, mesh, opt_cfg, microbatches: int = 1, steps: int = 2,
               B: int = 4, S: int = 16) -> dict:
     """The plain step and the DTensor step on ``mesh`` from one state:
@@ -127,11 +148,13 @@ def step_pair(cfg, mesh, opt_cfg, microbatches: int = 1, steps: int = 2,
     batch = lm_batch(cfg, B, S, 100)
     l1, g1 = _grads(plain, batch, names)
     mi = MeshInfo(mesh=mesh, dp=("data",), tp="model")
-    with use_sharding(rules.make_ctx(cfg, mi)), implicit_replication():
+    with use_sharding(rules.make_ctx(cfg, mi)), implicit_replication(), \
+            _counting_row_blocks() as row_blocks:
         db = place(batch, {k: mi.named(v) for k, v in
                            rules.batch_pspecs(batch, mi).items()})
         l2, g2 = _grads(model, db, names)
     out = {"loss": (float(l1), float(_whole(l2))),
+           "row_block_grads": row_blocks[0],
            "grad_err": max(float((_whole(b) - a).abs().max()
                                  / a.abs().max().clamp(min=1e-30))
                            for a, b in zip(g1, g2)),
@@ -159,11 +182,12 @@ def step_pair(cfg, mesh, opt_cfg, microbatches: int = 1, steps: int = 2,
 
 def model_parallel_rank(rank, tmp, cases, one_by_one, launcher):
     """Each case ``(name, cfg, (dp, tp), opt_cfg, microbatches)``:
-    :func:`step_pair` on a (dp, tp) mesh of the two ranks.  Each
+    :func:`step_pair` on a (dp, tp) mesh of the ranks.  Each
     ``one_by_one`` config: :func:`step_pair` on a (1, 1) mesh of this rank
-    alone.  Then ``launch.train.main(launcher)`` on both ranks (its
-    losses), and an elastic restore: a state saved from a (1, 2) mesh
-    restored onto (2, 1) and onto no mesh."""
+    alone (two ranks).  Then, given a ``launcher``, ``launch.train.main(
+    launcher)`` on both ranks (its losses), and an elastic restore: a
+    state saved from a (1, 2) mesh restored onto (2, 1) and onto no
+    mesh."""
     from torch.distributed.device_mesh import init_device_mesh
 
     out = {"cases": {}, "one": {}}
@@ -171,6 +195,8 @@ def model_parallel_rank(rank, tmp, cases, one_by_one, launcher):
         mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data",
                                                              "model"))
         out["cases"][name] = step_pair(cfg, mesh, opt_cfg, mb)
+    if launcher is None:
+        return out
     own = init_device_mesh("cpu", (2, 1, 1),
                            mesh_dim_names=("rank", "data", "model"))
     for name, cfg, opt_cfg in one_by_one:

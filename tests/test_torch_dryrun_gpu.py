@@ -13,7 +13,10 @@ the merge of a cache cut over its positions, and fake "cuda" counts.
 - Cells of the dry run on fake "cuda" tensors count what the same cells
   count on fake "cpu" tensors: FLOPs, bytes, collectives (DTensor's
   all-to-all among them), kernel calls and memory, on a fake group of 2
-  ranks.
+  ranks; and a cell counts the same with DTensor's caches cold (a new
+  fake group) and warm (counted again on it): on torch 2.11 the first
+  count once took the RG-LRU gates' ``softplus`` decomposition on meta
+  tensors, which DTensor runs once a layout, for the device's program.
 
 Skips without a card; run it on the H100 with
 
@@ -89,6 +92,23 @@ CELLS = (("recurrentgemma-9b", ShapeSpec("decode_32k", 16, 2, "decode"),
          ("smollm-360m", ShapeSpec("train_4k", 16, 4, "train"), (1, 2), {}))
 
 
+def test_fake_cuda_counts_do_not_depend_on_what_ran_before(dev):
+    arch, spec, dims, kw = CELLS[0]
+    cfg = get_config(arch).reduced(**{"n_layers": 2, **kw})
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    try:
+        mesh = dryrun.fake_mesh("single", dev.type, dims=dims)
+        cold, warm = (dryrun.count_cell(arch, spec, mesh, dev, cfg=cfg,
+                                        microbatches=1) for _ in range(2))
+    finally:
+        dist.destroy_process_group()
+    for key in ("flops_total", "bytes_accessed_total",
+                "convert_bytes_total", "collectives", "kernel_calls",
+                "memory_analysis", "flops_by_op"):
+        assert warm[key] == cold[key], key
+
+
 def test_fake_cuda_counts_equal_fake_cpu(dev):
     got = {"cuda": [], "cpu": []}
     try:
@@ -109,3 +129,4 @@ def test_fake_cuda_counts_equal_fake_cpu(dev):
             assert a[key] == b[key], key
         assert a["flops_total"] > 0
     assert got["cuda"][2]["collectives"]["ops"]["all-to-all"]["count"] > 0
+

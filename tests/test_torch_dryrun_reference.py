@@ -31,19 +31,12 @@ encoder-decoder ones (the longest compiles), and
 """
 import pytest
 
-from _torch_dryrun_reference import (TRAIN_CELLS, cell_key,
-                                     check_arguments, check_flops,
-                                     check_outputs, check_wire, params,
-                                     records)
+from _torch_dryrun_reference import (TRAIN_CELLS, check_arguments,
+                                     check_flops, check_outputs, check_wire,
+                                     params, records)
 from _torch_threads import one_torch_thread  # noqa: F401
 
 CELLS = TRAIN_CELLS
-# Cells whose FLOPs differ, with the ROADMAP queue 3 entry that says why.
-FLOPS_DIFFER = {
-    cell_key("moonshot-v1-16b-a3b", "train_4k", {"n_layers": 2}):
-        "ROADMAP queue 3 item 8: XLA splits the router's weight gradient "
-        "over the model axis, where the port repeats it on every rank",
-}
 
 
 @pytest.fixture(scope="module")
@@ -51,7 +44,7 @@ def recs():
     return records(CELLS)
 
 
-@pytest.mark.parametrize("key", params(CELLS, FLOPS_DIFFER))
+@pytest.mark.parametrize("key", params(CELLS))
 def test_rank_flops_equal_reference(recs, key):
     check_flops(recs, key)
 

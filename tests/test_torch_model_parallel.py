@@ -13,7 +13,11 @@ heads split):
   falcon-mamba-7b, recurrentgemma-9b and seamless-m4t-medium; and
   moonshot with 3 experts at (1, 2) (tensor-parallel inside the experts),
   and smollm-360m at (1, 2) with ``compress_int8``, 8-bit AdamW states and
-  two microbatches.  Against the single-process plain step from the same
+  two microbatches; and, in a spawn of four ranks beside it, moonshot at
+  (2, 2), where the router's weight gradient is computed a block of rows
+  a model rank, summed over "data" and swapped to the rank whose shard it
+  is, as the compiled reference splits it (the test also asserts that
+  this split ran there, and nowhere else).  Against the single-process plain step from the same
   state: the loss of a batch to rtol 1e-5 and every gradient within 1e-5
   of its largest entry (seen: about 1e-6; the shards sum in other
   orders); two train steps' losses and gradient norms to rtol 1e-5
@@ -34,6 +38,7 @@ whose query heads are split (``kernels.on_shards._pair_kv``), for head
 counts the two ranks do not reach.
 """
 import dataclasses
+import math
 
 import pytest
 import torch
@@ -43,7 +48,7 @@ from repro_torch.kernels import on_shards
 from repro_torch.launch import train as launch_train
 from repro_torch.train.optimizer import OptConfig
 
-from _torch_dist import model_parallel_rank, run_ranks
+from _torch_dist import model_parallel_rank, run_ranks, start_ranks
 from _torch_threads import one_torch_thread  # noqa: F401
 
 LR = 1e-3
@@ -66,23 +71,49 @@ CASES += [
     ("moonshot-v1-16b-a3b 3 experts (1, 2)", dataclasses.replace(
         FAMILIES["moonshot-v1-16b-a3b"], n_experts=3), (1, 2), OPT, 1),
     ("smollm-360m int8 (1, 2)", FAMILIES["smollm-360m"], (1, 2), OPT8, 2),
+    # Four ranks: the router's rows FSDP-split over "data" and whole over
+    # "model", so each model rank computes a block of its weight gradient
+    # (``partition._row_block_plan``), as the compiled reference does.
+    ("moonshot-v1-16b-a3b (2, 2)", FAMILIES["moonshot-v1-16b-a3b"], (2, 2),
+     OPT, 1),
 ]
+# The cases whose weight gradients are split into row blocks.
+ROW_BLOCKS = {"moonshot-v1-16b-a3b (2, 2)"}
 LAUNCH = ["--smoke", "--device", "cpu", "--steps", "3", "--batch", "4",
           "--seq", "32", "--log-every", "1"]
 
 
+def _cases(world: int) -> list:
+    return [c for c in CASES if math.prod(c[2]) == world]
+
+
 @pytest.fixture(scope="module")
-def runs(tmp_path_factory):
+def four_ranks(tmp_path_factory):
+    """The four-rank cases, started at once to run beside the two-rank
+    spawn: the function that waits for them."""
+    return start_ranks(model_parallel_rank, 4,
+                       tmp_path_factory.mktemp("model_parallel_4"),
+                       _cases(4), [], None)
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory, four_ranks):
     tmp = tmp_path_factory.mktemp("model_parallel")
     one = [(arch, cfg, OPT) for arch, cfg in FAMILIES.items()]
-    outs = run_ranks(model_parallel_rank, 2, tmp, CASES, one,
+    outs = run_ranks(model_parallel_rank, 2, tmp, _cases(2), one,
                      LAUNCH + ["--model-par", "2"])
     return outs
 
 
+@pytest.fixture(scope="module")
+def runs4(four_ranks, runs):
+    return four_ranks()
+
+
 @pytest.mark.parametrize("case", [c[0] for c in CASES])
-def test_sharded_step_matches_plain_step(runs, case):
-    r = runs[0]["cases"][case]
+def test_sharded_step_matches_plain_step(runs, runs4, case):
+    ranks = runs4 if case in {c[0] for c in _cases(4)} else runs
+    r = ranks[0]["cases"][case]
     rtol = 1e-4 if "int8" in case else 1e-5
     a, b = r["loss"]
     assert b == pytest.approx(a, rel=1e-5)
@@ -92,7 +123,9 @@ def test_sharded_step_matches_plain_step(runs, case):
         assert nb == pytest.approx(na, rel=rtol)
     assert r["param_err"] <= 2 * LR
     assert r["placements"] == r["shardings"]
-    assert runs[1]["cases"][case]["losses"] == r["losses"]
+    assert (r["row_block_grads"] > 0) == (case in ROW_BLOCKS)
+    for out in ranks[1:]:
+        assert out["cases"][case]["losses"] == r["losses"]
 
 
 def test_tensor_parallel_splits_the_model(runs):
