@@ -271,14 +271,19 @@ two headers):
      prefill_32k (its experts split), (slice 19) falcon-mamba-7b and
      recurrentgemma-9b prefill_32k, and (slice 20) moonshot train_4k at
      8 of its 48 layers (its router's weight gradient a block of rows a
-     model rank), each in a process of its own, all at once, on the
-     card's fake tensors over 256 fake ranks; each must be ok with
-     FLOPs, bytes and collective bytes, and its roofline row at this
-     card's rates is printed; each is held to the JAX package's
-     compiled cell (``tests/data/dryrun_reference_single.json``, written
-     by ``tests/_torch_dryrun_reference.py``): FLOPs and argument bytes
-     equal, wire bytes no more, and the peak (arguments and temp) no more
-     than ``DRYRUN_REF_PEAK`` times the reference's; then (slice 20)
+     model rank), on the card's fake tensors over 256 fake ranks, and
+     (slice 21) on the multi-pod mesh, 512 fake ranks in two pods,
+     moonshot and qwen3-1.7b train_4k at 2 layers and qwen3-1.7b
+     decode_32k, each in a process of its own, all at once; each must be
+     ok with FLOPs, bytes and collective bytes, and its roofline row at
+     this card's rates is printed; each is held to the JAX package's
+     compiled cell (``tests/data/dryrun_reference_single.json`` and
+     ``dryrun_reference_multi.json``, written by
+     ``tests/_torch_dryrun_reference.py``): FLOPs and argument bytes
+     equal, wire bytes no more, a multi-pod cell's bytes that cross pods
+     no more than the reference's exact recount, and the peak (arguments
+     and temp) no more than ``DRYRUN_REF_PEAK`` times the reference's,
+     each cell's counts printed beside the reference's; then (slice 20)
      ``DRYRUN_ORDER_CELL`` counted on fake cuda and fake CPU tensors in
      this process, after the sharding phase's NCCL steps: the counts
      must agree field for field; then the smollm-360m train step
@@ -3443,6 +3448,13 @@ DRYRUN_CELLS = (("qwen3-1.7b", "train_4k", None),
                 ("falcon-mamba-7b", "prefill_32k", None),
                 ("recurrentgemma-9b", "prefill_32k", None),
                 ("moonshot-v1-16b-a3b", "train_4k", 8))
+# Slice 21: multi-pod cells on the (2, 16, 16) mesh (512 fake ranks, pods
+# of 256, the pod axis plain data parallelism): the MoE train step, whose
+# router's weight gradient each rank computes whole there, and the dense
+# train and decode steps; counted beside the single-pod ones, all at once.
+DRYRUN_MULTI_CELLS = (("moonshot-v1-16b-a3b", "train_4k", 2),
+                      ("qwen3-1.7b", "train_4k", 2),
+                      ("qwen3-1.7b", "decode_32k", None))
 # Counted on the card's fake tensors and on fake CPU tensors after the
 # sharding phase's NCCL steps, the two must agree field for field:
 # recurrentgemma-9b decode_32k cut to 3 layers and a window of 8 on a
@@ -3458,6 +3470,11 @@ DRYRUN_ORDER_FIELDS = ("flops_total", "bytes_accessed_total",
 # (the card has no JAX): ``tests/_torch_dryrun_reference.py``.
 DRYRUN_REFERENCE = (Path(__file__).resolve().parent / "tests" / "data"
                     / "dryrun_reference_single.json")
+# ... and of the multi-pod cells, on 512 host devices, with the bytes that
+# cross pods recounted from the compiled groups
+# (``cross_pod_exact_bytes_per_chip``).
+DRYRUN_MULTI_REFERENCE = DRYRUN_REFERENCE.with_name(
+    "dryrun_reference_multi.json")
 # A cell's counted peak (arguments and temp) against the reference's:
 # seen 0.067 (qwen3-1.7b train) to 0.808 (falcon-mamba-7b prefill) here,
 # on torch 2.13; the XLA CPU backend's temp is no card's, so the limit
@@ -3474,18 +3491,21 @@ DRYRUN_PEAK_RTOL = 0.02
 
 
 def _dryrun_cells() -> list:
-    """Runs ``launch.dryrun`` on ``DRYRUN_CELLS`` (the card's fake tensors,
-    the single-pod mesh), one process a cell, and returns the artifacts;
+    """Runs ``launch.dryrun`` on ``DRYRUN_CELLS`` (the single-pod mesh)
+    and ``DRYRUN_MULTI_CELLS`` (the multi-pod mesh), the card's fake
+    tensors, one process a cell, all at once, and returns the artifacts;
     exits unless each is ok with FLOPs, bytes and collective bytes."""
     shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
     env = dict(os.environ, OMP_NUM_THREADS="2",
                PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
+    cells = ([(a, s, n, "single") for a, s, n in DRYRUN_CELLS]
+             + [(a, s, n, "multi") for a, s, n in DRYRUN_MULTI_CELLS])
     procs = [subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-         "--shape", shape, "--mesh", "single", "--out", str(DRYRUN_DIR)]
+         "--shape", shape, "--mesh", mesh, "--out", str(DRYRUN_DIR)]
         + (["--layers", str(layers)] if layers else []),
         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True) for arch, shape, layers in DRYRUN_CELLS]
+        text=True) for arch, shape, layers, mesh in cells]
     try:
         outs = [p.communicate(timeout=DRYRUN_TIMEOUT)[0] for p in procs]
     finally:
@@ -3494,49 +3514,60 @@ def _dryrun_cells() -> list:
                 p.kill()
                 p.wait()
     recs = []
-    for (arch, shape, layers), p, out in zip(DRYRUN_CELLS, procs, outs):
-        path = DRYRUN_DIR / (f"{arch}__{shape}__single"
+    for (arch, shape, layers, mesh), p, out in zip(cells, procs, outs):
+        path = DRYRUN_DIR / (f"{arch}__{shape}__{mesh}"
                              + (f"__{layers}l" if layers else "") + ".json")
         rec = json.loads(path.read_text()) if path.exists() else {}
         if p.returncode or not rec.get("ok") or not (
                 rec["flops_total"] > 0 and rec["bytes_accessed_total"] > 0
                 and rec["collectives"]["wire_bytes_per_chip"] > 0):
-            raise SystemExit(f"dry run {arch} {shape}: exit {p.returncode}, "
-                             f"{rec.get('error')}\n{out[-3000:]}")
+            raise SystemExit(f"dry run {arch} {shape} {mesh}: exit "
+                             f"{p.returncode}, {rec.get('error')}\n"
+                             f"{out[-3000:]}")
         recs.append(rec)
     return recs
 
 
 def _hold_to_reference(recs: list) -> None:
     """Each dry-run cell against the JAX package's compiled one
-    (``DRYRUN_REFERENCE``): FLOPs and argument bytes equal, total wire
-    bytes a chip no more, and arguments + temp no more than
-    ``DRYRUN_REF_PEAK`` times the reference's; exits on any miss."""
-    ref = json.loads(DRYRUN_REFERENCE.read_text())["cells"]
+    (``DRYRUN_REFERENCE``, a multi-pod cell ``DRYRUN_MULTI_REFERENCE``):
+    FLOPs and argument bytes equal, total wire bytes a chip no more, a
+    multi-pod cell's bytes that cross pods no more than the reference's
+    exact recount, and arguments + temp no more than ``DRYRUN_REF_PEAK``
+    times the reference's; exits on any miss."""
+    refs = {"single": json.loads(DRYRUN_REFERENCE.read_text())["cells"],
+            "multi": json.loads(DRYRUN_MULTI_REFERENCE.read_text())["cells"]}
     misses = []
     for rec in recs:
-        r = ref[f"{rec['arch']}/{rec['shape']}" + (
+        r = refs[rec["mesh"]][f"{rec['arch']}/{rec['shape']}" + (
             f"/n_layers={rec['layers']}" if rec.get("layers") else "")]
+        name = f"{rec['arch']} {rec['shape']} {rec['mesh']}"
         mr, mp = r["memory_analysis"], rec["memory_analysis"]
         peak = mp["argument_size_in_bytes"] + mp["temp_size_in_bytes"]
         limit = DRYRUN_REF_PEAK * (mr["argument_size_in_bytes"]
                                    + mr["temp_size_in_bytes"])
         wire = rec["collectives"]["wire_bytes_per_chip"]
         rwire = r["collectives"]["wire_bytes_per_chip"]
-        print(f"  {rec['arch']} {rec['shape']} against the reference: "
+        cross = rec["collectives"]["cross_pod_bytes_per_chip"]
+        rcross = r["collectives"].get("cross_pod_exact_bytes_per_chip", 0.0)
+        print(f"  {name} against the reference: "
               f"flops {rec['flops_total']:.6e} / {r['flops_total']:.6e}, "
               f"arguments {mp['argument_size_in_bytes']} / "
               f"{mr['argument_size_in_bytes']} B, wire {wire / 1e9:.4f} / "
-              f"{rwire / 1e9:.4f} GB, peak {peak / 1e9:.3f} GB against "
-              f"{limit / 1e9:.3f} GB")
+              f"{rwire / 1e9:.4f} GB, cross-pod {cross / 1e9:.4f} / "
+              f"{rcross / 1e9:.4f} GB (the reference's own rule "
+              f"{r['collectives']['cross_pod_bytes_per_chip'] / 1e9:.4f}), "
+              f"peak {peak / 1e9:.3f} GB against {limit / 1e9:.3f} GB")
         if rec["flops_total"] != r["flops_total"]:
-            misses.append(f"{rec['arch']} {rec['shape']} flops")
+            misses.append(f"{name} flops")
         if mp["argument_size_in_bytes"] != mr["argument_size_in_bytes"]:
-            misses.append(f"{rec['arch']} {rec['shape']} arguments")
+            misses.append(f"{name} arguments")
         if wire > rwire:
-            misses.append(f"{rec['arch']} {rec['shape']} wire")
+            misses.append(f"{name} wire")
+        if cross > rcross:
+            misses.append(f"{name} cross-pod")
         if peak > limit:
-            misses.append(f"{rec['arch']} {rec['shape']} peak")
+            misses.append(f"{name} peak")
     if misses:
         raise SystemExit("the dry run differs from the JAX package's "
                          "compiled cells: " + ", ".join(misses))
@@ -3590,17 +3621,21 @@ def dryrun_phase(dev) -> dict:
     from repro_torch.configs.registry import make_inputs
     from repro_torch.launch import dryrun, roofline
 
-    cells = ", ".join(f"{a} {s}" + (f" ({n} layers)" if n else "")
-                      for a, s, n in DRYRUN_CELLS)
-    phase(f"main path, slice 18: the dry run ({cells}; single pod, 256 "
-          f"fake ranks, fake cuda tensors) and the roofline at this card's "
-          f"rates")
+    def names(cells):
+        return ", ".join(f"{a} {s}" + (f" ({n} layers)" if n else "")
+                         for a, s, n in cells)
+
+    phase(f"main path, slice 18: the dry run ({names(DRYRUN_CELLS)}; single "
+          f"pod, 256 fake ranks; slice 21: {names(DRYRUN_MULTI_CELLS)}; two "
+          f"pods, 512 fake ranks; fake cuda tensors) and the roofline at "
+          f"this card's rates")
     t_phase = time.monotonic()
     recs = _dryrun_cells()
     rows = [roofline.roofline_row(rec) for rec in recs]
     print("  " + roofline.format_table(rows).replace("\n", "\n  "))
     for rec, row in zip(recs, rows):
-        print(f"  {rec['arch']} {rec['shape']}: {rec['seconds']} s to count; "
+        print(f"  {rec['arch']} {rec['shape']} {rec['mesh']}: "
+              f"{rec['seconds']} s to count; "
               f"card {rec['card']}; flops {rec['flops_total']:.4g}, bytes "
               f"{rec['bytes_accessed_total']:.4g} (converts "
               f"{rec['convert_bytes_total']:.4g}), wire "

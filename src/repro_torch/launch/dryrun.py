@@ -31,14 +31,17 @@ and writes its operands), and the bytes of dtype conversions stay in
 ``bytes_accessed_total`` (``launch.roofline``).  ``scan_layers`` and
 ``--unrolled`` have no counterpart: every layer and microbatch runs.
 What agrees with it, cell for cell (``tests/test_torch_dryrun_reference*
-.py`` on a (2, 4) mesh, ``chip_smoke.py`` on the single pod against
-``tests/data/dryrun_reference_single.json``): rank 0's product FLOPs are
-one device's of the reference's compiled step (the products run on each
-rank's shards, ``sharding.partition.matmul``; the log-softmax on the
-vocabulary's shards), the argument bytes are those the program reads
-(the train step reads its shard of the batch), and the collectives move
-no more bytes than the reference's.  The artifact also names the
-largest tensors live at the peak (``peak_tensors``).
+.py`` on a (2, 4) mesh and on a (2, 2, 2) mesh with a "pod" axis,
+``chip_smoke.py`` on the single pod and the multi-pod mesh against
+``tests/data/dryrun_reference_single.json`` and ``_multi.json``): rank
+0's product FLOPs are one device's of the reference's compiled step (the
+products run on each rank's shards, ``sharding.partition.matmul``; the
+log-softmax on the vocabulary's shards), the argument bytes are those
+the program reads (the train step reads its shard of the batch), and
+the collectives move no more bytes than the reference's, nor across
+pods more than an exact recount of the reference's compiled groups.
+The artifact also names the largest tensors live at the peak
+(``peak_tensors``).
 
 The fake tensors are the card's (``"cuda"``) unless ``--device cpu`` is
 given, and then the artifact names ``DEFAULT_CARD`` as the card whose
@@ -80,7 +83,7 @@ from ..sharding.partition import (MeshInfo, P, axis_names, axis_size,
                                   use_sharding)
 from ..train.optimizer import OptConfig
 from ..train.step import build_sharded_train_step, init_state
-from .op_cost import OpCost, host_placement_math
+from .op_cost import POD_SIZE, OpCost, host_placement_math
 
 ARTIFACT_DIR = os.path.join("artifacts", "dryrun_torch")
 
@@ -296,13 +299,16 @@ def build_cell(arch: str, shape, mesh, device, *, cfg=None,
     return run, (dict(model.named_parameters()), db, caches), cfg, mi, mb
 
 
-def count_cell(arch: str, shape, mesh, device, **kw) -> dict:
+def count_cell(arch: str, shape, mesh, device, *, pod_size: int = POD_SIZE,
+               **kw) -> dict:
     """Build the cell (:func:`build_cell`) on fake tensors of ``device``
-    and count rank 0's program: the artifact's counts, plus ``cfg``,
-    ``mi`` and ``microbatches``."""
+    and count rank 0's program (a collective crossing pods of
+    ``pod_size`` ranks, ``hlo_cost.analyze_hlo``'s parameter): the
+    artifact's counts, plus ``cfg``, ``mi`` and ``microbatches``."""
     with fake_execution():
         run, args, cfg, mi, mb = build_cell(arch, shape, mesh, device, **kw)
-        return count(run, args) | {"cfg": cfg, "mi": mi, "microbatches": mb}
+        return count(run, args, pod_size) | {"cfg": cfg, "mi": mi,
+                                              "microbatches": mb}
 
 
 @contextlib.contextmanager
@@ -338,11 +344,11 @@ def card_all_to_all():
         placement_types.shard_dim_alltoall = raw
 
 
-def count(run, args) -> dict:
+def count(run, args, pod_size: int = POD_SIZE) -> dict:
     """``run()`` under :class:`~.op_cost.OpCost` (DTensor's all-to-all
     taken on every mesh: :func:`card_all_to_all`), ``args`` its
     arguments: the counts in the artifact's fields."""
-    cost = OpCost()
+    cost = OpCost(pod_size)
     cost.arguments(args)
     with card_all_to_all(), cost:
         out = run()

@@ -124,6 +124,12 @@ def _storages(tree):
     return out
 
 
+def crosses_pods(ranks, pod_size: int) -> bool:
+    """Whether a collective over ``ranks`` (a permute: its sender and its
+    receiver) crosses pods of ``pod_size`` ranks."""
+    return len({r // pod_size for r in ranks}) > 1
+
+
 def ring_wire(kind: str, R: float, g: int) -> float:
     """Wire bytes a device of a ring collective whose result holds R
     bytes, over a group of g devices (``hlo_cost._collective_wire``)."""
@@ -423,14 +429,14 @@ class OpCost(TorchDispatchMode):
         bound = dict(zip(names, args), **kwargs)
         ranks = self._group(bound["group_name"])
         R = sum(map(_nbytes, outs))
-        cross = len({r // self.pod_size for r in ranks}) > 1
+        cross = crosses_pods(ranks, self.pod_size)
         to = [r for r, n in zip(ranks, bound.get("input_split_sizes", ()))
               if n]
         if kind == "all-to-all" and len(to) == 1 and sum(
                 1 for n in bound["output_split_sizes"] if n) == 1:
             # One block to one rank and one from one: a permute.
             kind = "collective-permute"
-            cross = to[0] // self.pod_size != dist.get_rank() // self.pod_size
+            cross = crosses_pods((dist.get_rank(), to[0]), self.pod_size)
         wire = ring_wire(kind, R, len(ranks))
         key = kind + ("/cross-pod" if cross else "")
         e = self.coll.setdefault(key, [0, 0.0])

@@ -378,7 +378,15 @@ def _row_block_plan(x: DTensor, w: DTensor) -> RowBlockPlan | None:
     moonshot-v1-16b-a3b on the (2, 4) and (16, 16) meshes: a half and a
     sixteenth of the rows a rank).  None where the layout is another,
     k does not divide |M|, or the mesh is not the whole process group
-    (the permute runs over it)."""
+    (the permute runs over it).
+
+    None also where a dim splits x's rows and leaves w whole (the "pod"
+    axis, plain data parallelism): there XLA computes the whole gradient
+    on every rank and sums it over all the dims that split x's rows
+    (seen in the same router on the (2, 2, 2) and (2, 16, 16) meshes: an
+    [E, K] product a rank, an all-reduce over ("pod", "data")), as
+    :func:`matmul`'s general layout does (w gathered whole, its gradient
+    a ``Partial()`` sum that DTensor reduces to w's layout)."""
     mesh, last = x.device_mesh, x.ndim - 1
     if w.ndim != 2 or mesh.size() != torch.distributed.get_world_size() \
             or any(p.is_partial() for p in x.placements):
@@ -395,7 +403,8 @@ def _row_block_plan(x: DTensor, w: DTensor) -> RowBlockPlan | None:
         elif mesh.size(i) > 1:
             return None
     k = math.prod(mesh.size(i) for i in fsdp)
-    if k < 2 or len(model) != 1 or mesh.size(model[0]) % k:
+    if k < 2 or len(model) != 1 or mesh.size(model[0]) % k \
+            or any(mesh.size(i) > 1 for i in sums if i not in fsdp):
         return None
     c = mesh.get_coordinate()
     m, r = c[model[0]], mesh.size(model[0]) // k

@@ -20,9 +20,11 @@ seamless-m4t-medium's decode.  Per cell, rank 0's
 Temp sizes are not compared: the reference's follow the CPU backend's
 buffer assignment, which is no yardstick for the card.
 
-Also: ``tests/data/dryrun_reference_single.json``, the reference's
-single-pod records that the card holds its counts to (it has no JAX),
-agrees with the reference recompiled here for one cheap cell.
+Also: ``tests/data/dryrun_reference_single.json`` and
+``dryrun_reference_multi.json``, the reference's single-pod and
+multi-pod records that the card holds its counts to (it has no JAX),
+agree with the reference recompiled here for one cheap cell, and the
+port's count of the multi-pod cell passes the card's checks.
 """
 import json
 
@@ -78,3 +80,32 @@ def test_single_pod_file_matches_the_reference():
                                     dims=(16, 16))[key]
     for field in ref_dry.FIELDS:
         assert got[field] == cells[key][field], field
+
+
+def test_multi_pod_file_matches_the_reference():
+    """The committed multi-pod records (2 x 16 x 16, pods of 256): every
+    cell the card checks, with the exact recount of the bytes that cross
+    pods; qwen3-1.7b decode_32k recompiled on 512 host devices gives its
+    record again, and the port's count of it on fake CPU tensors over 512
+    ranks passes the card's checks (FLOPs and arguments equal, wire and
+    cross-pod bytes no more, the peak no more)."""
+    with open(ref_dry.MULTI_JSON) as f:
+        data = json.load(f)
+    assert data["mesh"] == [2, 16, 16] and data["devices"] == 512
+    assert data["pod_size"] == 256
+    cells = data["cells"]
+    for cell in ref_dry.MULTI_CELLS:
+        rec = cells[ref_dry.cell_key(*cell)]
+        assert "error" not in rec and rec["flops_total"] > 0
+        assert "cross_pod_exact_bytes_per_chip" in rec["collectives"]
+    cell = ("qwen3-1.7b", "decode_32k", None)
+    key = ref_dry.cell_key(*cell)
+    ref, port = (ref_dry.Worker(side, [cell], (2, 16, 16), pod_size=256)
+                 for side in ("reference", "port"))
+    got, counted = ref.records()[key], port.records()[key]
+    for field in ref_dry.FIELDS:
+        assert got[field] == cells[key][field], field
+    recs = {key: (cells[key], counted)}
+    for check in (check_flops, check_arguments, check_wire,
+                  ref_dry.check_cross_pod, ref_dry.check_peak):
+        check(recs, key)
