@@ -283,7 +283,10 @@ two headers):
      equal, wire bytes no more, a multi-pod cell's bytes that cross pods
      no more than the reference's exact recount, and the peak (arguments
      and temp) no more than ``DRYRUN_REF_PEAK`` times the reference's,
-     each cell's counts printed beside the reference's; then (slice 20)
+     each cell's counts printed beside the reference's; (slice 22) the
+     multi-pod cells' wire bytes beside the port's own counts on the
+     torch release that wrote ``tests/data/dryrun_port_multi.json``,
+     moonshot's within ``DRYRUN_RELEASE_SLACK``; then (slice 20)
      ``DRYRUN_ORDER_CELL`` counted on fake cuda and fake CPU tensors in
      this process, after the sharding phase's NCCL steps: the counts
      must agree field for field; then the smollm-360m train step
@@ -3475,6 +3478,19 @@ DRYRUN_REFERENCE = (Path(__file__).resolve().parent / "tests" / "data"
 # (``cross_pod_exact_bytes_per_chip``).
 DRYRUN_MULTI_REFERENCE = DRYRUN_REFERENCE.with_name(
     "dryrun_reference_multi.json")
+# Slice 22: the port's own counts of the multi-pod cells on the torch
+# release that wrote them (``PYTHONPATH=src python
+# tests/_torch_dryrun_reference.py --port tests/data/dryrun_port_multi.json
+# --mesh multi``, on the CPU without JAX): the card's
+# release must count the same wire bytes a chip, within
+# ``DRYRUN_RELEASE_SLACK``, the cells ``DRYRUN_RELEASE_CELLS`` (the MoE
+# train step, whose AdamW moments DTensor once resharded by other
+# collectives on other releases; the AdamW update now chooses its own).
+DRYRUN_PORT_MULTI = DRYRUN_REFERENCE.with_name("dryrun_port_multi.json")
+DRYRUN_RELEASE_CELLS = ("moonshot-v1-16b-a3b/train_4k/n_layers=2",)
+# Bytes: torch 2.11 and 2.13 were seen to count every other dry-run cell's
+# wire within this.
+DRYRUN_RELEASE_SLACK = 8400
 # A cell's counted peak (arguments and temp) against the reference's:
 # seen 0.067 (qwen3-1.7b train) to 0.808 (falcon-mamba-7b prefill) here,
 # on torch 2.13; the XLA CPU backend's temp is no card's, so the limit
@@ -3573,6 +3589,39 @@ def _hold_to_reference(recs: list) -> None:
                          "compiled cells: " + ", ".join(misses))
 
 
+def _hold_to_release(recs: list) -> None:
+    """Each multi-pod cell's wire bytes a chip on this torch release
+    beside the port's count on the release that wrote
+    ``DRYRUN_PORT_MULTI``; exits where a cell of
+    ``DRYRUN_RELEASE_CELLS`` differs by more than
+    ``DRYRUN_RELEASE_SLACK`` bytes."""
+    there = json.loads(DRYRUN_PORT_MULTI.read_text())
+    misses = []
+    for rec in recs:
+        if rec["mesh"] != "multi":
+            continue
+        key = f"{rec['arch']}/{rec['shape']}" + (
+            f"/n_layers={rec['layers']}" if rec.get("layers") else "")
+        if key not in there:
+            continue
+        o = there[key]
+        wire = rec["collectives"]["wire_bytes_per_chip"]
+        owire = o["collectives"]["wire_bytes_per_chip"]
+        cross = rec["collectives"]["cross_pod_bytes_per_chip"]
+        ocross = o["collectives"]["cross_pod_bytes_per_chip"]
+        print(f"  {key} multi on torch {torch.__version__}: wire {wire:.1f} "
+              f"B, torch {o['torch']} {owire:.1f} B (differ "
+              f"{wire - owire:+.1f}); cross-pod {cross:.1f} / {ocross:.1f} "
+              f"B (differ {cross - ocross:+.1f})", flush=True)
+        if key in DRYRUN_RELEASE_CELLS and \
+                abs(wire - owire) > DRYRUN_RELEASE_SLACK:
+            misses.append(key)
+    if misses:
+        raise SystemExit(f"the multi-pod wire bytes differ from torch "
+                         f"{there[misses[0]]['torch']}'s by more than "
+                         f"{DRYRUN_RELEASE_SLACK} B: {misses}")
+
+
 def _order_check(dev) -> None:
     """``DRYRUN_ORDER_CELL`` counted on fake tensors of the card and of
     the CPU, in this process after the earlier phases (the sharding
@@ -3647,6 +3696,7 @@ def dryrun_phase(dev) -> dict:
               f"{row['hbm_gb_per_chip']:.3f} GB, fits {row['fits_hbm']}")
     print(f"  dry run cells {time.monotonic() - t_phase:.1f} s", flush=True)
     _hold_to_reference(recs)
+    _hold_to_release(recs)
     _order_check(dev)
 
     cfg = get_config(TRAIN_ARCH)

@@ -35,7 +35,8 @@ counted.
   where its other rank lies in another pod); a schedule of the
   largest, each with the line of the model or train step that ran it
   (the innermost frame of the port's ``models``, ``train`` or
-  ``kernels`` packages).
+  ``kernels`` packages), and each such line's count and wire bytes by
+  kind (``collective_sites``).
 - **arguments**: the bytes of the registered inputs that the program
   reads, as a compiled program's inputs are those it uses (XLA prunes
   the rest: an encoder-decoder's decode step takes no encoder weights).
@@ -258,11 +259,22 @@ class OpCost(TorchDispatchMode):
                  "shape": sh}
                 for p, k, w, sh in sorted(self.schedule,
                                           key=lambda e: -e[2])[:12]],
+            "collective_sites": self.sites(),
             "peak_tensors": self.peak_tensors(),
             "kernel_calls": dict(sorted(self.kernel_calls.items())),
             "flops_by_op": {k: float(v) for k, v in
                             sorted(self.flops_by_op.items())},
         }
+
+    def sites(self) -> dict:
+        """Each line of the port's code that ran collectives: {kind:
+        [count, wire bytes a chip]}."""
+        out: dict = {}
+        for path, kind, wire, _ in self.schedule:
+            e = out.setdefault(path, {}).setdefault(kind, [0, 0.0])
+            e[0] += 1
+            e[1] += wire
+        return out
 
     def peak_tensors(self, n: int = 8) -> list:
         """The largest storages live at the peak (of ``PEAK_TENSOR_MIN``

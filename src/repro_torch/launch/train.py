@@ -25,6 +25,7 @@ fail on the reference's assertion).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 from pathlib import Path
 
@@ -36,7 +37,7 @@ from ..core.proxies import resolve_device
 from ..data.pipeline import DataConfig, TokenStream
 from ..models.model import LM
 from ..sharding import rules
-from ..sharding.partition import MeshInfo
+from ..sharding.partition import MeshInfo, axis_names
 from ..train.loop import LoopConfig, run
 from ..train.optimizer import OptConfig
 from ..train.step import (build_sharded_train_step, build_train_step,
@@ -72,11 +73,16 @@ def sharded_training(model: LM, opt_cfg: OptConfig, mesh, *,
     with axes ("data", "model")), as the reference's launcher builds them:
     ``MeshInfo(dp=("data",), tp="model")``, the rules' context, the
     parameters and AdamW state laid out by ``param_pspecs`` (the step
-    count replicated).  The model's parameters become DTensors.  Returns
+    count replicated).  On a mesh with a "pod" axis before them, as the
+    dry run's multi-pod cells: the batch split over ("pod", "data"), the
+    parameters FSDP-split over "data" alone and the AdamW state over
+    ("pod", "data").  The model's parameters become DTensors.  Returns
     (state, train_step, shardings)."""
-    mi = MeshInfo(mesh=mesh, dp=("data",), tp="model")
+    dp = tuple(a for a in ("pod", "data") if a in axis_names(mesh))
+    mi = MeshInfo(mesh=mesh, dp=dp, tp="model", fsdp_over=("data",))
     ctx = rules.make_ctx(model.cfg, mi)
-    state, shardings = shard_state(model, opt_cfg, mi)
+    state, shardings = shard_state(
+        model, opt_cfg, mi, dataclasses.replace(mi, fsdp_over=dp))
     step = build_sharded_train_step(model, opt_cfg, ctx, shardings,
                                     microbatches=microbatches)
     return state, step, shardings

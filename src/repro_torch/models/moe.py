@@ -114,8 +114,44 @@ def aux_loss(probs: torch.Tensor, eidx: torch.Tensor, E: int) -> torch.Tensor:
     """Switch load balancing: ``E * sum_e mean(probs)_e * frac_e``, frac_e
     the share of the B S K assignments that chose expert e."""
     me = _mean_rows(probs)
-    ce = expert_counts(eidx, E).float() * (1.0 / eidx.numel())
-    return E * torch.sum(me * ce)
+    if not isinstance(eidx, DTensor):
+        ce = expert_counts(eidx, E).float() * (1.0 / eidx.numel())
+        return E * torch.sum(me * ce)
+    # On DTensors each rank's share of the loss from its own counts, the
+    # loss a ``Partial()`` sum over the mesh dims that split the rows
+    # (torch 2.11's DTensor would all-reduce the shares first; 2.13's
+    # keeps them partial, and so does this, on both).
+    mesh = eidx.device_mesh
+    part = tuple(Partial() if p.is_shard(0) else Replicate()
+                 for p in eidx.placements)
+    ce = expert_counts(eidx.to_local(), E).float() * (1.0 / eidx.numel())
+    dims = tuple(i for i, p in enumerate(part) if p.is_partial())
+    return from_local(_AuxShare.apply(me.to_local(), ce, E, mesh, dims),
+                      mesh, part, ())
+
+
+class _AuxShare(torch.autograd.Function):
+    """``E * sum(me * ce)`` on local tensors: me the mean probabilities
+    (whole on every rank), ce this rank's part of the shares (no
+    gradient).  The backward gives me's gradient whole, from the shares
+    summed over ``dims`` by all-reduces, one a mesh dim in the mesh's
+    order, as DTensor reduces a partial operand there."""
+
+    @staticmethod
+    def forward(ctx, me, ce, E, mesh, dims):
+        ctx.save_for_backward(ce)
+        ctx.E, ctx.mesh, ctx.dims = E, mesh, dims
+        return E * torch.sum(me * ce)
+
+    @staticmethod
+    def backward(ctx, g):
+        ce, = ctx.saved_tensors
+        c10d = torch.ops._c10d_functional
+        gs = (g * ctx.E).expand(ce.shape)
+        for i in ctx.dims:
+            ce = c10d.wait_tensor(c10d.all_reduce(
+                ce, "sum", ctx.mesh.get_group(i).group_name))
+        return gs * ce, None, None, None, None
 
 
 def _mean_rows(probs: torch.Tensor) -> torch.Tensor:

@@ -26,7 +26,10 @@ the functions here, which work on each rank's local shards:
 (a product whose output columns are cut into blocks), :func:`label_logp`
 (the loss's log-softmax on the vocabulary's shards), :func:`embed_rows`
 (the vocabulary-split lookup), :func:`pointwise` (an elementwise
-function) and :func:`amax_rows` (row maxima).
+function) and :func:`amax_rows` (row maxima).  :func:`state_plan`,
+:func:`to_state_layout` and :func:`to_param_layout` move an AdamW leaf
+between its parameter's layout and its state's where the state splits
+over the "pod" axis too.
 """
 from __future__ import annotations
 
@@ -579,3 +582,199 @@ def per_row(fn, *args):
         return from_local(t, mesh, pl, (first.shape[0], *t.shape[1:]))
 
     return tuple(map(wrap, out)) if isinstance(out, tuple) else wrap(out)
+
+
+# ---------------------------------------------------------------------------
+# The optimizer state on a mesh of pods (hierarchical ZeRO)
+# ---------------------------------------------------------------------------
+
+class StatePlan(NamedTuple):
+    """How one leaf moves between its parameter's layout and its
+    optimizer state's, where the state splits the tensor dim ``dim`` over
+    the mesh dim ``pod`` too, over which the parameter is whole
+    (:func:`state_plan`).  Spans are along ``dim``: ``param_start`` and
+    ``state_start`` where this rank's shards start in the two layouts,
+    ``piece`` this rank's part of its parameter shard (start, stop);
+    ``to_state`` and ``to_param`` the exchanges between that part and the
+    state's shard (:func:`_moves`); ``gathered`` the lengths of the pod
+    group's parts, in the group's order."""
+
+    mesh: object
+    shape: torch.Size
+    dim: int
+    pod: int
+    param: tuple
+    state: tuple
+    param_start: int
+    state_start: int
+    piece: tuple
+    to_state: tuple
+    to_param: tuple
+    gathered: tuple
+
+
+def _chunk(lo: int, hi: int, n: int, i: int) -> tuple:
+    """Chunk ``i`` of ``n`` of the span [lo, hi), as ``torch.chunk`` and
+    DTensor's ``Shard`` cut it (chunks of ceil(len / n), the last ones
+    shorter or empty)."""
+    size = -(-(hi - lo) // n)
+    return (lo + min(i * size, hi - lo), lo + min((i + 1) * size, hi - lo))
+
+
+def _span(length: int, mesh, placements, dim: int, coord) -> tuple:
+    """The span of tensor dim ``dim`` (of ``length``) that the rank at
+    mesh coordinate ``coord`` holds under ``placements``: split by each
+    mesh dim that shards it, in the mesh's order, as DTensor splits it."""
+    lo, hi = 0, length
+    for i, p in enumerate(placements):
+        if p == Shard(dim):
+            lo, hi = _chunk(lo, hi, mesh.size(i), coord[i])
+    return lo, hi
+
+
+def state_plan(x: DTensor, placements) -> StatePlan | None:
+    """The plan that moves the leaf ``x`` (laid out as its parameter)
+    to ``placements`` (its optimizer state's) and back, or None where
+    the two layouts are one, or differ otherwise than in one mesh dim
+    (the "pod" axis) over which the parameter is whole and the state
+    splits a tensor dim that the parameter's other mesh dims may split
+    too, or where the mesh is not the whole process group (the exchanges
+    run over it).  Such leaves keep DTensor's own redistribution.
+
+    The state splits the dim pod-major, as the reference's
+    ``P(("pod", "data"))`` does: rank (p, d) holds chunk p |data| + d of
+    |pod| |data|, which lies in the parameter's shard of another data
+    rank.  So the plan goes through a layout nested in the parameter's,
+    chunk d |pod| + p (``piece``: a local slice): the state's shard is
+    one exchange away from it (a permutation of whole chunks where the
+    dim divides evenly, a collective-permute), and the parameter's shard
+    is that layout gathered over the pod axis.  The reference's compiled
+    update permutes and gathers likewise (its new moments, where the
+    port moves the gradient and the new parameter)."""
+    mesh = x.device_mesh
+    src, dst = tuple(x.placements), tuple(placements)
+    if src == dst or len(src) != len(dst):
+        return None
+    plain = (Replicate, Shard)
+    if any(type(p) not in plain for p in src + dst):
+        return None                         # partial or strided
+    diff = [i for i, (a, b) in enumerate(zip(src, dst)) if a != b]
+    if len(diff) != 1 or not src[diff[0]].is_replicate():
+        return None
+    pod, dim = diff[0], dst[diff[0]].dim
+    world = torch.distributed.get_world_size()
+    if mesh.size() != world:
+        return None
+    me = tuple(mesh.get_coordinate())
+    length = x.shape[dim]
+    # The ranks that split ``dim`` between them: every coordinate of the
+    # mesh dims that shard it in the state's layout, the others this
+    # rank's.
+    axes = [i for i, p in enumerate(dst) if p == Shard(dim)]
+    members = []
+    for flat in range(math.prod(mesh.size(i) for i in axes)):
+        c = list(me)
+        for i in reversed(axes):
+            flat, c[i] = divmod(flat, mesh.size(i))
+        members.append(tuple(c))
+    with _disable_current_modes():      # the mesh's ranks, on the host
+        rank = {c: int(mesh.mesh[c]) for c in members}
+
+    def nested(c):
+        lo, hi = _span(length, mesh, src, dim, c)
+        return _chunk(lo, hi, mesh.size(pod), c[pod])
+
+    have = {c: nested(c) for c in members}
+    want = {c: _span(length, mesh, dst, dim, c) for c in members}
+    # DTensor's own arithmetic for this rank, as a check on the spans
+    # (an empty shard's offset is DTensor's convention, not checked).
+    for pl, span in ((src, _span(length, mesh, src, dim, me)),
+                     (dst, want[me])):
+        shape, off = local_span(x.shape, mesh, pl)
+        if shape[dim] != span[1] - span[0] or (
+                shape[dim] and off[dim] != span[0]):
+            raise RuntimeError(f"state_plan: DTensor lays {pl} out at "
+                               f"{off[dim]} + {shape[dim]}, not {span}")
+    group = tuple(c for c in members if all(
+        c[i] == me[i] for i in range(len(me)) if i != pod))
+    return StatePlan(mesh, x.shape, dim, pod, src, dst,
+                     _span(length, mesh, src, dim, me)[0], want[me][0],
+                     have[me], _moves(have, want, rank, me, world),
+                     _moves(want, have, rank, me, world),
+                     tuple(have[c][1] - have[c][0] for c in group))
+
+
+def _moves(have: dict, want: dict, rank: dict, me, world: int) -> tuple:
+    """This rank's part of the exchange from the spans ``have`` to the
+    spans ``want`` (coordinate -> (start, stop)): (the spans it sends, in
+    the receivers' rank order; the send sizes and the receive sizes per
+    rank of the group of ``world``; the order, by start, of the pieces it
+    receives, which arrive in the senders' rank order)."""
+    def overlap(a, b):
+        return max(a[0], b[0]), min(a[1], b[1])
+
+    sends = sorted((rank[c], overlap(have[me], want[c])) for c in want)
+    recvs = sorted((rank[c], overlap(have[c], want[me])) for c in have)
+    sends = [(r, s) for r, s in sends if s[1] > s[0]]
+    recvs = [(r, s) for r, s in recvs if s[1] > s[0]]
+    send_sizes, recv_sizes = [0] * world, [0] * world
+    for r, (a, b) in sends:
+        send_sizes[r] += b - a
+    for r, (a, b) in recvs:
+        recv_sizes[r] += b - a
+    order = sorted(range(len(recvs)), key=lambda j: recvs[j][1][0])
+    return (tuple(s for _, s in sends), tuple(send_sizes),
+            tuple(recv_sizes), tuple(order))
+
+
+def _exchange(t: torch.Tensor, start: int, moves: tuple, dim: int):
+    """Rows (along ``dim``) of ``t``, which holds the span from ``start``,
+    sent and received as ``moves`` (:func:`_moves`) says, by one
+    all-to-all over the whole group; returns the received span."""
+    spans, send_sizes, recv_sizes, order = moves
+    c10d = torch.ops._c10d_functional
+    x = t.movedim(dim, 0)
+    parts = [x[a - start:b - start] for a, b in spans] or [x[:0]]
+    x = parts[0].contiguous() if len(parts) == 1 else torch.cat(parts)
+    group = torch.distributed.distributed_c10d._get_default_group()
+    out = c10d.wait_tensor(c10d.all_to_all_single(
+        x, list(recv_sizes), list(send_sizes), group.group_name))
+    if list(order) != sorted(order):
+        parts = out.split([n for n in recv_sizes if n])
+        out = torch.cat([parts[j] for j in order])
+    return out.movedim(0, dim)
+
+
+def to_state_layout(x: DTensor, plan: StatePlan) -> DTensor:
+    """``x`` (laid out as the leaf's parameter: the same on every pod)
+    in the state's layout: this rank's part of its shard
+    (``plan.piece``, a local slice) exchanged for its state shard."""
+    a, b = plan.piece
+    part = x.to_local().narrow(plan.dim, a - plan.param_start, b - a)
+    y = _exchange(part, a, plan.to_state, plan.dim)
+    return from_local(y.contiguous(), plan.mesh, plan.state, plan.shape)
+
+
+def to_param_layout(x: DTensor, plan: StatePlan) -> DTensor:
+    """``x`` (laid out as the leaf's state) in the parameter's layout:
+    its state shard exchanged for this rank's part of its parameter
+    shard, which an all-gather over the pod axis completes (parts padded
+    to the longest where the dim does not divide evenly)."""
+    c10d = torch.ops._c10d_functional
+    part = _exchange(x.to_local(), plan.state_start, plan.to_param,
+                     plan.dim).movedim(plan.dim, 0)
+    n, sizes = max(plan.gathered), plan.gathered
+    if n == 0:                  # the pod group's shards are all empty
+        whole = part
+    else:
+        if part.shape[0] < n:
+            part = torch.cat([part, part.new_zeros((n - part.shape[0],
+                                                    *part.shape[1:]))])
+        group = plan.mesh.get_group(plan.pod)
+        whole = c10d.wait_tensor(c10d.all_gather_into_tensor(
+            part.contiguous(), len(sizes), group.group_name))
+        if any(s != n for s in sizes):
+            whole = torch.cat([whole[j * n:j * n + s]
+                               for j, s in enumerate(sizes)])
+    y = whole.movedim(0, plan.dim).contiguous()
+    return from_local(y, plan.mesh, plan.param, plan.shape)

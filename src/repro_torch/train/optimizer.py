@@ -30,8 +30,13 @@ parameters, gradients and states are DTensors laid out by the sharding
 rules, and the update runs on them as it is: the global norm sums every
 shard, and ``compress_int8``'s blocks, which span the shards of a leaf,
 are laid over the whole leaves, so that they give the unsharded result.
-:func:`compressed_psum` is the int8-quantized all-reduce over a mesh
-axis.
+On a mesh of pods the state is split over ("pod", "data") and the
+parameters over "data" alone (hierarchical ZeRO); there each such leaf's
+gradient and parameter are moved to the state's layout, updated on the
+state's shard, and the new parameter gathered back over the pod axis, by
+collectives that the port chooses (``sharding.partition.state_plan``),
+not DTensor's planner.  :func:`compressed_psum` is the int8-quantized
+all-reduce over a mesh axis.
 """
 from __future__ import annotations
 
@@ -43,7 +48,8 @@ import torch.distributed as dist
 from torch.distributed.tensor import DTensor
 
 from ..models.model import GROUP_KEYS
-from ..sharding.partition import amax_rows, current_ctx, cut
+from ..sharding.partition import (amax_rows, current_ctx, cut, state_plan,
+                                  to_param_layout, to_state_layout)
 
 
 @dataclass(frozen=True)
@@ -214,6 +220,15 @@ def _maybe_q8(name: str, x: torch.Tensor, use: bool):
     return _q8(x) if use and stacked_ndim(name, x) >= 2 else x
 
 
+def _plan(p, m):
+    """The leaf's move between its parameter's layout and its state's
+    (``partition.state_plan``), or None where the two are one."""
+    m = m["q"] if isinstance(m, dict) else m
+    if not (isinstance(p, DTensor) and isinstance(m, DTensor)):
+        return None
+    return state_plan(p, m.placements)
+
+
 # ---------------------------------------------------------------------------
 # AdamW
 # ---------------------------------------------------------------------------
@@ -258,7 +273,13 @@ def adamw_update(cfg: OptConfig, grads: dict, state: dict, params: dict,
     made itself (each operation rounds as its out-of-place form does), so
     at most a few float32 copies of the largest leaf live at once: with
     recurrentgemma-9b's 1.05 B-entry embedding the out-of-place update held
-    about seven (29 GB) beside a float32 copy of every gradient."""
+    about seven (29 GB) beside a float32 copy of every gradient.
+
+    A leaf whose state splits over a mesh dim more than its parameter (a
+    mesh of pods) is updated on the state's shard: its gradient and
+    parameter moved there first, its new parameter gathered back after
+    (``partition.to_state_layout``, ``to_param_layout``); the arithmetic
+    is the same.  Every other leaf is updated in the layouts it has."""
     step = state["step"] + 1
     gnorm = global_norm(grads)
     scale = (torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
@@ -278,7 +299,11 @@ def adamw_update(cfg: OptConfig, grads: dict, state: dict, params: dict,
     new_params, new_m, new_v = {}, {}, {}
     take = dict.pop if donate else dict.__getitem__
     for name, p in params.items():
-        g = take(grads, name).float()
+        plan = _plan(p, state["m"][name])
+        g = take(grads, name)
+        if plan is not None:
+            g, p = to_state_layout(g, plan), to_state_layout(p, plan)
+        g = g.float()
         if scale is not None:
             g = g * scale
         m = b1 * _dq8(take(state["m"], name)) + (1 - b1) * g
@@ -291,7 +316,9 @@ def adamw_update(cfg: OptConfig, grads: dict, state: dict, params: dict,
         if cfg.weight_decay:
             delta.add_(cfg.weight_decay * p.float())
         new_p = p.to(torch.float32, copy=True)
-        new_params[name] = new_p.sub_(delta.mul_(lr)).to(p.dtype)
+        new_p = new_p.sub_(delta.mul_(lr)).to(p.dtype)
+        new_params[name] = (new_p if plan is None
+                            else to_param_layout(new_p, plan))
         del delta, new_p
         new_m[name] = _maybe_q8(name, m, cfg.state_int8)
         new_v[name] = _maybe_q8(name, v, cfg.state_int8)

@@ -18,10 +18,11 @@ count, as the reference does.
 Model parallelism (:func:`build_sharded_train_step`) runs the same step on
 DTensors: :func:`shard_state` lays the model's parameters and the AdamW
 state out over a ``DeviceMesh`` by the sharding rules
-(``sharding.rules.param_pspecs``, the step count replicated), each batch
-is split by ``batch_pspecs``, and the step runs under the rules' activation
-constraints (``sharding.partition.use_sharding``).  On a mesh of one rank
-it computes the plain step's numbers bit for bit.
+(``sharding.rules.param_pspecs``, the step count replicated; on a mesh of
+pods the state over ("pod", "data"), the parameters over "data"), each
+batch is split by ``batch_pspecs``, and the step runs under the rules'
+activation constraints (``sharding.partition.use_sharding``).  On a mesh
+of one rank it computes the plain step's numbers bit for bit.
 """
 from __future__ import annotations
 
@@ -110,20 +111,24 @@ def _named(specs, mi):
     return mi.named(specs)
 
 
-def shard_state(model: LM, opt_cfg: OptConfig, mi) -> tuple[dict, dict]:
+def shard_state(model: LM, opt_cfg: OptConfig, mi,
+                opt_mi) -> tuple[dict, dict]:
     """The model's parameters laid out over ``mi.mesh`` by the rules
     (replaced in the model by DTensor parameters cut from the tensors it
     holds, which every rank drew from the same seed), and a fresh AdamW
-    state laid out the same way, the step count replicated.  Returns
-    (state, shardings), the shardings a tree of ``NamedSharding``s like the
-    state (what ``train.loop.run`` and ``ckpt.restore`` take)."""
+    state laid out by ``opt_mi``'s rules (its FSDP axes: on a mesh of pods
+    the state is split over ("pod", "data"), elsewhere as the
+    parameters), the step count replicated.  Returns (state, shardings),
+    the shardings a tree of ``NamedSharding``s like the state (what
+    ``train.loop.run`` and ``ckpt.restore`` take)."""
     cfg = model.cfg
     specs = rules.param_pspecs(cfg, dict(model.named_parameters()), mi)
     shard_module(model, _named(specs, mi))
     state = init_state(model, opt_cfg)
-    o_specs = rules.param_pspecs(cfg, state["opt"], mi)
+    o_specs = rules.param_pspecs(cfg, state["opt"], opt_mi)
     o_specs["step"] = P()
-    shardings = {"params": _named(specs, mi), "opt": _named(o_specs, mi)}
+    shardings = {"params": _named(specs, mi),
+                 "opt": _named(o_specs, opt_mi)}
     state["opt"] = place(state["opt"], shardings["opt"])
     return state, shardings
 
@@ -151,6 +156,9 @@ def build_sharded_train_step(model: LM, opt_cfg: OptConfig,
     def train_step(state, batch):
         with use_sharding(ctx), implicit_replication():
             state, metrics = raw(state, batch)
+            # The update leaves each moment in its state layout (on a mesh
+            # of pods too: ``optimizer.adamw_update``), so this moves
+            # nothing but a leaf whose layout DTensor's arithmetic changed.
             state["opt"] = place(state["opt"], shardings["opt"])
         return state, {k: v.full_tensor() if isinstance(v, DTensor) else v
                        for k, v in metrics.items()}

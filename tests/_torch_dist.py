@@ -8,6 +8,7 @@ import torch and ``repro_torch`` only: the children never load JAX, and
 the tests compare their results with the reference in the parent.
 """
 import contextlib
+import math
 import os
 
 import torch
@@ -102,6 +103,27 @@ def _whole(t):
 
 
 @contextlib.contextmanager
+def _counting_state_moves():
+    """Counts the leaves that the AdamW update moves to their state's
+    layout by hand (``train.optimizer``'s ``to_state_layout``: a mesh of
+    pods) while entered."""
+    from repro_torch.train import optimizer
+
+    raw = optimizer.to_state_layout
+    n = [0]
+
+    def to_state_layout(x, plan):
+        n[0] += 1
+        return raw(x, plan)
+
+    optimizer.to_state_layout = to_state_layout
+    try:
+        yield n
+    finally:
+        optimizer.to_state_layout = raw
+
+
+@contextlib.contextmanager
 def _counting_row_blocks():
     """Counts the weight gradients computed a block of rows a rank
     (``sharding.partition._RowBlockGrad``'s backward) while entered."""
@@ -147,7 +169,9 @@ def step_pair(cfg, mesh, opt_cfg, microbatches: int = 1, steps: int = 2,
     names = list(s1["params"])
     batch = lm_batch(cfg, B, S, 100)
     l1, g1 = _grads(plain, batch, names)
-    mi = MeshInfo(mesh=mesh, dp=("data",), tp="model")
+    mi = MeshInfo(mesh=mesh, dp=tuple(a for a in ("pod", "data")
+                                      if a in mesh.mesh_dim_names),
+                  tp="model")
     with use_sharding(rules.make_ctx(cfg, mi)), implicit_replication(), \
             _counting_row_blocks() as row_blocks:
         db = place(batch, {k: mi.named(v) for k, v in
@@ -159,16 +183,18 @@ def step_pair(cfg, mesh, opt_cfg, microbatches: int = 1, steps: int = 2,
                                  / a.abs().max().clamp(min=1e-30))
                            for a, b in zip(g1, g2)),
            "losses": [], "norms": [], "bitwise": True}
-    for i in range(steps):
-        batch = lm_batch(cfg, B, S, i)
-        s1, m1 = st1(s1, batch)
-        s2, m2 = st2(s2, batch)
-        out["losses"].append((float(m1["loss"]), float(m2["loss"])))
-        out["norms"].append((float(m1["grad_norm"]),
-                             float(m2["grad_norm"])))
-        out["bitwise"] &= bool(torch.equal(m1["loss"], m2["loss"])
-                               and torch.equal(m1["grad_norm"],
-                                               m2["grad_norm"]))
+    with _counting_state_moves() as moves:
+        for i in range(steps):
+            batch = lm_batch(cfg, B, S, i)
+            s1, m1 = st1(s1, batch)
+            s2, m2 = st2(s2, batch)
+            out["losses"].append((float(m1["loss"]), float(m2["loss"])))
+            out["norms"].append((float(m1["grad_norm"]),
+                                 float(m2["grad_norm"])))
+            out["bitwise"] &= bool(torch.equal(m1["loss"], m2["loss"])
+                                   and torch.equal(m1["grad_norm"],
+                                                   m2["grad_norm"]))
+    out["state_moves"] = moves[0]
     errs = [(s1["params"][n] - _whole(s2["params"][n])).abs().max()
             for n in names]
     out["param_err"] = float(max(errs))
@@ -177,6 +203,10 @@ def step_pair(cfg, mesh, opt_cfg, microbatches: int = 1, steps: int = 2,
                          for n in names}
     out["shardings"] = {n: tuple(str(p) for p in shardings["params"][n][1])
                         for n in names}
+    out["opt_misplaced"] = [
+        (str(t.placements), str(sh.placements))
+        for t, sh in zip(_leaves(s2["opt"]), _leaves(shardings["opt"]))
+        if t.placements != sh.placements]
     return out
 
 
@@ -192,8 +222,8 @@ def model_parallel_rank(rank, tmp, cases, one_by_one, launcher):
 
     out = {"cases": {}, "one": {}}
     for name, cfg, shape, opt_cfg, mb in cases:
-        mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data",
-                                                             "model"))
+        mesh = init_device_mesh("cpu", shape, mesh_dim_names=(
+            "pod", "data", "model")[-len(shape):])
         out["cases"][name] = step_pair(cfg, mesh, opt_cfg, mb)
     if launcher is None:
         return out
@@ -208,6 +238,46 @@ def model_parallel_rank(rank, tmp, cases, one_by_one, launcher):
     out["launcher"] = [loss for _, loss, _ in ls.history]
     out["elastic"] = _elastic(tmp, one_by_one[0][1], one_by_one[0][2])
     return out
+
+
+def state_layout_rank(rank, tmp, cases):
+    """Each case ``(dims, shape, param spec, state spec)``: a tensor
+    (``arange``, the same on every rank) laid out on a ("pod", "data",
+    "model") mesh of ``dims`` by the parameter's spec, moved to the
+    state's layout and back by hand (``partition.to_state_layout``,
+    ``to_param_layout``): whether a plan was made, and whether each move
+    gives the shard that DTensor's own layout holds."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.sharding import partition as pt
+
+    out = []
+    for dims, shape, p_spec, s_spec in cases:
+        mesh = init_device_mesh("cpu", dims,
+                                mesh_dim_names=("pod", "data", "model"))
+        t = torch.arange(math.prod(shape), dtype=torch.float32
+                         ).reshape(shape)
+        x = pt.cut(t, mesh, pt.placements(mesh, p_spec))
+        want = pt.cut(t, mesh, pt.placements(mesh, s_spec))
+        plan = pt.state_plan(x, want.placements)
+        if plan is None:
+            out.append({"plan": False})
+            continue
+        y = pt.to_state_layout(x, plan)
+        back = pt.to_param_layout(y, plan)
+        out.append({"plan": True,
+                    "to_state": torch.equal(y.to_local(), want.to_local())
+                    and y.placements == want.placements,
+                    "to_param": torch.equal(back.to_local(), x.to_local())
+                    and back.placements == x.placements})
+    return out
+
+
+def pod_rank(rank, tmp, cases, layout_cases):
+    """:func:`model_parallel_rank`'s cases (on meshes with a "pod" axis)
+    and :func:`state_layout_rank`'s."""
+    return {**model_parallel_rank(rank, tmp, cases, [], None),
+            "layouts": state_layout_rank(rank, tmp, layout_cases)}
 
 
 def _elastic(tmp, cfg, opt_cfg) -> dict:

@@ -38,6 +38,12 @@ x 16, 512 host devices, pods of 256)::
 
     PYTHONPATH=src python tests/_torch_dryrun_reference.py [--cells ...]
     PYTHONPATH=src python tests/_torch_dryrun_reference.py --mesh multi
+
+``--port FILE`` writes the port's records instead, without JAX: of the
+(2, 4) parity cells, with ``--pod`` of the (2, 2, 2) ones, with ``--mesh
+multi`` of the multi-pod cells (``tests/data/dryrun_port_multi.json``,
+the torch release's counts that ``chip_smoke.py`` holds the card's
+release to).
 """
 from __future__ import annotations
 
@@ -56,6 +62,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(os.path.dirname(HERE), "src")
 SINGLE_JSON = os.path.join(HERE, "data", "dryrun_reference_single.json")
 MULTI_JSON = os.path.join(HERE, "data", "dryrun_reference_multi.json")
+PORT_MULTI_JSON = os.path.join(HERE, "data", "dryrun_port_multi.json")
 # The single-pod cells whose reference records the card is held to,
 # (arch, shape, cut): moonshot-v1-16b-a3b's train step at 8 of its 48
 # layers, which the port counts in about 40 s (at full depth about 4 min).
@@ -87,6 +94,7 @@ SERVE_CELLS = [(arch, shape, {"n_layers": 3 if arch == "recurrentgemma-9b"
 # The multi-pod cells whose reference records the card is held to, on
 # (2, 16, 16) with pods of 256: moonshot-v1-16b-a3b's and qwen3-1.7b's
 # train steps at 2 layers, and qwen3-1.7b's decode step whole.
+MULTI_DIMS = (2, 16, 16)
 MULTI_CELLS = [("moonshot-v1-16b-a3b", "train_4k", {"n_layers": 2}),
                ("qwen3-1.7b", "train_4k", {"n_layers": 2}),
                ("qwen3-1.7b", "decode_32k", None)]
@@ -307,6 +315,8 @@ def port_record(arch: str, shape: str, cut: dict | None = None,
     tensors over a fake group of ``dims`` (``dryrun.count_cell``, pods of
     ``pod_size`` ranks), the config cut as :func:`reference_records`
     cuts it."""
+    import torch
+
     from repro_torch.launch import dryrun
 
     mesh = dryrun.fake_mesh("single", "cpu", dims=tuple(dims))
@@ -315,6 +325,8 @@ def port_record(arch: str, shape: str, cut: dict | None = None,
     rec = {f: got[f] for f in FIELDS}
     rec["microbatches"] = got["microbatches"]
     rec["top_collectives"] = got["top_collectives"]
+    rec["collective_sites"] = got["collective_sites"]
+    rec["torch"] = torch.__version__
     rec["flops_by_op"] = got["flops_by_op"]
     return rec
 
@@ -479,7 +491,8 @@ def main(argv=None) -> None:
                     help="with --table or --port: the pod parity cells on "
                          "(2, 2, 2), pods of 4")
     ap.add_argument("--port", metavar="FILE",
-                    help="write the port's records of the parity cells to "
+                    help="write the port's records of the parity cells "
+                         "(with --mesh multi: of the multi-pod cells) to "
                          "FILE instead (no JAX: a check of another torch "
                          "release)")
     args = ap.parse_args(argv)
@@ -492,15 +505,20 @@ def main(argv=None) -> None:
                     + [("qwen3-1.7b", "train_4k", None)]))
         return
     if args.port:
-        recs = ({cell_key(*c): port_record(*c, POD_DIMS, POD_SIZE)
-                 for c in POD_CELLS} if args.pod else
-                {cell_key(*c): port_record(*c)
-                 for c in TRAIN_CELLS + LONG_CELLS + SERVE_CELLS})
+        if args.mesh == "multi":
+            recs = {cell_key(*c): port_record(*c, MULTI_DIMS, 256)
+                    for c in MULTI_CELLS}
+        elif args.pod:
+            recs = {cell_key(*c): port_record(*c, POD_DIMS, POD_SIZE)
+                    for c in POD_CELLS}
+        else:
+            recs = {cell_key(*c): port_record(*c)
+                    for c in TRAIN_CELLS + LONG_CELLS + SERVE_CELLS}
         with open(args.port, "w") as f:
             json.dump(recs, f, indent=1, sort_keys=True)
         return
     multi = args.mesh == "multi"
-    dims, axes = (((2, 16, 16), ["pod", "data", "model"]) if multi
+    dims, axes = ((MULTI_DIMS, ["pod", "data", "model"]) if multi
                   else ((16, 16), ["data", "model"]))
     out = args.out or (MULTI_JSON if multi else SINGLE_JSON)
     cells = ([parse_key(c) for c in args.cells] if args.cells

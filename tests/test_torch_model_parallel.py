@@ -17,7 +17,13 @@ heads split):
   (2, 2), where the router's weight gradient is computed a block of rows
   a model rank, summed over "data" and swapped to the rank whose shard it
   is, as the compiled reference splits it (the test also asserts that
-  this split ran there, and nowhere else).  Against the single-process plain step from the same
+  this split ran there, and nowhere else); and, in a spawn of eight
+  ranks, smollm-360m and moonshot at (2, 2, 2) on ("pod", "data",
+  "model"), the AdamW state split over ("pod", "data") and the
+  parameters over "data", as the dry run's multi-pod cells (the test also
+  asserts that the update moved those leaves to the state's layout by
+  hand there, and nowhere else, and that every state leaf stays where
+  the shardings say).  Against the single-process plain step from the same
   state: the loss of a batch to rtol 1e-5 and every gradient within 1e-5
   of its largest entry (seen: about 1e-6; the shards sum in other
   orders); two train steps' losses and gradient norms to rtol 1e-5
@@ -32,6 +38,10 @@ heads split):
   ranks: its losses match the single-process launcher's to rtol 1e-5.
 - An elastic restore: a state saved from (1, 2) restored onto (2, 1)
   (each leaf on the given placements) and onto no mesh, bit for bit.
+
+The eight ranks also move tensors between a parameter's layout and its
+AdamW state's by hand (``partition.state_plan``), on (2, 2, 2) and (2, 4,
+1) meshes, even and uneven splits, against DTensor's own shards.
 
 Also, in one process: which KV heads the attention wrappers hand a rank
 whose query heads are split (``kernels.on_shards._pair_kv``), for head
@@ -48,7 +58,8 @@ from repro_torch.kernels import on_shards
 from repro_torch.launch import train as launch_train
 from repro_torch.train.optimizer import OptConfig
 
-from _torch_dist import model_parallel_rank, run_ranks, start_ranks
+from _torch_dist import (model_parallel_rank, pod_rank, run_ranks,
+                         start_ranks)
 from _torch_threads import one_torch_thread  # noqa: F401
 
 LR = 1e-3
@@ -77,8 +88,37 @@ CASES += [
     ("moonshot-v1-16b-a3b (2, 2)", FAMILIES["moonshot-v1-16b-a3b"], (2, 2),
      OPT, 1),
 ]
+# Eight ranks on a ("pod", "data", "model") mesh, as the dry run's
+# multi-pod cells lay it out: the batch over ("pod", "data"), the
+# parameters FSDP-split over "data" alone and the AdamW state over ("pod",
+# "data"), so that the update moves each split leaf to the state's layout
+# and back by hand (``partition.state_plan``); a dense model and the MoE
+# one, whose experts' moments DTensor once resharded by other collectives
+# on other torch releases.
+CASES += [
+    ("smollm-360m (2, 2, 2)", FAMILIES["smollm-360m"], (2, 2, 2), OPT, 1),
+    ("moonshot-v1-16b-a3b (2, 2, 2)", FAMILIES["moonshot-v1-16b-a3b"],
+     (2, 2, 2), OPT, 1),
+]
 # The cases whose weight gradients are split into row blocks.
 ROW_BLOCKS = {"moonshot-v1-16b-a3b (2, 2)"}
+# The cases whose AdamW state splits over a mesh dim more than the
+# parameters (moved by hand in the update).
+POD = {"smollm-360m (2, 2, 2)", "moonshot-v1-16b-a3b (2, 2, 2)"}
+# The moves by hand on their own, on eight ranks: (mesh, tensor shape,
+# the parameter's spec, the state's), even and uneven splits; on (2, 4,
+# 1) the state's pod-major chunks are no permutation of the parameter's
+# pod-split ones where the dim does not divide (9 and 5 rows: pieces of
+# other lengths, some empty).
+DP, DS = ("data", ("pod", "data"))
+LAYOUTS = [((2, 2, 2), (8, 6), (DP, "model"), (DS, "model")),
+           ((2, 2, 2), (6, 12), ("model", DP), ("model", DS)),
+           ((2, 2, 2), (9, 4), (DP, None), (DS, None)),
+           ((2, 2, 2), (3, 10, 7), (None, DP, "model"),
+            (None, DS, "model")),
+           ((2, 4, 1), (16, 2), (DP, None), (DS, None)),
+           ((2, 4, 1), (9, 3), (DP, None), (DS, None)),
+           ((2, 4, 1), (2, 5), ("model", DP), ("model", DS))]
 LAUNCH = ["--smoke", "--device", "cpu", "--steps", "3", "--batch", "4",
           "--seq", "32", "--log-every", "1"]
 
@@ -97,7 +137,15 @@ def four_ranks(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def runs(tmp_path_factory, four_ranks):
+def eight_ranks(tmp_path_factory, four_ranks):
+    """The eight-rank cases and moves, started beside the others."""
+    return start_ranks(pod_rank, 8,
+                       tmp_path_factory.mktemp("model_parallel_8"),
+                       _cases(8), LAYOUTS)
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory, four_ranks, eight_ranks):
     tmp = tmp_path_factory.mktemp("model_parallel")
     one = [(arch, cfg, OPT) for arch, cfg in FAMILIES.items()]
     outs = run_ranks(model_parallel_rank, 2, tmp, _cases(2), one,
@@ -110,9 +158,15 @@ def runs4(four_ranks, runs):
     return four_ranks()
 
 
+@pytest.fixture(scope="module")
+def runs8(eight_ranks, runs4):
+    return eight_ranks()
+
+
 @pytest.mark.parametrize("case", [c[0] for c in CASES])
-def test_sharded_step_matches_plain_step(runs, runs4, case):
-    ranks = runs4 if case in {c[0] for c in _cases(4)} else runs
+def test_sharded_step_matches_plain_step(runs, runs4, runs8, case):
+    ranks = {4: runs4, 8: runs8}.get(
+        math.prod(dict((c[0], c[2]) for c in CASES)[case]), runs)
     r = ranks[0]["cases"][case]
     rtol = 1e-4 if "int8" in case else 1e-5
     a, b = r["loss"]
@@ -124,8 +178,20 @@ def test_sharded_step_matches_plain_step(runs, runs4, case):
     assert r["param_err"] <= 2 * LR
     assert r["placements"] == r["shardings"]
     assert (r["row_block_grads"] > 0) == (case in ROW_BLOCKS)
+    assert (r["state_moves"] > 0) == (case in POD)
+    assert r["opt_misplaced"] == []
     for out in ranks[1:]:
         assert out["cases"][case]["losses"] == r["losses"]
+
+
+@pytest.mark.parametrize("i", range(len(LAYOUTS)),
+                         ids=[f"{d} {s} {p}" for d, s, p, _ in LAYOUTS])
+def test_state_layout_moves_by_hand(runs8, i):
+    """On every rank the plan is made, the move to the state's layout
+    gives DTensor's shard of it, and the move back the parameter's."""
+    for out in runs8:
+        assert out["layouts"][i] == {"plan": True, "to_state": True,
+                                     "to_param": True}
 
 
 def test_tensor_parallel_splits_the_model(runs):
