@@ -229,6 +229,19 @@ two headers):
      kernels launch, no plain call; a profiled step with the MoE block's
      pieces attributed); the kernel-against-plain steps of moonshot and
      seamless at depth 2 and grok-1-314b at full width and depth 1;
+   - slice 23, the dense archs that no earlier slice ran on the card:
+     ``train.step`` at full width, S = 4096, 12 steps, on llava-next-34b
+     (4 of 60 layers, B = 1, 576 rows of ``patch_embeds`` from the seed in
+     front of every sequence: 4672 rows), qwen2.5-3b (full depth, B = 1;
+     QKV biases) and tinyllama-1.1b (full depth, B = 2), as slice 16's;
+     their kernel-against-plain steps at depth 2 (llava with its prefix);
+     each served through ``ServeEngine`` at full width and depth among the
+     serve runs below (text-only requests, as the reference's engine
+     takes), and then llava's patch-prefix path through ``LM.prefill`` (8
+     rows of 576 patch rows and a 48-token prompt, sequence 624) and 64
+     greedy ``LM.decode_step``s (lengths 624 + t): exactly one flash
+     launch a layer and one decode launch a layer a tick, no plain call,
+     the decode step against a re-prefill with the prefix in both;
    - slices 3 and 4, the LM serving paths, each model at full width
      (bfloat16, weights from a ``torch.Generator`` seeded 0 on the card)
      through ``ServeEngine`` (8 slots, cache 4096, no EOS; 16 requests of
@@ -241,7 +254,10 @@ two headers):
      moonshot-v1-16b-a3b at its full 48 layers and grok-1-314b at 4 of
      its 64 (256-2048; one flash launch per layer a prefill, one decode
      launch per layer a tick, every expert read each tick, the bytes
-     printed beside the tick); no plain call.  Each prints
+     printed beside the tick), and from slice 23 qwen2.5-3b,
+     tinyllama-1.1b and llava-next-34b (256-2048; QKV biases drawn from
+     the seed, since the reference initialises them to zero); no plain
+     call.  Each prints
      wall time, prefill and decode tokens/s, the median time to first
      token, ticks, launches and peak memory, then the decode step's logits
      for request 0's second token against a re-prefill of (prompt + first
@@ -368,6 +384,7 @@ from repro_torch.kernels import selective_scan_bwd as tsb  # noqa: E402
 from repro_torch.launch import kernel_timing as kt  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
+from repro_torch.models.layers import Attention  # noqa: E402
 from repro_torch.models.model import LM, dec_plan  # noqa: E402
 from repro_torch.models.rglru import RGLRU  # noqa: E402
 from repro_torch.models.transformer import leaf_kinds  # noqa: E402
@@ -989,14 +1006,22 @@ FULL_LIMIT = f"|kernel - plain| <= {FULL_ATOL:g} + {FULL_RTOL:g} |plain|"
 # decoder's cross-attention from a 48-token prompt to that memory
 # (bidirectional, Sq < Sk) and its causal self-attention over the prompt;
 # decode over the cross caches with every length mem_len = 1024 and over
-# the self caches (4096 slots) with the lengths of its 64 tokens.
+# the self caches (4096 slots) with the lengths of its 64 tokens.  Slice
+# 23: llava-next-34b (56 query heads on 8 KV heads of 128, seven a KV
+# head) at its patch-prefix sequences, 576 patch rows plus a 48-token
+# prompt (624, no multiple of a 64-row tile) and plus 2048;
+# tinyllama-1.1b (32 on 4 of 64) and qwen2.5-3b (16 on 2 of 128), eight
+# a KV head, at their longest served prompt.
 ATTN_TIMED = (
     ("qwen3-1.7b", ((512, 512, True), (2048, 2048, True))),
     ("recurrentgemma-9b", ((2048, 2048, True), (3072, 3072, True))),
     ("moonshot-v1-16b-a3b", ((256, 256, True), (2048, 2048, True))),
     ("grok-1-314b", ((256, 256, True), (2048, 2048, True))),
     ("seamless-m4t-medium", ((1024, 1024, False), (48, 1024, False),
-                             (48, 48, True))))
+                             (48, 48, True))),
+    ("llava-next-34b", ((624, 624, True), (2624, 2624, True))),
+    ("tinyllama-1.1b", ((2048, 2048, True),)),
+    ("qwen2.5-3b", ((2048, 2048, True),)))
 SERVE_ATTN = ", ".join(arch for arch, _ in ATTN_TIMED)
 
 
@@ -1492,13 +1517,22 @@ SERVE_REQUESTS, SERVE_MAX_TOKENS = 16, 64
 # ring in prefill and in decode.  The MoE models (slice 16): moonshot at
 # its full 48 layers (28.06 B parameters, 56.1 GB in bf16, and a 12.9 GB
 # KV cache), grok-1 at 4 of its 64 (21.3 B parameters, 42.6 GB: the full
-# model's 316 B parameters cannot fit on one card).
+# model's 316 B parameters cannot fit on one card).  Slice 23: qwen2.5-3b
+# (3.40 B parameters) and tinyllama-1.1b (1.10 B) at full depth, and
+# llava-next-34b at its full 60 layers: 34.41 B parameters, 68.8 GB in
+# bf16, and a 8.05 GB KV cache (8 KV heads x 128 x 2 x 2 B x 60 layers a
+# token, 8 x 4096 tokens), so the card holds it with a few GiB to spare;
+# its requests are text-only, as the reference's engine takes them, and
+# its patch prefix runs after (``vlm_serve_phase``).
 SERVE_RUNS = (
     ("qwen3-1.7b", (256, 2048), None),
     ("falcon-mamba-7b", (256, 2048), None),
     ("recurrentgemma-9b", (256, 3072), None),
     ("moonshot-v1-16b-a3b", (256, 2048), None),
     ("grok-1-314b", (256, 2048), 4),
+    ("qwen2.5-3b", (256, 2048), None),
+    ("tinyllama-1.1b", (256, 2048), None),
+    ("llava-next-34b", (256, 2048), None),
 )
 # Request 0's decode-step logits against a re-prefill of (prompt + token
 # 1), both in bfloat16 on the card, may differ by this many bfloat16 ulps
@@ -1541,6 +1575,7 @@ def serve_phase(dev, arch: str, prompt: tuple,
           f"{full.n_layers} layers, through ServeEngine on the card")
     t0 = time.monotonic()
     model = LM(cfg, dev, torch.Generator(device=dev).manual_seed(0))
+    draw_qkv_biases(model, 1)
     torch.cuda.synchronize()
     n_params = model.param_count()
     print(f"  {cfg.name}: {n_params / 1e9:.4f} B parameters "
@@ -1582,7 +1617,9 @@ def serve_phase(dev, arch: str, prompt: tuple,
           f"({st['decode_tokens'] / st['decode_s']:.1f} tokens/s, "
           f"{1e3 * st['decode_s'] / ticks:.2f} ms per tick); time to first "
           f"token median {ttft:.3f} s; peak device memory "
-          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB of "
+          f"{torch.cuda.get_device_properties(dev).total_memory / 2**30:.2f}"
+          )
     # Every prefill launches one flash call per attention layer (an MoE
     # layer has one) and one scan per recurrent layer; every tick one
     # decode call per attention layer (the recurrent layers' one-token
@@ -1610,6 +1647,28 @@ def serve_phase(dev, arch: str, prompt: tuple,
         print_expert_bytes(cfg, 1e3 * st["decode_s"] / ticks)
     consistency_check(model, reqs[0], dev)
     return launches, (model, eng, lens)
+
+
+# The QKV biases' draw (qwen2.5-3b): the reference initialises them to
+# zero, which would leave their add unseen on the served and compared
+# models; normals of this size move each projection's output by about
+# half its own size (the projections' outputs are about unit normals).
+QKV_BIAS_STD = 0.5
+
+
+def draw_qkv_biases(model: LM, seed: int) -> None:
+    """Fills every attention layer's ``bq``, ``bk`` and ``bv`` (a
+    ``cfg.qkv_bias`` model's) with normals from ``seed`` times
+    ``QKV_BIAS_STD``, in the model's dtype; other models are left as
+    they are."""
+    if not model.cfg.qkv_bias:
+        return
+    gen = torch.Generator(model.device).manual_seed(seed)
+    for m in model.modules():
+        if isinstance(m, Attention):
+            for b in (m.bq, m.bk, m.bv):
+                b.data.copy_(QKV_BIAS_STD * torch.randn(
+                    b.shape, generator=gen, device=model.device))
 
 
 def print_expert_bytes(cfg, tick_ms: float) -> None:
@@ -1653,10 +1712,15 @@ def _decode_vs_reprefill(model: LM, ext, dev, extra: dict | None = None,
     max abs error of the decode step's logits against it, from the
     prefill's caches as they are and (``recurrent``) with their recurrent
     states zeroed.  ``extra`` holds an encoder-decoder model's prefill
-    ``src_embeds`` and decode ``mem_len``; ``capacity_factor`` is the
-    prefills' (``LM.prefill``)."""
+    ``src_embeds`` and decode ``mem_len``, or a VLM's ``patch_embeds``,
+    which both prefills put in front of the tokens (the decode step's
+    length counts them); ``capacity_factor`` is the prefills'
+    (``LM.prefill``)."""
     extra = extra or {}
-    pre_extra = {k: v for k, v in extra.items() if k == "src_embeds"}
+    pre_extra = {k: v for k, v in extra.items()
+                 if k in ("src_embeds", "patch_embeds")}
+    n_front = (extra["patch_embeds"].shape[1] if "patch_embeds" in extra
+               else 0)
     L = SERVE_ENGINE.cache_len
     pre, _ = model.prefill({"tokens": ext, **pre_extra}, L, capacity_factor)
     _, caches = model.prefill({"tokens": ext[:, :-1], **pre_extra}, L,
@@ -1667,7 +1731,7 @@ def _decode_vs_reprefill(model: LM, ext, dev, extra: dict | None = None,
         for c in runs[1]:
             _zero_states(c)
     batch = {"tokens": ext[:, -1:], "lengths": torch.tensor(
-        [ext.shape[1] - 1], dtype=torch.int32, device=dev),
+        [n_front + ext.shape[1] - 1], dtype=torch.int32, device=dev),
         **{k: v for k, v in extra.items() if k == "mem_len"}}
     errs = []
     for c in runs:
@@ -1842,18 +1906,114 @@ def serve_profile_phase(dev, state: tuple) -> None:
         leaf_kinds(cfg)["moe"])
 
 
+# Slice 23: the VLM's patch-prefix path on the served model, once its
+# engine (and the engine's caches) is freed, through LM.prefill and
+# greedy LM.decode_step (the reference's ServeEngine takes no
+# patch_embeds): B rows in one prefill, each the model's 576 patch rows
+# (float32 normals from seed 0, in bf16) in front of a prompt of
+# ``prompt`` tokens from seed 0, so that every sequence is 624 rows long,
+# then ``steps`` decode steps at lengths 624 + t.
+VLM_SERVE = dict(B=8, prompt=48, steps=64)
+
+
+def vlm_serve_phase(dev, model: LM) -> dict:
+    """The patch-prefix serve run (``VLM_SERVE``), with the counts set to
+    0 just before it and read just after: exactly one flash launch a
+    layer (the prefill) and one decode launch a layer a step, no plain
+    call, tokens in range, and row 0's first decode step against a
+    re-prefill of (prompt + its first token) with the patch rows in front
+    of both, within ``CONSISTENCY_ULPS``.  Returns the launches."""
+    cfg = model.cfg
+    B, P, T = (VLM_SERVE[k] for k in ("B", "prompt", "steps"))
+    Pf = cfg.n_frontend_tokens
+    phase(f"main path, slice 23: {cfg.name}'s patch prefix at full width, "
+          f"{cfg.n_layers} layers, through LM.prefill and LM.decode_step: "
+          f"{B} rows in one prefill, each {Pf} patch rows and a {P}-token "
+          f"prompt (sequence {Pf + P}), then {T} greedy decode steps")
+    L = SERVE_ENGINE.cache_len
+    prompts = torch.as_tensor(np.random.default_rng(0).integers(
+        3, cfg.vocab, size=(B, P)), dtype=torch.long, device=dev)
+    patches = torch.randn(B, Pf, cfg.d_model, device=dev,
+                          generator=torch.Generator(dev).manual_seed(0)).to(
+                              torch.bfloat16)
+
+    def serve(steps: int) -> tuple:
+        t0 = time.monotonic()
+        logits, caches = model.prefill({"tokens": prompts,
+                                        "patch_embeds": patches}, L)
+        out = [logits.argmax(-1).tolist()]
+        t1 = time.monotonic()
+        lengths = torch.full((B,), Pf + P, dtype=torch.int32, device=dev)
+        for _ in range(steps):
+            tok = torch.as_tensor(out[-1], device=dev)[:, None]
+            logits = model.decode_step({"tokens": tok, "lengths": lengths},
+                                       caches)
+            out.append(logits.argmax(-1).tolist())
+            lengths += 1
+        return np.array(out).T, t1 - t0, time.monotonic() - t1
+
+    serve(1)                            # warm cuBLAS and the allocator
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    toks, pre_s, dec_s = serve(T)
+    torch.cuda.synchronize()
+    launches, plain_calls = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    total = torch.cuda.get_device_properties(dev).total_memory
+    n_attn = leaf_kinds(cfg)["attn"]
+    expected = dict.fromkeys(KERNELS, 0)
+    expected.update(flash_attention=n_attn, decode_attention=n_attn * T)
+    print(f"  prefill {B * P} tokens behind {B * Pf} patch rows ({B * (Pf + P)}"
+          f" rows) in {pre_s:.3f} s ({B * (Pf + P) / pre_s:.1f} rows/s); "
+          f"decode {B * T} tokens in {dec_s:.3f} s ({B * T / dec_s:.1f} "
+          f"tokens/s, {1e3 * dec_s / T:.2f} ms per step); peak device memory "
+          f"{peak / 2**30:.2f} GiB of {total / 2**30:.2f}")
+    print("  launches: " + ", ".join(
+        f"{k} {launches[k]} (expected {expected[k]})" for k in KERNELS
+        if expected[k] or launches[k]) + f"; plain calls {plain_calls}")
+    if toks.shape != (B, T + 1) or not ((0 <= toks)
+                                        & (toks < cfg.vocab_padded)).all():
+        raise SystemExit(f"the {cfg.name} patch-prefix run emitted "
+                         f"{toks.shape} tokens or tokens out of range")
+    if launches != expected or plain_calls != 0:
+        raise SystemExit(f"the {cfg.name} patch-prefix run did not go "
+                         f"through its kernels alone")
+    ext = torch.cat([prompts[:1], torch.as_tensor(toks[:1, :1],
+                                                  device=dev)], dim=1)
+    top, err, _ = _decode_vs_reprefill(
+        model, ext, dev, {"patch_embeds": patches[:1]}, recurrent=False)
+    tol = CONSISTENCY_ULPS * bf16_ulp(top)
+    print(f"  consistency, row 0 ({Pf} patch rows, prompt {P}): decode-step "
+          f"logits vs re-prefill max abs err {err:.4f} (logits up to "
+          f"{top:.2f}; tolerance {CONSISTENCY_ULPS} bf16 ulps there, "
+          f"{tol:g})")
+    if err > tol:
+        raise SystemExit(f"the {cfg.name} decode step after the patch "
+                         f"prefix disagrees with a re-prefill")
+    return launches
+
+
 def serve_all_phase(dev) -> dict:
-    """Each serve run, then its profile; each model is freed before the
-    next one is built.  Returns the launches summed over the runs."""
+    """Each serve run, then its profile (and a VLM's patch-prefix run on
+    its model, the engine freed); each model is freed before the next one
+    is built.  Returns the launches summed over the runs."""
     total = dict.fromkeys(KERNELS, 0)
     for arch, prompt, layers in SERVE_RUNS:
         launches, state = serve_phase(dev, arch, prompt, layers)
-        for k, n in launches.items():
-            total[k] += n
         serve_profile_phase(dev, state)
+        model = state[0]
         del state
         gc.collect()
         torch.cuda.empty_cache()
+        if model.cfg.frontend == "patch":
+            for k, n in vlm_serve_phase(dev, model).items():
+                launches[k] += n
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        for k, n in launches.items():
+            total[k] += n
     return total
 
 
@@ -2490,15 +2650,22 @@ LSE_TOL = 1e-5
 # its 2048-token window in force); moonshot-v1-16b-a3b's (16 on 16 of 128)
 # and seamless-m4t-medium's (16 on 16 of 64: the decoder's causal self-
 # attention, and the encoder's and the cross-attention's, 4096 frames
-# both, bidirectional) at their training runs' B = 2, S = 4096.
+# both, bidirectional) at their training runs' B = 2, S = 4096.  Slice 23
+# (``FAMILY_TRAIN``'s dense runs): llava-next-34b at B = 1 over its 576
+# patch rows and 4096 tokens (S = 4672; 56 on 8 of 128), tinyllama-1.1b at
+# B = 2 (32 on 4 of 64) and qwen2.5-3b at B = 1 (16 on 2 of 128), causal.
 TRAIN_S = 2048
 RTRAIN_S = 4096
+VLM_PATCHES = get_config("llava-next-34b").n_frontend_tokens
 BWD_TIMED = (("smollm-360m", 8, TRAIN_S, True),
              ("qwen3-1.7b", 1, TRAIN_S, True),
              ("recurrentgemma-9b", 1, RTRAIN_S, True),
              ("moonshot-v1-16b-a3b", 2, RTRAIN_S, True),
              ("seamless-m4t-medium", 2, RTRAIN_S, True),
-             ("seamless-m4t-medium", 2, RTRAIN_S, False))
+             ("seamless-m4t-medium", 2, RTRAIN_S, False),
+             ("llava-next-34b", 1, VLM_PATCHES + RTRAIN_S, True),
+             ("tinyllama-1.1b", 2, RTRAIN_S, True),
+             ("qwen2.5-3b", 1, RTRAIN_S, True))
 # The full-width training run: smollm-360m (the reference launcher's
 # default arch) at its published widths and depth, bfloat16, weights from
 # seed 0, B = 8, S = 2048, remat, AdamW at lr 1e-3 (5 warm-up steps, then
@@ -2545,7 +2712,10 @@ RTRAIN_KERNELS = {
                           "flash_attention_bwd"),
     "moonshot-v1-16b-a3b": ("flash_attention", "flash_attention_bwd"),
     "seamless-m4t-medium": ("flash_attention", "flash_attention_bwd"),
-    "grok-1-314b": ("flash_attention", "flash_attention_bwd")}
+    "grok-1-314b": ("flash_attention", "flash_attention_bwd"),
+    "llava-next-34b": ("flash_attention", "flash_attention_bwd"),
+    "qwen2.5-3b": ("flash_attention", "flash_attention_bwd"),
+    "tinyllama-1.1b": ("flash_attention", "flash_attention_bwd")}
 # Their kernel-against-plain steps: falcon-mamba-7b at depth 2, B = 2, and
 # recurrentgemma-9b at depth 3 (one rec, rec, attention block), B = 1, at
 # full width with S cut to RCOMPARE_S to bound the plain loops' time; the
@@ -2969,14 +3139,16 @@ def compare_steps_phase(dev, runs) -> None:
         if cfg.family == "encdec":
             cfg = dataclasses.replace(cfg, n_enc_layers=layers)
         phase(f"check: one training step of {arch} at full width, depth "
-              f"{layers} ({dec_plan(cfg)}), B = {B}, S = {RCOMPARE_S}, "
-              f"through the kernels vs through the plain versions (loss "
+              f"{layers} ({dec_plan(cfg)}), B = {B}, S = {RCOMPARE_S}"
+              f"{prefix_note(cfg)}, through the kernels vs through the "
+              f"plain versions (loss "
               f"within {COMPARE_LOSS_RTOL:g} relative, each gradient within "
               f"{COMPARE_GRAD_RTOL:g} of its norm)")
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
         model = LM(cfg, dev, torch.Generator(dev).manual_seed(0))
+        draw_qkv_biases(model, 1)
         n_params = model.param_count()
         model.requires_grad_(True)
         batch = lm_batch(cfg, B, RCOMPARE_S, 0, dev)
@@ -3034,21 +3206,32 @@ ENCDEC_SERVE = dict(B=8, prompt=48, frames=1024, tokens=64)
 # depth, its src_embeds 4096 frames from the seed.  No checkpoint is
 # written (train.loop writes one at the last step: 29.5 GB for moonshot,
 # which would outlast the run; slice 12's run covers the checkpoint path).
+# Slice 23, the dense archs: llava-next-34b at 4 of its 60 layers, B = 1,
+# each sequence its 576 patch rows from the seed and 4096 tokens (3.17 B
+# parameters, 38 GB at 12 bytes a parameter: full depth's 413 GB cannot
+# train on one card); qwen2.5-3b (3.40 B, 40.8 GB) at full depth, B = 1;
+# tinyllama-1.1b (1.10 B, 13.2 GB) at full depth, B = 2.
 FAMILY_TRAIN = (("moonshot-v1-16b-a3b", 4, 2, TRAIN_LR),
-                (ENCDEC_ARCH, None, 2, TRAIN_LR))
+                (ENCDEC_ARCH, None, 2, TRAIN_LR),
+                ("llava-next-34b", 4, 1, TRAIN_LR),
+                ("qwen2.5-3b", None, 1, TRAIN_LR),
+                ("tinyllama-1.1b", None, 2, TRAIN_LR))
 # The kernel-against-plain steps at full width, B = 1, S = RCOMPARE_S:
 # moonshot at depth 2, seamless with 2 encoder and 2 decoder layers, and
 # grok-1 at depth 1 (6.53 B parameters: an AdamW step's 12 bytes a
 # parameter is 78 GB before activations, so grok-1 trains on the card at
-# no depth; its loss and gradients are checked instead).
+# no depth; its loss and gradients are checked instead); slice 23's dense
+# archs at depth 2, llava's patch rows in front of its tokens.
 FAMILY_COMPARE = (("moonshot-v1-16b-a3b", 2, 1), (ENCDEC_ARCH, 2, 1),
-                  ("grok-1-314b", 1, 1))
+                  ("grok-1-314b", 1, 1), ("llava-next-34b", 2, 1),
+                  ("qwen2.5-3b", 2, 1), ("tinyllama-1.1b", 2, 1))
 
 
 def lm_batch(cfg, B: int, S: int, i: int, dev) -> dict:
     """Batch i of the synthetic token stream, with an encoder-decoder
     model's ``src_embeds`` (S frames, float32 normals from seed 1000 + i,
-    in bf16)."""
+    in bf16) or a VLM's ``patch_embeds`` (its ``n_frontend_tokens`` rows,
+    float32 normals from seed 2000 + i, in bf16)."""
     batch = TokenStream(DataConfig(vocab=cfg.vocab, seq_len=S,
                                    global_batch=B), device=dev).batch_at(i)
     if cfg.family == "encdec":
@@ -3056,7 +3239,18 @@ def lm_batch(cfg, B: int, S: int, i: int, dev) -> dict:
             B, S, cfg.d_model, device=dev,
             generator=torch.Generator(dev).manual_seed(1000 + i)).to(
                 torch.bfloat16)
+    if cfg.frontend == "patch":
+        batch["patch_embeds"] = torch.randn(
+            B, cfg.n_frontend_tokens, cfg.d_model, device=dev,
+            generator=torch.Generator(dev).manual_seed(2000 + i)).to(
+                torch.bfloat16)
     return batch
+
+
+def prefix_note(cfg) -> str:
+    """A VLM's patch rows in front of each sequence, for a header."""
+    n = cfg.n_frontend_tokens if cfg.frontend == "patch" else 0
+    return f" (+ {n} patch rows in front: {n} + S rows)" if n else ""
 
 
 def encdec_serve_phase(dev) -> tuple[dict, tuple]:
@@ -3181,14 +3375,14 @@ def family_train_phase(dev, arch: str, layers: int | None, B: int,
     full = get_config(arch)
     cfg = full if layers is None else dataclasses.replace(full,
                                                           n_layers=layers)
-    phase(f"main path, slice 16: train.step on {arch} at full width, "
+    phase(f"main path: train.step on {arch} at full width, "
           f"{cfg.n_layers} of its {full.n_layers} layers"
           + (f" and {cfg.n_enc_layers} encoder layers"
              if cfg.family == "encdec" else "")
           + f" ({dec_plan(cfg)}, d_model {cfg.d_model}, vocab "
           f"{cfg.vocab}, {cfg.dtype}, remat {cfg.remat}), B = {B}, S = "
-          f"{RTRAIN_S}, {RTRAIN_STEPS} steps of AdamW at lr {lr:g}; no "
-          f"checkpoint")
+          f"{RTRAIN_S}{prefix_note(cfg)}, {RTRAIN_STEPS} steps of AdamW at "
+          f"lr {lr:g}; no checkpoint")
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)

@@ -9,6 +9,11 @@ versions on the card, with one launch counted per call and the JAX tests'
 tolerances (flash 2e-5, decode 3e-5 in float32; 2e-2 in bfloat16).  At
 the serve runs' shapes both kernels give bitwise equal outputs from two
 launches and make no host sync (``torch.cuda.set_sync_debug_mode``).
+The three kernels (flash forward, its backward
+and decode) at the query and KV heads of the dense archs that slice 23
+runs on the card (llava-next-34b 56 on 8 of 128, qwen2.5-3b 16 on 2 of
+128, tinyllama-1.1b 32 on 4 of 64), at llava's patch-prefix sequence of
+624 rows and over a decode batch of mixed lengths, to the same limits.
 Then a reduced qwen3-1.7b prefill and three decode steps on
 the card against the same model on the CPU (float32: rtol = atol = 2e-4,
 the CPU parity tests' tolerance; the card sums in other orders), going
@@ -25,6 +30,7 @@ from repro_torch import testing
 from repro_torch.configs import get_config
 from repro_torch.kernels import decode_attention as tda
 from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import flash_attention_bwd as tfb
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 from repro_torch.models.model import LM
@@ -176,6 +182,59 @@ def test_attention_kernels_make_no_host_sync(cuda, which):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
+
+
+# Slice 23's dense archs: their (Hq, Hkv, d) from the configs; flash and
+# its backward at B = 1 over 576 patch rows and a 48-token prompt (624,
+# no multiple of a 64-row tile), decode at B = 4 over a 1024-slot cache
+# with mixed lengths.  The backward is held to its cases' limits, which
+# are the forward's (tests/test_torch_train_gpu.py).
+DENSE_ARCHS = ("llava-next-34b", "qwen2.5-3b", "tinyllama-1.1b")
+DENSE_S = 624
+DENSE_LENS = (624, 1, 333, 1024)
+
+
+def _dense(arch):
+    cfg = get_config(arch)
+    return dict(Hq=cfg.n_heads, Hkv=cfg.n_kv_heads, d=cfg.hd)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
+def test_flash_kernel_at_dense_arch_heads(cuda, arch, dtype):
+    ops_ = testing.attention_operands(1, DENSE_S, DENSE_S, **_dense(arch),
+                                      seed=23)
+    _check_flash(cuda, lambda: (*ops_, {}), arch, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
+def test_flash_backward_kernel_at_dense_arch_heads(cuda, arch, dtype):
+    q, k, v = (_on(x, dtype, cuda) for x in testing.attention_operands(
+        1, DENSE_S, DENSE_S, **_dense(arch), seed=23))
+    out, lse = tfa._launch(q, k, v, True, None, None, None, None,
+                           with_lse=True)
+    g = _on(np.random.default_rng(24).standard_normal(
+        q.shape, dtype=np.float32), dtype, cuda)
+    launches = tfb.launches
+    got = tfb.flash_attention_bwd(q, k, v, out, g, lse)
+    torch.cuda.synchronize()
+    assert tfb.launches == launches + 1
+    want = tref.attention_bwd_ref(q, k, v, out, g, lse)
+    tol = FLASH_TOL[dtype]
+    for a, b, what in zip(got, want, ("dq", "dk", "dv")):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert_allclose(a.float().cpu().numpy(), b.float().cpu().numpy(),
+                        rtol=tol, atol=tol, err_msg=f"{arch} {what}")
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
+def test_decode_kernel_at_dense_arch_heads(cuda, arch, dtype):
+    ops_ = testing.decode_operands(len(DENSE_LENS), max(DENSE_LENS),
+                                   **_dense(arch), lengths=DENSE_LENS,
+                                   seed=23)
+    _check_decode(cuda, lambda: (*ops_, {}), arch, dtype)
 
 
 def test_decode_kernel_refuses_misaligned_cache(cuda):
