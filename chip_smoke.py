@@ -242,6 +242,27 @@ two headers):
      greedy ``LM.decode_step``s (lengths 624 + t): exactly one flash
      launch a layer and one decode launch a layer a tick, no plain call,
      the decode step against a re-prefill with the prefix in both;
+   - slice 24, the long_500k cells (524 288 positions, B = 1, decode;
+     the bounded-state archs): inside falcon-mamba-7b's and
+     recurrentgemma-9b's serve runs below, on the same weights once the
+     engine is freed, ``ServeEngine`` with one slot and ``cache_len``
+     524 288, one prompt and 16 tokens; the prompt's length from
+     ``LM.prefill``'s peak measured at 32 768 and 65 536 tokens and
+     extrapolated (the whole cell less its 16 tokens if the card holds
+     it, else the largest power of two that fits); one flash launch a
+     layer for the prefill, one scan launch a recurrent layer, one decode
+     launch a layer a tick, no plain call; the first tick against a
+     re-prefill of (prompt + token 1) within 4 bf16 ulps (or, where that
+     re-prefill would take more than a minute, the plain decode path on
+     copies of the caches), and with the recurrent states zeroed (held
+     for falcon-mamba-7b); prompt length, peak, prefill and decode
+     tokens/s printed.  Before it, at the start, the card's RoPE table of
+     every arch against the CPU's bit for bit, and the selective scan
+     ([1, 524 288, 8192], N = 16), the RG-LRU scan ([1, 524 288, 4096])
+     and flash attention (q [1, 524 288, 16, 256], window 2048) at the
+     cell's length: one call against 4 calls handing on the state bit
+     for bit, and the last 2048 steps (queries) against the plain
+     versions;
    - slices 3 and 4, the LM serving paths, each model at full width
      (bfloat16, weights from a ``torch.Generator`` seeded 0 on the card)
      through ``ServeEngine`` (8 slots, cache 4096, no EOS; 16 requests of
@@ -321,7 +342,7 @@ two headers):
    group: the attention backward, the attention forward, cuBLAS
    products, the rest); for each
    served model, after its run, one prefill of 1024
-   tokens and 8 decode ticks of the 8-slot pool (device busy share, time
+   tokens and 2 decode ticks of the 8-slot pool (device busy share, time
    by kernel).
 
 The second-to-last line is a JSON object listing the kernels; the last is
@@ -351,7 +372,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import testing  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.configs.registry import ShapeSpec  # noqa: E402
+from repro_torch.configs.registry import (ARCHS, SHAPES,  # noqa: E402
+                                          ShapeSpec, eligible_shapes)
 from repro_torch.core import api  # noqa: E402
 from repro_torch.core import bridge  # noqa: E402
 from repro_torch.core import pareto  # noqa: E402
@@ -384,7 +406,7 @@ from repro_torch.kernels import selective_scan_bwd as tsb  # noqa: E402
 from repro_torch.launch import kernel_timing as kt  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
-from repro_torch.models.layers import Attention  # noqa: E402
+from repro_torch.models.layers import Attention, rope_freq  # noqa: E402
 from repro_torch.models.model import LM, dec_plan  # noqa: E402
 from repro_torch.models.rglru import RGLRU  # noqa: E402
 from repro_torch.models.transformer import leaf_kinds  # noqa: E402
@@ -1549,12 +1571,26 @@ SERVE_RUNS = (
 # may drop the last token where the decode step (one slot an expert)
 # never drops, which is the reference's semantics, not an error.  Where
 # two experts tie for the token's K-th place within the two paths'
-# rounding, the paths may choose differently (moonshot-v1-16b-a3b swaps
-# one such pair, 6.05e-6 apart, in one of its 48 layers on an NVIDIA H100
-# 80GB HBM3 at 700 W); the check prints each such layer and holds the
-# logits all the same.
+# rounding, the paths may choose differently, and the swap changes every
+# later layer's input (``moe_consistency_check``): the decode step is run
+# again with its routing pinned to the re-prefill's in at most MOE_PINS
+# such layers, each swap one pair of experts whose margin and whose
+# probabilities in the two paths lie within CONSISTENCY_ULPS bfloat16 ulps
+# of the pair's probability, and those logits are held to
+# CONSISTENCY_ULPS, the unpinned ones to MOE_UNPINNED_ULPS.
+# moonshot-v1-16b-a3b's request 0 on an NVIDIA H100 80GB HBM3 at 700 W:
+# 4 pins (layers 19, 25, 29 and 34, each within 3.6 ulps), unpinned
+# 0.2246 at logits up to 4.62 (7.2 ulps; 0.0986 with one swap before
+# the RoPE table was the reference's), pinned 0.0547.
 CONSISTENCY_ULPS = 4
+MOE_PINS = 4
+MOE_UNPINNED_ULPS = 8
 PROFILE_PREFILL = 1024
+# Decode ticks under the profiler: two give the busy share and the
+# kernels' split.  Each tick's events cost the host time to process after
+# the profile (the headers put 55.6 s between moonshot-v1-16b-a3b's
+# profile of 8 ticks and the next run); ``profile_calls`` prints it.
+PROFILE_TICKS = 2
 
 
 def bf16_ulp(x: float) -> float:
@@ -1706,7 +1742,9 @@ def _negate_lambda(model: LM) -> None:
 
 def _decode_vs_reprefill(model: LM, ext, dev, extra: dict | None = None,
                          recurrent: bool = True,
-                         capacity_factor: float | None = None
+                         capacity_factor: float | None = None,
+                         keep: dict | None = None,
+                         cache_len: int | None = None
                          ) -> tuple[float, float, float | None]:
     """For the last token of ``ext``: the largest re-prefill logit and the
     max abs error of the decode step's logits against it, from the
@@ -1715,13 +1753,15 @@ def _decode_vs_reprefill(model: LM, ext, dev, extra: dict | None = None,
     ``src_embeds`` and decode ``mem_len``, or a VLM's ``patch_embeds``,
     which both prefills put in front of the tokens (the decode step's
     length counts them); ``capacity_factor`` is the prefills'
-    (``LM.prefill``)."""
+    (``LM.prefill``).  ``keep``, where given, receives the re-prefill's
+    logits, the caches and the decode step's batch.  The caches are
+    ``cache_len`` long (the serve runs' by default)."""
     extra = extra or {}
     pre_extra = {k: v for k, v in extra.items()
                  if k in ("src_embeds", "patch_embeds")}
     n_front = (extra["patch_embeds"].shape[1] if "patch_embeds" in extra
                else 0)
-    L = SERVE_ENGINE.cache_len
+    L = cache_len or SERVE_ENGINE.cache_len
     pre, _ = model.prefill({"tokens": ext, **pre_extra}, L, capacity_factor)
     _, caches = model.prefill({"tokens": ext[:, :-1], **pre_extra}, L,
                               capacity_factor)
@@ -1739,6 +1779,8 @@ def _decode_vs_reprefill(model: LM, ext, dev, extra: dict | None = None,
         if not (torch.isfinite(dec).all() and torch.isfinite(pre).all()):
             raise SystemExit(f"non-finite logits in {model.cfg.name}")
         errs.append(float((dec - pre).abs().max()))
+    if keep is not None:
+        keep.update(pre=pre, caches=caches, batch=batch)
     return float(pre.abs().max()), errs[0], errs[1] if recurrent else None
 
 
@@ -1787,11 +1829,16 @@ def moe_consistency_check(model: LM, ext, dev) -> None:
     ``CONSISTENCY_ULPS``.  Prints, for the last token, how far the two
     paths' router probabilities lie apart, in how many layers they chose
     the same experts, the smallest gap between its K-th and (K+1)-th
-    router probability, and each layer where the paths chose differently
-    (two experts that tie within the paths' rounding: a swap needs the
-    paths' probabilities at least half the margin apart).  The routing is
-    read by a forward hook on each MoE block, which routes the block's
-    input again (the same function on the same input)."""
+    router probability, and each layer where the paths chose differently.
+    The routing is read by a forward hook on each MoE block, which routes
+    the block's input again (the same function on the same input).
+
+    Where two experts tie for the token's K-th place within the paths'
+    rounding, the paths may choose differently (the reference's
+    semantics), and a swap changes every later layer's input, so that
+    later near-ties may swap too.  Then the unpinned logits are held to
+    ``MOE_UNPINNED_ULPS``, and the pinned ones (``_pinned_decode``) to
+    ``CONSISTENCY_ULPS``."""
     cfg = model.cfg
     seen = []
 
@@ -1803,10 +1850,11 @@ def moe_consistency_check(model: LM, ext, dev) -> None:
 
     hooks = [m.register_forward_hook(record) for m in model.modules()
              if isinstance(m, tmoe.MoE)]
+    keep: dict = {}
     try:
         top, err, _ = _decode_vs_reprefill(
             model, ext, dev, recurrent=False,
-            capacity_factor=cfg.n_experts / cfg.top_k)
+            capacity_factor=cfg.n_experts / cfg.top_k, keep=keep)
     finally:
         for hk in hooks:
             hk.remove()
@@ -1830,14 +1878,99 @@ def moe_consistency_check(model: LM, ext, dev) -> None:
           f"two paths differ by at most {max(deltas):.3g}; its chosen "
           f"experts equal in {n - len(flips)} of {n} layers (smallest "
           f"top-{K} margin {min(margins):.3g})" + "".join(
-              f"; layer {i} swaps a near-tie (margin {margins[i]:.3g}, "
-              f"paths {deltas[i]:.3g} apart)" for i in flips))
+              f"; layer {i} swaps (top-{K} margin {margins[i]:.3g}, paths "
+              f"{deltas[i]:.3g} apart)" for i in flips))
     print(f"  decode-step logits vs re-prefill max abs err {err:.4f} "
           f"(logits up to {top:.2f}; tolerance {CONSISTENCY_ULPS} bf16 ulps "
-          f"there, {tol:g})")
+          f"there, {tol:g}" + (f"; unpinned {MOE_UNPINNED_ULPS}, "
+                              f"{MOE_UNPINNED_ULPS * bf16_ulp(top):g})"
+                              if flips else ")"))
+    if flips:
+        if err > MOE_UNPINNED_ULPS * bf16_ulp(top):
+            raise SystemExit(f"the {cfg.name} decode step disagrees with a "
+                             f"re-prefill beyond {MOE_UNPINNED_ULPS} ulps")
+        err, pins = _pinned_decode(model, keep, pre)
+        print(f"  with the decode step's routing pinned to the re-prefill's "
+              f"in {len(pins)} of at most {MOE_PINS} layers, each swap a "
+              f"near-tie given the pins before it ({'; '.join(pins)}): max "
+              f"abs err {err:.4f}")
     if err > tol:
         raise SystemExit(f"the {cfg.name} decode step disagrees with a "
                          f"re-prefill")
+
+
+def _near_tie(pre: tuple, got: tuple, i: int) -> tuple[str, bool]:
+    """Layer ``i``'s swap between the re-prefill's routing ``pre`` and the
+    decode step's ``got`` (each (experts, probabilities) of the token):
+    its printout, and whether it is a near-tie, one pair of experts whose
+    margin in the re-prefill and whose probabilities' differences between
+    the paths all lie within ``CONSISTENCY_ULPS`` bfloat16 ulps of the
+    re-prefill's probability of the expert it chose."""
+    (e_pre, p_pre), (e_dec, p_dec) = pre, got
+    out = sorted(set(e_pre.tolist()) - set(e_dec.tolist()))
+    inn = sorted(set(e_dec.tolist()) - set(e_pre.tolist()))
+    if len(out) != 1:
+        return f"layer {i}: experts {out} for {inn}", False
+    a, b = out[0], inn[0]
+    ulp = bf16_ulp(float(p_pre[a]))
+    margin = float(p_pre[a] - p_pre[b])
+    da = float((p_pre[a] - p_dec[a]).abs())
+    db = float((p_pre[b] - p_dec[b]).abs())
+    worst = max(abs(margin), da, db)
+    return (f"layer {i}: expert {b} for {a}, margin {margin:.3g}, the paths "
+            f"{da:.3g} / {db:.3g} apart, {worst / ulp:.2f} bf16 ulps of "
+            f"{float(p_pre[a]):.4g}"), worst <= CONSISTENCY_ULPS * ulp
+
+
+def _pinned_decode(model: LM, keep: dict, pre: list) -> tuple[float, list]:
+    """The decode step of ``keep``'s batch on its caches (``keep`` from
+    ``_decode_vs_reprefill``: attention caches, whose new slot each step
+    writes again) with the token's routing pinned to the re-prefill's
+    (``pre``: each MoE layer's experts and probabilities) in the first
+    layer where the two differ, read from the run with the pins before it,
+    again until none differs.  Fails where a swap is no near-tie
+    (``_near_tie``) or where more than ``MOE_PINS`` layers would be
+    pinned.  Returns the pinned step's max abs error against the
+    re-prefill's logits and each pinned swap's printout."""
+    cfg = model.cfg
+    raw = tmoe.route
+    pins: dict = {}
+    notes = []
+    while True:
+        got = []
+
+        def route(p, h, c):
+            probs, gates, eidx = raw(p, h, c)
+            i = len(got)
+            got.append((eidx[0, -1].clone(), probs[0, -1].clone()))
+            if i in pins:
+                e = pins[i]
+                v = probs[0, -1, e]
+                gates, eidx = gates.clone(), eidx.clone()
+                gates[0, -1] = v / v.sum().clamp(min=1e-9)
+                eidx[0, -1] = e
+            return probs, gates, eidx
+
+        tmoe.route = route
+        try:
+            logits = model.decode_step(keep["batch"], keep["caches"])
+        finally:
+            tmoe.route = raw
+        swapped = [i for i, ((e_pre, _), (e_dec, _)) in
+                   enumerate(zip(pre, got)) if i not in pins and not
+                   torch.equal(e_pre.sort().values, e_dec.sort().values)]
+        if not swapped:
+            return float((logits - keep["pre"]).abs().max()), notes
+        i = swapped[0]
+        text, tie = _near_tie(pre[i], got[i], i)
+        if not tie:
+            raise SystemExit(f"the {cfg.name} decode step routes otherwise "
+                             f"than a re-prefill beyond rounding ({text})")
+        if len(pins) == MOE_PINS:
+            raise SystemExit(f"the {cfg.name} decode step swaps near-ties in "
+                             f"more than {MOE_PINS} layers ({text})")
+        pins[i] = pre[i][0]
+        notes.append(text)
 
 
 def print_moe_shares(prof, total_ms: float, moe_layers: int) -> None:
@@ -1878,7 +2011,9 @@ def profile_calls(label: str, calls, moe_layers: int = 0) -> None:
             wall = time.monotonic() - t0
         rows, total = _kernel_times(prof)
         print(f"  wall {1e3 * wall:.3f} ms under the profiler, device kernel "
-              f"time {total:.3f} ms ({100 * total / 1e3 / wall:.2f} % busy)")
+              f"time {total:.3f} ms ({100 * total / 1e3 / wall:.2f} % busy); "
+              f"the profile processed in "
+              f"{time.monotonic() - t0 - wall:.2f} s")
         if moe_layers:
             print_moe_shares(prof, total, moe_layers)
         for name, ms, n in rows[:8]:
@@ -1887,8 +2022,8 @@ def profile_calls(label: str, calls, moe_layers: int = 0) -> None:
 
 def serve_profile_phase(dev, state: tuple) -> None:
     """torch.profiler over one prefill of ``PROFILE_PREFILL`` tokens and
-    over 8 decode ticks of the full pool (lengths: the serve run's first 8
-    prompts)."""
+    over ``PROFILE_TICKS`` decode ticks of the full pool (lengths: the
+    serve run's first 8 prompts)."""
     model, eng, lens = state
     cfg = model.cfg
     toks = torch.as_tensor(np.random.default_rng(1).integers(
@@ -1901,8 +2036,9 @@ def serve_profile_phase(dev, state: tuple) -> None:
     profile_calls(cfg.name, (
         (f"one prefill of {PROFILE_PREFILL} tokens", lambda: model.prefill(
             {"tokens": toks}, SERVE_ENGINE.cache_len)),
-        (f"8 decode ticks of the {SERVE_ENGINE.n_slots}-slot pool",
-         lambda: [model.decode_step(batch, eng.caches) for _ in range(8)])),
+        (f"{PROFILE_TICKS} decode ticks of the {SERVE_ENGINE.n_slots}-slot "
+         f"pool", lambda: [model.decode_step(batch, eng.caches)
+                           for _ in range(PROFILE_TICKS)])),
         leaf_kinds(cfg)["moe"])
 
 
@@ -1995,9 +2131,10 @@ def vlm_serve_phase(dev, model: LM) -> dict:
 
 
 def serve_all_phase(dev) -> dict:
-    """Each serve run, then its profile (and a VLM's patch-prefix run on
-    its model, the engine freed); each model is freed before the next one
-    is built.  Returns the launches summed over the runs."""
+    """Each serve run, then its profile (and a VLM's patch-prefix run, or
+    a bounded-state model's long_500k cell, on its model, the engine
+    freed); each model is freed before the next one is built.  Returns the
+    launches summed over the runs."""
     total = dict.fromkeys(KERNELS, 0)
     for arch, prompt, layers in SERVE_RUNS:
         launches, state = serve_phase(dev, arch, prompt, layers)
@@ -2009,12 +2146,471 @@ def serve_all_phase(dev) -> dict:
         if model.cfg.frontend == "patch":
             for k, n in vlm_serve_phase(dev, model).items():
                 launches[k] += n
+        if arch in LONG_ARCHS and layers is None:
+            for k, n in long_cell_phase(dev, model).items():
+                launches[k] += n
         del model
         gc.collect()
         torch.cuda.empty_cache()
         for k, n in launches.items():
             total[k] += n
     return total
+
+
+# -- slice 24: the long_500k cells ------------------------------------------
+
+# The long_500k shape (``configs.registry.SHAPES``: 524 288 positions at
+# B = 1, decode), which ``eligible_shapes`` gives the bounded-state archs
+# alone: falcon-mamba-7b and recurrentgemma-9b.
+LONG = SHAPES["long_500k"]
+LONG_ARCHS = tuple(a for a in sorted(ARCHS)
+                   if "long_500k" in eligible_shapes(a))
+# The cell's serve run: one slot, ``cache_len`` the shape's length, one
+# prompt and LONG_TOKENS tokens.  The engine retires a request whose length
+# reaches cache_len - 1 (the reference's rule), so a prompt of cache_len -
+# LONG_TOKENS is the longest that yields them all; its last tick decodes
+# at position 524 286.  Its length comes from LM.prefill's peak measured
+# at LONG_SIZING tokens and extrapolated (linear in the prompt): that
+# prompt where the card holds it with LONG_HEADROOM to spare, else the
+# largest power of two that fits.
+LONG_TOKENS = 16
+LONG_ENGINE = EngineConfig(n_slots=1, cache_len=LONG.seq_len, eos=-1)
+LONG_SIZING = (32_768, 65_536)
+LONG_HEADROOM = 4 * 2**30
+# The decode at the cell's last positions (``long_decode_check``): two
+# rows at these lengths on caches drawn from a seed, LONG_DECODE_STEPS
+# steps, as tests/test_torch_long_decode.py decodes on the CPU.
+LONG_DECODE_LENGTHS = (524_287, 524_280)
+LONG_DECODE_STEPS = 4
+# The kernels at the cell's sizes (``long_kernels_phase``): the last
+# LONG_TAIL steps (queries) go through the plain versions, from the state
+# the kernel hands on; the whole length in LONG_PIECES calls, each handed
+# the last one's final state, equals one call bit for bit.
+LONG_TAIL = 2048
+LONG_PIECES = 4
+
+
+def rope_table_phase(dev) -> None:
+    """The card's RoPE table (``layers.rope_freq``) against the CPU's, and
+    against numpy's float64 power of the float32 exponent rounded once,
+    for each arch's (half, theta): every entry bit for bit."""
+    phase("parity, slice 24: the RoPE frequency table of each arch on the "
+          "card (layers.rope_freq: the exponent -i / half in float32, the "
+          "power in float64, rounded once to float32) vs the CPU's and "
+          "numpy's, bit for bit")
+    pairs = sorted({(get_config(a).hd // 2, get_config(a).rope_theta)
+                    for a in ARCHS})
+    differ = 0
+    for half, theta in pairs:
+        card = rope_freq(half, theta, dev).cpu().numpy()
+        cpu = rope_freq(half, theta, "cpu").numpy()
+        e = -np.arange(half, dtype=np.float32) / np.float32(half)
+        ref64 = (np.float64(theta) ** e.astype(np.float64)).astype(
+            np.float32)
+        n = int((card.view(np.uint32) != cpu.view(np.uint32)).sum()
+                + (cpu.view(np.uint32) != ref64.view(np.uint32)).sum())
+        differ += n
+        print(f"  half {half}, theta {theta:g}: {n} of {half} entries "
+              f"differ")
+    print(f"  {len(pairs)} (half, theta) pairs of the {len(ARCHS)} archs: "
+          f"{differ} entries differ")
+    if differ:
+        raise SystemExit("the card's RoPE table differs from the CPU's")
+
+
+def _event_ms(fn):
+    """(fn(), the device ms between two events around it)."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def _long_scan(kernel: str, seq: tuple, args: list, worst: dict,
+               bound: tuple) -> str:
+    """One call of a scan over the whole length; the same in LONG_PIECES
+    calls, each handed the last one's final state, bit for bit; and the
+    last LONG_TAIL steps through the plain version from the state the
+    kernel hands on there.  ``seq`` are the indices of the operands that
+    run along the sequence; ``args`` end with h0 (None).  Returns the
+    printout."""
+    fn, ref_fn = SCAN_FNS[kernel]
+    S = args[0].shape[1]
+
+    def cut(lo, hi, h):
+        return [a[:, lo:hi] if i in seq else a
+                for i, a in enumerate(args[:-1])] + [h]
+
+    (y, h), ms = _event_ms(lambda: fn(*args))
+    edges = [S * i // LONG_PIECES for i in range(LONG_PIECES + 1)]
+    hp, piece_ms = None, []
+    for lo, hi in zip(edges, edges[1:]):
+        h_in = hp
+        (yp, hp), t = _event_ms(lambda: fn(*cut(lo, hi, h_in)))
+        _require_equal(f"{kernel} in {LONG_PIECES} calls vs one call",
+                       f"steps {lo}-{hi}", [yp], [y[:, lo:hi]])
+        piece_ms.append(t)
+        del yp
+    _require_equal(f"{kernel} in {LONG_PIECES} calls vs one call",
+                   "final state", [hp], [h])
+    # The state entering the tail, from the state entering the last piece.
+    y_mid, h_mid = fn(*cut(edges[-2], S - LONG_TAIL, h_in))
+    del y_mid
+    (yt, ht), plain_ms = _event_ms(
+        lambda: ref_fn(*cut(S - LONG_TAIL, S, h_mid)))
+    err_y, share = _require_close(f"{kernel} vs plain", "the last steps",
+                                  y[:, S - LONG_TAIL:], yt, FULL_RTOL,
+                                  FULL_ATOL)
+    err_h, _ = _require_close(f"{kernel} final state vs plain",
+                              "the last steps", h, ht, STATE_TOL)
+    worst[kernel] = max(worst[kernel], err_y, err_h)
+    return (f"one call {ms:.3f} ms (bound {bound[0]:.3f}, {bound[1]}); "
+            f"{LONG_PIECES} calls "
+            f"{' + '.join(f'{t:.3f}' for t in piece_ms)} ms, equal bit for "
+            f"bit; the last {LONG_TAIL} steps vs the plain version "
+            f"({plain_ms:.1f} ms) from the handed-on state: max abs err "
+            f"{err_y:.3g} ({share:.3f} of {FULL_LIMIT}), final state "
+            f"{err_h:.3g}")
+
+
+def long_kernels_phase(dev, worst: dict) -> None:
+    """The kernels of the long_500k cells at the cell's full length and
+    width, on seeded inputs: the selective scan at falcon-mamba-7b's
+    [1, 524 288, 8192] (N = 16; 2^32 elements), the RG-LRU scan at
+    recurrentgemma-9b's [1, 524 288, 4096] and flash attention at its
+    local attention's q [1, 524 288, 16, 256] (window 2048; the config's
+    ``q_chunk`` is 0, so ``sdpa_train`` sends the whole length in one
+    call).  Each call's ms; the plain versions take only the tails."""
+    S = LONG.seq_len
+    phase(f"parity, slice 24: the scans and flash attention at the "
+          f"long_500k length ({S} steps, full width, seeded inputs): one "
+          f"call vs {LONG_PIECES} calls handing on the state (bit for "
+          f"bit), the last {LONG_TAIL} steps or queries vs the plain "
+          f"version ({FULL_LIMIT}; states {STATE_TOL:g})")
+    g = torch.Generator(device=dev).manual_seed(24)
+    bf16 = torch.bfloat16
+    fcfg, rcfg = get_config("falcon-mamba-7b"), get_config("recurrentgemma-9b")
+    Di, N = fcfg.d_inner, fcfg.ssm_state
+    # falcon-mamba's prefill hands the scan u in bf16, dt (a softplus) and
+    # B, C in float32; A = -exp(A_log) at the S4D-real init.
+    x = torch.randn(1, S, Di, generator=g, device=dev, dtype=bf16)
+    dt = torch.randn(1, S, Di, generator=g, device=dev)
+    dt.sub_(3.0).exp_().log1p_()
+    A = -torch.arange(1, N + 1, dtype=torch.float32, device=dev).repeat(
+        Di, 1)
+    Bm = torch.randn(1, S, N, generator=g, device=dev)
+    Cm = torch.randn(1, S, N, generator=g, device=dev)
+    D = torch.ones(Di, device=dev)
+    sfu = sfu_rate(dev)
+    out = _long_scan("selective_scan", (0, 1, 3, 4),
+                     [x, dt, A, Bm, Cm, D, None], worst,
+                     sscan_bound_ms(1, S, Di, N, 2, 4, sfu))
+    print(f"  selective_scan [1, {S}, {Di}], N = {N}: {out}")
+    del x, dt, Bm, Cm
+    torch.cuda.empty_cache()
+    R = rcfg.d_rnn_
+    # recurrentgemma's prefill hands the scan a and the gated input in
+    # bf16; a in (0.5, 1).
+    a = (torch.rand(1, S, R, generator=g, device=dev) * 0.5 + 0.4995).to(
+        bf16)
+    x = torch.randn(1, S, R, generator=g, device=dev, dtype=bf16)
+    out = _long_scan("rglru_scan", (0, 1), [x, a, None], worst,
+                     rglru_bound_ms(1, S, R, 2, sfu))
+    print(f"  rglru_scan [1, {S}, {R}]: {out}")
+    del x, a
+    torch.cuda.empty_cache()
+    H, Hkv, d, w = rcfg.n_heads, rcfg.n_kv_heads, rcfg.hd, rcfg.window
+    q = torch.randn(1, S, H, d, generator=g, device=dev, dtype=bf16)
+    k = torch.randn(1, S, Hkv, d, generator=g, device=dev, dtype=bf16)
+    v = torch.randn(1, S, Hkv, d, generator=g, device=dev, dtype=bf16)
+    o, ms = _event_ms(lambda: ops.flash_attention(q, k, v, causal=True,
+                                                  window=w))
+    checks = []
+    for lo in (0, S - LONG_TAIL):
+        want = plain.attention_ref(q[:, lo:lo + LONG_TAIL],
+                                   k[:, max(lo - w, 0):lo + LONG_TAIL],
+                                   v[:, max(lo - w, 0):lo + LONG_TAIL],
+                                   causal=True, window=w)
+        err, share = _require_close("flash_attention vs plain",
+                                    f"queries {lo}-{lo + LONG_TAIL}",
+                                    o[:, lo:lo + LONG_TAIL], want,
+                                    FULL_RTOL, FULL_ATOL)
+        worst["flash_attention"] = max(worst["flash_attention"], err)
+        checks.append(f"queries {lo}-{lo + LONG_TAIL} max abs err "
+                      f"{err:.3g} ({share:.3f} of the limit)")
+    bound, by = flash_bound_ms(1, S, S, H, Hkv, d, window=w)
+    print(f"  flash_attention q [1, {S}, {H}, {d}], k and v [1, {S}, "
+          f"{Hkv}, {d}], causal, window {w}, in one call "
+          f"(q_chunk {rcfg.q_chunk}): {ms:.3f} ms (bound {bound:.3f}, "
+          f"{by}); vs the plain version: {'; '.join(checks)}")
+    del q, k, v, o
+    torch.cuda.empty_cache()
+
+
+def _long_prompt(dev, model: LM, toks: np.ndarray) -> tuple[int, str]:
+    """The prompt's length: LM.prefill's peak measured at LONG_SIZING
+    tokens, extrapolated linearly, and the longest candidate that leaves
+    LONG_HEADROOM of the card: the whole cell less its tokens, else the
+    largest power of two.  Returns it and the sizing's printout."""
+    held = torch.cuda.memory_allocated(dev)
+    total = torch.cuda.get_device_properties(dev).total_memory
+    peaks, rates = [], []
+    for S in LONG_SIZING:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        batch = {"tokens": torch.as_tensor(toks[None, :S], dtype=torch.long,
+                                           device=dev)}
+        logits, caches = model.prefill(batch, LONG.seq_len)
+        torch.cuda.synchronize()
+        rates.append(S / (time.monotonic() - t0))
+        peaks.append(torch.cuda.max_memory_allocated(dev) - held)
+        del logits, caches, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    slope = (peaks[1] - peaks[0]) / (LONG_SIZING[1] - LONG_SIZING[0])
+
+    def need(S: int) -> float:
+        return held + peaks[0] + slope * (S - LONG_SIZING[0])
+
+    whole = LONG.seq_len - LONG_TOKENS
+    cands = [whole] + [2 ** k for k in range(18, 15, -1)]
+    fit = [S for S in cands if need(S) <= total - LONG_HEADROOM]
+    if not fit:
+        raise SystemExit(f"no long_500k prompt of {model.cfg.name} fits")
+    S = fit[0]
+    why = ("the whole cell less its tokens" if S == whole else
+           f"the whole cell ({whole}) would need {need(whole) / 2**30:.2f} "
+           f"GiB, so the largest power of two that fits")
+    text = (f"  sizing: LM.prefill's peak above the weights "
+            f"{peaks[0] / 2**30:.3f} / {peaks[1] / 2**30:.3f} GiB at "
+            f"{LONG_SIZING[0]} / {LONG_SIZING[1]} tokens ({rates[0]:.0f} / "
+            f"{rates[1]:.0f} tokens/s), {slope * 1024 / 2**20:.2f} MiB a "
+            f"thousand tokens; weights {held / 2**30:.2f} GiB of "
+            f"{total / 2**30:.2f}; predicted {need(S) / 2**30:.2f} GiB at "
+            f"{S} tokens; prompt {S}: {why}")
+    return S, text
+
+
+def _plain_decode(model: LM, batch: dict, caches: list) -> torch.Tensor:
+    """``model.decode_step`` with the decode attention through its plain
+    version (``ref.decode_attention_ref``)."""
+    raw = ops.decode_attention
+
+    def plain_decode(q, k, v, lengths, **kw):
+        return plain.decode_attention_ref(q, k, v, lengths, **kw)
+
+    ops.decode_attention = plain_decode
+    try:
+        return model.decode_step(batch, caches)
+    finally:
+        ops.decode_attention = raw
+
+
+def long_cell_phase(dev, model: LM) -> dict:
+    """The long_500k cell of ``model`` (full width and depth, bf16, the
+    weights of its serve run): ServeEngine with one slot and cache_len
+    524 288, one prompt (``_long_prompt``) and LONG_TOKENS tokens, the
+    counts set to 0 just before and read just after; the first tick held
+    against a re-prefill of (prompt + token 1), and shown to fail with the
+    recurrent states zeroed (a griffin model's, whose states barely carry
+    as served, with Lambda negated, as ``consistency_check`` holds it);
+    then, for a model with attention, ``long_decode_check``.  Returns the
+    launch counts."""
+    cfg = model.cfg
+    n = leaf_kinds(cfg)
+    n_attn = n["attn"] + n["lattn"] + n["moe"]
+    phase(f"main path, slice 24: the long_500k cell of {cfg.name} "
+          f"({LONG.seq_len} positions, B = 1, decode) at full width and "
+          f"depth through ServeEngine (one slot, cache_len {LONG.seq_len}), "
+          f"one prompt and {LONG_TOKENS} tokens")
+    toks = np.random.default_rng(24).integers(
+        3, cfg.vocab, size=LONG.seq_len).astype(np.int32)
+    P, sizing = _long_prompt(dev, model, toks)
+    print(sizing)
+    if not n_attn:
+        print(f"  {cfg.name} has no attention and no positional encoding: "
+              f"its decode reads no position, so its state at {P} tokens "
+              f"stands for the cell's at 524 287")
+    eng = ServeEngine(model, LONG_ENGINE)
+    req = Request(0, toks[:P], max_tokens=LONG_TOKENS)
+    eng.submit(req)
+    first: dict = {}
+    raw = model.decode_step
+
+    def recording(batch, caches):
+        if not first:
+            first["batch"] = {k: t.clone() for k, t in batch.items()}
+            first["caches"] = [tree_map(torch.clone, c) for c in caches]
+            first["logits"] = raw(batch, caches).clone()
+            return first["logits"]
+        return raw(batch, caches)
+
+    model.decode_step = recording
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.monotonic()
+    try:
+        ticks = eng.run()
+        torch.cuda.synchronize()
+    finally:
+        del model.decode_step
+    wall = time.monotonic() - t0
+    launches, plain_calls = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    st = eng.stats
+    last = P + ticks - 1
+    print(f"  prompt {P} tokens, {len(req.out_tokens)} tokens out, {ticks} "
+          f"ticks (the last at position {last}, ring slot "
+          f"{last % cfg.window if cfg.window else '-'}); wall {wall:.3f} s; "
+          f"prefill {st['prefill_s']:.3f} s ({P / st['prefill_s']:.1f} "
+          f"tokens/s); decode {st['decode_tokens']} tokens in "
+          f"{st['decode_s']:.3f} s ({st['decode_tokens'] / st['decode_s']:.1f}"
+          f" tokens/s, {1e3 * st['decode_s'] / ticks:.2f} ms a tick); peak "
+          f"device memory {peak / 2**30:.2f} GiB of "
+          f"{torch.cuda.get_device_properties(dev).total_memory / 2**30:.2f}")
+    expected = dict.fromkeys(KERNELS, 0)
+    expected.update(flash_attention=n_attn, decode_attention=n_attn * ticks,
+                    selective_scan=n["mamba"], rglru_scan=n["rec"])
+    print("  launches: " + ", ".join(
+        f"{k} {launches[k]} (expected {expected[k]})" for k in KERNELS
+        if expected[k] or launches[k]) + f"; plain calls {plain_calls}")
+    if not (req.done and len(req.out_tokens) == LONG_TOKENS
+            and all(0 <= t < cfg.vocab_padded for t in req.out_tokens)):
+        raise SystemExit(f"the {cfg.name} long_500k cell did not emit its "
+                         f"{LONG_TOKENS} tokens")
+    if launches != expected or plain_calls != 0:
+        raise SystemExit(f"the {cfg.name} long_500k cell did not go through "
+                         f"its kernels alone")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    # The first tick (the token after the prompt, at position P) against
+    # a re-prefill of the prompt and token 1.
+    ext = torch.as_tensor(np.concatenate([toks[:P], req.out_tokens[:1]])
+                          [None], dtype=torch.long, device=dev)
+    t0 = time.monotonic()
+    want, caches = model.prefill({"tokens": ext}, LONG.seq_len)
+    torch.cuda.synchronize()
+    re_s = time.monotonic() - t0
+    del caches
+    got = first["logits"]
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+        raise SystemExit(f"non-finite logits in the {cfg.name} long_500k "
+                         f"cell")
+    top = float(want.abs().max())
+    err = float((got - want).abs().max())
+    tol = CONSISTENCY_ULPS * bf16_ulp(top)
+    lost = [tree_map(torch.clone, c) for c in first["caches"]]
+    for c in lost:
+        _zero_states(c)
+    err_lost = float((model.decode_step(first["batch"], lost) - want)
+                     .abs().max())
+    held = not n["rec"]
+    print(f"  the first tick vs a re-prefill of the prompt and token 1 "
+          f"({re_s:.2f} s): max abs err {err:.4f} (logits up to {top:.2f}; "
+          f"tolerance {CONSISTENCY_ULPS} bf16 ulps there, {tol:g}); states "
+          f"zeroed {err_lost:.4f}"
+          + ("" if held else " (not held: they barely carry)"))
+    if err > tol:
+        raise SystemExit(f"the {cfg.name} long_500k cell's first tick "
+                         f"disagrees with a re-prefill")
+    if held and err_lost <= tol:
+        raise SystemExit(f"the {cfg.name} long_500k check does not see "
+                         f"zeroed recurrent states")
+    del first, lost, want, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    if n["rec"]:
+        # As consistency_check holds a griffin model: Lambda negated, so
+        # that the states carry over the prompt's 2^18 steps, the decode
+        # step of (prompt + token 1) against its re-prefill, and with the
+        # states zeroed it must fail.
+        t0 = time.monotonic()
+        _negate_lambda(model)
+        try:
+            top, err, err_lost = _decode_vs_reprefill(
+                model, ext, dev, cache_len=LONG.seq_len)
+        finally:
+            _negate_lambda(model)
+        tol = CONSISTENCY_ULPS * bf16_ulp(top)
+        print(f"  with Lambda negated ({time.monotonic() - t0:.2f} s for "
+              f"two prefills and the decode steps): the first tick vs a "
+              f"re-prefill max abs err {err:.4f} (logits up to {top:.2f}; "
+              f"tolerance {CONSISTENCY_ULPS} bf16 ulps there, {tol:g}); "
+              f"states zeroed {err_lost:.4f}")
+        if err > tol:
+            raise SystemExit(f"the {cfg.name} long_500k cell's first tick "
+                             f"disagrees with a re-prefill (Lambda negated)")
+        if err_lost <= tol:
+            raise SystemExit(f"the {cfg.name} long_500k check does not see "
+                             f"zeroed recurrent states (Lambda negated)")
+        gc.collect()
+        torch.cuda.empty_cache()
+    del ext
+    if n_attn:
+        long_decode_check(dev, model)
+    return launches
+
+
+def long_decode_check(dev, model: LM) -> None:
+    """The decode at the long_500k cell's last positions, at full width
+    and depth, as tests/test_torch_long_decode.py holds it against the
+    reference on the CPU at reduced width: two rows at
+    ``LONG_DECODE_LENGTHS`` on caches of ``cache_len`` 524 288 (a window
+    model's attention caches are rings of its window) with every leaf
+    drawn from a seed (normals of scale 0.5), then ``LONG_DECODE_STEPS``
+    steps through the kernels against the same steps through the plain
+    decode path (``_plain_decode``) on copies of the caches: each step's
+    logits within ``CONSISTENCY_ULPS``, the next tokens the plain path's
+    choice."""
+    cfg = model.cfg
+    lens = torch.tensor(LONG_DECODE_LENGTHS, dtype=torch.int32, device=dev)
+    slots = ", ".join(str(n % cfg.window) if cfg.window else "-"
+                      for n in LONG_DECODE_LENGTHS)
+    g = torch.Generator(device=dev).manual_seed(34)
+    caches = model.init_cache(len(LONG_DECODE_LENGTHS), LONG.seq_len)
+    for c in caches:
+        tree_map(lambda t: t.copy_(0.5 * torch.randn(
+            t.shape, generator=g, device=dev)), c)
+    twins = [tree_map(torch.clone, c) for c in caches]
+    toks = torch.as_tensor(np.random.default_rng(4).integers(
+        3, cfg.vocab, size=(len(LONG_DECODE_LENGTHS), 1)), device=dev)
+    errs, tops = [], []
+    reset_counts()
+    for _ in range(LONG_DECODE_STEPS):
+        batch = {"tokens": toks, "lengths": lens}
+        got = model.decode_step(batch, caches)
+        want = _plain_decode(model, batch, twins)
+        if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+            raise SystemExit(f"non-finite logits in the {cfg.name} decode "
+                             f"at the long_500k positions")
+        tops.append(float(want.abs().max()))
+        errs.append(float((got - want).abs().max()))
+        toks = want.argmax(-1)[:, None]
+        lens = lens + 1
+    launches, plain_calls = read_counts()
+    tols = [CONSISTENCY_ULPS * bf16_ulp(t) for t in tops]
+    print(f"  decode at lengths {', '.join(map(str, LONG_DECODE_LENGTHS))} "
+          f"(ring slots {slots}) on seeded caches, {LONG_DECODE_STEPS} steps "
+          f"through the kernels ({launches['decode_attention']} decode "
+          f"launches) vs the plain decode path ({plain_calls} plain calls): "
+          f"max abs err a step " + ", ".join(
+              f"{e:.4f} (logits up to {t:.2f}, tolerance {tol:g})"
+              for e, t, tol in zip(errs, tops, tols))
+          + f"; {CONSISTENCY_ULPS} bf16 ulps")
+    if any(e > tol for e, tol in zip(errs, tols)):
+        raise SystemExit(f"the {cfg.name} decode at the long_500k positions "
+                         f"disagrees with the plain decode path")
+    del caches, twins
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def reset_counts() -> None:
@@ -4024,6 +4620,8 @@ def main() -> None:
     decode_lse_phase(dev)
     attention_bwd_parity_phase(dev, max_err)
     scan_parity_phase(dev, max_err)
+    rope_table_phase(dev)
+    long_kernels_phase(dev, max_err)
     scan_bwd_parity_phase(dev, max_err)
     pipeline_parity_phase(dev)
     timing = timing_phase(dev, max_err, funcs)

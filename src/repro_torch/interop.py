@@ -191,3 +191,17 @@ def adamw_state_from_jax(opt: Mapping, device="cpu") -> dict:
         if key in opt:
             out[key] = {n: on(t) for n, t in _unstack(opt[key]).items()}
     return out
+
+
+def lm_cache_from_jax(caches, device="cpu") -> list:
+    """The reference's decode caches (``init_cache``'s list, one nested
+    dict a group, each leaf the group's layers stacked on a leading axis:
+    float32 arrays, or bfloat16 viewed as ``uint16``) as the port's
+    (``LM.init_cache``'s: the same nesting and shapes), on ``device``, bit
+    for bit."""
+    def on(tree):
+        if isinstance(tree, Mapping):
+            return {k: on(v) for k, v in tree.items()}
+        return _lm_tensor(tree).to(device)
+
+    return [on(c) for c in caches]

@@ -82,11 +82,34 @@ def rms_norm_init(d: int, device) -> torch.Tensor:
 # RoPE
 # ---------------------------------------------------------------------------
 
+_ROPE_FREQ: dict = {}
+
+
+def rope_freq(half: int, theta: float, device) -> torch.Tensor:
+    """The reference's table ``theta ** (-i / half)`` (float32 [half]):
+    the exponent in float32, as the reference takes it, the power in
+    float64, rounded once to float32.  torch's float32 ``pow`` differs
+    from the reference's in a few entries of every arch, and the angle's
+    error grows with the position (1.35e-2 in ``cos`` at 524 287 with
+    recurrentgemma-9b's table).  Built once a (half, theta, device);
+    where a dispatch mode watches the ops (the dry run's ``OpCost``, on
+    fake tensors or real ones) it is built at each call and not kept, so
+    that the counts do not depend on what the process ran before."""
+    watched = torch._C._len_torch_dispatch_stack() > 0
+    key = (half, float(theta), torch.device(device))
+    freq = None if watched else _ROPE_FREQ.get(key)
+    if freq is None:
+        e = -torch.arange(half, dtype=torch.float32, device=device) / half
+        freq = torch.pow(float(theta), e.double()).float()
+        if not watched:
+            _ROPE_FREQ[key] = freq
+    return freq
+
+
 def rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
     """x: [B, S, H, d]; pos: [B, S] integer absolute positions."""
     half = x.shape[-1] // 2
-    freq = theta ** (-torch.arange(half, dtype=torch.float32,
-                                   device=x.device) / half)
+    freq = rope_freq(half, theta, x.device)
     ang = pos[..., None].float() * freq                       # [B, S, half]
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]

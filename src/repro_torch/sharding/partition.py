@@ -198,10 +198,79 @@ def local_part(x: DTensor, placements, grad_placements=None
     Its gradient comes back with ``grad_placements`` (by default
     ``placements``): ``Partial()`` on a mesh dim where ``x`` is replicated
     but the work that reads it is split, so each rank's gradient is a
-    part of the sum."""
+    part of the sum.  A parameter's gradient stays a ``Partial()`` sum
+    over the "pod" axis (:func:`pod_partial`): the train step reduces it
+    once a step, not once a microbatch."""
+    if grad_placements is not None and x.is_leaf and x.requires_grad:
+        back = pod_partial(x, grad_placements)
+        if back != tuple(x.placements):
+            return _PodPartialGrad.apply(x, tuple(placements),
+                                         tuple(grad_placements), back)
     x = x.redistribute(x.device_mesh, tuple(placements))
     return x.to_local(grad_placements=None if grad_placements is None
                       else tuple(grad_placements))
+
+
+def pod_dim(mesh) -> int | None:
+    """The index of ``mesh``'s "pod" dim, where it has more than one
+    rank, else None."""
+    names = getattr(mesh, "mesh_dim_names", None) or ()
+    if "pod" not in names or mesh.size(names.index("pod")) == 1:
+        return None
+    return names.index("pod")
+
+
+def pod_partial(x: DTensor, grad_placements) -> tuple:
+    """The layout a gradient laid out as ``grad_placements`` is reduced
+    to for the leaf ``x``: ``x``'s placements, but ``Partial()`` on the
+    "pod" dim where the gradient is partial there and ``x`` replicated
+    (each pod's microbatch rows give a part of the sum, which the step
+    adds up over its microbatches before one reduction over the pods)."""
+    out = tuple(x.placements)
+    i = pod_dim(x.device_mesh)
+    if i is not None and grad_placements[i].is_partial() \
+            and out[i].is_replicate():
+        out = out[:i] + (Partial(),) + out[i + 1:]
+    return out
+
+
+def param_grad(g: DTensor, p: DTensor) -> DTensor:
+    """The gradient ``g`` of the parameter ``p`` in ``p``'s layout, but a
+    ``Partial()`` sum over the pods where it is one
+    (:func:`pod_partial`): the update reduces it once a step
+    (``optimizer.adamw_update``), and the microbatches' sums add up as
+    partial sums."""
+    return g.redistribute(p.device_mesh, pod_partial(p, g.placements))
+
+
+def pod_partial_over(x) -> bool:
+    """Whether ``x`` is a DTensor that is a ``Partial()`` sum over the
+    "pod" dim of its mesh."""
+    if not isinstance(x, DTensor):
+        return False
+    i = pod_dim(x.device_mesh)
+    return i is not None and x.placements[i].is_partial()
+
+
+class _PodPartialGrad(torch.autograd.Function):
+    """``local_part`` of a parameter whose gradient goes back to its
+    layout over every mesh dim but "pod", where it stays a ``Partial()``
+    sum: DTensor's own backward would reduce it to the parameter's
+    layout, an all-reduce over the pods a microbatch."""
+
+    @staticmethod
+    def forward(ctx, x, placements, grad_placements, back):
+        ctx.mesh, ctx.shape = x.device_mesh, x.shape
+        ctx.grad_placements, ctx.back = grad_placements, back
+        y = x.redistribute(x.device_mesh, placements).to_local()
+        # A view, as DTensor's ``to_local`` returns under grad: where the
+        # placements are x's own, ``y`` is x's local tensor itself.
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, dy):
+        g = from_local(dy, ctx.mesh, ctx.grad_placements, ctx.shape)
+        return g.redistribute(ctx.mesh, ctx.back), None, None, None
 
 
 def from_local(t: torch.Tensor, mesh, placements, shape) -> DTensor:
@@ -748,11 +817,38 @@ def _exchange(t: torch.Tensor, start: int, moves: tuple, dim: int):
 def to_state_layout(x: DTensor, plan: StatePlan) -> DTensor:
     """``x`` (laid out as the leaf's parameter: the same on every pod)
     in the state's layout: this rank's part of its shard
-    (``plan.piece``, a local slice) exchanged for its state shard."""
+    (``plan.piece``, a local slice) exchanged for its state shard.  A
+    gradient that is a ``Partial()`` sum over the pods (the train step
+    on a mesh of pods) takes its part by one reduce-scatter over the pod
+    axis instead of a slice."""
     a, b = plan.piece
-    part = x.to_local().narrow(plan.dim, a - plan.param_start, b - a)
+    if x.placements[plan.pod].is_partial():
+        part = _pod_reduce_scatter(x.to_local(), plan)
+    else:
+        part = x.to_local().narrow(plan.dim, a - plan.param_start, b - a)
     y = _exchange(part, a, plan.to_state, plan.dim)
     return from_local(y.contiguous(), plan.mesh, plan.state, plan.shape)
+
+
+def _pod_reduce_scatter(t: torch.Tensor, plan: StatePlan) -> torch.Tensor:
+    """This rank's part (``plan.piece``) of the sum over the pod group of
+    the parameter shards ``t``: the shard cut along ``plan.dim`` into the
+    group's parts (``plan.gathered``, consecutive, padded to the longest
+    where they differ) and reduce-scattered over the pod axis."""
+    c10d = torch.ops._c10d_functional
+    sizes = plan.gathered
+    n, own = max(sizes), plan.piece[1] - plan.piece[0]
+    x = t.movedim(plan.dim, 0)
+    if n == 0:                  # the pod group's parts are all empty
+        return x[:0].movedim(0, plan.dim)
+    if any(s != n for s in sizes):
+        x = torch.cat([torch.cat([p, p.new_zeros((n - p.shape[0],
+                                                  *p.shape[1:]))])
+                       for p in x.split(list(sizes))])
+    group = plan.mesh.get_group(plan.pod)
+    out = c10d.wait_tensor(c10d.reduce_scatter_tensor(
+        x.contiguous(), "sum", len(sizes), group.group_name))
+    return out[:own].movedim(0, plan.dim)
 
 
 def to_param_layout(x: DTensor, plan: StatePlan) -> DTensor:

@@ -48,7 +48,8 @@ import torch.distributed as dist
 from torch.distributed.tensor import DTensor
 
 from ..models.model import GROUP_KEYS
-from ..sharding.partition import (amax_rows, current_ctx, cut, state_plan,
+from ..sharding.partition import (amax_rows, current_ctx, cut,
+                                  pod_partial_over, state_plan,
                                   to_param_layout, to_state_layout)
 
 
@@ -257,6 +258,29 @@ def global_norm(tree: dict) -> torch.Tensor:
                           for x in tree.values()))
 
 
+def _reduce_over_pods(grads: dict, params: dict, state: dict,
+                      donate: bool) -> tuple[dict, set]:
+    """The gradients that are partial sums over the pods (the train step
+    on a mesh of pods) reduced, once a step, before the global norm reads
+    them: a leaf whose state splits over the pods is moved to its state's
+    shard by a reduce-scatter over the pod axis (``to_state_layout``),
+    any other reduced to its parameter's layout.  Returns the gradients
+    (``grads`` itself when ``donate``) and the names of those moved."""
+    out = grads if donate else dict(grads)
+    moved = set()
+    for name in list(out):
+        if not pod_partial_over(out[name]):
+            continue
+        plan = _plan(params[name], state["m"][name])
+        if plan is not None:
+            out[name] = to_state_layout(out[name], plan)
+            moved.add(name)
+        else:
+            p = params[name]
+            out[name] = out[name].redistribute(p.device_mesh, p.placements)
+    return out, moved
+
+
 @torch.no_grad()
 def adamw_update(cfg: OptConfig, grads: dict, state: dict, params: dict,
                  donate: bool = False):
@@ -281,6 +305,7 @@ def adamw_update(cfg: OptConfig, grads: dict, state: dict, params: dict,
     (``partition.to_state_layout``, ``to_param_layout``); the arithmetic
     is the same.  Every other leaf is updated in the layouts it has."""
     step = state["step"] + 1
+    grads, moved = _reduce_over_pods(grads, params, state, donate)
     gnorm = global_norm(grads)
     scale = (torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                          max=1.0)
@@ -302,7 +327,9 @@ def adamw_update(cfg: OptConfig, grads: dict, state: dict, params: dict,
         plan = _plan(p, state["m"][name])
         g = take(grads, name)
         if plan is not None:
-            g, p = to_state_layout(g, plan), to_state_layout(p, plan)
+            if name not in moved:
+                g = to_state_layout(g, plan)
+            p = to_state_layout(p, plan)
         g = g.float()
         if scale is not None:
             g = g * scale

@@ -32,8 +32,9 @@ from torch.distributed.tensor.experimental import implicit_replication
 
 from ..models.model import LM
 from ..sharding import rules
-from ..sharding.partition import (P, NamedSharding, ShardingCtx, place,
-                                  placements, shard_module, use_sharding)
+from ..sharding.partition import (P, NamedSharding, ShardingCtx,
+                                  param_grad, place, placements,
+                                  shard_module, use_sharding)
 from .optimizer import OptConfig, adamw_init, adamw_update
 
 
@@ -63,9 +64,8 @@ def build_train_step(model: LM, opt_cfg: OptConfig, *, microbatches: int = 1,
         loss, metrics = model.loss_fn(batch)
         ps = [params[n] for n in names]
         grads = torch.autograd.grad(loss, ps)
-        # A DTensor gradient comes back in the parameter's layout.
-        grads = [g.redistribute(p.device_mesh, p.placements)
-                 if isinstance(g, DTensor) else g for g, p in zip(grads, ps)]
+        grads = [param_grad(g, p) if isinstance(g, DTensor) else g
+                 for g, p in zip(grads, ps)]
         return loss.detach(), metrics, dict(zip(names, grads))
 
     def split(batch, i):
@@ -78,13 +78,14 @@ def build_train_step(model: LM, opt_cfg: OptConfig, *, microbatches: int = 1,
         if microbatches == 1:
             loss, metrics, grads = grads_of(params, batch)
         else:
-            grads = {n: torch.zeros_like(params[n], dtype=acc_dt)
-                     for n in names}
+            # The accumulator starts as the first microbatch's gradients,
+            # so that it keeps their layout (a partial sum stays one).
             loss = torch.zeros((), dtype=torch.float32,
                                device=params[names[0]].device)
             for i in range(microbatches):
                 l, _, g = grads_of(params, split(batch, i))
-                grads = {n: grads[n] + g[n].to(acc_dt) for n in names}
+                grads = ({n: x.to(acc_dt) for n, x in g.items()} if i == 0
+                         else {n: grads[n] + g[n].to(acc_dt) for n in names})
                 loss = loss + l
             grads = {n: g / microbatches for n, g in grads.items()}
             loss = loss / microbatches

@@ -99,12 +99,18 @@ CASES += [
     ("smollm-360m (2, 2, 2)", FAMILIES["smollm-360m"], (2, 2, 2), OPT, 1),
     ("moonshot-v1-16b-a3b (2, 2, 2)", FAMILIES["moonshot-v1-16b-a3b"],
      (2, 2, 2), OPT, 1),
+    # Two microbatches: each one's gradients stay partial sums over the
+    # pods through the backward and the accumulation, reduced once a step
+    # where the update moves them to the state's layout.
+    ("smollm-360m (2, 2, 2) 2 microbatches", FAMILIES["smollm-360m"],
+     (2, 2, 2), OPT, 2),
 ]
 # The cases whose weight gradients are split into row blocks.
 ROW_BLOCKS = {"moonshot-v1-16b-a3b (2, 2)"}
 # The cases whose AdamW state splits over a mesh dim more than the
 # parameters (moved by hand in the update).
-POD = {"smollm-360m (2, 2, 2)", "moonshot-v1-16b-a3b (2, 2, 2)"}
+POD = {"smollm-360m (2, 2, 2)", "moonshot-v1-16b-a3b (2, 2, 2)",
+       "smollm-360m (2, 2, 2) 2 microbatches"}
 # The moves by hand on their own, on eight ranks: (mesh, tensor shape,
 # the parameter's spec, the state's), even and uneven splits; on (2, 4,
 # 1) the state's pod-major chunks are no permutation of the parameter's

@@ -18,7 +18,10 @@ in a process of its own), is held to that:
   state shard holds n entries, the gradient's (float32 once microbatches
   are summed) and the parameter's permutes of n entries, the new
   parameter's of n, and its all-gather over the P pods of P n entries
-  (the ring's (P - 1) / P of them on the wire);
+  (the ring's (P - 1) / P of them on the wire); the gradient, a partial
+  sum over the pods until then, reaches its state shard by one
+  reduce-scatter over the pods ((P - 1) n entries on the wire) and its
+  permute before the global norm (``_reduce_over_pods``);
 - the step's placing of the new state afterwards moves nothing: the
   train step's own lines run only the metrics' scalar all-reduces.
 
@@ -102,20 +105,14 @@ def _shards(spec, sizes: dict) -> int:
 def expected_update_wire(key: str, microbatches: int) -> tuple:
     """(collective-permute bytes, all-gather wire bytes) of rank 0's
     update from the leaves' shapes, and the number of moved leaves."""
-    from repro_torch.launch.dryrun import mesh_info_for, prod_config
-    from repro_torch.launch.mesh import ShapeMesh
+    from repro_torch.launch.dryrun import prod_config
     from repro_torch.models.model import LM
-    from repro_torch.sharding import rules
-    from repro_torch.configs import SHAPES
 
     arch, shape, cut = parse_key(key)
     cfg = dataclasses.replace(prod_config(arch, shape)[0], **cut)
     sizes = dict(zip(("pod", "data", "model"), POD_DIMS))
-    mi = mesh_info_for(ShapeMesh(sizes), SHAPES[shape].global_batch)
-    mi_opt = dataclasses.replace(mi, fsdp_over=tuple(mi.dp))
     params = dict(LM(cfg, "meta").named_parameters())
-    p_specs = rules.param_pspecs(cfg, params, mi)
-    s_specs = rules.param_pspecs(cfg, params, mi_opt)
+    p_specs, s_specs = _specs(cfg, params, shape, sizes)
     P = sizes["pod"]
     permute = gather = moved = 0
     for name, p in params.items():
@@ -131,6 +128,40 @@ def expected_update_wire(key: str, microbatches: int) -> tuple:
         gather += P * n * eb * (P - 1) / P
         moved += 1
     return permute, gather, moved
+
+
+def reduce_scatter_wire(key: str, microbatches: int) -> float:
+    """The wire bytes of rank 0's reduce-scatters over the P pods of the
+    moved leaves' gradients (float32 once microbatches are summed): n
+    entries a leaf each rank keeps, (P - 1) n sent."""
+    from repro_torch.launch.dryrun import prod_config
+    from repro_torch.models.model import LM
+
+    arch, shape, cut = parse_key(key)
+    cfg = dataclasses.replace(prod_config(arch, shape)[0], **cut)
+    params = dict(LM(cfg, "meta").named_parameters())
+    sizes = dict(zip(("pod", "data", "model"), POD_DIMS))
+    p_specs, s_specs = _specs(cfg, params, shape, sizes)
+    total = 0
+    for name, p in params.items():
+        if p_specs[name] != s_specs[name]:
+            gb = 4 if microbatches > 1 else p.element_size()
+            total += (sizes["pod"] - 1) * gb * _rank0_entries(
+                p.shape, s_specs[name], sizes)
+    return total
+
+
+def _specs(cfg, params, shape, sizes) -> tuple:
+    """The parameters' and the AdamW state's specs on the pod mesh."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch.dryrun import mesh_info_for
+    from repro_torch.launch.mesh import ShapeMesh
+    from repro_torch.sharding import rules
+
+    mi = mesh_info_for(ShapeMesh(sizes), SHAPES[shape].global_batch)
+    mi_opt = dataclasses.replace(mi, fsdp_over=tuple(mi.dp))
+    return (rules.param_pspecs(cfg, params, mi),
+            rules.param_pspecs(cfg, params, mi_opt))
 
 
 @pytest.mark.parametrize("key", KEYS)
@@ -151,7 +182,14 @@ def test_update_bytes_equal_the_count_from_shapes(recs, key):
     permute, gather, moved = expected_update_wire(key, rec["microbatches"])
     assert moved > 0
     sites = _sites(rec, "optimizer.py adamw_update")
-    assert sites["collective-permute"] == [3 * moved, permute]
+    # The gradient's permute runs where its partial sum over the pods is
+    # reduce-scattered to the state's layout, before the global norm.
+    first = _sites(rec, "optimizer.py _reduce_over_pods")
+    n, w = first["collective-permute"]
+    assert [sites["collective-permute"][0] + n,
+            sites["collective-permute"][1] + w] == [3 * moved, permute]
+    assert first["reduce-scatter/cross-pod"] == [
+        moved, reduce_scatter_wire(key, rec["microbatches"])]
     assert sites["all-gather/cross-pod"] == [moved, gather]
     # The global norm: scalars only, no gather of whole gradients.
     n, w = _sites(rec, "optimizer.py global_norm").get("all-reduce",
